@@ -1,0 +1,93 @@
+"""The port's CUDA kernel and its users on a card, against their plain
+PyTorch versions. Every test here needs a CUDA device and skips without
+one. The file imports torch and the port only, so it also runs where jax is
+not installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from tpu_tfrecord_torch.device.ingest import make_device_batch  # noqa: E402
+from tpu_tfrecord_torch.entry import score_files, write_dryrun_dataset  # noqa: E402
+from tpu_tfrecord_torch.models.dlrm import (  # noqa: E402
+    DLRMConfig,
+    init_params,
+    make_synthetic_batch,
+)
+from tpu_tfrecord_torch.models.interaction import (  # noqa: E402
+    dot_interaction,
+    dot_interaction_cuda,
+    dot_interaction_reference,
+)
+
+pytestmark = pytest.mark.cuda
+
+SMALL = dict(num_dense=4, num_categorical=3, vocab_size=8, embed_dim=8,
+             bottom_mlp=(8, 8), top_mlp=(8, 1), seq_len=4, seq_dim=4, interaction="dot")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the interaction kernel runs only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(16384, 27, 32), (13, 27, 32), (64, 64, 16), (8, 2, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_version(cuda_device, shape, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    emb = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    before = dot_interaction.launches
+    got = dot_interaction(emb)
+    torch.cuda.synchronize()
+    assert dot_interaction.launches == before + 1
+    want = dot_interaction_reference(emb)
+    # f32: sums in another order than the einsum; bf16: one bf16 ulp
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=8e-3, atol=1e-2)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_kernel_refuses_what_it_does_not_take(cuda_device):
+    emb = torch.randn(4, 32, 6, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        dot_interaction_cuda(emb.transpose(1, 2))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        dot_interaction_cuda(emb.half())
+    with pytest.raises(ValueError, match=r"\[B, F, D\]"):
+        dot_interaction_cuda(emb[0])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_dlrm_forward_card_matches_cpu(cuda_device, dtype, tol):
+    cfg = DLRMConfig(dtype=dtype, **SMALL)
+    model = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(1), cuda_device)
+    host = make_synthetic_batch(cfg, 37, seed=3)
+    before = dot_interaction.launches
+    got = model(make_device_batch(host, cuda_device)).cpu()
+    assert dot_interaction.launches == before + 1
+    want = model.to("cpu")(make_device_batch(host, "cpu"))
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_score_files_on_card_launches_once_per_batch(cuda_device, tmp_path):
+    cfg = DLRMConfig(dtype=torch.float32, **SMALL)
+    write_dryrun_dataset(str(tmp_path), cfg, [6, 14], vocab=8)
+    model = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    before = dot_interaction.launches
+    res = score_files(str(tmp_path), cfg, model, 8, cuda_device)
+    assert dot_interaction.launches - before == res.batches == 2
+    want = score_files(str(tmp_path), cfg, model.to("cpu"), 8, "cpu")
+    assert res.logits.device.type == "cuda"
+    np.testing.assert_allclose(res.logits.cpu().numpy(), want.logits.numpy(), rtol=1e-4, atol=1e-4)

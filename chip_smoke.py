@@ -6,20 +6,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Device facts: the card's name and power limit, TF32 switched off.
 2. Build every CUDA kernel from ``tpu_tfrecord_torch/csrc`` with nvcc for
-   sm_90a (all sources at once) and hold each kernel against its plain
-   PyTorch version on the card.
-3. Time each kernel at its main-path shape beside its plain version, one
+   sm_90a (all sources at once), print ptxas' registers and spills for each
+   kernel instance (a spill fails the run), and hold each instance against
+   its plain PyTorch version on the card at the main-path shape and at the
+   edges of its design.
+3. Time each instance at the main-path shape beside its plain version, one
    PyTorch library call computing the same function, and the least time
    the card could take (bytes over 3.35 TB/s or operations over the peak
-   rate).
+   rate). Device times come from CUDA-graph replays of many calls, so the
+   host's launch time is not counted (it is printed apart: eager calls back
+   to back). Warm: one input (partly L2-resident, as on the main path where
+   E was just written by the concat). Cold: the calls cycle over inputs
+   that together exceed the 50 MB L2, so no call finds its input there;
+   the share of the bound is stated for the cold time.
 4. The main path at full Criteo width: write 2 shards x 16,384 Example rows
    through the port's writer, read them back with ``TFRecordDataset``
    (hashing into 2^20 buckets, packing dense/cat), and score every batch
-   with the 26 x 2^20 x 32 DLRM (3.49 GB table) through ``score_files``.
-   The kernel launch counts of that run must match the batches scored, and
-   the logits must match a run whose interaction is the plain version.
-   Then the forward's device time, its kernels (torch.profiler), rows/s and
-   the card's idle share over the run.
+   with the 26 x 2^20 x 32 DLRM (3.49 GB table) through ``score_files``,
+   in bf16 (both shards; the bf16 instance) and in f32 activations (one
+   shard; the f32 instance). Each path's launch counts must match the
+   batches it scored, and its logits must match a run whose interaction is
+   the plain version. Then the bf16 forward's device time, its kernels
+   (torch.profiler), rows/s and the card's idle share over the run.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -29,8 +37,12 @@ a CUDA device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
+import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -63,6 +75,35 @@ def device_facts() -> str:
     return smi
 
 
+def graph_ms(fn, reps: int = 15, calls: int = 20) -> float:
+    """Median over ``reps`` replays of the device time per call of a CUDA
+    graph that holds ``calls`` calls of ``fn`` (captured after a warm-up on
+    a side stream): no host launch time is counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def median_ms(fn, warmup: int = 10, reps: int = 15, calls: int = 20) -> float:
     """Median over ``reps`` windows of the device time per call, each window
     ``calls`` back-to-back calls between two CUDA events (so the queue stays
@@ -83,9 +124,45 @@ def median_ms(fn, warmup: int = 10, reps: int = 15, calls: int = 20) -> float:
     return float(np.median(times))
 
 
-def check_interaction() -> float:
-    """Kernel vs plain version on the card at every listed shape; returns
-    the max abs error at the main-path shape (16384, 27, 32) bf16."""
+# the main path's shape, then the edges of the bf16 kernel's design
+CHECK_SHAPES = [
+    (16384, 27, 32),  # main path
+    (1, 27, 32),      # one sample
+    (13, 27, 32),     # ragged last tile
+    (37, 17, 24),     # F and D not multiples of 16 (row and K padding)
+    (40, 27, 8),      # D=8: K padding, one 16-byte chunk per row
+    (21, 27, 12),     # rows not whole 16-byte chunks: scalar staging
+    (64, 64, 16),     # large F
+    (9, 128, 16),     # F=128
+    (11, 127, 32),    # odd P and a tile below 8: spans start mid-chunk
+    (8, 2, 8),        # F=2, P=1
+]
+MAIN_SHAPE = (BATCH, 27, 32)
+INSTANCE_DTYPE = {"bf16_mma": torch.bfloat16, "f32_simt": torch.float32}
+
+
+def check_build_log(log: str) -> None:
+    """Print registers and spills of each kernel instance in ptxas' report;
+    fail on any spill."""
+    names = re.findall(r"Compiling entry function '(\w+)'", log)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    regs = re.findall(r"Used (\d+) registers", log)
+    if not names or not len(names) == len(spills) == len(regs):
+        raise SystemExit("could not read ptxas' report of the kernel build")
+    for mangled, (st, ld), r in zip(names, spills, regs):
+        m = re.search(r"(dot_interaction_[a-z]+_kernel)(?:ILb([01])ELi(\d+)EE)?", mangled)
+        name = mangled if m is None else m[1] + (
+            f"<vec_loads={m[2] == '1'}, k_steps={m[3]}>" if m[2] else "")
+        print(f"ptxas {name}: {r} registers, spill stores {st} B, spill loads {ld} B")
+        if int(st) or int(ld):
+            raise SystemExit(f"kernel {name} spills registers")
+
+
+def check_interaction() -> dict:
+    """Both kernel instances vs the plain version on the card at every
+    listed shape, and the bf16 one on an E whose base is not 16-byte
+    aligned; returns the max abs error of each instance at the main-path
+    shape."""
     from tpu_tfrecord_torch.models.interaction import (
         dot_interaction_cuda,
         dot_interaction_reference,
@@ -93,57 +170,81 @@ def check_interaction() -> float:
 
     tol = {torch.float32: dict(atol=1e-4, rtol=1e-5), torch.bfloat16: dict(atol=1e-2, rtol=8e-3)}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    main_err = None
-    for shape in [(16384, 27, 32), (13, 27, 32), (64, 64, 16), (8, 2, 8)]:
-        for dtype in (torch.bfloat16, torch.float32):
-            emb = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            got = dot_interaction_cuda(emb)
-            torch.cuda.synchronize()
-            want = dot_interaction_reference(emb)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = got.shape == want.shape and torch.allclose(
-                got.float(), want.float(), **tol[dtype]
-            )
-            print(f"dot_interaction {shape} {str(dtype)[6:]}: max_abs_err={err} "
-                  f"{'ok' if ok else 'MISMATCH'} ({tol[dtype]})")
-            if not ok:
-                raise SystemExit(f"dot_interaction kernel disagrees at {shape} {dtype}")
-            if shape == (16384, 27, 32) and dtype == torch.bfloat16:
-                main_err = err
+    main_err = {}
+
+    def check(emb, label):
+        got = dot_interaction_cuda(emb)
+        torch.cuda.synchronize()
+        want = dot_interaction_reference(emb)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = got.shape == want.shape and torch.allclose(got.float(), want.float(), **tol[emb.dtype])
+        print(f"dot_interaction {label} {str(emb.dtype)[6:]}: max_abs_err={err} "
+              f"{'ok' if ok else 'MISMATCH'} ({tol[emb.dtype]})")
+        if not ok:
+            raise SystemExit(f"dot_interaction kernel disagrees at {label} {emb.dtype}")
+        return err
+
+    for shape in CHECK_SHAPES:
+        for instance, dtype in INSTANCE_DTYPE.items():
+            err = check(torch.randn(shape, generator=gen, device="cuda").to(dtype), shape)
+            if shape == MAIN_SHAPE:
+                main_err[instance] = err
+    flat = torch.randn(13 * 27 * 32 + 1, generator=gen, device="cuda").bfloat16()
+    check(flat[1:].view(13, 27, 32), "(13, 27, 32) at a base 2 bytes past 16-byte alignment")
     return main_err
 
 
-def time_interaction(b=BATCH, f=27, d=32, dtype=torch.bfloat16) -> dict:
+def time_interaction(dtype, cold_inputs: int = 6) -> dict:
+    """Warm and cold device times of the kernel instance for ``dtype`` at
+    the main-path shape, beside the plain version, one library call and the
+    bound."""
     from tpu_tfrecord_torch.models.interaction import (
+        _interaction_plan,
         dot_interaction_cuda,
         dot_interaction_reference,
         tril_pairs,
     )
 
+    b, f, d = MAIN_SHAPE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"plan at {MAIN_SHAPE} {str(dtype)[6:]}: {_interaction_plan(b, f, d, dtype, sms)}")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    emb = torch.randn((b, f, d), generator=gen, device="cuda").to(dtype)
+    embs = [torch.randn(MAIN_SHAPE, generator=gen, device="cuda").to(dtype)
+            for _ in range(cold_inputs)]
+    emb = embs[0]
     rows, cols = (t.long() for t in tril_pairs(f, emb.device))
     p = f * (f - 1) // 2
 
-    def library():  # one PyTorch call's worth of work; never used by the port
-        return torch.einsum("bfd,bgd->bfg", emb, emb)[:, rows, cols]
+    def library(e):  # one PyTorch call's worth of work; never used by the port
+        return torch.einsum("bfd,bgd->bfg", e, e)[:, rows, cols]
 
+    cycle = itertools.cycle(embs)
     elt = emb.element_size()
     nbytes = b * f * d * elt + b * p * elt
     nops = 2 * b * p * d
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / PEAK_OPS_PER_S[dtype] * 1e3
     out = {
-        "ms": median_ms(lambda: dot_interaction_cuda(emb)),
-        "plain_ms": median_ms(lambda: dot_interaction_reference(emb)),
-        "library_ms": median_ms(library),
+        "ms": graph_ms(lambda: dot_interaction_cuda(emb)),
+        "cold_ms": graph_ms(lambda: dot_interaction_cuda(next(cycle)), calls=4 * cold_inputs),
+        "eager_ms": median_ms(lambda: dot_interaction_cuda(emb)),
+        "plain_ms": graph_ms(lambda: dot_interaction_reference(emb)),
+        "library_ms": graph_ms(lambda: library(emb)),
+        "library_cold_ms": graph_ms(lambda: library(next(cycle)), calls=4 * cold_inputs),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
-    print(f"dot_interaction timing at ({b}, {f}, {d}) {str(dtype)[6:]}: "
-          f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
-          f"library einsum+index {out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
-          f"({out['bound_by']}: {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP)")
+    out["cold_bytes_per_s"] = nbytes / (out["cold_ms"] / 1e3)
+    out["cold_share_of_bound"] = out["bound_ms"] / out["cold_ms"]
+    print(f"dot_interaction timing at {MAIN_SHAPE} {str(dtype)[6:]} (device time per call, "
+          f"CUDA graph replay): kernel warm {out['ms']:.4f} ms, cold {out['cold_ms']:.4f} ms "
+          f"({cold_inputs} inputs, {cold_inputs * b * f * d * elt / 1e6:.0f} MB, cycled); "
+          f"plain {out['plain_ms']:.4f} ms; library einsum+index warm {out['library_ms']:.4f} ms, "
+          f"cold {out['library_cold_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}: {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP); cold: "
+          f"{out['cold_bytes_per_s'] / 1e12:.3f} TB/s, {out['cold_share_of_bound']:.3f} of the bound; "
+          f"eager wrapper calls back to back (CUDA events, host launch included): "
+          f"{out['eager_ms']:.4f} ms per call")
     return out
 
 
@@ -203,19 +304,59 @@ def plain_interaction():
         dlrm.dot_interaction = interaction.dot_interaction
 
 
-def main_path() -> int:
-    """Full-width Criteo DLRM scoring from TFRecord files; returns the
-    kernel's launches during the scoring run."""
-    from tpu_tfrecord_torch.device.ingest import make_device_batch
+def with_dtype(model, dtype):
+    """The same DLRM parameters (shared, not copied: the 3.49 GB table stays
+    one) under a config whose activations are ``dtype``."""
+    twin = copy.copy(model)
+    twin.cfg = dataclasses.replace(model.cfg, dtype=dtype)
+    return twin
+
+
+def score_path(label, paths, cfg, model, tol, **kw):
+    """Score ``paths`` through ``score_files`` with the counts set to 0 just
+    before and read just after; check the logits against a run with the
+    plain interaction. Returns (ScoreResult, {instance: launches})."""
     from tpu_tfrecord_torch.entry import score_files
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    reset_launch_counts()
+    res = score_files(paths, cfg, model, BATCH, "cuda", **kw)
+    launches = dict(dot_interaction.instance_launches)
+    with plain_interaction():
+        ref = score_files(paths, cfg, model, BATCH, "cuda", **kw)
+    for i in range(res.batches):
+        print(f"{label} batch {i}: host {res.host_s[i] * 1e3:.1f} ms, "
+              f"h2d {res.h2d_s[i] * 1e3:.3f} ms, forward {res.forward_s[i] * 1e3:.3f} ms")
+    logits = res.logits
+    n_rows = res.batches * BATCH
+    if res.batches == 0 or logits.shape != (n_rows,) or not torch.isfinite(logits).all():
+        raise SystemExit(f"{label}: bad logits: shape {tuple(logits.shape)}, "
+                         f"finite={bool(torch.isfinite(logits).all())}")
+    instance = {torch.bfloat16: "bf16_mma", torch.float32: "f32_simt"}[cfg.dtype]
+    want = {k: (res.batches if k == instance else 0) for k in launches}
+    if launches != want:
+        raise SystemExit(f"{label}: kernel launches {launches} for {res.batches} batches")
+    err = (logits - ref.logits).abs().max().item()
+    print(f"{label}: {res.batches} batches, {n_rows} logits, kernel launches {launches}, "
+          f"max |logit - plain-interaction logit| = {err}")
+    if not torch.allclose(logits, ref.logits, rtol=tol, atol=tol):
+        raise SystemExit(f"{label}: logits disagree with the plain-interaction forward")
+    return res, launches
+
+
+def main_path() -> dict:
+    """Full-width Criteo DLRM scoring from TFRecord files, in bf16 (the main
+    path) and in f32 activations; returns each kernel instance's launches
+    on the path that runs it."""
+    from tpu_tfrecord_torch.device.ingest import make_device_batch
     from tpu_tfrecord_torch.models.dlrm import DLRMConfig, init_params, make_synthetic_batch
-    from tpu_tfrecord_torch.models.interaction import dot_interaction
     from tpu_tfrecord_torch.schema import IntegerType, StringType, StructField, StructType
 
     cfg = DLRMConfig(num_dense=13, num_categorical=26, vocab_size=VOCAB, embed_dim=32,
                      bottom_mlp=(64, 32), top_mlp=(64, 1), interaction="dot",
                      dtype=torch.bfloat16)
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    model_f32 = with_dtype(model, torch.float32)
     table_gb = model.embeddings.numel() * model.embeddings.element_size() / 1e9
     print(f"DLRM at Criteo width: table {tuple(model.embeddings.shape)} f32 = {table_gb:.2f} GB on the card")
     read_schema = StructType(
@@ -226,37 +367,21 @@ def main_path() -> int:
     kw = dict(recordType="Example", schema=read_schema,
               dense_cols=[f"I{i}" for i in range(1, 14)],
               cat_cols=[f"C{i}" for i in range(1, 27)], log1p_dense=True)
-    # warm-up forward (cuBLAS handles, allocator) outside the counted run
+    # warm-up forwards (cuBLAS handles, allocator) outside the counted runs
     warm = make_device_batch(make_synthetic_batch(cfg, BATCH, seed=1), "cuda")
     model(warm)
+    model_f32(warm)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_dir:
         t0 = time.perf_counter()
         write_criteo(data_dir)
         print(f"wrote {CRITEO_SHARDS} x {CRITEO_ROWS_PER_SHARD} Example rows in "
               f"{time.perf_counter() - t0:.1f} s (host)")
-        dot_interaction.launches = 0
-        res = score_files(data_dir, cfg, model, BATCH, "cuda", **kw)
-        launches = dot_interaction.launches
-        with plain_interaction():
-            ref = score_files(data_dir, cfg, model, BATCH, "cuda", **kw)
-    n_rows = CRITEO_SHARDS * CRITEO_ROWS_PER_SHARD // BATCH * BATCH
-    for i in range(res.batches):
-        print(f"batch {i}: host {res.host_s[i] * 1e3:.1f} ms, h2d {res.h2d_s[i] * 1e3:.3f} ms, "
-              f"forward {res.forward_s[i] * 1e3:.3f} ms")
-    logits = res.logits
-    if logits.shape != (n_rows,) or not torch.isfinite(logits).all():
-        raise SystemExit(f"bad logits: shape {tuple(logits.shape)}, "
-                         f"finite={bool(torch.isfinite(logits).all())}")
-    if launches != res.batches or launches == 0:
-        raise SystemExit(f"dot_interaction launched {launches} times for {res.batches} batches")
-    err = (logits - ref.logits).abs().max().item()
-    print(f"main path: {res.batches} batches, {n_rows} logits, kernel launches {launches}, "
-          f"max |logit - plain-interaction logit| = {err}")
-    if not torch.allclose(logits, ref.logits, rtol=2e-2, atol=2e-2):
-        raise SystemExit("main-path logits disagree with the plain-interaction forward")
+        res, bf16 = score_path("main path (bf16)", data_dir, cfg, model, 2e-2, **kw)
+        _, f32 = score_path("f32 path (shard00)", os.path.join(data_dir, "shard00"),
+                            model_f32.cfg, model_f32, 1e-3, **kw)
     profile_forward(model, warm, res)
-    return launches
+    return {"bf16_mma": bf16["bf16_mma"], "f32_simt": f32["f32_simt"]}
 
 
 def profile_forward(model, batch, res) -> None:
@@ -265,12 +390,14 @@ def profile_forward(model, batch, res) -> None:
     card's idle share over the scoring run's batches."""
     from torch.profiler import ProfilerActivity, profile
 
-    fwd_ms = median_ms(lambda: model(batch), warmup=3, reps=7, calls=5)
+    eager_ms = median_ms(lambda: model(batch), warmup=3, reps=7, calls=5)
+    fwd_ms = graph_ms(lambda: model(batch), reps=7, calls=5)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model(batch)
         torch.cuda.synchronize()
-    print(f"forward at batch {BATCH}: {fwd_ms:.4f} ms device time per call (CUDA events); "
-          "one forward by torch.profiler:")
+    print(f"forward at batch {BATCH}: {fwd_ms:.4f} ms device time per call (CUDA graph "
+          f"replay); {eager_ms:.4f} ms per call eager, back to back (CUDA events, host launch "
+          "included); one forward by torch.profiler:")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12))
     wall = sum(res.host_s) + sum(res.h2d_s) + sum(res.forward_s)
     busy = sum(res.h2d_s) + res.batches * fwd_ms / 1e3
@@ -292,19 +419,29 @@ def main() -> int:
     print(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in _cuda.BUILD_LOGS.items():
         print(f"nvcc {name}:\n{log.strip()}")
-    err = check_interaction()
+    if "interaction" in _cuda.BUILD_LOGS:
+        check_build_log(_cuda.BUILD_LOGS["interaction"])
+    else:
+        print("interaction kernels were built before this run: no ptxas report to check")
+    errs = check_interaction()
     check_small_forward()
-    timing = time_interaction()
+    timing = {k: time_interaction(dtype) for k, dtype in INSTANCE_DTYPE.items()}
     launches = main_path()
+    design = {
+        "bf16_mma": "mma.sync m16n8k16 bf16 Gram, cp.async 16-byte double-buffered "
+                    "staging, persistent grid, 16-byte stores through shared memory",
+        "f32_simt": "SIMT f32 FMAs over rows staged in shared memory at an odd word stride",
+    }
     kernels = [dict(
-        name="dot_interaction",
+        name=f"dot_interaction_{k}",
         route="cuda",
         source="tpu_tfrecord_torch/csrc/interaction.cu",
         replaces="tpu_tfrecord/models/interaction.py:78",
-        launches=launches,
-        max_abs_err=err,
-        **timing,
-    )]
+        design=design[k],
+        launches=launches[k],
+        max_abs_err=errs[k],
+        **timing[k],
+    ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,7 @@ from tpu_tfrecord_torch.models.interaction import (  # noqa: E402
     dot_interaction_cuda,
     dot_interaction_reference,
 )
+from chip_smoke import CHECK_SHAPES  # noqa: E402  the main path's shape and the design's edges
 
 pytestmark = pytest.mark.cuda
 
@@ -43,20 +44,37 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(16384, 27, 32), (13, 27, 32), (64, 64, 16), (8, 2, 8)])
+# f32: sums in another order than the einsum; bf16: one bf16 ulp
+TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4), torch.bfloat16: dict(rtol=8e-3, atol=1e-2)}
+INSTANCE = {torch.float32: "f32_simt", torch.bfloat16: "bf16_mma"}
+
+
+@pytest.mark.parametrize("shape", CHECK_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda_device, shape, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     emb = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
     before = dot_interaction.launches
+    before_instance = dot_interaction.instance_launches[INSTANCE[dtype]]
     got = dot_interaction(emb)
     torch.cuda.synchronize()
     assert dot_interaction.launches == before + 1
+    assert dot_interaction.instance_launches[INSTANCE[dtype]] == before_instance + 1
     want = dot_interaction_reference(emb)
-    # f32: sums in another order than the einsum; bf16: one bf16 ulp
-    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=8e-3, atol=1e-2)
     assert got.dtype == dtype and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_bf16_kernel_takes_a_misaligned_e(cuda_device):
+    # a base that is not 16-byte aligned is staged with scalar loads
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    flat = torch.randn(13 * 27 * 32 + 1, generator=gen, device=cuda_device).bfloat16()
+    emb = flat[1:].view(13, 27, 32)
+    assert emb.is_contiguous() and emb.data_ptr() % 16 != 0
+    got = dot_interaction_cuda(emb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), dot_interaction_reference(emb).float(),
+                               **TOL[torch.bfloat16])
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
@@ -67,6 +85,13 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
         dot_interaction_cuda(emb.half())
     with pytest.raises(ValueError, match=r"\[B, F, D\]"):
         dot_interaction_cuda(emb[0])
+    # shapes the plan refuses raise before any launch; never the plain version
+    before = dot_interaction.launches
+    with pytest.raises(ValueError, match="D <= 128"):
+        dot_interaction_cuda(torch.zeros(2, 4, 136, device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="shared memory"):
+        dot_interaction_cuda(torch.zeros(2, 400, 64, device=cuda_device, dtype=torch.bfloat16))
+    assert dot_interaction.launches == before
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])

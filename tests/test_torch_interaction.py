@@ -14,7 +14,10 @@ from tpu_tfrecord.models.interaction import (  # noqa: E402
     dot_interaction_reference as j_ref,
 )
 
+from chip_smoke import CHECK_SHAPES  # noqa: E402
 from tpu_tfrecord_torch.models.interaction import (  # noqa: E402
+    SMEM_BLOCK_MAX,
+    _interaction_plan,
     dot_interaction,
     dot_interaction_cuda,
     dot_interaction_reference,
@@ -92,3 +95,118 @@ class TestDispatch:
     def test_kernel_wrapper_refuses_cpu_tensor(self):
         with pytest.raises(ValueError, match="CUDA tensor"):
             dot_interaction_cuda(torch.zeros(2, 3, 4))
+
+
+# The shapes the card is checked at and a few more. The CUDA kernel cannot
+# run here; its geometry and index arithmetic are plain Python and integers,
+# checked below.
+PLAN_SHAPES = CHECK_SHAPES + [(7, 128, 16), (9, 5, 12)]
+
+
+def epilogue_writes(b, f, plan):
+    """How many times the bf16 kernel's store loop writes each output, and
+    whether each 16-byte store is aligned: its loop over tiles and chunks,
+    replayed with integers."""
+    p = f * (f - 1) // 2
+    written = np.zeros(b * p, dtype=np.int64)
+    aligned = True
+    for t in range(-(-b // plan.tile)):
+        n_s = min(plan.tile, b - t * plan.tile)
+        e0 = t * plan.tile * p
+        phase = e0 & 7
+        n = phase + n_s * p
+        for lo in range(0, n, 8):
+            hi = min(lo + 8, n)
+            if lo >= phase and hi - lo == 8:
+                aligned &= (e0 - phase + lo) % 8 == 0
+                written[e0 - phase + lo:e0 - phase + hi] += 1
+            else:
+                written[e0 - phase + max(lo, phase):e0 - phase + hi] += 1
+    return written, aligned
+
+
+class TestKernelPlan:
+    @pytest.mark.parametrize("shape", PLAN_SHAPES)
+    def test_bf16_plan(self, shape):
+        b, f, d = shape
+        p = f * (f - 1) // 2
+        plan = _interaction_plan(b, f, d, torch.bfloat16)
+        assert plan.instance == "bf16_mma"
+        assert plan.fp % 16 == 0 and f <= plan.fp < f + 16
+        assert plan.dp % 16 == 0 and d <= plan.dp < d + 16
+        # 16 bytes of row pad: a row is an odd number of 16-byte chunks, so
+        # the 8 rows of one ldmatrix fall in 8 different bank groups
+        assert plan.stride == plan.dp + 8 and (plan.stride * 2 // 16) % 2 == 1
+        assert {(r * plan.stride * 2 // 16) % 8 for r in range(8)} == set(range(8))
+        # two tiles of rows and one of outputs fit, as the C entry checks
+        assert 2 * (2 * plan.tile * plan.fp * plan.stride + 8 + plan.tile * p) <= plan.smem
+        assert plan.smem <= SMEM_BLOCK_MAX and plan.smem % 16 == 0
+        assert 1 <= plan.tile <= 32 and 1 <= plan.grid <= -(-b // plan.tile)
+        assert plan.grid <= 132 * 4
+        assert plan.vec_loads == (d % 8 == 0)
+
+    @pytest.mark.parametrize("shape", PLAN_SHAPES)
+    def test_f32_plan(self, shape):
+        b, f, d = shape
+        plan = _interaction_plan(b, f, d, torch.float32)
+        assert plan.instance == "f32_simt" and plan.stride % 2 == 1 and plan.stride >= d
+        assert plan.smem == plan.tile * f * plan.stride * 4 <= SMEM_BLOCK_MAX
+        assert plan.grid * plan.tile >= b > (plan.grid - 1) * plan.tile
+
+    def test_main_path_geometry(self):
+        # 4 samples (6.9 KB of E) a tile, 4 blocks on each of the 132 SMs
+        plan = _interaction_plan(16384, 27, 32, torch.bfloat16)
+        assert (plan.fp, plan.dp, plan.stride, plan.tile, plan.grid) == (32, 32, 40, 4, 528)
+        # two row buffers, then 8 + 4 * 351 outputs rounded up to 16 bytes
+        assert plan.smem == 2 * 4 * 32 * 40 * 2 + 1416 * 2 == 23312
+        assert _interaction_plan(16384, 27, 32, torch.bfloat16, sms=100).grid == 400
+
+    @pytest.mark.parametrize("shape", PLAN_SHAPES)
+    def test_epilogue_stores_every_output_once(self, shape):
+        b, f, d = shape
+        b = min(b, 67)  # a ragged last tile at every tile size
+        written, aligned = epilogue_writes(b, f, _interaction_plan(b, f, d, torch.bfloat16))
+        assert aligned and (written == 1).all()
+
+    @pytest.mark.parametrize("d", [8, 16, 24, 32, 64, 128])
+    def test_vector_staging_offsets(self, d):
+        # chunk j of a sample (8 bf16) lands at row f = j // cpr, column
+        # (j - f * cpr) * 8 of the padded layout, 16-byte aligned
+        f = 27
+        plan = _interaction_plan(64, f, d, torch.bfloat16)
+        cpr = d // 8
+        for j in range(f * cpr):
+            row = j // cpr
+            off = j * 8 + row * (plan.stride - d)
+            assert off == row * plan.stride + (j - row * cpr) * 8 and off % 8 == 0
+
+    @pytest.mark.parametrize("f", range(2, 129))
+    def test_pair_arithmetic_matches_tril(self, f):
+        # p = r(r-1)/2 + c is the kernel's pair index; the 16x8 Gram tiles it
+        # computes (strip mt, column tile nt < n_nt) cover each pair once
+        r, c = np.tril_indices(f, k=-1)
+        np.testing.assert_array_equal(r * (r - 1) // 2 + c, np.arange(f * (f - 1) // 2))
+        fp = -(-f // 16) * 16
+        cover = np.zeros((fp, fp), dtype=np.int64)
+        n_tiles = 0
+        for mt in range(fp // 16):
+            n_nt = (min(16 * mt + 15, f - 1) - 1) // 8 + 1
+            for nt in range(n_nt):
+                assert 8 * nt + 8 <= fp
+                cover[16 * mt:16 * mt + 16, 8 * nt:8 * nt + 8] += 1
+                n_tiles += 1
+        assert (cover <= 1).all() and (cover[r, c] == 1).all()
+        if f == 27:
+            assert n_tiles == 6
+
+    @pytest.mark.parametrize("shape,dtype,match", [
+        ((2, 4, 136), torch.bfloat16, "D <= 128"),
+        ((2, 400, 64), torch.bfloat16, "shared memory"),
+        ((1, 1024, 64), torch.float32, "shared memory"),
+        ((0, 27, 32), torch.bfloat16, "B >= 1"),
+        ((4, 1, 32), torch.float32, "F >= 2"),
+        ((4, 27, 32), torch.float16, "bf16 or f32"),
+    ])
+    def test_plan_refuses(self, shape, dtype, match):
+        with pytest.raises(ValueError, match=match):
+            _interaction_plan(*shape, dtype)

@@ -5,18 +5,21 @@ Given per-feature embeddings E [B, F, D], emit every pairwise dot
 (1,0), (2,0), (2,1), (3,0), ... — as a [B, F*(F-1)/2] tensor in E's dtype,
 with the sums taken in f32.
 
-``dot_interaction`` launches the hand-written CUDA kernel
+``dot_interaction`` launches a hand-written CUDA kernel
 (``csrc/interaction.cu``, the port of
 ``tpu_tfrecord/models/interaction.py::dot_interaction_pallas``) for a CUDA
 tensor and uses the plain version for a CPU tensor; nothing else. The
-backward pass is not ported yet.
+kernel has two instances: bf16 E (the DLRM's main path) takes the Gram on
+the tensor cores, f32 E a SIMT kernel with f32 FMAs. Their launch geometry
+comes from ``_interaction_plan``, plain Python that the CPU tests reach.
+The backward pass is not ported yet.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -48,47 +51,144 @@ def dot_interaction_reference(emb: torch.Tensor) -> torch.Tensor:
     return gram[:, rows.long(), cols.long()].to(emb.dtype)
 
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Limits of an H100 (sm_90) and of the kernels in csrc/interaction.cu.
+SMEM_BLOCK_MAX = 232_448      # dynamic shared memory one block may use
+_SMEM_SM = 233_472            # shared memory of one SM
+_SMEM_BLOCK_RESERVED = 1_024  # taken by the runtime for each resident block
+_MMA_MAX_DP = 128             # interaction.cu: kMaxKSteps * 16
+_MMA_BLOCKS_PER_SM = 4        # interaction.cu: kMmaMinBlocks
+_MMA_STAGES = 2               # interaction.cu: kStages
+_MMA_TILE_BYTES = 8 * 1024    # bytes of E a tile aims to copy
+_MMA_MAX_TILE = 32            # samples: 8 for each of the 4 warps
+_SIMT_MAX_TILE = 8
+_SIMT_SMEM_TARGET = 48 * 1024
+
+INSTANCES = ("bf16_mma", "f32_simt")
+
+
+class InteractionPlan(NamedTuple):
+    """Launch geometry of one kernel call (see ``csrc/interaction.cu``)."""
+
+    instance: str    # "bf16_mma" or "f32_simt"
+    fp: int          # staged rows per sample (F padded to 16 for the mma)
+    dp: int          # staged columns per row (D padded to 16 for the mma)
+    stride: int      # shared-memory row stride, elements
+    tile: int        # samples per tile
+    smem: int        # dynamic shared memory per block, bytes
+    grid: int        # blocks
+    vec_loads: bool  # rows are whole 16-byte chunks: cp.async staging
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _interaction_plan(b: int, f: int, d: int, dtype: torch.dtype, sms: int = 132) -> InteractionPlan:
+    """Geometry of the kernel instance that takes E [b, f, d] of ``dtype``
+    on a card with ``sms`` SMs. Raises ``ValueError`` where the design
+    cannot take the shape.
+
+    bf16: each sample's rows are staged as [Fp][stride] bf16, Fp and Dp the
+    next multiples of 16, stride = Dp + 8 (the 16 extra bytes make the
+    ldmatrix rows conflict-free). A block holds two tiles of rows and one
+    tile of outputs (plus 8 elements of alignment slack). A tile is about
+    8 KB of E (4 samples at the main path's (27, 32)), at most 32 samples,
+    fewer where shared memory runs out; its output span may start inside a
+    16-byte chunk, which the kernel's store handles. The grid is
+    persistent: up to 4 blocks per SM.
+
+    f32: the SIMT kernel's geometry, rows at an odd word stride, up to 8
+    samples a block, one block per tile."""
+    if b < 1 or f < 2 or d < 1:
+        raise ValueError(f"dot_interaction kernel needs B >= 1, F >= 2, D >= 1; got ({b}, {f}, {d})")
+    p = f * (f - 1) // 2
+    if dtype == torch.float32:
+        stride = d | 1
+        per_sample = f * stride * 4
+        if per_sample > SMEM_BLOCK_MAX:
+            raise ValueError(f"f32 dot_interaction kernel: one sample of ({f}, {d}) needs "
+                             f"{per_sample} B of shared memory, over {SMEM_BLOCK_MAX}")
+        tile = max(1, min(_SIMT_MAX_TILE, _SIMT_SMEM_TARGET // per_sample))
+        return InteractionPlan("f32_simt", f, d, stride, tile, tile * per_sample,
+                               -(-b // tile), False)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"dot_interaction kernel takes bf16 or f32, got {dtype}")
+    fp, dp = _round_up(f, 16), _round_up(d, 16)
+    if dp > _MMA_MAX_DP:
+        raise ValueError(f"bf16 dot_interaction kernel takes D <= {_MMA_MAX_DP}, got {d}")
+    stride = dp + 8
+
+    def smem(tile: int) -> int:
+        return _MMA_STAGES * tile * fp * stride * 2 + _round_up(8 + tile * p, 8) * 2
+
+    tile = max(1, min(_MMA_MAX_TILE, _MMA_TILE_BYTES // (f * d * 2)))
+    while tile > 1 and smem(tile) > SMEM_BLOCK_MAX:
+        tile -= 1
+    if smem(tile) > SMEM_BLOCK_MAX:
+        raise ValueError(f"bf16 dot_interaction kernel: one sample of ({f}, {d}) needs "
+                         f"{smem(1)} B of shared memory, over {SMEM_BLOCK_MAX}")
+    per_sm = min(_MMA_BLOCKS_PER_SM, _SMEM_SM // (smem(tile) + _SMEM_BLOCK_RESERVED))
+    grid = min(-(-b // tile), sms * per_sm)
+    return InteractionPlan("bf16_mma", fp, dp, stride, tile, smem(tile), grid, d % 8 == 0)
 
 
 @functools.cache
-def _kernel_fn():
+def _kernel_fns():
     from tpu_tfrecord_torch import _cuda
 
-    fn = _cuda.load("interaction").dot_interaction_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _cuda.load("interaction")
+    bf16, f32 = lib.dot_interaction_bf16, lib.dot_interaction_f32
+    bf16.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    bf16.restype = f32.restype = ctypes.c_int
+    return {"bf16_mma": bf16, "f32_simt": f32}
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(b: int, f: int, d: int, dtype: torch.dtype, index: int) -> InteractionPlan:
+    """``_interaction_plan`` for CUDA device ``index``, kept per shape: the
+    wrapper runs once per forward and its host time is launch overhead."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return _interaction_plan(b, f, d, dtype, sms)
 
 
 def dot_interaction_cuda(emb: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on ``emb`` [B, F, D] (bf16 or f32, contiguous,
-    on a CUDA device) on the current stream. Raises on anything else, and
-    when the launch fails."""
+    on a CUDA device) on the current stream. Raises on anything else, on a
+    shape the kernel cannot take (``ValueError``) and when the launch fails.
+    An empty output (B = 0 or F = 1) is returned without a launch."""
     if emb.device.type != "cuda":
         raise ValueError(f"dot_interaction_cuda needs a CUDA tensor, got {emb.device}")
     if emb.dim() != 3:
         raise ValueError(f"expected E of shape [B, F, D], got {tuple(emb.shape)}")
-    if emb.dtype not in _DTYPE_CODES:
+    if emb.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dot_interaction kernel takes bf16 or f32, got {emb.dtype}")
     if not emb.is_contiguous():
         raise ValueError("dot_interaction kernel needs a contiguous E")
     b, f, d = emb.shape
     p = f * (f - 1) // 2
     out = torch.empty((b, p), dtype=emb.dtype, device=emb.device)
-    rows, cols = tril_pairs(f, emb.device)
+    if out.numel() == 0:
+        return out
+    plan = _device_plan(b, f, d, emb.dtype, emb.device.index or 0)
+    fn = _kernel_fns()[plan.instance]
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()(
-            emb.data_ptr(), out.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-            b, f, d, p, _DTYPE_CODES[emb.dtype], stream,
-        )
+        if plan.instance == "bf16_mma":
+            vec_loads = plan.vec_loads and emb.data_ptr() % 16 == 0
+            err = fn(emb.data_ptr(), out.data_ptr(), b, f, d, p, plan.fp, plan.dp,
+                     plan.stride, plan.tile, plan.smem, plan.grid, int(vec_loads), stream)
+        else:
+            rows, cols = tril_pairs(f, emb.device)
+            err = fn(emb.data_ptr(), out.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+                     b, f, d, p, plan.stride, plan.tile, plan.smem, plan.grid, stream)
     if err != 0:
         raise RuntimeError(
             f"dot_interaction kernel launch failed (cudaError {err}) at "
-            f"B={b} F={f} D={d} {emb.dtype}"
+            f"B={b} F={f} D={d} {emb.dtype}: {plan}"
         )
     dot_interaction.launches += 1
+    dot_interaction.instance_launches[plan.instance] += 1
     return out
 
 
@@ -100,6 +200,13 @@ def dot_interaction(emb: torch.Tensor) -> torch.Tensor:
     return dot_interaction_cuda(emb)
 
 
-#: kernel launches since the last reset (launches of the plain version do
-#: not count)
-dot_interaction.launches = 0
+def reset_launch_counts() -> None:
+    """Set the kernel's launch counters to 0."""
+    dot_interaction.launches = 0
+    dot_interaction.instance_launches = dict.fromkeys(INSTANCES, 0)
+
+
+#: kernel launches since the last reset, of both instances
+#: (``instance_launches`` splits them); launches of the plain version do
+#: not count
+reset_launch_counts()

@@ -19,15 +19,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    E was just written by the concat). Cold: the calls cycle over inputs
    that together exceed the 50 MB L2, so no call finds its input there;
    the share of the bound is stated for the cold time.
-4. The main path at full Criteo width: write 2 shards x 16,384 Example rows
-   through the port's writer, read them back with ``TFRecordDataset``
-   (hashing into 2^20 buckets, packing dense/cat), and score every batch
-   with the 26 x 2^20 x 32 DLRM (3.49 GB table) through ``score_files``,
-   in bf16 (both shards; the bf16 instance) and in f32 activations (one
-   shard; the f32 instance). Each path's launch counts must match the
-   batches it scored, and its logits must match a run whose interaction is
-   the plain version. Then the bf16 forward's device time, its kernels
-   (torch.profiler), rows/s and the card's idle share over the run.
+4. The main path at full Criteo width. Host facts first (CPU model and
+   cores, ``g++ --version``): host rates depend on them. The native host
+   library (``tpu_tfrecord_torch/csrc/tfrecord_native.cc``, g++) is built
+   beside the CUDA kernels and its build time printed. Then: write 2 shards
+   x 16,384 Example rows through the port's writer; iterate them for 8
+   epochs with ``TFRecordDataset`` (native decode on its producer thread,
+   hashing into 2^20 buckets, packing dense/cat) without scoring, for the
+   decode-only rate; score the same 8 epochs (16 batches) with the
+   26 x 2^20 x 32 DLRM (3.49 GB table) through ``score_files`` in bf16
+   (the bf16 instance), and one shard once in f32 activations (the f32
+   instance). Each path's launch counts must match the batches it scored,
+   and its logits must match a run whose interaction is the plain version.
+   One 16,384-row batch decoded natively and by the Python oracle must give
+   identical dense and cat matrices. Then the bf16 forward's device time,
+   its kernels (torch.profiler), the steady rows/s over batches 2-16, host
+   and H2D ms per batch, and the card's idle share.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -36,6 +43,7 @@ a CUDA device the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -58,6 +66,7 @@ CRITEO_ROWS_PER_SHARD = 16384
 CRITEO_SHARDS = 2
 BATCH = 16384
 VOCAB = 1 << 20
+EPOCHS = 8  # of the main path: 16 batches
 
 
 def device_facts() -> str:
@@ -312,6 +321,111 @@ def with_dtype(model, dtype):
     return twin
 
 
+def host_facts() -> None:
+    """The host CPU's model and cores, and the C++ compiler that builds the
+    native library: host rates depend on them."""
+    with open("/proc/cpuinfo") as fh:
+        cpuinfo = fh.read()
+    logical = len(re.findall(r"^processor\s*:", cpuinfo, re.M))
+    first = {}
+    for line in cpuinfo.split("\n\n")[0].splitlines():
+        key, sep, value = line.partition(":")
+        if sep:
+            first[key.strip()] = value.strip()
+    model = first.get("model name", "unknown")
+    if model == "unknown":  # some virtual machines do not report it there
+        lscpu = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+        found = re.search(r"^Model name:\s*(.+)$", lscpu, re.M)
+        model = found[1].strip() if found else "not reported"
+    ident = ", ".join(f"{k} {first[k]}" for k in ("vendor_id", "cpu family", "model",
+                                                   "stepping", "cpu MHz", "cache size")
+                      if k in first)
+    flags = set(first.get("flags", "").split())
+    usable = len(os.sched_getaffinity(0))
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    print(f"host CPU: {model} ({ident}; sse4_2={'sse4_2' in flags}, bmi2={'bmi2' in flags}); "
+          f"{logical} logical CPUs, {usable} usable by this process")
+    print(f"host C++ compiler: {gxx}")
+
+
+def build_native() -> None:
+    """Build (or find) and load the native host library, and say how long
+    it took."""
+    from tpu_tfrecord_torch import _native
+
+    existed = _native.lib_path().exists()
+    t0 = time.perf_counter()
+    _native.load()
+    secs = time.perf_counter() - t0
+    how = "found already built" if existed else "built with " + " ".join(
+        _native.compile_command(_native.lib_path()))
+    print(f"native host library {_native.lib_path().name}: {how}, {secs:.1f} s")
+
+
+def criteo_read_kw() -> dict:
+    """The read side of the main path: the Criteo schema with int32 ints,
+    categoricals hashed into VOCAB buckets, dense and cat packed."""
+    from tpu_tfrecord_torch.schema import IntegerType, StringType, StructField, StructType
+
+    schema = StructType(
+        [StructField("label", IntegerType(), nullable=False)]
+        + [StructField(f"I{i}", IntegerType()) for i in range(1, 14)]
+        + [StructField(f"C{i}", StringType()) for i in range(1, 27)]
+    )
+    return dict(schema=schema, recordType="Example",
+                hash_buckets={f"C{i}": VOCAB for i in range(1, 27)},
+                pack={"dense": [f"I{i}" for i in range(1, 14)],
+                      "cat": [f"C{i}" for i in range(1, 27)]})
+
+
+def shard_dirs(data_dir: str) -> list:
+    return sorted(os.path.join(data_dir, d) for d in os.listdir(data_dir) if d.startswith("shard"))
+
+
+def decode_only(data_dir: str) -> None:
+    """Rows/s of the dataset alone (native decode, hash and pack on the
+    producer thread) over the shards, EPOCHS times, with no scoring."""
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    ds = TFRecordDataset(shard_dirs(data_dir), BATCH, num_epochs=EPOCHS, **criteo_read_kw())
+    rows = 0
+    t0 = time.perf_counter()
+    with ds.batches() as it:
+        for cb in it:
+            rows += cb.num_rows
+    secs = time.perf_counter() - t0
+    want = CRITEO_SHARDS * CRITEO_ROWS_PER_SHARD * EPOCHS
+    if ds.decoder != "native" or rows != want:
+        raise SystemExit(f"decode-only: {rows} rows from the {ds.decoder} decoder, want {want}")
+    print(f"decode only ({ds.decoder} decoder, producer thread, {EPOCHS} epochs of "
+          f"{CRITEO_SHARDS} x {CRITEO_ROWS_PER_SHARD} rows): {rows} rows in {secs:.3f} s "
+          f"= {rows / secs:.1f} rows/s (host)")
+
+
+def check_native_vs_python(data_dir: str) -> None:
+    """One full batch decoded by the native decoder and by the Python
+    oracle on this host: the dense and cat matrices must be identical."""
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    got = {}
+    for decoder in ("native", "python"):
+        ds = TFRecordDataset(shard_dirs(data_dir)[0], BATCH, decoder=decoder, **criteo_read_kw())
+        t0 = time.perf_counter()
+        with ds.batches() as it:
+            cb = next(it)
+        got[decoder] = (cb, time.perf_counter() - t0)
+    (nat, nat_s), (py, py_s) = got["native"], got["python"]
+    for name in ("dense", "cat"):
+        a, b = nat[name].values, py[name].values
+        if a.dtype != b.dtype or a.shape != b.shape or not (a == b).all():
+            raise SystemExit(f"native and Python decoders disagree on {name}: "
+                             f"{a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+    print(f"native vs Python decoder, one {BATCH}-row batch: dense {nat['dense'].values.shape} "
+          f"and cat {nat['cat'].values.shape} identical; native {nat_s * 1e3:.1f} ms, "
+          f"Python {py_s:.2f} s (first batch of a fresh dataset, host)")
+
+
 def score_path(label, paths, cfg, model, tol, **kw):
     """Score ``paths`` through ``score_files`` with the counts set to 0 just
     before and read just after; check the logits against a run with the
@@ -325,8 +439,9 @@ def score_path(label, paths, cfg, model, tol, **kw):
     with plain_interaction():
         ref = score_files(paths, cfg, model, BATCH, "cuda", **kw)
     for i in range(res.batches):
-        print(f"{label} batch {i}: host {res.host_s[i] * 1e3:.1f} ms, "
-              f"h2d {res.h2d_s[i] * 1e3:.3f} ms, forward {res.forward_s[i] * 1e3:.3f} ms")
+        print(f"{label} batch {i}: host (wait + densify) {res.host_s[i] * 1e3:.2f} ms, "
+              f"h2d {res.h2d_s[i] * 1e3:.3f} ms, forward {res.forward_s[i] * 1e3:.3f} ms, "
+              f"done at {res.done_s[i]:.4f} s")
     logits = res.logits
     n_rows = res.batches * BATCH
     if res.batches == 0 or logits.shape != (n_rows,) or not torch.isfinite(logits).all():
@@ -350,7 +465,6 @@ def main_path() -> dict:
     on the path that runs it."""
     from tpu_tfrecord_torch.device.ingest import make_device_batch
     from tpu_tfrecord_torch.models.dlrm import DLRMConfig, init_params, make_synthetic_batch
-    from tpu_tfrecord_torch.schema import IntegerType, StringType, StructField, StructType
 
     cfg = DLRMConfig(num_dense=13, num_categorical=26, vocab_size=VOCAB, embed_dim=32,
                      bottom_mlp=(64, 32), top_mlp=(64, 1), interaction="dot",
@@ -359,14 +473,9 @@ def main_path() -> dict:
     model_f32 = with_dtype(model, torch.float32)
     table_gb = model.embeddings.numel() * model.embeddings.element_size() / 1e9
     print(f"DLRM at Criteo width: table {tuple(model.embeddings.shape)} f32 = {table_gb:.2f} GB on the card")
-    read_schema = StructType(
-        [StructField("label", IntegerType(), nullable=False)]
-        + [StructField(f"I{i}", IntegerType()) for i in range(1, 14)]
-        + [StructField(f"C{i}", StringType()) for i in range(1, 27)]
-    )
-    kw = dict(recordType="Example", schema=read_schema,
-              dense_cols=[f"I{i}" for i in range(1, 14)],
-              cat_cols=[f"C{i}" for i in range(1, 27)], log1p_dense=True)
+    read = criteo_read_kw()
+    kw = dict(recordType="Example", schema=read["schema"],
+              dense_cols=read["pack"]["dense"], cat_cols=read["pack"]["cat"], log1p_dense=True)
     # warm-up forwards (cuBLAS handles, allocator) outside the counted runs
     warm = make_device_batch(make_synthetic_batch(cfg, BATCH, seed=1), "cuda")
     model(warm)
@@ -377,17 +486,24 @@ def main_path() -> dict:
         write_criteo(data_dir)
         print(f"wrote {CRITEO_SHARDS} x {CRITEO_ROWS_PER_SHARD} Example rows in "
               f"{time.perf_counter() - t0:.1f} s (host)")
-        res, bf16 = score_path("main path (bf16)", data_dir, cfg, model, 2e-2, **kw)
+        decode_only(data_dir)
+        res, bf16 = score_path("main path (bf16)", data_dir, cfg, model, 2e-2,
+                               num_epochs=EPOCHS, **kw)
+        if res.batches != EPOCHS * CRITEO_SHARDS:
+            raise SystemExit(f"main path scored {res.batches} batches, "
+                             f"want {EPOCHS * CRITEO_SHARDS}")
         _, f32 = score_path("f32 path (shard00)", os.path.join(data_dir, "shard00"),
                             model_f32.cfg, model_f32, 1e-3, **kw)
+        check_native_vs_python(data_dir)
     profile_forward(model, warm, res)
     return {"bf16_mma": bf16["bf16_mma"], "f32_simt": f32["f32_simt"]}
 
 
 def profile_forward(model, batch, res) -> None:
     """Where a full-width batch's time goes on the card: the forward's device
-    time (CUDA events), its kernels by device time (torch.profiler), and the
-    card's idle share over the scoring run's batches."""
+    time (CUDA events), its kernels by device time (torch.profiler), and
+    the scoring run's rows/s and the card's idle share, over the whole run
+    and over its steady state (batches 2 to the last)."""
     from torch.profiler import ProfilerActivity, profile
 
     eager_ms = median_ms(lambda: model(batch), warmup=3, reps=7, calls=5)
@@ -399,10 +515,19 @@ def profile_forward(model, batch, res) -> None:
           f"replay); {eager_ms:.4f} ms per call eager, back to back (CUDA events, host launch "
           "included); one forward by torch.profiler:")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12))
-    wall = sum(res.host_s) + sum(res.h2d_s) + sum(res.forward_s)
     busy = sum(res.h2d_s) + res.batches * fwd_ms / 1e3
-    print(f"scoring run: {res.batches * BATCH / wall:.1f} rows/s end to end; device idle share "
-          f"~{1 - busy / wall:.4f} (1 - (h2d + forward device time) / wall time)")
+    print(f"scoring run, {res.batches} batches: {res.batches * BATCH / res.wall_s:.1f} rows/s end "
+          f"to end over {res.wall_s:.4f} s of wall time (first batch's decode included); device "
+          f"idle share ~{1 - busy / res.wall_s:.4f} (1 - (h2d + forward device time) / wall time)")
+    steady = res.batches - 1
+    window = res.done_s[-1] - res.done_s[0]
+    busy = sum(res.h2d_s[1:]) + steady * fwd_ms / 1e3
+    host_ms = np.array(res.host_s[1:]) * 1e3
+    h2d_ms = np.array(res.h2d_s[1:]) * 1e3
+    print(f"steady state, batches 2-{res.batches}: {steady * BATCH / window:.1f} rows/s; per batch "
+          f"host (wait + densify) {host_ms.mean():.3f} ms mean, {np.median(host_ms):.3f} median; "
+          f"h2d {h2d_ms.mean():.3f} ms mean, {np.median(h2d_ms):.3f} median; device idle share "
+          f"~{1 - busy / window:.4f}")
 
 
 def main() -> int:
@@ -414,9 +539,13 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = device_facts()
+    host_facts()
     t0 = time.perf_counter()
-    _cuda.build(["interaction"])
-    print(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native = pool.submit(build_native)  # g++ beside nvcc
+        _cuda.build(["interaction"])
+        print(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s")
+        native.result()
     for name, log in _cuda.BUILD_LOGS.items():
         print(f"nvcc {name}:\n{log.strip()}")
     if "interaction" in _cuda.BUILD_LOGS:

@@ -100,3 +100,27 @@ def test_score_files_log1p_and_explicit_columns(tmp_path):
     raw = score_files(str(tmp_path / "shard00"), tcfg, model, 8, device="cpu")
     assert raw.batches == 1
     torch.testing.assert_close(seen[0], torch.log1p(seen[1].float().clamp(min=0)))
+
+
+def test_score_files_native_path_two_epochs_matches_jax_pipeline(tmp_path, monkeypatch):
+    """score_files decodes through the native library (mmap + fused scan and
+    decode on the producer thread) and gives the JAX pipeline's logits over
+    two epochs; the loop's times are consistent."""
+    from tpu_tfrecord_torch import _native
+
+    calls = []
+    real = _native.NativeDecoder.scan_decode
+    monkeypatch.setattr(_native.NativeDecoder, "scan_decode",
+                        lambda self, *a, **k: (calls.append(1), real(self, *a, **k))[1])
+    jcfg, tcfg = configs("f32")
+    write_dryrun_dataset(str(tmp_path), tcfg, SHARD_ROWS, VOCAB)
+    params = jax.tree.map(np.asarray, jdlrm.init_params(jax.random.key(1), jcfg))
+    want = jax_scores(str(tmp_path), jcfg, params)
+    model = interop.dlrm_params_from_jax(params, tcfg, device="cpu")
+    res = score_files(str(tmp_path), tcfg, model, BATCH, device="cpu", num_epochs=2)
+    assert calls  # the native fused decode ran
+    # two epochs of 20 rows: 5 full batches, the third straddles the epochs
+    assert res.batches == 2 * sum(SHARD_ROWS) // BATCH == len(res.done_s)
+    assert res.done_s == sorted(res.done_s) and 0 < res.done_s[-1] <= res.wall_s
+    np.testing.assert_allclose(res.logits[:len(want)].numpy(), want, **TOL["f32"])
+    assert torch.isfinite(res.logits).all()

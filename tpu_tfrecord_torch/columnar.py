@@ -1,6 +1,7 @@
 """Columnar batch decoding: serialized records -> numpy column buffers.
 
-Copy of ``tpu_tfrecord/columnar.py`` (the pure-Python decoder and the
+Copy of ``tpu_tfrecord/columnar.py`` (the pure-Python decoder, the row
+slice and concatenation that cut batches out of decode chunks, and the
 ragged padders). A batch of serialized tf.Example records decodes STRAIGHT
 into per-column numpy buffers — no per-record row objects, no per-field
 boxing:
@@ -336,6 +337,99 @@ class ColumnarDecoder:
         return ColumnarBatch({name: acc.build(n) for name, acc in accs.items()}, n)
 
 
+# ---------------------------------------------------------------------------
+# Row slices and concatenation (batches that cross decode chunks and shards)
+# ---------------------------------------------------------------------------
+
+
+def _slice_blob(col: Column, new: Column, v0: int, v1: int) -> None:
+    bo = col.blob_offsets
+    b0, b1 = int(bo[v0]), int(bo[v1])
+    new.blob = col.blob[b0:b1]
+    new.blob_offsets = bo[v0 : v1 + 1] - b0
+
+
+def slice_batch(batch: ColumnarBatch, start: int, stop: int) -> ColumnarBatch:
+    """Rows ``start:stop`` of a batch: cuts fixed-size batches out of larger
+    decode chunks. Values are views where numpy slices are; offsets are
+    rebased copies."""
+    start = max(0, start)
+    stop = min(batch.num_rows, stop)
+    out: Dict[str, Column] = {}
+    for name, col in batch.columns.items():
+        new = Column(
+            name,
+            col.dtype,
+            mask=col.mask[start:stop] if col.mask is not None else None,
+            hash_buckets=col.hash_buckets,
+        )
+        if col.inner_offsets is not None:  # ragged2
+            o0, o1 = int(col.offsets[start]), int(col.offsets[stop])
+            inner = col.inner_offsets[o0 : o1 + 1]
+            v0, v1 = int(inner[0]), int(inner[-1])
+            new.offsets = col.offsets[start : stop + 1] - o0
+            new.inner_offsets = inner - v0
+            if col.values is not None:
+                new.values = col.values[v0:v1]
+            if col.blob is not None:
+                _slice_blob(col, new, v0, v1)
+        elif col.offsets is not None:  # ragged
+            v0, v1 = int(col.offsets[start]), int(col.offsets[stop])
+            new.offsets = col.offsets[start : stop + 1] - v0
+            if col.values is not None:
+                new.values = col.values[v0:v1]
+            if col.blob is not None:
+                _slice_blob(col, new, v0, v1)
+        else:  # scalar (1-D values, or a [N, K] group matrix)
+            if col.values is not None:
+                new.values = col.values[start:stop]
+            if col.blob is not None:
+                _slice_blob(col, new, start, stop)
+        out[name] = new
+    return ColumnarBatch(out, stop - start)
+
+
+def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
+    """Concatenate batches row-wise (all must share the same columns)."""
+    if len(batches) == 1:
+        return batches[0]
+    first = batches[0]
+    out: Dict[str, Column] = {}
+    for name, col0 in first.columns.items():
+        cols = [b.columns[name] for b in batches]
+        new = Column(name, col0.dtype, hash_buckets=col0.hash_buckets)
+        if col0.mask is not None:
+            new.mask = np.concatenate([c.mask for c in cols])
+        if col0.inner_offsets is not None:
+            new.offsets = _concat_offsets([np.asarray(c.offsets) for c in cols])
+            new.inner_offsets = _concat_offsets(
+                [np.asarray(c.inner_offsets) for c in cols]
+            )
+        elif col0.offsets is not None:
+            new.offsets = _concat_offsets([np.asarray(c.offsets) for c in cols])
+        if col0.values is not None:
+            new.values = np.concatenate([c.values for c in cols])
+        if col0.blob is not None:
+            new.blob = b"".join(c.blob for c in cols)
+            new.blob_offsets = _concat_offsets(
+                [np.asarray(c.blob_offsets) for c in cols]
+            )
+        out[name] = new
+    return ColumnarBatch(out, sum(b.num_rows for b in batches))
+
+
+def _concat_offsets(offset_arrays: List[np.ndarray]) -> np.ndarray:
+    total = sum(len(o) - 1 for o in offset_arrays)
+    out = np.empty(total + 1, dtype=np.int64)
+    out[0] = 0
+    pos = 0
+    base = 0
+    for o in offset_arrays:
+        n = len(o) - 1
+        out[pos + 1 : pos + 1 + n] = o[1:] + base
+        base += int(o[-1])
+        pos += n
+    return out
 
 
 # ---------------------------------------------------------------------------

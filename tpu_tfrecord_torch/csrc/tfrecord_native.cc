@@ -1,0 +1,2704 @@
+// TFRecord native fast path: CRC32C, frame scan, batch Example decode.
+//
+// Re-implements natively the two components the reference ships as shaded
+// JVM libraries (SURVEY.md §2.8 tensorflow-hadoop wire codec, §2.9 protobuf
+// runtime), fused: one pass over an in-memory shard buffer produces columnar
+// output buffers ready to wrap as numpy arrays. Exposed as a plain C ABI and
+// driven from Python via ctypes (no pybind11 in the image); ctypes releases
+// the GIL for the duration of each call, so decode overlaps Python-side work
+// and device transfers.
+//
+// Layouts match tpu_tfrecord.columnar.Column exactly:
+//   scalar : values[N]                        + mask[N]
+//   ragged : values[total] + row_offsets[N+1] + mask[N]
+//   ragged2: values[total] + inner_offsets[M+1] + row_offsets[N+1] + mask[N]
+//   bytes-like columns use blob + blob_offsets (value boundaries) instead of
+//   a typed values buffer.
+//
+// Build: g++ -std=c++20 -O3 -fPIC -shared [-msse4.2] tfrecord_native.cc
+
+#include <array>
+#include <cstdint>
+#include <cstring>
+#include <cstdio>
+#include <deque>
+#include <mutex>
+#include <string>
+#include <string_view>
+#include <unordered_map>
+#include <vector>
+
+#if defined(__SSE4_2__)
+#include <nmmintrin.h>
+#endif
+#if defined(__x86_64__)
+#include <immintrin.h>
+#endif
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// CRC32C
+// ---------------------------------------------------------------------------
+
+uint32_t crc32c_table[8][256];
+bool crc32c_table_init_done = false;
+
+void init_crc32c_table() {
+  if (crc32c_table_init_done) return;
+  const uint32_t poly = 0x82F63B78u;
+  for (uint32_t i = 0; i < 256; i++) {
+    uint32_t crc = i;
+    for (int j = 0; j < 8; j++) crc = (crc >> 1) ^ ((crc & 1) ? poly : 0);
+    crc32c_table[0][i] = crc;
+  }
+  for (int k = 1; k < 8; k++)
+    for (uint32_t i = 0; i < 256; i++) {
+      uint32_t c = crc32c_table[k - 1][i];
+      crc32c_table[k][i] = (c >> 8) ^ crc32c_table[0][c & 0xFF];
+    }
+  crc32c_table_init_done = true;
+}
+
+uint32_t crc32c_sw(const uint8_t* p, uint64_t n, uint32_t crc) {
+  crc ^= 0xFFFFFFFFu;
+  while (n >= 8) {
+    uint64_t w;
+    std::memcpy(&w, p, 8);
+    w ^= crc;  // little-endian
+    crc = crc32c_table[7][w & 0xFF] ^ crc32c_table[6][(w >> 8) & 0xFF] ^
+          crc32c_table[5][(w >> 16) & 0xFF] ^ crc32c_table[4][(w >> 24) & 0xFF] ^
+          crc32c_table[3][(w >> 32) & 0xFF] ^ crc32c_table[2][(w >> 40) & 0xFF] ^
+          crc32c_table[1][(w >> 48) & 0xFF] ^ crc32c_table[0][(w >> 56) & 0xFF];
+    p += 8;
+    n -= 8;
+  }
+  while (n--) crc = (crc >> 8) ^ crc32c_table[0][(crc ^ *p++) & 0xFF];
+  return crc ^ 0xFFFFFFFFu;
+}
+
+#if defined(__SSE4_2__)
+// Advance-by-256-zero-bytes tables: shift256(c) == the CRC state after
+// feeding 256 zero bytes starting from state c. The state update is linear
+// over GF(2), so the transform decomposes into 4 byte-indexed tables. This
+// lets three independent _mm_crc32_u64 chains run in parallel over 3x256B
+// blocks (the serial 3-cycle latency chain is the bottleneck of the naive
+// loop) and be combined afterwards — ~2x on the ~1KB payloads TFRecord
+// shards typically carry.
+uint32_t crc_shift256_tbl[4][256];
+std::once_flag crc_shift256_once;
+
+void init_crc_shift256_impl() {
+  uint32_t basis[32];
+  for (int b = 0; b < 32; b++) {
+    uint32_t c = 1u << b;
+    for (int i = 0; i < 32; i++) c = (uint32_t)_mm_crc32_u64(c, 0);  // 8 zero bytes x32
+    basis[b] = c;
+  }
+  for (int k = 0; k < 4; k++) {
+    for (int v = 0; v < 256; v++) {
+      uint32_t acc = 0;
+      for (int j = 0; j < 8; j++)
+        if (v & (1 << j)) acc ^= basis[8 * k + j];
+      crc_shift256_tbl[k][v] = acc;
+    }
+  }
+}
+
+// Decode worker threads (num_workers>1) may race the lazy init; call_once
+// gives the table stores release/acquire ordering a plain bool guard lacks.
+void init_crc_shift256() { std::call_once(crc_shift256_once, init_crc_shift256_impl); }
+
+inline uint32_t crc_shift256(uint32_t c) {
+  return crc_shift256_tbl[0][c & 0xFF] ^ crc_shift256_tbl[1][(c >> 8) & 0xFF] ^
+         crc_shift256_tbl[2][(c >> 16) & 0xFF] ^ crc_shift256_tbl[3][c >> 24];
+}
+#endif
+
+uint32_t crc32c_impl(const uint8_t* p, uint64_t n, uint32_t crc) {
+#if defined(__SSE4_2__)
+  crc ^= 0xFFFFFFFFu;
+  if (n >= 768) {
+    init_crc_shift256();
+    do {
+      uint32_t c0 = crc, c1 = 0, c2 = 0;
+      const uint8_t* p1 = p + 256;
+      const uint8_t* p2 = p + 512;
+      for (int i = 0; i < 256; i += 8) {
+        uint64_t w0, w1, w2;
+        std::memcpy(&w0, p + i, 8);
+        std::memcpy(&w1, p1 + i, 8);
+        std::memcpy(&w2, p2 + i, 8);
+        c0 = (uint32_t)_mm_crc32_u64(c0, w0);
+        c1 = (uint32_t)_mm_crc32_u64(c1, w1);
+        c2 = (uint32_t)_mm_crc32_u64(c2, w2);
+      }
+      crc = crc_shift256(crc_shift256(c0) ^ c1) ^ c2;
+      p += 768;
+      n -= 768;
+    } while (n >= 768);
+  }
+  while (n >= 8) {
+    uint64_t w;
+    std::memcpy(&w, p, 8);
+    crc = (uint32_t)_mm_crc32_u64(crc, w);
+    p += 8;
+    n -= 8;
+  }
+  while (n--) crc = _mm_crc32_u8(crc, *p++);
+  return crc ^ 0xFFFFFFFFu;
+#else
+  return crc32c_sw(p, n, crc);
+#endif
+}
+
+// CRC32C of a short blob (categorical keys are a few bytes): straight-line
+// hardware steps, no loop setup or 3-way machinery.
+inline uint32_t crc32c_short(const uint8_t* p, uint64_t n) {
+#if defined(__SSE4_2__)
+  uint32_t crc = 0xFFFFFFFFu;
+  while (n >= 8) {
+    uint64_t w;
+    std::memcpy(&w, p, 8);
+    crc = (uint32_t)_mm_crc32_u64(crc, w);
+    p += 8;
+    n -= 8;
+  }
+  if (n >= 4) {
+    uint32_t w;
+    std::memcpy(&w, p, 4);
+    crc = _mm_crc32_u32(crc, w);
+    p += 4;
+    n -= 4;
+  }
+  if (n >= 2) {
+    uint16_t w;
+    std::memcpy(&w, p, 2);
+    crc = _mm_crc32_u16(crc, w);
+    p += 2;
+    n -= 2;
+  }
+  if (n) crc = _mm_crc32_u8(crc, *p);
+  return crc ^ 0xFFFFFFFFu;
+#else
+  return crc32c_impl(p, n, 0);
+#endif
+}
+
+// One owner for the short/long split: below crc32c_impl's 3-way block size
+// (768B) the straight-line path wins; at or above it the interleaved
+// streams do. Hashing call sites use this, never the threshold directly.
+inline uint32_t crc32c_hash(const uint8_t* p, uint64_t n) {
+  return n < 768 ? crc32c_short(p, n) : crc32c_impl(p, n, 0);
+}
+
+inline uint32_t masked_crc(const uint8_t* p, uint64_t n) {
+  uint32_t c = crc32c_impl(p, n, 0);
+  return ((c >> 15) | (c << 17)) + 0xA282EAD8u;
+}
+
+// ---------------------------------------------------------------------------
+// Protobuf wire primitives
+// ---------------------------------------------------------------------------
+
+struct Cursor {
+  const uint8_t* p;
+  const uint8_t* end;
+};
+
+inline bool read_varint(Cursor& c, uint64_t* out) {
+  uint64_t result = 0;
+  int shift = 0;
+  while (c.p < c.end) {
+    uint8_t b = *c.p++;
+    result |= (uint64_t)(b & 0x7F) << shift;
+    if (!(b & 0x80)) {
+      *out = result;
+      return true;
+    }
+    shift += 7;
+    if (shift > 63) return false;
+  }
+  return false;
+}
+
+inline bool turbo_read_varint(const uint8_t*& p, const uint8_t* end, uint64_t* out) {
+  if (p < end && !(*p & 0x80)) { *out = *p++; return true; }  // 1-byte fast case
+  uint64_t result = 0;
+  int shift = 0;
+  while (p < end) {
+    uint8_t b = *p++;
+    result |= (uint64_t)(b & 0x7F) << shift;
+    if (!(b & 0x80)) { *out = result; return true; }
+    shift += 7;
+    if (shift > 63) return false;
+  }
+  return false;
+}
+
+// Branch-light varint decode: load 8 bytes, locate the terminator byte with
+// ctz over the inverted continuation bits, extract the payload bits with
+// PEXT. Covers varints up to 8 bytes (56 bits — every int32-range feature);
+// longer ones and buffer tails fall back to the byte loop. Compiled with a
+// per-function target attribute and dispatched at runtime so the library
+// never executes PEXT on a CPU without BMI2 (and the binary itself is not
+// built -mbmi2). Note: PEXT is microcoded (slow) on AMD Zen1/Zen2; the
+// expected deployment (TPU host VMs) is Intel, where it is 3 cycles.
+#if defined(__x86_64__)
+__attribute__((target("bmi2"), noinline))
+bool turbo_varint_pext(const uint8_t*& p, uint64_t* out) {
+  uint64_t w;
+  std::memcpy(&w, p, 8);
+  uint64_t term = ~w & 0x8080808080808080ULL;  // terminator high bits
+  if (!term) return false;  // >8-byte varint: caller falls back
+  int nbytes = (__builtin_ctzll(term) >> 3) + 1;
+  uint64_t mask = (nbytes == 8) ? ~0ULL : ((1ULL << (8 * nbytes)) - 1);
+  *out = _pext_u64(w & mask, 0x7F7F7F7F7F7F7F7FULL);
+  p += nbytes;
+  return true;
+}
+const bool g_has_bmi2 = __builtin_cpu_supports("bmi2");
+#endif
+
+inline bool turbo_varint_fast(const uint8_t*& p, const uint8_t* end, uint64_t* out) {
+#if defined(__x86_64__)
+  if (g_has_bmi2 && end - p >= 8 && turbo_varint_pext(p, out)) return true;
+#endif
+  return turbo_read_varint(p, end, out);
+}
+
+inline bool skip_field(Cursor& c, uint32_t wire_type) {
+  uint64_t tmp;
+  switch (wire_type) {
+    case 0: return read_varint(c, &tmp);
+    case 1: if (c.end - c.p < 8) return false; c.p += 8; return true;
+    case 2:
+      if (!read_varint(c, &tmp) || (uint64_t)(c.end - c.p) < tmp) return false;
+      c.p += tmp;
+      return true;
+    case 5: if (c.end - c.p < 4) return false; c.p += 4; return true;
+    default: return false;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Column builders
+// ---------------------------------------------------------------------------
+
+constexpr int32_t KIND_BYTES = 1, KIND_FLOAT = 2, KIND_INT64 = 3;
+constexpr int32_t LAYOUT_SCALAR = 0, LAYOUT_RAGGED = 1, LAYOUT_RAGGED2 = 2;
+constexpr int32_t DT_I64 = 0, DT_I32 = 1, DT_F32 = 2, DT_F64 = 3, DT_BYTES = -1;
+
+struct ColBuilder {
+  int32_t layout = LAYOUT_SCALAR;
+  int32_t kind = KIND_INT64;
+  int32_t dtype = DT_I64;
+  bool nullable = true;
+  int64_t hash_buckets = 0;  // >0: bytes values hash to i32 during decode
+  // Column-group packing: scalar fields assigned to a group write straight
+  // into a shared [n_records, width] matrix at (cur_row, group_pos) instead
+  // of their own vector — the batch layout MXU consumers want, with no
+  // per-column extraction or Python-side stacking.
+  uint8_t* group_buf = nullptr;
+  int64_t group_stride = 0;  // bytes per row
+  int64_t group_off = 0;     // byte offset of this field within a row
+  int64_t cur_row = 0;
+  std::string name;
+
+  std::vector<int64_t> i64;
+  std::vector<int32_t> i32;
+  std::vector<float> f32;
+  std::vector<double> f64;
+  std::vector<uint8_t> blob;
+  std::vector<int64_t> blob_offsets;  // value boundaries in blob
+  std::vector<int64_t> row_offsets;   // per-row value (or inner-list) counts
+  std::vector<int64_t> inner_offsets; // ragged2 only
+  std::vector<uint8_t> mask;
+
+  int64_t value_count = 0;   // running for row_offsets
+  int64_t inner_count = 0;   // running for ragged2 inner lists
+
+  void init_offsets() {
+    row_offsets.push_back(0);
+    if (layout == LAYOUT_RAGGED2) inner_offsets.push_back(0);
+    if (dtype == DT_BYTES && hash_buckets == 0) blob_offsets.push_back(0);
+  }
+
+  inline void push_i64(int64_t v) {
+    if (group_buf) {
+      uint8_t* p = group_buf + cur_row * group_stride + group_off;
+      if (dtype == DT_I64) std::memcpy(p, &v, 8);
+      else { int32_t t = (int32_t)v; std::memcpy(p, &t, 4); }
+      return;
+    }
+    if (dtype == DT_I64) i64.push_back(v);
+    else i32.push_back((int32_t)v);  // Scala Long.toInt truncation semantics
+  }
+  inline void push_f32(float v) {
+    if (group_buf) {
+      uint8_t* p = group_buf + cur_row * group_stride + group_off;
+      if (dtype == DT_F32) std::memcpy(p, &v, 4);
+      else { double t = (double)v; std::memcpy(p, &t, 8); }
+      return;
+    }
+    if (dtype == DT_F32) f32.push_back(v);
+    else f64.push_back((double)v);
+  }
+  inline void push_hashed(int32_t v) {
+    if (group_buf) {
+      std::memcpy(group_buf + cur_row * group_stride + group_off, &v, 4);
+      return;
+    }
+    i32.push_back(v);
+  }
+  inline void push_bytes(const uint8_t* p, uint64_t n) {
+    blob.insert(blob.end(), p, p + n);
+    blob_offsets.push_back((int64_t)blob.size());
+  }
+
+  // Undo record ``r``'s (single) contribution to this column — clear its
+  // mask slot plus whatever values/offsets it appended. Everything is
+  // derivable from the buffer tails, so duplicate-key last-wins semantics
+  // cost nothing on the happy path. Only called after this record wrote to
+  // the column (dedup via seen_epoch, or the turbo slot walk), so the value
+  // tails are this record's; masks are positional (pre-filled 1), so the
+  // clear is an idempotent store.
+  void rollback(int64_t r) {
+    if ((size_t)r < mask.size()) mask[(size_t)r] = 0;
+    if (group_buf) {
+      // Zero the slot: if the duplicate's last occurrence turns out to be
+      // missing (unset oneof), the documented missing->0 must hold — the
+      // first occurrence's value may not survive.
+      int itemsize = (dtype == DT_I64 || dtype == DT_F64) ? 8 : 4;
+      std::memset(group_buf + r * group_stride + group_off, 0, itemsize);
+      return;
+    }
+    if (layout == LAYOUT_SCALAR) {
+      if (dtype == DT_BYTES) {
+        if (blob_offsets.size() < 2) return;
+        blob_offsets.pop_back();
+        blob.resize((size_t)blob_offsets.back());
+      } else {
+        switch (dtype) {
+          case DT_I64: if (!i64.empty()) i64.pop_back(); break;
+          case DT_I32: if (!i32.empty()) i32.pop_back(); break;
+          case DT_F32: if (!f32.empty()) f32.pop_back(); break;
+          case DT_F64: if (!f64.empty()) f64.pop_back(); break;
+        }
+      }
+      return;
+    }
+    if (row_offsets.size() < 2) return;
+    row_offsets.pop_back();
+    int64_t prev = row_offsets.back();
+    if (layout == LAYOUT_RAGGED) {
+      value_count = prev;
+      if (dtype == DT_BYTES) {
+        blob_offsets.resize((size_t)prev + 1);
+        blob.resize((size_t)blob_offsets.back());
+      } else {
+        switch (dtype) {
+          case DT_I64: i64.resize((size_t)prev); break;
+          case DT_I32: i32.resize((size_t)prev); break;
+          case DT_F32: f32.resize((size_t)prev); break;
+          case DT_F64: f64.resize((size_t)prev); break;
+        }
+      }
+    } else {  // RAGGED2: row_offsets index inner lists
+      value_count = prev;
+      inner_offsets.resize((size_t)prev + 1);
+      inner_count = inner_offsets.back();
+      if (dtype == DT_BYTES) {
+        blob_offsets.resize((size_t)inner_count + 1);
+        blob.resize((size_t)blob_offsets.back());
+      } else {
+        switch (dtype) {
+          case DT_I64: i64.resize((size_t)inner_count); break;
+          case DT_I32: i32.resize((size_t)inner_count); break;
+          case DT_F32: f32.resize((size_t)inner_count); break;
+          case DT_F64: f64.resize((size_t)inner_count); break;
+        }
+      }
+    }
+  }
+};
+
+struct BatchResult {
+  std::vector<ColBuilder> cols;
+  std::vector<std::vector<uint8_t>> group_bufs;
+  std::string error;
+};
+
+struct string_hash {
+  using is_transparent = void;
+  size_t operator()(std::string_view sv) const { return std::hash<std::string_view>{}(sv); }
+  size_t operator()(const std::string& s) const { return std::hash<std::string_view>{}(s); }
+};
+
+using FieldMap = std::unordered_map<std::string, int, string_hash, std::equal_to<>>;
+
+// Heterogeneous unordered lookup (P0919) landed in libstdc++ 11; on older
+// toolchains (GCC 10 ships with this image's Debian) fall back to a
+// temporary std::string. The StickyOrder fast path keeps the hash lookup
+// rare, so the fallback allocation is off the hot path.
+inline FieldMap::const_iterator field_find(const FieldMap& m, std::string_view key) {
+#if defined(__cpp_lib_generic_unordered_lookup)
+  return m.find(key);
+#else
+  return m.find(std::string(key));
+#endif
+}
+
+// Records from one writer almost always carry their feature-map entries in
+// the same key order. Remember the order seen in the first record and match
+// subsequent records' keys by position with a single memcmp — a hit skips
+// the hash lookup entirely (including for keys NOT in the schema).
+struct StickyOrder {
+  std::vector<std::pair<std::string, int>> order;  // key -> field idx (-1: skip)
+  size_t cursor = 0;
+  bool building = true;
+
+  inline int lookup(std::string_view key, const FieldMap& fields) {
+    if (cursor < order.size()) {
+      const auto& e = order[cursor];
+      if (e.first.size() == key.size() &&
+          std::memcmp(e.first.data(), key.data(), key.size()) == 0) {
+        cursor++;
+        return e.second;
+      }
+    }
+    auto it = field_find(fields, key);
+    int idx = it == fields.end() ? -1 : it->second;
+    if (building) {
+      order.emplace_back(std::string(key), idx);
+      cursor = order.size();
+    } else {
+      cursor = order.size();  // out of sync for the rest of this record
+    }
+    return idx;
+  }
+
+  inline void next_record() {
+    building = false;
+    cursor = 0;
+  }
+};
+
+// Parse one Feature submessage's values into col. element_cap: for scalar
+// columns only the first value is kept but extra values are legal (head
+// semantics of the reference deserializer). Returns value count, or -1 on
+// kind mismatch / parse error (err set).
+int64_t parse_feature_values(const uint8_t* fp, const uint8_t* fend,
+                             ColBuilder& col, bool scalar, std::string& err) {
+  Cursor c{fp, fend};
+  int64_t count = 0;
+  bool kind_seen = false;
+  while (c.p < c.end) {
+    uint64_t tag;
+    if (!read_varint(c, &tag)) { err = "truncated feature tag"; return -1; }
+    uint32_t fnum = (uint32_t)(tag >> 3), wt = (uint32_t)(tag & 7);
+    if ((int32_t)fnum != col.kind || wt != 2) {
+      if (fnum >= 1 && fnum <= 3 && wt == 2) {
+        err = "column " + col.name + ": feature kind does not match schema type";
+        return -1;
+      }
+      if (!skip_field(c, wt)) { err = "bad field in feature"; return -1; }
+      continue;
+    }
+    kind_seen = true;
+    uint64_t len;
+    if (!read_varint(c, &len) || (uint64_t)(c.end - c.p) < len) {
+      err = "truncated list"; return -1;
+    }
+    Cursor lc{c.p, c.p + len};
+    c.p += len;
+    // Inside BytesList/FloatList/Int64List: field 1 values.
+    while (lc.p < lc.end) {
+      uint64_t ltag;
+      if (!read_varint(lc, &ltag)) { err = "truncated list tag"; return -1; }
+      uint32_t lnum = (uint32_t)(ltag >> 3), lwt = (uint32_t)(ltag & 7);
+      if (lnum != 1) { if (!skip_field(lc, lwt)) { err = "bad list field"; return -1; } continue; }
+      if (col.kind == KIND_INT64) {
+        if (lwt == 2) {  // packed varints
+          uint64_t plen;
+          if (!read_varint(lc, &plen) || (uint64_t)(lc.end - lc.p) < plen) { err = "truncated packed"; return -1; }
+          Cursor pc{lc.p, lc.p + plen};
+          lc.p += plen;
+          while (pc.p < pc.end) {
+            uint64_t v;
+            // PEXT fast decode when available (token-id lists are the
+            // SequenceExample int hot case); falls back byte-wise
+            if (!turbo_varint_fast(pc.p, pc.end, &v)) { err = "truncated varint"; return -1; }
+            if (!scalar || count == 0) col.push_i64((int64_t)v);
+            count++;
+          }
+        } else if (lwt == 0) {
+          uint64_t v;
+          if (!read_varint(lc, &v)) { err = "truncated varint"; return -1; }
+          if (!scalar || count == 0) col.push_i64((int64_t)v);
+          count++;
+        } else { if (!skip_field(lc, lwt)) { err = "bad int64 enc"; return -1; } }
+      } else if (col.kind == KIND_FLOAT) {
+        if (lwt == 2) {  // packed floats
+          uint64_t plen;
+          if (!read_varint(lc, &plen) || (uint64_t)(lc.end - lc.p) < plen || plen % 4) { err = "bad packed floats"; return -1; }
+          uint64_t n = plen / 4;
+          if (!scalar && col.dtype == DT_F32 && !col.group_buf) {
+            // bulk path for ragged float columns (the SequenceExample
+            // frames hot case): one memcpy for the whole packed run
+            // instead of a per-value push loop — the wire bytes ARE the
+            // little-endian f32 layout the column stores
+            if (n) {  // memcpy with a null dest (empty vector) is UB
+              size_t old = col.f32.size();
+              col.f32.resize(old + n);
+              std::memcpy(col.f32.data() + old, lc.p, (size_t)plen);
+              count += (int64_t)n;
+            }
+          } else {
+            for (uint64_t i = 0; i < n; i++) {
+              float v;
+              std::memcpy(&v, lc.p + 4 * i, 4);
+              if (!scalar || count == 0) col.push_f32(v);
+              count++;
+            }
+          }
+          lc.p += plen;
+        } else if (lwt == 5) {
+          float v;
+          if (lc.end - lc.p < 4) { err = "truncated float"; return -1; }
+          std::memcpy(&v, lc.p, 4);
+          lc.p += 4;
+          if (!scalar || count == 0) col.push_f32(v);
+          count++;
+        } else { if (!skip_field(lc, lwt)) { err = "bad float enc"; return -1; } }
+      } else {  // KIND_BYTES
+        if (lwt != 2) { if (!skip_field(lc, lwt)) { err = "bad bytes enc"; return -1; } continue; }
+        uint64_t blen;
+        if (!read_varint(lc, &blen) || (uint64_t)(lc.end - lc.p) < blen) { err = "truncated bytes"; return -1; }
+        if (!scalar || count == 0) {
+          if (col.hash_buckets > 0) {
+            // fused categorical hashing: bytes -> embedding-row index,
+            // no blob ever materialized
+            uint32_t h = crc32c_hash(lc.p, blen);
+            col.push_hashed((int32_t)(h % (uint64_t)col.hash_buckets));
+          } else {
+            col.push_bytes(lc.p, blen);
+          }
+        }
+        lc.p += blen;
+        count++;
+      }
+    }
+  }
+  if (!kind_seen) return -2;  // kind oneof unset -> treated as missing
+  return count;
+}
+
+// Decode one Features map region (Example.features or SequenceExample.context)
+// seen_epoch: record index for which a column holds a value (any source).
+// seen_fl_epoch: record index for which that value came from feature_lists —
+// needed to arbitrate precedence: context beats feature_lists regardless of
+// wire order (the oracle parses into dicts first, columnar.py:340-346), while
+// duplicate keys WITHIN one map are protobuf-map last-wins.
+bool parse_features_map(const uint8_t* p, const uint8_t* end, const FieldMap& fields,
+                        StickyOrder& sticky,
+                        std::vector<ColBuilder>& cols, std::vector<int32_t>& seen_epoch,
+                        std::vector<int32_t>& seen_fl_epoch,
+                        int32_t epoch, std::string& err) {
+  Cursor c{p, end};
+  while (c.p < c.end) {
+    uint64_t tag;
+    if (!read_varint(c, &tag)) { err = "truncated features tag"; return false; }
+    if ((tag >> 3) != 1 || (tag & 7) != 2) { if (!skip_field(c, (uint32_t)(tag & 7))) { err = "bad features field"; return false; } continue; }
+    uint64_t elen;
+    if (!read_varint(c, &elen) || (uint64_t)(c.end - c.p) < elen) { err = "truncated map entry"; return false; }
+    Cursor ec{c.p, c.p + elen};
+    c.p += elen;
+    std::string_view key;
+    const uint8_t* fstart = nullptr;
+    const uint8_t* fend = nullptr;
+    while (ec.p < ec.end) {
+      uint64_t etag;
+      if (!read_varint(ec, &etag)) { err = "truncated entry tag"; return false; }
+      uint32_t enum_ = (uint32_t)(etag >> 3), ewt = (uint32_t)(etag & 7);
+      if (enum_ == 1 && ewt == 2) {
+        uint64_t klen;
+        if (!read_varint(ec, &klen) || (uint64_t)(ec.end - ec.p) < klen) { err = "truncated key"; return false; }
+        key = std::string_view((const char*)ec.p, klen);
+        ec.p += klen;
+      } else if (enum_ == 2 && ewt == 2) {
+        uint64_t flen;
+        if (!read_varint(ec, &flen) || (uint64_t)(ec.end - ec.p) < flen) { err = "truncated feature"; return false; }
+        fstart = ec.p;
+        fend = ec.p + flen;
+        ec.p += flen;
+      } else {
+        if (!skip_field(ec, ewt)) { err = "bad entry field"; return false; }
+      }
+    }
+    if (key.empty() && fstart == nullptr) continue;
+    int idx = sticky.lookup(key, fields);
+    if (idx < 0) continue;  // column pruning: skip cheap
+    ColBuilder& col = cols[idx];
+    if (col.layout == LAYOUT_RAGGED2) {
+      err = "column " + col.name + ": flat feature for array-of-array type";
+      return false;
+    }
+    if (seen_epoch[idx] == epoch) {
+      // Already set this record: either a duplicate context key (protobuf
+      // map last-wins) or a feature_lists entry that appeared earlier in
+      // the wire (context has priority either way) — roll back the previous
+      // contribution, then re-append.
+      col.rollback(epoch);
+      seen_epoch[idx] = -1;  // unseen again until the re-append succeeds
+      seen_fl_epoch[idx] = -1;  // any feature_lists claim is gone
+    }
+    col.cur_row = epoch;  // record index, for group-matrix writes
+    bool scalar = col.layout == LAYOUT_SCALAR;
+    int64_t n = fstart ? parse_feature_values(fstart, fend, col, scalar, err)
+                       : -2;
+    if (n == -1) return false;
+    if (n == -2) continue;  // unset oneof -> missing
+    seen_epoch[idx] = epoch;
+    if (scalar) {
+      if (n == 0) {
+        if (col.kind == KIND_BYTES) {
+          if (col.hash_buckets > 0) {
+            // hash of b"" — crc32c("") == 0 (Python oracle parity)
+            col.push_hashed(0);
+          } else {
+            // Empty BytesList scalar decodes as b"" (Python oracle parity).
+            col.blob_offsets.push_back((int64_t)col.blob.size());
+          }
+        } else {
+          err = "column " + col.name + ": empty feature for scalar";
+          return false;
+        }
+      }
+      col.mask[(size_t)epoch] = 1;  // positional: rollback may have cleared it
+    } else {
+      col.value_count += n;
+      col.row_offsets.push_back(col.value_count);
+      col.mask[(size_t)epoch] = 1;
+    }
+  }
+  return true;
+}
+
+bool parse_feature_lists(const uint8_t* p, const uint8_t* end, const FieldMap& fields,
+                         StickyOrder& sticky,
+                         std::vector<ColBuilder>& cols, std::vector<int32_t>& seen_epoch,
+                         std::vector<int32_t>& seen_fl_epoch,
+                         int32_t epoch, std::string& err) {
+  Cursor c{p, end};
+  while (c.p < c.end) {
+    uint64_t tag;
+    if (!read_varint(c, &tag)) { err = "truncated featurelists tag"; return false; }
+    if ((tag >> 3) != 1 || (tag & 7) != 2) { if (!skip_field(c, (uint32_t)(tag & 7))) { err = "bad featurelists field"; return false; } continue; }
+    uint64_t elen;
+    if (!read_varint(c, &elen) || (uint64_t)(c.end - c.p) < elen) { err = "truncated fl entry"; return false; }
+    Cursor ec{c.p, c.p + elen};
+    c.p += elen;
+    std::string_view key;
+    const uint8_t* lstart = nullptr;
+    const uint8_t* lend = nullptr;
+    while (ec.p < ec.end) {
+      uint64_t etag;
+      if (!read_varint(ec, &etag)) { err = "truncated fl entry tag"; return false; }
+      uint32_t enum_ = (uint32_t)(etag >> 3), ewt = (uint32_t)(etag & 7);
+      if (enum_ == 1 && ewt == 2) {
+        uint64_t klen;
+        if (!read_varint(ec, &klen) || (uint64_t)(ec.end - ec.p) < klen) { err = "truncated fl key"; return false; }
+        key = std::string_view((const char*)ec.p, klen);
+        ec.p += klen;
+      } else if (enum_ == 2 && ewt == 2) {
+        uint64_t flen;
+        if (!read_varint(ec, &flen) || (uint64_t)(ec.end - ec.p) < flen) { err = "truncated featurelist"; return false; }
+        lstart = ec.p;
+        lend = ec.p + flen;
+        ec.p += flen;
+      } else {
+        if (!skip_field(ec, ewt)) { err = "bad fl entry field"; return false; }
+      }
+    }
+    int idx = sticky.lookup(key, fields);
+    if (idx < 0) continue;
+    ColBuilder& col = cols[idx];
+    if (seen_epoch[idx] == epoch && seen_fl_epoch[idx] != epoch) {
+      // Set by the context map: context wins over feature_lists
+      // (oracle parity, columnar.py:340-346) — skip this entry entirely.
+      continue;
+    }
+    if (seen_fl_epoch[idx] == epoch) {
+      // Duplicate FeatureList map key in one record: protobuf map semantics
+      // are last-wins (matching the Python oracle's dict overwrite) — roll
+      // back the previous occurrence's contribution, then re-append, the
+      // same contract as the context/features path above.
+      col.rollback(epoch);
+      seen_epoch[idx] = -1;  // unseen again until the re-append succeeds
+      seen_fl_epoch[idx] = -1;
+    }
+    // iterate FeatureList { repeated Feature feature = 1; }
+    int64_t n_inner = 0;
+    Cursor lc{lstart ? lstart : end, lend ? lend : end};
+    while (lc.p < lc.end) {
+      uint64_t ltag;
+      if (!read_varint(lc, &ltag)) { err = "truncated fl tag"; return false; }
+      if ((ltag >> 3) != 1 || (ltag & 7) != 2) { if (!skip_field(lc, (uint32_t)(ltag & 7))) { err = "bad fl field"; return false; } continue; }
+      uint64_t flen;
+      if (!read_varint(lc, &flen) || (uint64_t)(lc.end - lc.p) < flen) { err = "truncated inner feature"; return false; }
+      const uint8_t* fs = lc.p;
+      const uint8_t* fe = lc.p + flen;
+      lc.p += flen;
+      if (col.layout == LAYOUT_RAGGED2) {
+        // fast frame: the common float-frames shape is exactly
+        // [0x12 llen 0x0A plen <f32 run>] — bulk-append without the
+        // generic per-frame call; any deviation (empty, multi-segment,
+        // other kinds) takes the generic path below
+        if (col.kind == KIND_FLOAT && col.dtype == DT_F32 && fe - fs >= 4 &&
+            fs[0] == 0x12) {
+          const uint8_t* q = fs + 1;
+          uint64_t llen;
+          if (turbo_read_varint(q, fe, &llen) && (uint64_t)(fe - q) == llen &&
+              q < fe && *q == 0x0A) {
+            const uint8_t* q2 = q + 1;
+            uint64_t plen;
+            if (turbo_read_varint(q2, fe, &plen) &&
+                (uint64_t)(fe - q2) == plen && plen % 4 == 0 && plen > 0) {
+              size_t nf = (size_t)(plen / 4);
+              size_t old = col.f32.size();
+              col.f32.resize(old + nf);
+              std::memcpy(col.f32.data() + old, q2, (size_t)plen);
+              col.inner_count += (int64_t)nf;
+              col.inner_offsets.push_back(col.inner_count);
+              n_inner++;
+              continue;
+            }
+          }
+        }
+        int64_t n = parse_feature_values(fs, fe, col, false, err);
+        if (n == -1) return false;
+        if (n == -2) n = 0;
+        col.inner_count += n;
+        col.inner_offsets.push_back(col.inner_count);
+        n_inner++;
+      } else if (col.layout == LAYOUT_RAGGED) {
+        // FeatureList of scalar features: one value per inner feature
+        int64_t n = parse_feature_values(fs, fe, col, true, err);
+        if (n == -1) return false;
+        if (n == 0 || n == -2) { err = "column " + col.name + ": empty inner feature"; return false; }
+        n_inner++;
+      } else {
+        err = "column " + col.name + ": FeatureList for scalar type";
+        return false;
+      }
+    }
+    seen_epoch[idx] = epoch;
+    seen_fl_epoch[idx] = epoch;
+    if (col.layout == LAYOUT_RAGGED2) {
+      col.value_count += n_inner;       // rows index inner lists
+      col.row_offsets.push_back(col.value_count);
+    } else {
+      col.value_count += n_inner;
+      col.row_offsets.push_back(col.value_count);
+    }
+    col.mask[(size_t)epoch] = 1;  // positional: rollback may have cleared it
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// Turbo path: sticky-prefix specialized record parse
+// ---------------------------------------------------------------------------
+//
+// Records from one serializer share their byte-level key structure: every
+// record's features map has the same entries in the same order, differing
+// only in the value payloads. After the first record builds the sticky
+// order, each subsequent record is matched entry-by-entry against the
+// precomputed prefix bytes [0x0A klen key] with one memcmp, skipping the
+// generic tag-dispatch walk entirely (which costs ~half of decode time on
+// wide schemas). ANY deviation — missing/extra/duplicate keys, unexpected
+// wire layout, empty or multi-segment features — rolls back the partial
+// record and re-parses it with the generic (oracle-verified) path, so turbo
+// is purely an optimization: byte-identical results by construction.
+// Applies to Example records whose schema is all-scalar (the common dense
+// tabular case, e.g. Criteo).
+
+// One cached entry byte shape: all tags + lengths up to the value payload.
+// When a record's entry matches the cached bytes (ONE memcmp), the value
+// sits at a fixed offset — no per-field tag walking at all.
+struct SlotShape {
+  std::vector<uint8_t> cache;   // entry bytes from entry tag to value start
+  uint32_t entry_total = 0;     // full entry byte length (tag..end)
+  uint32_t value_len = 0;       // value payload bytes (BYTES/FLOAT: fixed)
+};
+
+struct TurboSlot {
+  std::vector<uint8_t> prefix;  // 0x0A klen <key bytes>
+  int idx;                      // field index, or -1 (pruned: skip entry)
+  // Adaptive entry-shape caches: records from one serializer usually repeat
+  // the exact entry byte shape, differing only in the value payload. Varint
+  // int values drift among a handful of BYTE LENGTHS (uniform 31-bit ints
+  // are ~87% 5-byte / ~12% 4-byte varints), and each length implies a
+  // distinct but recurring skeleton — so beyond the MRU shape a small set
+  // of alternates is kept, keyed by total entry length. The MRU check is
+  // one memcmp; an MRU miss probes the alternates by the candidate entry
+  // length read from the entry's own length byte before falling back to
+  // the field-wise parse (which verifies and remembers the new shape).
+  SlotShape mru;
+  std::array<SlotShape, 6> alts;
+  int n_alts = 0;
+  uint32_t alt_rr = 0;          // round-robin eviction cursor
+
+  // The alternate probe decodes the entry's 1- or 2-byte length varint, so
+  // only totals <= 3 + 16383 can ever match an alternate; larger shapes
+  // must not occupy (or round-robin-evict) slots they can never win from
+  // (r3 advisor finding).
+  static bool probe_reachable(uint32_t etot) { return etot <= 3u + 16383u; }
+
+  // Record a field-wise-verified shape as the MRU, demoting the outgoing
+  // MRU into the alternate set (replacing any alternate with the same
+  // total length). The new shape lives ONLY in the MRU — storing it in the
+  // alternates too would let the promotion swap breed duplicates that
+  // evict distinct live shapes.
+  void remember(const uint8_t* start, const uint8_t* vstart, uint32_t etot,
+                uint32_t vlen) {
+    if (mru.entry_total && mru.entry_total != etot &&
+        probe_reachable(mru.entry_total)) {
+      int slot = -1;
+      for (int i = 0; i < n_alts; i++) {
+        if (alts[i].entry_total == mru.entry_total) { slot = i; break; }
+      }
+      if (slot < 0) {
+        slot = n_alts < (int)alts.size() ? n_alts++
+                                         : (int)(alt_rr++ % alts.size());
+      }
+      alts[slot] = std::move(mru);
+    }
+    mru.cache.assign(start, vstart);
+    mru.entry_total = etot;
+    mru.value_len = vlen;
+  }
+};
+
+
+
+// Parse one record in turbo mode. Returns true on success (columns written,
+// *out_written = number of distinct fields written — when it equals the
+// schema width the caller can skip ALL per-record bookkeeping); false = no
+// harm done (partial writes rolled back via the slot walk), caller
+// re-parses generically. Slots are mutable: their adaptive entry caches
+// refresh as value shapes drift.
+bool turbo_parse(const uint8_t* rp, const uint8_t* rend,
+                 std::vector<TurboSlot>& slots,
+                 std::vector<ColBuilder>& cols, int32_t epoch,
+                 int* out_written) {
+  const uint8_t* p = rp;
+  // Record must be exactly one top-level field: features map (tag 0x0A).
+  if (p >= rend || *p != 0x0A) return false;
+  p++;
+  uint64_t mlen;
+  if (!turbo_read_varint(p, rend, &mlen)) return false;
+  if ((uint64_t)(rend - p) != mlen) return false;
+  int n_written = 0;
+  const size_t n_slots = slots.size();
+  size_t si = 0;
+  // Every completed slot with idx >= 0 wrote exactly one contribution (all
+  // abort sites precede the slot's value write), so rolling back the
+  // prefix of completed slots undoes the record without per-write
+  // bookkeeping on the happy path.
+  auto abort_record = [&]() {
+    for (size_t j = 0; j < si; j++) {
+      if (slots[j].idx >= 0) cols[slots[j].idx].rollback(epoch);
+    }
+    return false;
+  };
+  for (; si < n_slots; si++) {
+    TurboSlot& s = slots[si];
+    // --- cache-hit fast lane: one memcmp covers every tag and length ---
+    const SlotShape* shape = nullptr;
+    if (s.mru.entry_total && (uint64_t)(rend - p) >= s.mru.entry_total &&
+        std::memcmp(p, s.mru.cache.data(), s.mru.cache.size()) == 0) {
+      shape = &s.mru;
+    } else if (s.n_alts && (uint64_t)(rend - p) >= 2 && p[0] == 0x0A) {
+      // MRU miss: the entry's own length varint (1 or 2 bytes — entries
+      // up to ~16KB, e.g. long bytes values) names the candidate total
+      // length; probe the alternates for that shape. The memcmp verifies
+      // the full prefix, so the decoded length only preselects.
+      uint32_t etot = 0;
+      if (p[1] < 0x80) {
+        etot = 2u + p[1];
+      } else if ((uint64_t)(rend - p) >= 3 && p[2] < 0x80) {
+        etot = 3u + (((uint32_t)(p[1] & 0x7F)) | ((uint32_t)p[2] << 7));
+      }
+      for (int a = 0; etot && a < s.n_alts; a++) {
+        SlotShape& v = s.alts[a];
+        if (v.entry_total == etot && (uint64_t)(rend - p) >= etot &&
+            std::memcmp(p, v.cache.data(), v.cache.size()) == 0) {
+          if (TurboSlot::probe_reachable(s.mru.entry_total)) {
+            std::swap(s.mru, v);  // promote; old MRU stays as an alternate
+          } else {
+            // The outgoing MRU can never be probe-matched: dropping it
+            // (compact the set) keeps every alternate slot live instead
+            // of parking a dead shape the r3 guard exists to prevent.
+            s.mru = std::move(v);
+            if (a != --s.n_alts) v = std::move(s.alts[s.n_alts]);
+          }
+          shape = &s.mru;
+          break;
+        }
+      }
+    }
+    if (shape) {
+      const uint8_t* q = p + shape->cache.size();
+      p += shape->entry_total;
+      if (s.idx < 0) continue;
+      ColBuilder& col = cols[s.idx];
+      col.cur_row = epoch;
+      if (col.kind == KIND_INT64) {
+        // value: one-varint-or-more packed run of value_len bytes. The
+        // fast varint may load past ve (within the record) — the q > ve
+        // check catches a run with no terminator, like the bounded read.
+        const uint8_t* ve = q + shape->value_len;
+        uint64_t v;
+        if (!turbo_varint_fast(q, rend, &v) || q > ve) return abort_record();
+        while (q < ve) {  // rest of the run: validate well-formed varints
+          int cont = 0;
+          while (q < ve && (*q & 0x80)) { q++; cont++; }
+          if (q >= ve || cont > 9) return abort_record();
+          q++;
+        }
+        col.push_i64((int64_t)v);
+      } else if (col.kind == KIND_BYTES) {
+        if (col.hash_buckets > 0) {
+          uint32_t h = crc32c_hash(q, shape->value_len);
+          col.push_hashed((int32_t)(h % (uint64_t)col.hash_buckets));
+        } else {
+          col.push_bytes(q, shape->value_len);
+        }
+      } else {  // KIND_FLOAT
+        float v;
+        std::memcpy(&v, q, 4);
+        col.push_f32(v);
+      }
+      n_written++;  // mask slot is pre-filled 1
+      continue;
+    }
+    // --- field-wise lane (cache miss): parse tags, refresh the cache ---
+    const uint8_t* p0 = p;  // entry tag byte (cache starts here)
+    if (p >= rend || *p != 0x0A) return abort_record();
+    p++;
+    uint64_t elen;
+    if (!turbo_read_varint(p, rend, &elen)) return abort_record();
+    const uint8_t* ee = p + elen;
+    if (ee > rend || elen < s.prefix.size() ||
+        std::memcmp(p, s.prefix.data(), s.prefix.size()) != 0)
+      return abort_record();
+    const uint8_t* q = p + s.prefix.size();
+    p = ee;
+    if (s.idx < 0) {
+      // pruned column: cache the key prefix so future skips are one memcmp
+      if (ee - p0 < 0x10000) {
+        s.remember(p0, q, (uint32_t)(ee - p0), 0);
+      }
+      continue;
+    }
+    ColBuilder& col = cols[s.idx];
+    // map-entry value: Feature (field 2) filling the rest of the entry
+    if (q >= ee || *q != 0x12) return abort_record();
+    q++;
+    uint64_t flen;
+    if (!turbo_read_varint(q, ee, &flen)) return abort_record();
+    if ((uint64_t)(ee - q) != flen || flen == 0) return abort_record();
+    col.cur_row = epoch;
+    const uint8_t* vstart = nullptr;
+    uint32_t vlen = 0;
+    if (col.kind == KIND_INT64) {
+      // Feature { int64_list = 3 { packed values = 1 } }
+      if (*q != 0x1A) return abort_record();
+      q++;
+      uint64_t llen;
+      if (!turbo_read_varint(q, ee, &llen)) return abort_record();
+      if ((uint64_t)(ee - q) != llen || llen == 0) return abort_record();
+      if (*q != 0x0A) return abort_record();
+      q++;
+      uint64_t plen;
+      if (!turbo_read_varint(q, ee, &plen)) return abort_record();
+      if ((uint64_t)(ee - q) != plen || plen == 0) return abort_record();
+      vstart = q;
+      vlen = (uint32_t)plen;
+      uint64_t v;
+      if (!turbo_varint_fast(q, ee, &v)) return abort_record();
+      // scalar head semantics: first value wins; the rest of the packed
+      // run is legal but must still be well-formed varints (the generic
+      // path validates them, so turbo must too)
+      while (q < ee) {
+        int cont = 0;
+        while (q < ee && (*q & 0x80)) { q++; cont++; }
+        if (q >= ee || cont > 9) return abort_record();
+        q++;
+      }
+      col.push_i64((int64_t)v);
+    } else if (col.kind == KIND_BYTES) {
+      // Feature { bytes_list = 1 { values = 1 (len-delimited) } }
+      if (*q != 0x0A) return abort_record();
+      q++;
+      uint64_t llen;
+      if (!turbo_read_varint(q, ee, &llen)) return abort_record();
+      if ((uint64_t)(ee - q) != llen || llen == 0) return abort_record();
+      if (*q != 0x0A) return abort_record();
+      q++;
+      uint64_t blen;
+      if (!turbo_read_varint(q, ee, &blen)) return abort_record();
+      if ((uint64_t)(ee - q) < blen) return abort_record();
+      // single-value scalar only: a second value changes head semantics
+      // bookkeeping, so multi-value records take the generic path
+      if ((uint64_t)(ee - q) != blen) return abort_record();
+      vstart = q;
+      vlen = (uint32_t)blen;
+      if (col.hash_buckets > 0) {
+        uint32_t h = crc32c_hash(q, blen);
+        col.push_hashed((int32_t)(h % (uint64_t)col.hash_buckets));
+      } else {
+        col.push_bytes(q, blen);
+      }
+    } else {  // KIND_FLOAT
+      // Feature { float_list = 2 { packed values = 1 | single = 5 } }
+      if (*q != 0x12) return abort_record();
+      q++;
+      uint64_t llen;
+      if (!turbo_read_varint(q, ee, &llen)) return abort_record();
+      if ((uint64_t)(ee - q) != llen || llen == 0) return abort_record();
+      float v;
+      if (*q == 0x0A) {
+        q++;
+        uint64_t plen;
+        if (!turbo_read_varint(q, ee, &plen)) return abort_record();
+        if ((uint64_t)(ee - q) != plen || plen < 4 || (plen & 3)) return abort_record();
+        std::memcpy(&v, q, 4);  // head semantics: first of the packed run
+        if (plen == 4) { vstart = q; vlen = 4; }
+      } else if (*q == 0x0D) {
+        q++;
+        if ((uint64_t)(ee - q) != 4) return abort_record();
+        std::memcpy(&v, q, 4);
+        vstart = q;
+        vlen = 4;
+      } else {
+        return abort_record();
+      }
+      col.push_f32(v);
+    }
+    // refresh the adaptive caches: entry header bytes up to the value
+    // payload; value fills the rest of the entry exactly (verified above)
+    if (vstart && (uint64_t)(vstart - p0) + vlen == (uint64_t)(ee - p0) &&
+        ee - p0 < 0x10000) {
+      s.remember(p0, vstart, (uint32_t)(ee - p0), vlen);
+    }
+    n_written++;  // mask slot is pre-filled 1
+  }
+  if (p != rend) return abort_record();  // extra entries -> generic
+  *out_written = n_written;
+  return true;
+}
+
+void append_missing(ColBuilder& col, int64_t r) {
+  if ((size_t)r < col.mask.size()) col.mask[(size_t)r] = 0;
+  if (col.group_buf) return;  // group matrix is zero-initialized
+  if (col.layout == LAYOUT_SCALAR) {
+    switch (col.dtype) {
+      case DT_I64: col.i64.push_back(0); break;
+      case DT_I32: col.i32.push_back(0); break;
+      case DT_F32: col.f32.push_back(0.f); break;
+      case DT_F64: col.f64.push_back(0.0); break;
+      case DT_BYTES: col.blob_offsets.push_back((int64_t)col.blob.size()); break;
+    }
+  } else {
+    col.row_offsets.push_back(col.value_count);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+uint32_t tfr_crc32c(const uint8_t* data, uint64_t len) {
+  init_crc32c_table();
+  return crc32c_impl(data, len, 0);
+}
+
+int64_t tfr_scan_partial(const uint8_t* buf, uint64_t len, int32_t verify,
+                         uint64_t* offsets, uint64_t* lengths, int64_t cap,
+                         uint64_t* consumed);
+
+// Strict scan: the whole buffer must be complete frames. Returns record
+// count, or -1 (corrupt length crc), -2 (truncated), -3 (bad data crc),
+// -4 (capacity exceeded). Implemented as partial scan + completeness check
+// so the framing/CRC contract lives in one place.
+int64_t tfr_scan(const uint8_t* buf, uint64_t len, int32_t verify,
+                 uint64_t* offsets, uint64_t* lengths, int64_t cap) {
+  uint64_t consumed = 0;
+  int64_t n = tfr_scan_partial(buf, len, verify, offsets, lengths, cap, &consumed);
+  if (n < 0) return n;
+  if (consumed != len) return -2;
+  return n;
+}
+
+// Partial frame scan for slab streaming: like tfr_scan, but a record that
+// extends past the end of the buffer is NOT an error — scanning stops and
+// *consumed is set to the byte offset of that record's frame start, so the
+// caller can carry the tail into the next slab. CRC failures on complete
+// records still error. Reaching ``cap`` records is a CLEAN stop (not an
+// error): bytes past the cap are neither framed nor CRC-checked, which is
+// what lets record-limited consumers (schema-inference sampling) match the
+// lazy Python reader on shards whose corruption lies beyond the limit.
+// (tfr_scan's full-buffer contract still reports a short scan as -2 via
+// its consumed != len check.)
+int64_t tfr_scan_partial(const uint8_t* buf, uint64_t len, int32_t verify,
+                         uint64_t* offsets, uint64_t* lengths, int64_t cap,
+                         uint64_t* consumed) {
+  init_crc32c_table();
+  uint64_t pos = 0;
+  int64_t n = 0;
+  *consumed = 0;
+  while (pos < len) {
+    if (n >= cap) break;  // clean stop: caller resumes from *consumed
+    if (pos + 12 > len) break;  // incomplete header -> tail
+    uint64_t rec_len;
+    std::memcpy(&rec_len, buf + pos, 8);
+    uint32_t len_crc;
+    std::memcpy(&len_crc, buf + pos + 8, 4);
+    if (verify && masked_crc(buf + pos, 8) != len_crc) return -1;
+    uint64_t start = pos + 12;
+    if (len - start < 4 || rec_len > len - start - 4) break;  // tail
+    if (verify) {
+      uint32_t data_crc;
+      std::memcpy(&data_crc, buf + start + rec_len, 4);
+      if (masked_crc(buf + start, rec_len) != data_crc) return -3;
+    }
+    offsets[n] = start;
+    lengths[n] = rec_len;
+    n++;
+    pos = start + rec_len + 4;
+    *consumed = pos;
+  }
+  return n;
+}
+
+}  // extern "C" (temporarily closed: decode state helpers below are C++)
+
+namespace {
+
+// Shared state for batch decoding — used by both the span-driven
+// tfr_decode_batch and the fused tfr_scan_decode (frame scan + decode in
+// one pass over the buffer, record bytes decoded while still cache-hot).
+struct DecodeState {
+  BatchResult* res = nullptr;
+  FieldMap fields;
+  StickyOrder sticky_features, sticky_lists;
+  std::vector<int32_t> seen_epoch, seen_fl_epoch;
+  std::vector<TurboSlot> turbo_slots;
+  bool turbo_eligible = false, turbo_ready = false;
+  int32_t record_format = 0;
+  int32_t n_fields = 0;
+  std::string err;
+};
+
+// Allocate the result + columns. n_records_hint sizes the group matrices
+// and reservations; the fused path shrinks group buffers afterwards.
+void init_decode_state(DecodeState& st, int64_t n_records_hint,
+                       int32_t record_format,
+                       int32_t n_fields, const char** field_names,
+                       const int32_t* layouts, const int32_t* kinds,
+                       const int32_t* dtypes, const uint8_t* nullables,
+                       const int64_t* hash_buckets,
+                       const int32_t* group_ids, const int64_t* group_offs,
+                       int32_t n_groups, const int64_t* group_strides) {
+  st.record_format = record_format;
+  st.n_fields = n_fields;
+  auto* res = new BatchResult();
+  st.res = res;
+  res->cols.resize(n_fields);
+  res->group_bufs.resize(n_groups);
+  for (int32_t g = 0; g < n_groups; g++) {
+    res->group_bufs[g].assign((size_t)n_records_hint * group_strides[g], 0);
+  }
+  for (int32_t i = 0; i < n_fields; i++) {
+    ColBuilder& col = res->cols[i];
+    col.name = field_names[i];
+    col.layout = layouts[i];
+    col.kind = kinds[i];
+    col.dtype = dtypes[i];
+    col.nullable = nullables[i] != 0;
+    col.hash_buckets = hash_buckets ? hash_buckets[i] : 0;
+    if (group_ids && group_ids[i] >= 0) {
+      int32_t g = group_ids[i];
+      col.group_buf = res->group_bufs[g].data();
+      col.group_stride = group_strides[g];
+      col.group_off = group_offs[i];
+    }
+    col.init_offsets();
+    st.fields.emplace(col.name, i);
+    // Positional mask, pre-filled "present": success paths never touch it
+    // (the hot case), missing/rollback clear their record's slot. Sized to
+    // the hint; the fused path shrinks it to the decoded count afterwards.
+    col.mask.assign((size_t)n_records_hint, 1);
+    if (col.layout != LAYOUT_SCALAR) col.row_offsets.reserve(n_records_hint + 1);
+    if (col.group_buf) continue;  // values live in the group matrix
+    if (col.dtype == DT_BYTES) {
+      col.blob_offsets.reserve(n_records_hint + 1);
+      col.blob.reserve((size_t)n_records_hint * 8);
+    } else if (col.layout == LAYOUT_SCALAR) {
+      switch (col.dtype) {
+        case DT_I64: col.i64.reserve(n_records_hint); break;
+        case DT_I32: col.i32.reserve(n_records_hint); break;
+        case DT_F32: col.f32.reserve(n_records_hint); break;
+        case DT_F64: col.f64.reserve(n_records_hint); break;
+      }
+    }
+  }
+  st.seen_epoch.assign(n_fields, -1);
+  st.seen_fl_epoch.assign(n_fields, -1);
+  // Turbo eligibility: Example records, all-scalar schema, supported kinds
+  // (see turbo_parse). Slots are built from the sticky order after the
+  // first record parses generically.
+  st.turbo_eligible = record_format == 0 && n_fields <= 256;
+  for (int32_t i = 0; st.turbo_eligible && i < n_fields; i++) {
+    if (res->cols[i].layout != LAYOUT_SCALAR) st.turbo_eligible = false;
+  }
+}
+
+// Decode one record (r = its index in this batch). On failure fills errbuf;
+// the caller owns cleanup of st.res.
+bool decode_one(DecodeState& st, const uint8_t* rp, uint64_t rlen, int64_t r,
+                char* errbuf, int64_t errbuf_len) {
+  BatchResult* res = st.res;
+  const int32_t n_fields = st.n_fields;
+  if (r) { st.sticky_features.next_record(); st.sticky_lists.next_record(); }
+  int turbo_written = 0;
+  if (st.turbo_ready &&
+      turbo_parse(rp, rp + rlen, st.turbo_slots, res->cols, (int32_t)r,
+                  &turbo_written)) {
+    // All fields written: nothing can be missing, and seen_epoch updates
+    // are unobservable (later records compare against THEIR index, and
+    // record indices never repeat) — skip all per-record bookkeeping.
+    if (turbo_written == n_fields) return true;
+    for (const TurboSlot& s : st.turbo_slots) {
+      if (s.idx >= 0) st.seen_epoch[s.idx] = (int32_t)r;
+    }
+    for (int32_t i = 0; i < n_fields; i++) {
+      if (st.seen_epoch[i] != (int32_t)r) {
+        if (!res->cols[i].nullable) {
+          std::snprintf(errbuf, errbuf_len, "record %lld: %s", (long long)r,
+                        ("Field " + res->cols[i].name +
+                         " does not allow null values").c_str());
+          return false;
+        }
+        append_missing(res->cols[i], r);
+      }
+    }
+    return true;
+  }
+  Cursor c{rp, rp + rlen};
+  bool ok = true;
+  while (c.p < c.end && ok) {
+    uint64_t tag;
+    if (!read_varint(c, &tag)) { st.err = "truncated record tag"; ok = false; break; }
+    uint32_t fnum = (uint32_t)(tag >> 3), wt = (uint32_t)(tag & 7);
+    if (wt == 2 && ((st.record_format == 0 && fnum == 1) ||
+                    (st.record_format == 1 && (fnum == 1 || fnum == 2)))) {
+      uint64_t mlen;
+      if (!read_varint(c, &mlen) || (uint64_t)(c.end - c.p) < mlen) { st.err = "truncated message"; ok = false; break; }
+      const uint8_t* ms = c.p;
+      const uint8_t* me = c.p + mlen;
+      c.p += mlen;
+      if (st.record_format == 1 && fnum == 2) {
+        ok = parse_feature_lists(ms, me, st.fields, st.sticky_lists, res->cols, st.seen_epoch, st.seen_fl_epoch, (int32_t)r, st.err);
+      } else {
+        ok = parse_features_map(ms, me, st.fields, st.sticky_features, res->cols, st.seen_epoch, st.seen_fl_epoch, (int32_t)r, st.err);
+      }
+    } else {
+      if (!skip_field(c, wt)) { st.err = "bad record field"; ok = false; }
+    }
+  }
+  if (ok) {
+    for (int32_t i = 0; i < n_fields; i++) {
+      if (st.seen_epoch[i] != (int32_t)r) {
+        if (!res->cols[i].nullable) {
+          st.err = "Field " + res->cols[i].name + " does not allow null values";
+          ok = false;
+          break;
+        }
+        append_missing(res->cols[i], r);
+      }
+    }
+  }
+  if (!ok) {
+    std::snprintf(errbuf, errbuf_len, "record %lld: %s", (long long)r, st.err.c_str());
+    return false;
+  }
+  if (st.turbo_eligible && !st.turbo_ready && r == 0) {
+    // Build the turbo slots from record 0's sticky order. Duplicate keys
+    // disable turbo (their last-wins bookkeeping needs the generic path).
+    st.turbo_ready = true;
+    std::vector<bool> used(n_fields, false);
+    for (auto& e : st.sticky_features.order) {
+      if (e.first.size() >= 128) { st.turbo_ready = false; break; }
+      if (e.second >= 0) {
+        if (used[e.second]) { st.turbo_ready = false; break; }
+        used[e.second] = true;
+      }
+      TurboSlot s;
+      s.prefix.reserve(2 + e.first.size());
+      s.prefix.push_back(0x0A);
+      s.prefix.push_back((uint8_t)e.first.size());
+      s.prefix.insert(s.prefix.end(), e.first.begin(), e.first.end());
+      s.idx = e.second;
+      st.turbo_slots.push_back(std::move(s));
+    }
+    if (st.turbo_slots.empty()) st.turbo_ready = false;
+  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Batch decode. record_format: 0 = Example, 1 = SequenceExample.
+// Returns an opaque handle (free with tfr_result_free) or nullptr with
+// errbuf filled.
+void* tfr_decode_batch(const uint8_t* buf,
+                       const uint64_t* rec_offsets, const uint64_t* rec_lengths,
+                       int64_t n_records, int32_t record_format,
+                       int32_t n_fields, const char** field_names,
+                       const int32_t* layouts, const int32_t* kinds,
+                       const int32_t* dtypes, const uint8_t* nullables,
+                       const int64_t* hash_buckets,
+                       const int32_t* group_ids, const int64_t* group_offs,
+                       int32_t n_groups, const int64_t* group_strides,
+                       char* errbuf, int64_t errbuf_len) {
+  // The fused categorical-hash path uses crc32c; without this, a process
+  // whose FIRST native call is decode would hash through a zeroed software
+  // CRC table on non-SSE4.2 builds (silent wrong bucket indices).
+  init_crc32c_table();
+  DecodeState st;
+  init_decode_state(st, n_records, record_format, n_fields, field_names,
+                    layouts, kinds, dtypes, nullables, hash_buckets,
+                    group_ids, group_offs, n_groups, group_strides);
+  for (int64_t r = 0; r < n_records; r++) {
+    if (!decode_one(st, buf + rec_offsets[r], rec_lengths[r], r, errbuf, errbuf_len)) {
+      delete st.res;
+      return nullptr;
+    }
+  }
+  return st.res;
+}
+
+// Fused frame scan + decode: walk TFRecord frames from buf+start, verify
+// CRCs (when verify), skip the first skip_records complete frames
+// (scanned+verified but not decoded — the resume path), then decode up to
+// max_records records in the same pass (each record parsed immediately
+// after its CRC while its bytes are cache-hot; no offsets/lengths arrays
+// materialize at all). Stops at max_records or at a partial tail frame
+// (*consumed = absolute end of the last processed frame; not an error).
+// Returns a result handle, or nullptr with errbuf filled (prefix
+// "corrupt TFRecord"/"truncated TFRecord" = framing, else decode error).
+void* tfr_scan_decode(const uint8_t* buf, uint64_t len, uint64_t start,
+                      int32_t verify, int64_t skip_records, int64_t max_records,
+                      uint64_t max_record_bytes,
+                      int32_t record_format,
+                      int32_t n_fields, const char** field_names,
+                      const int32_t* layouts, const int32_t* kinds,
+                      const int32_t* dtypes, const uint8_t* nullables,
+                      const int64_t* hash_buckets,
+                      const int32_t* group_ids, const int64_t* group_offs,
+                      int32_t n_groups, const int64_t* group_strides,
+                      int64_t* n_skipped, int64_t* n_decoded, uint64_t* consumed,
+                      char* errbuf, int64_t errbuf_len) {
+  init_crc32c_table();
+  DecodeState st;
+  init_decode_state(st, max_records, record_format, n_fields, field_names,
+                    layouts, kinds, dtypes, nullables, hash_buckets,
+                    group_ids, group_offs, n_groups, group_strides);
+  uint64_t pos = start;
+  int64_t skipped = 0, decoded = 0;
+  *consumed = start;
+  while (decoded < max_records) {
+    if (pos + 12 > len) break;  // incomplete header -> tail
+    uint64_t rec_len;
+    std::memcpy(&rec_len, buf + pos, 8);
+    if (max_record_bytes && rec_len > max_record_bytes) {
+      // a corrupt length field (possible with verify off) must never
+      // swallow the rest of the shard as one giant "record"
+      std::snprintf(errbuf, errbuf_len,
+                    "corrupt TFRecord: record length %llu exceeds "
+                    "max_record_bytes (%llu)",
+                    (unsigned long long)rec_len,
+                    (unsigned long long)max_record_bytes);
+      delete st.res;
+      return nullptr;
+    }
+    uint32_t len_crc;
+    std::memcpy(&len_crc, buf + pos + 8, 4);
+    if (verify && masked_crc(buf + pos, 8) != len_crc) {
+      std::snprintf(errbuf, errbuf_len, "corrupt TFRecord: bad length CRC");
+      delete st.res;
+      return nullptr;
+    }
+    uint64_t rstart = pos + 12;
+    if (len - rstart < 4 || rec_len > len - rstart - 4) break;  // tail
+    if (verify) {
+      uint32_t data_crc;
+      std::memcpy(&data_crc, buf + rstart + rec_len, 4);
+      if (masked_crc(buf + rstart, rec_len) != data_crc) {
+        std::snprintf(errbuf, errbuf_len, "corrupt TFRecord: bad data CRC");
+        delete st.res;
+        return nullptr;
+      }
+    }
+    pos = rstart + rec_len + 4;
+    if (skipped < skip_records) {
+      skipped++;
+      *consumed = pos;
+      continue;
+    }
+    if (!decode_one(st, buf + rstart, rec_len, decoded, errbuf, errbuf_len)) {
+      delete st.res;
+      return nullptr;
+    }
+    decoded++;
+    *consumed = pos;
+  }
+  // Group matrices and masks were sized for max_records; shrink to what
+  // decoded.
+  for (size_t g = 0; g < st.res->group_bufs.size(); g++) {
+    st.res->group_bufs[g].resize((size_t)decoded * group_strides[g]);
+  }
+  for (auto& col : st.res->cols) col.mask.resize((size_t)decoded);
+  *n_skipped = skipped;
+  *n_decoded = decoded;
+  return st.res;
+}
+
+static ColBuilder* get_col(void* h, int32_t i) {
+  return &static_cast<BatchResult*>(h)->cols[i];
+}
+
+// Drop everything a long-lived handle no longer needs: per-column vectors
+// (their contents were copied to Python) and group-buffer slack capacity.
+// MUST be called BEFORE tfr_result_group hands out group pointers —
+// shrink_to_fit may reallocate. Keeps a handle pinned by zero-copy views
+// from holding more than the group matrices themselves.
+void tfr_result_trim(void* h) {
+  auto* res = static_cast<BatchResult*>(h);
+  for (auto& c : res->cols) {
+    std::vector<int64_t>().swap(c.i64);
+    std::vector<int32_t>().swap(c.i32);
+    std::vector<float>().swap(c.f32);
+    std::vector<double>().swap(c.f64);
+    std::vector<uint8_t>().swap(c.blob);
+    std::vector<int64_t>().swap(c.blob_offsets);
+    std::vector<int64_t>().swap(c.row_offsets);
+    std::vector<int64_t>().swap(c.inner_offsets);
+    std::vector<uint8_t>().swap(c.mask);
+  }
+  for (auto& g : res->group_bufs) g.shrink_to_fit();
+}
+
+int64_t tfr_result_values(void* h, int32_t i, const void** ptr) {
+  ColBuilder* c = get_col(h, i);
+  switch (c->dtype) {
+    case DT_I64: *ptr = c->i64.data(); return (int64_t)c->i64.size() * 8;
+    case DT_I32: *ptr = c->i32.data(); return (int64_t)c->i32.size() * 4;
+    case DT_F32: *ptr = c->f32.data(); return (int64_t)c->f32.size() * 4;
+    case DT_F64: *ptr = c->f64.data(); return (int64_t)c->f64.size() * 8;
+    default: *ptr = nullptr; return 0;
+  }
+}
+
+int64_t tfr_result_row_offsets(void* h, int32_t i, const int64_t** ptr) {
+  ColBuilder* c = get_col(h, i);
+  *ptr = c->row_offsets.data();
+  return (int64_t)c->row_offsets.size();
+}
+
+int64_t tfr_result_inner_offsets(void* h, int32_t i, const int64_t** ptr) {
+  ColBuilder* c = get_col(h, i);
+  *ptr = c->inner_offsets.data();
+  return (int64_t)c->inner_offsets.size();
+}
+
+int64_t tfr_result_blob(void* h, int32_t i, const uint8_t** ptr) {
+  ColBuilder* c = get_col(h, i);
+  *ptr = c->blob.data();
+  return (int64_t)c->blob.size();
+}
+
+int64_t tfr_result_blob_offsets(void* h, int32_t i, const int64_t** ptr) {
+  ColBuilder* c = get_col(h, i);
+  *ptr = c->blob_offsets.data();
+  return (int64_t)c->blob_offsets.size();
+}
+
+int64_t tfr_result_mask(void* h, int32_t i, const uint8_t** ptr) {
+  ColBuilder* c = get_col(h, i);
+  *ptr = c->mask.data();
+  return (int64_t)c->mask.size();
+}
+
+int64_t tfr_result_group(void* h, int32_t g, const uint8_t** ptr) {
+  auto& buf = static_cast<BatchResult*>(h)->group_bufs[g];
+  *ptr = buf.data();
+  return (int64_t)buf.size();
+}
+
+void tfr_result_free(void* h) { delete static_cast<BatchResult*>(h); }
+
+// Frame + write helpers: frame records into an output buffer.
+// Returns bytes written or -1 if out_cap too small.
+int64_t tfr_frame_records(const uint8_t* payloads, const uint64_t* offsets,
+                          const uint64_t* lengths, int64_t n,
+                          uint8_t* out, int64_t out_cap) {
+  init_crc32c_table();
+  uint64_t pos = 0;
+  for (int64_t i = 0; i < n; i++) {
+    uint64_t len = lengths[i];
+    if ((int64_t)(pos + 16 + len) > out_cap) return -1;
+    std::memcpy(out + pos, &len, 8);
+    uint32_t lcrc = masked_crc(out + pos, 8);
+    std::memcpy(out + pos + 8, &lcrc, 4);
+    std::memcpy(out + pos + 12, payloads + offsets[i], len);
+    uint32_t dcrc = masked_crc(out + pos + 12, len);
+    std::memcpy(out + pos + 12 + len, &dcrc, 4);
+    pos += 16 + len;
+  }
+  return (int64_t)pos;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Batch encode: columnar buffers -> framed tf.Example records
+// ---------------------------------------------------------------------------
+//
+// The write-side twin of tfr_decode_batch: one call turns a columnar batch
+// (same layouts) into a contiguous stream of framed records. Two-phase API:
+// tfr_encode_batch with out=null returns the exact byte size; a second call
+// fills the caller-allocated buffer (numpy array) and returns bytes written.
+
+namespace {
+
+inline int varint_size(uint64_t v) {
+  int n = 1;
+  while (v >= 0x80) { v >>= 7; n++; }
+  return n;
+}
+
+inline void write_varint(uint8_t*& p, uint64_t v) {
+  while (v >= 0x80) { *p++ = (uint8_t)(v | 0x80); v >>= 7; }
+  *p++ = (uint8_t)v;
+}
+
+struct EncCol {
+  const char* name;
+  size_t name_len;
+  int32_t layout;              // LAYOUT_SCALAR / RAGGED / RAGGED2
+  int32_t kind;
+  int32_t dtype;
+  const uint8_t* values;       // typed buffer
+  const int64_t* row_offsets;  // null for scalar
+  const int64_t* inner_offsets;  // ragged2 only
+  const uint8_t* blob;
+  const int64_t* blob_offsets;
+  const uint8_t* mask;         // null = all present
+
+  inline bool present(int64_t r) const { return mask == nullptr || mask[r]; }
+
+  inline void value_range(int64_t r, int64_t* v0, int64_t* v1) const {
+    if (row_offsets) { *v0 = row_offsets[r]; *v1 = row_offsets[r + 1]; }
+    else { *v0 = r; *v1 = r + 1; }
+  }
+
+  // size of the list payload (the packed values / bytes entries)
+  inline uint64_t list_payload_size(int64_t v0, int64_t v1) const {
+    uint64_t sz = 0;
+    if (kind == KIND_INT64) {
+      if (dtype == DT_I64) {
+        const int64_t* p = (const int64_t*)values;
+        for (int64_t i = v0; i < v1; i++) sz += varint_size((uint64_t)p[i]);
+      } else {
+        const int32_t* p = (const int32_t*)values;
+        for (int64_t i = v0; i < v1; i++) sz += varint_size((uint64_t)(int64_t)p[i]);
+      }
+    } else if (kind == KIND_FLOAT) {
+      sz = (uint64_t)(v1 - v0) * 4;
+    } else {
+      for (int64_t i = v0; i < v1; i++) {
+        uint64_t blen = (uint64_t)(blob_offsets[i + 1] - blob_offsets[i]);
+        sz += 1 + varint_size(blen) + blen;  // tag + len + bytes per value
+      }
+    }
+    return sz;
+  }
+
+  // Feature submessage (the `kind { values }` oneof) over a value range
+  inline uint64_t feature_msg_size(int64_t v0, int64_t v1) const {
+    uint64_t list_payload = list_payload_size(v0, v1);
+    uint64_t list_msg = (kind == KIND_BYTES)
+                            ? list_payload
+                            : (v1 > v0 ? 1 + varint_size(list_payload) + list_payload : 0);
+    return 1 + varint_size(list_msg) + list_msg;
+  }
+
+  inline void write_feature_msg(uint8_t*& p, int64_t v0, int64_t v1) const {
+    uint64_t list_payload = list_payload_size(v0, v1);
+    uint64_t list_msg = (kind == KIND_BYTES)
+                            ? list_payload
+                            : (v1 > v0 ? 1 + varint_size(list_payload) + list_payload : 0);
+    *p++ = (uint8_t)((kind << 3) | 2);  // oneof submessage tag
+    write_varint(p, list_msg);
+    if (kind == KIND_BYTES) {
+      for (int64_t v = v0; v < v1; v++) {
+        uint64_t blen = (uint64_t)(blob_offsets[v + 1] - blob_offsets[v]);
+        *p++ = 0x0A;  // value, field 1 LEN
+        write_varint(p, blen);
+        std::memcpy(p, blob + blob_offsets[v], blen);
+        p += blen;
+      }
+    } else if (v1 > v0) {
+      *p++ = 0x0A;  // packed values, field 1 LEN
+      write_varint(p, list_payload);
+      if (kind == KIND_INT64) {
+        if (dtype == DT_I64) {
+          const int64_t* vp = (const int64_t*)values;
+          for (int64_t v = v0; v < v1; v++) write_varint(p, (uint64_t)vp[v]);
+        } else {
+          const int32_t* vp = (const int32_t*)values;
+          for (int64_t v = v0; v < v1; v++) write_varint(p, (uint64_t)(int64_t)vp[v]);
+        }
+      } else {
+        if (dtype == DT_F32) {
+          std::memcpy(p, values + v0 * 4, (size_t)(v1 - v0) * 4);
+          p += (v1 - v0) * 4;
+        } else {  // f64 -> f32 downcast on the wire
+          const double* vp = (const double*)values;
+          for (int64_t v = v0; v < v1; v++) {
+            float f = (float)vp[v];
+            std::memcpy(p, &f, 4);
+            p += 4;
+          }
+        }
+      }
+    }
+  }
+
+  // FeatureList submessage (repeated Feature, one per inner list) for a
+  // ragged2 row spanning inner lists [j0, j1)
+  inline uint64_t featurelist_msg_size(int64_t j0, int64_t j1) const {
+    uint64_t sz = 0;
+    for (int64_t j = j0; j < j1; j++) {
+      uint64_t f = feature_msg_size(inner_offsets[j], inner_offsets[j + 1]);
+      sz += 1 + varint_size(f) + f;
+    }
+    return sz;
+  }
+
+  inline void write_featurelist_msg(uint8_t*& p, int64_t j0, int64_t j1) const {
+    for (int64_t j = j0; j < j1; j++) {
+      uint64_t f = feature_msg_size(inner_offsets[j], inner_offsets[j + 1]);
+      *p++ = 0x0A;  // FeatureList.feature, field 1 LEN
+      write_varint(p, f);
+      write_feature_msg(p, inner_offsets[j], inner_offsets[j + 1]);
+    }
+  }
+
+  // map entry (key + value submessage) wrapper
+  inline uint64_t entry_size(uint64_t value_msg) const {
+    return 1 + varint_size(name_len) + name_len + 1 + varint_size(value_msg) + value_msg;
+  }
+
+  inline void write_entry_header(uint8_t*& p, uint64_t value_msg) const {
+    *p++ = 0x0A;  // key, field 1 LEN
+    write_varint(p, name_len);
+    std::memcpy(p, name, name_len);
+    p += name_len;
+    *p++ = 0x12;  // value, field 2 LEN
+    write_varint(p, value_msg);
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Encode a batch of Example (record_format 0) or SequenceExample (1)
+// records from columnar buffers. For SequenceExample, ragged2 columns
+// become FeatureLists; scalar/ragged columns go to the context map. If
+// out == nullptr, returns the exact total framed size. Otherwise writes and
+// returns bytes written (-1 if cap too small, -2 on bad input).
+int64_t tfr_encode_batch(
+    int64_t n_records, int32_t record_format, int32_t n_fields,
+    const char** field_names, const int64_t* name_lens,
+    const int32_t* layouts, const int32_t* kinds, const int32_t* dtypes,
+    const uint8_t** values, const int64_t** row_offsets,
+    const int64_t** inner_offsets,
+    const uint8_t** blobs, const int64_t** blob_offsets,
+    const uint8_t** masks,
+    uint8_t* out, int64_t cap) {
+  init_crc32c_table();
+  std::vector<EncCol> cols((size_t)n_fields);
+  for (int32_t i = 0; i < n_fields; i++) {
+    cols[i] = EncCol{field_names[i], (size_t)name_lens[i], layouts[i],
+                     kinds[i], dtypes[i], values[i], row_offsets[i],
+                     inner_offsets[i], blobs[i], blob_offsets[i], masks[i]};
+    if (record_format == 0 && layouts[i] == LAYOUT_RAGGED2) return -2;
+  }
+  uint64_t total = 0;
+  uint8_t* p = out;
+  // per-record scratch: each field's value-submessage size, computed once in
+  // the size pass and reused by the write pass
+  std::vector<uint64_t> msg_size((size_t)n_fields);
+  for (int64_t r = 0; r < n_records; r++) {
+    // ---- size pass for this record ----
+    uint64_t features_payload = 0;   // context / Example features map
+    uint64_t lists_payload = 0;      // SequenceExample feature_lists map
+    for (int32_t i = 0; i < n_fields; i++) {
+      EncCol& c = cols[i];
+      if (!c.present(r)) continue;
+      if (c.layout == LAYOUT_RAGGED2) {
+        int64_t j0 = c.row_offsets[r], j1 = c.row_offsets[r + 1];
+        uint64_t fl = msg_size[i] = c.featurelist_msg_size(j0, j1);
+        uint64_t entry = c.entry_size(fl);
+        lists_payload += 1 + varint_size(entry) + entry;
+      } else {
+        int64_t v0, v1;
+        c.value_range(r, &v0, &v1);
+        uint64_t f = msg_size[i] = c.feature_msg_size(v0, v1);
+        uint64_t entry = c.entry_size(f);
+        features_payload += 1 + varint_size(entry) + entry;
+      }
+    }
+    uint64_t body;
+    if (record_format == 0) {
+      body = features_payload
+                 ? 1 + varint_size(features_payload) + features_payload
+                 : 0;
+    } else {
+      // SequenceExample always carries both submessages (reference
+      // serializer sets context and featureLists unconditionally)
+      body = 1 + varint_size(features_payload) + features_payload +
+             1 + varint_size(lists_payload) + lists_payload;
+    }
+    uint64_t framed = 16 + body;
+    total += framed;
+    if (out == nullptr) continue;
+    if ((int64_t)(p - out) + (int64_t)framed > cap) return -1;
+
+    // ---- write pass ----
+    uint8_t* rec_start = p;
+    std::memcpy(p, &body, 8);
+    uint32_t lcrc = masked_crc(p, 8);
+    std::memcpy(p + 8, &lcrc, 4);
+    p += 12;
+    uint8_t* data_start = p;
+    if (record_format != 0 || features_payload) {
+      *p++ = 0x0A;  // features / context, field 1 LEN
+      write_varint(p, features_payload);
+      for (int32_t i = 0; i < n_fields; i++) {
+        EncCol& c = cols[i];
+        if (!c.present(r) || c.layout == LAYOUT_RAGGED2) continue;
+        int64_t v0, v1;
+        c.value_range(r, &v0, &v1);
+        uint64_t f = msg_size[i];
+        *p++ = 0x0A;  // map entry, field 1 LEN
+        write_varint(p, c.entry_size(f));
+        c.write_entry_header(p, f);
+        c.write_feature_msg(p, v0, v1);
+      }
+    }
+    if (record_format != 0) {
+      *p++ = 0x12;  // feature_lists, field 2 LEN
+      write_varint(p, lists_payload);
+      for (int32_t i = 0; i < n_fields; i++) {
+        EncCol& c = cols[i];
+        if (!c.present(r) || c.layout != LAYOUT_RAGGED2) continue;
+        int64_t j0 = c.row_offsets[r], j1 = c.row_offsets[r + 1];
+        uint64_t fl = msg_size[i];
+        *p++ = 0x0A;  // map entry, field 1 LEN
+        write_varint(p, c.entry_size(fl));
+        c.write_entry_header(p, fl);
+        c.write_featurelist_msg(p, j0, j1);
+      }
+    }
+    uint32_t dcrc = masked_crc(data_start, body);
+    std::memcpy(p, &dcrc, 4);
+    p += 4;
+    if ((uint64_t)(p - rec_start) != framed) return -2;  // size/write mismatch
+  }
+  return out == nullptr ? (int64_t)total : (int64_t)(p - out);
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// Hadoop-ecosystem block codecs: raw snappy + lz4 block decompression.
+// The Python fallbacks in hadoop_codecs.py are spec-complete but decode
+// element-dense (real-compressor) streams at tens of MB/s; these run at
+// memory speed. Contract: return decoded length, -1 on corrupt input,
+// -2 when dst_cap is too small. NEVER read/write out of bounds — these
+// functions face untrusted bytes (fuzz-tested).
+// ---------------------------------------------------------------------------
+
+// Raw snappy: preamble varint (uncompressed length), then tagged elements
+// (literals + 1/2/4-byte-offset copies; overlapping copies = RLE).
+int64_t tfr_snappy_decompress(const uint8_t* src, uint64_t n,
+                              uint8_t* dst, uint64_t dst_cap) {
+  const uint8_t* p = src;
+  const uint8_t* end = src + n;
+  uint64_t expected = 0;
+  int shift = 0;
+  for (;;) {
+    if (p >= end || shift > 35) return -1;
+    uint8_t b = *p++;
+    expected |= (uint64_t)(b & 0x7F) << shift;
+    if (!(b & 0x80)) break;
+    shift += 7;
+  }
+  if (expected > dst_cap) return -2;
+  uint8_t* d = dst;
+  uint8_t* dend = dst + expected;
+  while (p < end) {
+    uint8_t tag = *p++;
+    uint64_t len, offset;
+    switch (tag & 0x03) {
+      case 0: {  // literal
+        len = tag >> 2;
+        if (len >= 60) {
+          uint32_t extra = (uint32_t)len - 59;
+          if ((uint64_t)(end - p) < extra) return -1;
+          len = 0;
+          for (uint32_t i = 0; i < extra; i++) len |= (uint64_t)p[i] << (8 * i);
+          p += extra;
+        }
+        len += 1;
+        if ((uint64_t)(end - p) < len || (uint64_t)(dend - d) < len) return -1;
+        std::memcpy(d, p, len);
+        d += len;
+        p += len;
+        continue;
+      }
+      case 1:  // copy, 1-byte offset
+        if (p >= end) return -1;
+        len = ((tag >> 2) & 0x07) + 4;
+        offset = ((uint64_t)(tag >> 5) << 8) | *p++;
+        break;
+      case 2:  // copy, 2-byte offset
+        if (end - p < 2) return -1;
+        len = (tag >> 2) + 1;
+        offset = (uint64_t)p[0] | ((uint64_t)p[1] << 8);
+        p += 2;
+        break;
+      default:  // copy, 4-byte offset
+        if (end - p < 4) return -1;
+        len = (tag >> 2) + 1;
+        offset = (uint64_t)p[0] | ((uint64_t)p[1] << 8) |
+                 ((uint64_t)p[2] << 16) | ((uint64_t)p[3] << 24);
+        p += 4;
+        break;
+    }
+    if (offset == 0 || offset > (uint64_t)(d - dst)) return -1;
+    if ((uint64_t)(dend - d) < len) return -1;
+    const uint8_t* s = d - offset;
+    if (offset >= len) {
+      std::memcpy(d, s, len);
+      d += len;
+    } else {
+      for (uint64_t i = 0; i < len; i++) *d++ = s[i];  // RLE semantics
+    }
+  }
+  return (d == dend) ? (int64_t)expected : -1;
+}
+
+// LZ4 block: sequences of [token][lit-len ext][literals][offset LE16]
+// [match-len ext]; the final sequence is literals-only.
+int64_t tfr_lz4_decompress(const uint8_t* src, uint64_t n,
+                           uint8_t* dst, uint64_t dst_cap) {
+  const uint8_t* p = src;
+  const uint8_t* end = src + n;
+  uint8_t* d = dst;
+  uint8_t* dend = dst + dst_cap;
+  while (p < end) {
+    uint8_t token = *p++;
+    uint64_t lit = token >> 4;
+    if (lit == 15) {
+      for (;;) {
+        if (p >= end) return -1;
+        uint8_t b = *p++;
+        lit += b;
+        if (b != 255) break;
+      }
+    }
+    if ((uint64_t)(end - p) < lit) return -1;
+    if ((uint64_t)(dend - d) < lit) return -2;
+    std::memcpy(d, p, lit);
+    d += lit;
+    p += lit;
+    if (p >= end) break;  // final literals-only sequence
+    if (end - p < 2) return -1;
+    uint64_t offset = (uint64_t)p[0] | ((uint64_t)p[1] << 8);
+    p += 2;
+    if (offset == 0 || offset > (uint64_t)(d - dst)) return -1;
+    uint64_t mlen = (token & 0x0F) + 4;
+    if ((token & 0x0F) == 15) {
+      for (;;) {
+        if (p >= end) return -1;
+        uint8_t b = *p++;
+        mlen += b;
+        if (b != 255) break;
+      }
+    }
+    if ((uint64_t)(dend - d) < mlen) return -2;
+    const uint8_t* s = d - offset;
+    if (offset >= mlen) {
+      std::memcpy(d, s, mlen);
+      d += mlen;
+    } else {
+      for (uint64_t i = 0; i < mlen; i++) *d++ = s[i];
+    }
+  }
+  return (int64_t)(d - dst);
+}
+
+// ---------------------------------------------------------------------------
+// Block COMPRESSORS (round 4): real greedy-matching snappy and lz4-block
+// encoders, so SnappyCodec/Lz4Codec WRITES actually compress without any
+// optional Python dependency (VERDICT r3 item 7 — the pure-Python
+// fallbacks emit valid literal-only streams at ratio 1.0). Standard
+// design: a 2^14-entry hash table over 4-byte windows, greedy match
+// extension, snappy fragmented into 64KB blocks (2-byte offsets), lz4 over
+// the whole input with the 64KB-offset window enforced per match.
+// Contract: return bytes written, -2 if dst_cap is below the worst-case
+// bound (callers size dst via tfr_*_max_compressed).
+// ---------------------------------------------------------------------------
+
+static inline uint32_t load32_le(const uint8_t* p) {
+  uint32_t v;
+  std::memcpy(&v, p, 4);
+  return v;
+}
+
+int64_t tfr_snappy_max_compressed(uint64_t n) {
+  return 32 + (int64_t)n + (int64_t)(n / 6);  // snappy MaxCompressedLength bound
+}
+
+static uint8_t* snappy_emit_literal(uint8_t* d, const uint8_t* lit,
+                                    uint64_t len) {
+  if (!len) return d;
+  uint64_t l = len - 1;
+  if (l < 60) {
+    *d++ = (uint8_t)(l << 2);
+  } else {
+    int extra = 0;
+    for (uint64_t t = l; t; t >>= 8) extra++;
+    *d++ = (uint8_t)((59 + extra) << 2);
+    for (int i = 0; i < extra; i++) *d++ = (uint8_t)(l >> (8 * i));
+  }
+  std::memcpy(d, lit, len);
+  return d + len;
+}
+
+static uint8_t* snappy_emit_copy_upto64(uint8_t* d, uint64_t offset,
+                                        uint64_t len) {
+  if (len < 12 && offset < 2048) {
+    *d++ = (uint8_t)(1 | ((len - 4) << 2) | ((offset >> 8) << 5));
+    *d++ = (uint8_t)offset;
+  } else {
+    *d++ = (uint8_t)(2 | ((len - 1) << 2));
+    *d++ = (uint8_t)offset;
+    *d++ = (uint8_t)(offset >> 8);
+  }
+  return d;
+}
+
+static uint8_t* snappy_emit_copy(uint8_t* d, uint64_t offset, uint64_t len) {
+  while (len >= 68) {  // long matches: 64-byte copies, tail kept >= 4
+    d = snappy_emit_copy_upto64(d, offset, 64);
+    len -= 64;
+  }
+  if (len > 64) {
+    d = snappy_emit_copy_upto64(d, offset, 60);
+    len -= 60;
+  }
+  return snappy_emit_copy_upto64(d, offset, len);
+}
+
+int64_t tfr_snappy_compress(const uint8_t* src, uint64_t n, uint8_t* dst,
+                            uint64_t dst_cap) {
+  if ((int64_t)dst_cap < tfr_snappy_max_compressed(n)) return -2;
+  uint8_t* d = dst;
+  for (uint64_t v = n;;) {  // preamble: uncompressed length varint
+    uint8_t b = v & 0x7F;
+    v >>= 7;
+    if (v) {
+      *d++ = b | 0x80;
+    } else {
+      *d++ = b;
+      break;
+    }
+  }
+  constexpr uint64_t kBlock = 1 << 16;  // offsets stay 2-byte
+  constexpr int kHashBits = 14;
+  uint16_t table[1 << kHashBits];
+  for (uint64_t bstart = 0; bstart < n; bstart += kBlock) {
+    const uint8_t* base = src + bstart;
+    const uint64_t blen = (n - bstart < kBlock) ? (n - bstart) : kBlock;
+    const uint8_t* iend = base + blen;
+    const uint8_t* ip = base;
+    const uint8_t* lit = base;
+    if (blen > 4) {
+      std::memset(table, 0, sizeof(table));
+      const uint8_t* match_limit = iend - 4;  // 4-byte loads stay in bounds
+      while (ip < match_limit) {
+        const uint32_t h =
+            (load32_le(ip) * 0x1e35a7bdu) >> (32 - kHashBits);
+        const uint8_t* cand = base + table[h];
+        table[h] = (uint16_t)(ip - base);
+        if (cand < ip && load32_le(cand) == load32_le(ip)) {
+          const uint8_t* q = ip + 4;
+          const uint8_t* mp = cand + 4;
+          while (q < iend && *q == *mp) {
+            q++;
+            mp++;
+          }
+          d = snappy_emit_literal(d, lit, (uint64_t)(ip - lit));
+          d = snappy_emit_copy(d, (uint64_t)(ip - cand), (uint64_t)(q - ip));
+          ip = q;
+          lit = ip;
+        } else {
+          ip++;
+        }
+      }
+    }
+    d = snappy_emit_literal(d, lit, (uint64_t)(iend - lit));
+  }
+  return (int64_t)(d - dst);
+}
+
+int64_t tfr_lz4_max_compressed(uint64_t n) {
+  return (int64_t)n + (int64_t)(n / 255) + 16;
+}
+
+int64_t tfr_lz4_compress(const uint8_t* src, uint64_t n, uint8_t* dst,
+                         uint64_t dst_cap) {
+  if ((int64_t)dst_cap < tfr_lz4_max_compressed(n)) return -2;
+  // The match table stores int32 positions: beyond 2 GiB positions alias
+  // (output would stay valid — matches are byte-verified — but the ratio
+  // collapses silently). Callers frame in 256 KiB Hadoop blocks; refuse
+  // the out-of-contract single-call case instead of degrading.
+  if (n > (uint64_t)INT32_MAX) return -2;
+  uint8_t* d = dst;
+  const uint8_t* iend = src + n;
+  const uint8_t* ip = src;
+  const uint8_t* lit = src;
+  constexpr int kHashBits = 14;
+  int32_t table[1 << kHashBits];
+  auto emit_len_ext = [&d](uint64_t r) {
+    while (r >= 255) {
+      *d++ = 255;
+      r -= 255;
+    }
+    *d++ = (uint8_t)r;
+  };
+  if (n > 16) {
+    std::memset(table, -1, sizeof(table));
+    // spec: last match starts >= 12 bytes before end; last 5 bytes literal
+    const uint8_t* mflimit = iend - 12;
+    const uint8_t* match_end_limit = iend - 5;
+    while (ip < mflimit) {
+      const uint32_t h = (load32_le(ip) * 2654435761u) >> (32 - kHashBits);
+      const int32_t cpos = table[h];
+      const int64_t pos = ip - src;
+      table[h] = (int32_t)pos;
+      if (cpos >= 0 && pos - cpos <= 65535 &&
+          load32_le(src + cpos) == load32_le(ip)) {
+        const uint8_t* cand = src + cpos;
+        const uint8_t* q = ip + 4;
+        const uint8_t* mp = cand + 4;
+        while (q < match_end_limit && *q == *mp) {
+          q++;
+          mp++;
+        }
+        const uint64_t ll = (uint64_t)(ip - lit);
+        const uint64_t ml = (uint64_t)(q - ip) - 4;
+        *d++ = (uint8_t)(((ll < 15 ? ll : 15) << 4) | (ml < 15 ? ml : 15));
+        if (ll >= 15) emit_len_ext(ll - 15);
+        std::memcpy(d, lit, ll);
+        d += ll;
+        const uint64_t off = (uint64_t)(ip - cand);
+        *d++ = (uint8_t)off;
+        *d++ = (uint8_t)(off >> 8);
+        if (ml >= 15) emit_len_ext(ml - 15);
+        ip = q;
+        lit = ip;
+      } else {
+        ip++;
+      }
+    }
+  }
+  const uint64_t ll = (uint64_t)(iend - lit);  // final literals-only sequence
+  *d++ = (uint8_t)((ll < 15 ? ll : 15) << 4);
+  if (ll >= 15) emit_len_ext(ll - 15);
+  std::memcpy(d, lit, ll);
+  d += ll;
+  return (int64_t)(d - dst);
+}
+
+// CRC32C-hash each value in a blob into [0, num_buckets). The categorical
+// string -> embedding-row path: strings never reach Python objects or the
+// TPU; one call hashes a whole column.
+void tfr_hash_blob(const uint8_t* blob, const int64_t* offsets, int64_t n,
+                   int64_t num_buckets, int64_t* out) {
+  init_crc32c_table();
+  for (int64_t i = 0; i < n; i++) {
+    uint32_t c = crc32c_impl(blob + offsets[i], (uint64_t)(offsets[i + 1] - offsets[i]), 0);
+    out[i] = (int64_t)(c % (uint64_t)num_buckets);
+  }
+}
+
+// Mixed-layout transfer packing (tpu/bitpack.py's hot path): copy the first
+// ``keep`` int32 lanes of each row verbatim, then bit-pack the remaining
+// ``n_cols - keep`` values into ``bits``-wide lanes, little-endian within
+// and across lanes (the exact layout pack_bits/unpack_bits define). ``out``
+// is [n_rows, keep + ceil((n_cols-keep)*bits/32)] int32, fully written
+// (trailing pad bits zeroed). Values are masked to ``bits``. Returns -1 on
+// success, or the flat index (row * n_cols + col) of the first NEGATIVE
+// packed value — sign validation rides the packing pass (a predictable
+// branch) instead of costing the wrapper a second full read.
+int64_t tfr_pack_mixed(const int32_t* in, int64_t n_rows, int32_t n_cols,
+                       int32_t keep, int32_t bits, int32_t* out) {
+  const int32_t c = n_cols - keep;
+  const int32_t w = (int32_t)(((int64_t)c * bits + 31) / 32);
+  const uint64_t vmask = bits >= 32 ? 0xFFFFFFFFull : ((1ull << bits) - 1);
+  for (int64_t r = 0; r < n_rows; r++) {
+    const int32_t* src = in + r * n_cols;
+    int32_t* dst = out + r * (keep + w);
+    std::memcpy(dst, src, (size_t)keep * 4);
+    uint64_t acc = 0;
+    int accbits = 0;
+    int32_t* o = dst + keep;
+    for (int32_t j = 0; j < c; j++) {
+      const int32_t v = src[keep + j];
+      if (v < 0) return r * n_cols + keep + j;
+      acc |= ((uint64_t)(uint32_t)v & vmask) << accbits;
+      accbits += bits;
+      if (accbits >= 32) {
+        *o++ = (int32_t)(uint32_t)acc;
+        acc >>= 32;
+        accbits -= 32;
+      }
+    }
+    if (accbits) *o++ = (int32_t)(uint32_t)acc;
+    while (o < dst + keep + w) *o++ = 0;
+  }
+  return -1;
+}
+
+// ---------------------------------------------------------------------------
+// Fused ragged -> dense padding (+ dtype cast)
+// ---------------------------------------------------------------------------
+// The host tail of SequenceExample ingest (ref TFRecordDeserializer.scala:
+// 37-61's 2-D FeatureLists): the decoder produces ragged value buffers, the
+// device wants dense [B, Lo, Li] in the compute dtype. Doing pad + cast in
+// numpy costs ~75 ms/batch at the bench shape (per-row Python loop +
+// ml_dtypes cast); fused here it is a memset + per-list memcpy/convert.
+// in_kind: 0 = f32, 1 = i64. out_kind: 0 = f32, 1 = bf16 (from f32,
+// round-to-nearest-even), 2 = i64, 3 = i32 (from i64, two's-complement
+// truncation — Scala Long.toInt semantics like the scalar path).
+
+static inline uint16_t f32_to_bf16_rne(uint32_t u) {
+  if ((u & 0x7fffffffu) > 0x7f800000u)  // NaN: keep quiet, keep payload bit
+    return (uint16_t)((u >> 16) | 0x0040u);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return (uint16_t)(u >> 16);
+}
+
+// Copy one run of li elements from src[v0..] to dst, converting per the
+// (in_kind, out_kind) pair. Returns false for an unsupported combo.
+static inline bool pad_copy_run(const void* values, int64_t v0, int64_t li,
+                                int32_t in_kind, int32_t out_kind,
+                                void* dst) {
+  if (in_kind == 0 && out_kind == 0) {
+    std::memcpy(dst, (const float*)values + v0, (size_t)li * 4);
+  } else if (in_kind == 0 && out_kind == 1) {
+    const uint32_t* src = (const uint32_t*)values + v0;
+    uint16_t* d = (uint16_t*)dst;
+    for (int64_t k = 0; k < li; k++) d[k] = f32_to_bf16_rne(src[k]);
+  } else if (in_kind == 1 && out_kind == 2) {
+    std::memcpy(dst, (const int64_t*)values + v0, (size_t)li * 8);
+  } else if (in_kind == 1 && out_kind == 3) {
+    const int64_t* src = (const int64_t*)values + v0;
+    int32_t* d = (int32_t*)dst;
+    for (int64_t k = 0; k < li; k++) d[k] = (int32_t)src[k];
+  } else {
+    return false;
+  }
+  return true;
+}
+
+static inline size_t pad_out_esize(int32_t out_kind) {
+  return out_kind == 1 ? 2 : out_kind == 2 ? 8 : 4;
+}
+
+// One-level ragged [total] + offsets [n_rows+1] -> dense [n_rows, max_len]
+// (pad 0) + clipped lengths [n_rows]. Returns 0, or -1 on bad kind combo.
+int64_t tfr_pad_ragged(const void* values, int32_t in_kind,
+                       const int64_t* offsets, int64_t n_rows,
+                       int64_t max_len, int32_t out_kind, void* dense,
+                       int32_t* lengths) {
+  const size_t esz = pad_out_esize(out_kind);
+  std::memset(dense, 0, (size_t)(n_rows * max_len) * esz);
+  for (int64_t i = 0; i < n_rows; i++) {
+    const int64_t v0 = offsets[i];
+    int64_t li = offsets[i + 1] - v0;
+    if (li > max_len) li = max_len;
+    lengths[i] = (int32_t)li;
+    if (li && !pad_copy_run(values, v0, li, in_kind, out_kind,
+                            (uint8_t*)dense + (size_t)(i * max_len) * esz))
+      return -1;
+  }
+  return 0;
+}
+
+// Two-level ragged -> dense [n_rows, max_outer, max_inner] (pad 0) +
+// outer lengths [n_rows] + inner lengths [n_rows, max_outer] (zero beyond
+// each row's outer length). Rows/lists beyond the max are truncated, the
+// same contract as columnar.pad_ragged2. Returns 0, or -1 on bad kinds.
+int64_t tfr_pad_ragged2(const void* values, int32_t in_kind,
+                        const int64_t* inner_offsets,
+                        const int64_t* row_splits, int64_t n_rows,
+                        int64_t max_outer, int64_t max_inner,
+                        int32_t out_kind, void* dense, int32_t* outer_len,
+                        int32_t* inner_len) {
+  const size_t esz = pad_out_esize(out_kind);
+  const int64_t cell = max_outer * max_inner;
+  std::memset(dense, 0, (size_t)(n_rows * cell) * esz);
+  std::memset(inner_len, 0, (size_t)(n_rows * max_outer) * 4);
+  for (int64_t i = 0; i < n_rows; i++) {
+    const int64_t lo_full = row_splits[i + 1] - row_splits[i];
+    const int64_t lo = lo_full < max_outer ? lo_full : max_outer;
+    outer_len[i] = (int32_t)lo;
+    for (int64_t jo = 0; jo < lo; jo++) {
+      const int64_t j = row_splits[i] + jo;
+      const int64_t v0 = inner_offsets[j];
+      int64_t li = inner_offsets[j + 1] - v0;
+      if (li > max_inner) li = max_inner;
+      inner_len[i * max_outer + jo] = (int32_t)li;
+      if (li && !pad_copy_run(values, v0, li, in_kind, out_kind,
+                              (uint8_t*)dense +
+                                  (size_t)(i * cell + jo * max_inner) * esz))
+        return -1;
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Native schema-inference seqOp
+// ---------------------------------------------------------------------------
+// The reference runs inference as an executor-parallel RDD aggregate
+// (TensorFlowInferSchema.scala:40-43). The Python oracle (infer.py) is a
+// per-record parse + precedence-lattice fold — pure Python, GIL-bound, so a
+// thread pool cannot scale it within a host. This seqOp walks the proto
+// wire directly (no value materialization) and aggregates, per feature
+// name, the MAX precedence contribution — the lattice is a precedence max
+// with null as identity (infer.py:77-115), so the fold is associative and
+// a per-shard (name -> max prec) map is a complete partial result. GIL is
+// released for the whole batch call; shards scan concurrently for real.
+//
+// Precedence encoding mirrors infer.py exactly: 0 null, 1 Long, 2 Float,
+// 3 String, 4-6 Array(base), 7-9 Array(Array(base)). -1 marks a kind-unset
+// feature (infer.py raises SchemaInferenceError) — the error is DEFERRED to
+// fold time so a last-wins duplicate key can mask it, matching the oracle,
+// which parses each record's maps fully (dict overwrite) before inferring.
+
+namespace {
+
+constexpr int8_t kInferErrorPrec = -1;
+
+struct InferCol {
+  std::string name;
+  int8_t max_prec = 0;
+  int8_t pending = 0;
+  int64_t epoch = -1;
+  bool has_pending = false;
+};
+
+struct InferState {
+  // deque: no element moves on growth (FieldMap owns its key strings, so
+  // this is about avoiding vector reallocation copies, not key lifetime)
+  std::deque<InferCol> cols;
+  FieldMap index;
+  // Columns contributed-to since the last finalize: the per-record fold
+  // touches only these, keeping the seqOp O(features per record), not
+  // O(distinct features) per record (wide-sparse data would otherwise
+  // erode the native speedup). May hold duplicates; fold is idempotent.
+  std::vector<int32_t> touched;
+  int64_t records = 0;
+  std::string err;
+
+  int lookup_or_add(std::string_view name) {
+    auto it = field_find(index, name);
+    if (it != index.end()) return it->second;
+    cols.emplace_back();
+    cols.back().name.assign(name.data(), name.size());
+    int idx = (int)cols.size() - 1;
+    index.emplace(cols.back().name, idx);
+    return idx;
+  }
+
+  bool fold(InferCol& c) {
+    if (!c.has_pending) return true;
+    c.has_pending = false;
+    if (c.pending == kInferErrorPrec) {
+      err = "unsupported feature kind (oneof unset)";
+      return false;
+    }
+    if (c.pending > c.max_prec) c.max_prec = c.pending;
+    return true;
+  }
+
+  // Record one (name -> contribution) observation. epoch_tag identifies
+  // (record, which map): a repeat within the same tag is a duplicate map
+  // key -> last-wins overwrite; a new tag folds the previous pending.
+  bool contribute(std::string_view name, int8_t prec, int64_t epoch_tag) {
+    int idx = lookup_or_add(name);
+    InferCol& c = cols[idx];
+    if (c.epoch != epoch_tag) {
+      if (!fold(c)) return false;
+      c.epoch = epoch_tag;
+      touched.push_back(idx);
+    }
+    c.pending = prec;
+    c.has_pending = true;
+    return true;
+  }
+
+  bool finalize_pending() {
+    for (int32_t idx : touched)
+      if (!fold(cols[idx])) return false;
+    touched.clear();
+    return true;
+  }
+};
+
+// Walk one Feature submessage -> contribution prec (0 empty, 1..6, or
+// kInferErrorPrec for kind-unset). Mirrors proto.py _parse_feature's merge
+// semantics: a repeated occurrence of the SAME list kind concatenates
+// (counts add), a different kind REPLACES (count resets); fields 1..3 with
+// a non-LEN wire type are ignored. Counts never materialize values:
+// int64 packed counts varint terminators, floats count plen/4.
+bool infer_feature_walk(const uint8_t* p, const uint8_t* end, int8_t* out,
+                        std::string& err) {
+  int kind = 0;
+  uint64_t count = 0;
+  Cursor c{p, end};
+  while (c.p < c.end) {
+    uint64_t tag;
+    if (!read_varint(c, &tag)) { err = "truncated feature tag"; return false; }
+    uint32_t fnum = (uint32_t)(tag >> 3), wt = (uint32_t)(tag & 7);
+    if (wt != 2 || fnum < 1 || fnum > 3) {
+      if (!skip_field(c, wt)) { err = "bad feature field"; return false; }
+      continue;
+    }
+    uint64_t len;
+    if (!read_varint(c, &len) || (uint64_t)(c.end - c.p) < len) {
+      err = "truncated list"; return false;
+    }
+    Cursor lc{c.p, c.p + len};
+    c.p += len;
+    if ((int)fnum != kind) { kind = (int)fnum; count = 0; }
+    while (lc.p < lc.end) {
+      uint64_t ltag;
+      if (!read_varint(lc, &ltag)) { err = "truncated list tag"; return false; }
+      uint32_t lnum = (uint32_t)(ltag >> 3), lwt = (uint32_t)(ltag & 7);
+      if (lnum != 1) {
+        if (!skip_field(lc, lwt)) { err = "bad list field"; return false; }
+        continue;
+      }
+      if (fnum == 1) {  // BytesList
+        if (lwt == 2) {
+          uint64_t bl;
+          if (!read_varint(lc, &bl) || (uint64_t)(lc.end - lc.p) < bl) {
+            err = "truncated bytes"; return false;
+          }
+          lc.p += bl;
+          count++;
+        } else if (!skip_field(lc, lwt)) { err = "bad bytes enc"; return false; }
+      } else if (fnum == 2) {  // FloatList
+        if (lwt == 2) {
+          uint64_t pl;
+          if (!read_varint(lc, &pl) || (uint64_t)(lc.end - lc.p) < pl) {
+            err = "truncated packed"; return false;
+          }
+          if (pl % 4) { err = "packed float payload not 4-aligned"; return false; }
+          lc.p += pl;
+          count += pl / 4;
+        } else if (lwt == 5) {
+          if (lc.end - lc.p < 4) { err = "truncated float"; return false; }
+          lc.p += 4;
+          count++;
+        } else if (!skip_field(lc, lwt)) { err = "bad float enc"; return false; }
+      } else {  // Int64List
+        if (lwt == 2) {
+          uint64_t pl;
+          if (!read_varint(lc, &pl) || (uint64_t)(lc.end - lc.p) < pl) {
+            err = "truncated packed"; return false;
+          }
+          // count terminators, mirroring the oracle's validation exactly:
+          // 10 continuation bytes -> "varint too long" (proto.py shift>63),
+          // payload ending mid-varint -> truncated (proto.py boundary check)
+          uint32_t run = 0;
+          for (const uint8_t* q = lc.p; q < lc.p + pl; q++) {
+            if (*q & 0x80) {
+              if (++run == 10) { err = "varint too long"; return false; }
+            } else {
+              run = 0;
+              count++;
+            }
+          }
+          if (run) {
+            err = "truncated varint in packed int64 list";
+            return false;
+          }
+          lc.p += pl;
+        } else if (lwt == 0) {
+          uint64_t v;
+          if (!read_varint(lc, &v)) { err = "truncated varint"; return false; }
+          count++;
+        } else if (!skip_field(lc, lwt)) { err = "bad int enc"; return false; }
+      }
+    }
+  }
+  if (kind == 0) { *out = kInferErrorPrec; return true; }
+  const int8_t base = kind == 1 ? 3 : kind == 2 ? 2 : 1;  // String/Float/Long
+  *out = count == 0 ? (int8_t)0 : count == 1 ? base : (int8_t)(base + 3);
+  return true;
+}
+
+// One Features map region (Example.features / SequenceExample.context).
+// Entry semantics mirror proto.py _parse_features_map: nameless entries are
+// skipped; the LAST value field within an entry wins; an entry with no
+// value field is an empty Feature (kind unset -> deferred error).
+bool infer_features_map(InferState& st, const uint8_t* p, const uint8_t* end,
+                        int64_t epoch_tag, std::string& err) {
+  Cursor c{p, end};
+  while (c.p < c.end) {
+    uint64_t tag;
+    if (!read_varint(c, &tag)) { err = "truncated features tag"; return false; }
+    if ((tag >> 3) != 1 || (tag & 7) != 2) {
+      if (!skip_field(c, (uint32_t)(tag & 7))) { err = "bad features field"; return false; }
+      continue;
+    }
+    uint64_t elen;
+    if (!read_varint(c, &elen) || (uint64_t)(c.end - c.p) < elen) {
+      err = "truncated map entry"; return false;
+    }
+    Cursor ec{c.p, c.p + elen};
+    c.p += elen;
+    std::string_view name;
+    bool has_name = false;
+    const uint8_t* fs = nullptr;
+    const uint8_t* fe = nullptr;
+    bool has_feat = false;
+    while (ec.p < ec.end) {
+      uint64_t etag;
+      if (!read_varint(ec, &etag)) { err = "truncated entry tag"; return false; }
+      uint32_t enum_ = (uint32_t)(etag >> 3), ewt = (uint32_t)(etag & 7);
+      if (enum_ == 1 && ewt == 2) {
+        uint64_t klen;
+        if (!read_varint(ec, &klen) || (uint64_t)(ec.end - ec.p) < klen) {
+          err = "truncated key"; return false;
+        }
+        name = std::string_view((const char*)ec.p, klen);
+        has_name = true;
+        ec.p += klen;
+      } else if (enum_ == 2 && ewt == 2) {
+        uint64_t flen;
+        if (!read_varint(ec, &flen) || (uint64_t)(ec.end - ec.p) < flen) {
+          err = "truncated value"; return false;
+        }
+        fs = ec.p;
+        fe = ec.p + flen;
+        has_feat = true;
+        ec.p += flen;
+      } else if (!skip_field(ec, ewt)) { err = "bad entry field"; return false; }
+    }
+    if (!has_name) continue;
+    int8_t prec = kInferErrorPrec;
+    if (has_feat && !infer_feature_walk(fs, fe, &prec, err)) return false;
+    if (!st.contribute(name, prec, epoch_tag)) return false;
+  }
+  return true;
+}
+
+// One FeatureLists map region: per entry, fold the inner features' precs
+// (max), then wrap to the 2-level array band: base m in 1..3 -> m+6,
+// array m in 4..6 -> m+3 (matching infer_sequence_example_row_type's
+// ArrayType wrapping, infer.py:131-151); an unset-kind inner feature makes
+// the whole entry's contribution the deferred error.
+bool infer_feature_lists(InferState& st, const uint8_t* p, const uint8_t* end,
+                         int64_t epoch_tag, std::string& err) {
+  Cursor c{p, end};
+  while (c.p < c.end) {
+    uint64_t tag;
+    if (!read_varint(c, &tag)) { err = "truncated featurelists tag"; return false; }
+    if ((tag >> 3) != 1 || (tag & 7) != 2) {
+      if (!skip_field(c, (uint32_t)(tag & 7))) { err = "bad featurelists field"; return false; }
+      continue;
+    }
+    uint64_t elen;
+    if (!read_varint(c, &elen) || (uint64_t)(c.end - c.p) < elen) {
+      err = "truncated fl entry"; return false;
+    }
+    Cursor ec{c.p, c.p + elen};
+    c.p += elen;
+    std::string_view name;
+    bool has_name = false;
+    const uint8_t* ls = nullptr;
+    const uint8_t* le = nullptr;
+    while (ec.p < ec.end) {
+      uint64_t etag;
+      if (!read_varint(ec, &etag)) { err = "truncated fl entry tag"; return false; }
+      uint32_t enum_ = (uint32_t)(etag >> 3), ewt = (uint32_t)(etag & 7);
+      if (enum_ == 1 && ewt == 2) {
+        uint64_t klen;
+        if (!read_varint(ec, &klen) || (uint64_t)(ec.end - ec.p) < klen) {
+          err = "truncated fl key"; return false;
+        }
+        name = std::string_view((const char*)ec.p, klen);
+        has_name = true;
+        ec.p += klen;
+      } else if (enum_ == 2 && ewt == 2) {
+        uint64_t flen;
+        if (!read_varint(ec, &flen) || (uint64_t)(ec.end - ec.p) < flen) {
+          err = "truncated featurelist"; return false;
+        }
+        ls = ec.p;  // last value field wins (proto.py reassigns flist)
+        le = ec.p + flen;
+        ec.p += flen;
+      } else if (!skip_field(ec, ewt)) { err = "bad fl entry field"; return false; }
+    }
+    if (!has_name) continue;
+    int8_t m = 0;
+    bool entry_err = false;
+    Cursor lc{ls ? ls : end, le ? le : end};
+    while (lc.p < lc.end) {
+      uint64_t ltag;
+      if (!read_varint(lc, &ltag)) { err = "truncated fl tag"; return false; }
+      if ((ltag >> 3) != 1 || (ltag & 7) != 2) {
+        if (!skip_field(lc, (uint32_t)(ltag & 7))) { err = "bad fl field"; return false; }
+        continue;
+      }
+      uint64_t flen;
+      if (!read_varint(lc, &flen) || (uint64_t)(lc.end - lc.p) < flen) {
+        err = "truncated inner feature"; return false;
+      }
+      int8_t prec;
+      if (!infer_feature_walk(lc.p, lc.p + flen, &prec, err)) return false;
+      lc.p += flen;
+      if (prec == kInferErrorPrec) entry_err = true;
+      else if (prec > m) m = prec;
+    }
+    int8_t contribution;
+    if (entry_err) contribution = kInferErrorPrec;
+    else if (m == 0) contribution = 0;
+    else if (m <= 3) contribution = (int8_t)(m + 6);
+    else contribution = (int8_t)(m + 3);
+    if (!st.contribute(name, contribution, epoch_tag)) return false;
+  }
+  return true;
+}
+
+// One record: Example { features = 1 } or SequenceExample { context = 1,
+// feature_lists = 2 }. Distinct epoch tags for the two maps: duplicate keys
+// WITHIN a map are last-wins, the same name ACROSS maps folds.
+bool infer_one_record(InferState& st, const uint8_t* rp, uint64_t rlen,
+                      int32_t record_format, std::string& err) {
+  const int64_t r = st.records;
+  Cursor c{rp, rp + rlen};
+  while (c.p < c.end) {
+    uint64_t tag;
+    if (!read_varint(c, &tag)) { err = "truncated record tag"; return false; }
+    uint32_t fnum = (uint32_t)(tag >> 3), wt = (uint32_t)(tag & 7);
+    if (wt == 2 && ((record_format == 0 && fnum == 1) ||
+                    (record_format == 1 && (fnum == 1 || fnum == 2)))) {
+      uint64_t mlen;
+      if (!read_varint(c, &mlen) || (uint64_t)(c.end - c.p) < mlen) {
+        err = "truncated message"; return false;
+      }
+      const uint8_t* ms = c.p;
+      const uint8_t* me = c.p + mlen;
+      c.p += mlen;
+      bool ok = (record_format == 1 && fnum == 2)
+                    ? infer_feature_lists(st, ms, me, r * 2 + 1, err)
+                    : infer_features_map(st, ms, me, r * 2, err);
+      if (!ok) return false;
+    } else if (!skip_field(c, wt)) {
+      err = "bad record field";
+      return false;
+    }
+  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Accumulating inference over a batch of record spans. ``prev`` continues a
+// prior accumulation (slab streaming); pass nullptr to start one. Returns
+// the handle, or nullptr with errbuf filled (an existing ``prev`` is left
+// owned by the caller — free it with tfr_infer_free).
+void* tfr_infer_batch(const uint8_t* buf, const uint64_t* offsets,
+                      const uint64_t* lengths, int64_t n,
+                      int32_t record_format, void* prev, char* errbuf,
+                      int64_t errbuf_len) {
+  InferState* st = prev ? static_cast<InferState*>(prev) : new InferState();
+  for (int64_t i = 0; i < n; i++) {
+    // Fold at each record boundary (duplicate masking is within-record, so
+    // this is safe): a deferred kind-unset error surfaces at the SAME
+    // record index where the Python oracle raises, and entries stay
+    // readable after every batch.
+    if (!infer_one_record(*st, buf + offsets[i], lengths[i], record_format,
+                          st->err) ||
+        !st->finalize_pending()) {
+      std::snprintf(errbuf, errbuf_len, "record %lld: %s",
+                    (long long)st->records, st->err.c_str());
+      if (!prev) delete st;
+      return nullptr;
+    }
+    st->records++;
+  }
+  return st;
+}
+
+int64_t tfr_infer_size(void* h) {
+  return (int64_t) static_cast<InferState*>(h)->cols.size();
+}
+
+// Entry i: writes the name pointer/length, returns its max precedence.
+int64_t tfr_infer_entry(void* h, int64_t i, const char** name,
+                        int64_t* name_len) {
+  InferCol& c = static_cast<InferState*>(h)->cols[(size_t)i];
+  *name = c.name.data();
+  *name_len = (int64_t)c.name.size();
+  return c.max_prec;
+}
+
+void tfr_infer_free(void* h) { delete static_cast<InferState*>(h); }
+
+}  // extern "C"

@@ -1,10 +1,13 @@
 """Columnar host batches -> dense numpy host batches -> tensors on the device.
 
-Port of ``tpu_tfrecord/tpu/ingest.py`` for one device: the host half
-(``hash_bytes_column``, ``host_batch_from_columnar``) is the JAX package's
-pure-Python path, and ``make_device_batch`` takes the place of
-``make_global_batch``: each array is copied into pinned host memory and
-sent with ``non_blocking=True`` on the current stream.
+Port of ``tpu_tfrecord/tpu/ingest.py`` for one device. The host half
+(``hash_bytes_column``, ``host_batch_from_columnar``) hashes through
+``_native.hash_blob`` and pads ragged columns with the native fused pads
+(``_native.pad_ragged_dense`` / ``pad_ragged2_dense``), falling back to the
+numpy pads of ``columnar`` only for a dtype the native pads do not take.
+``make_device_batch`` takes the place of ``make_global_batch``: each array
+is copied into pinned host memory and sent with ``non_blocking=True`` on the
+current stream.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from tpu_tfrecord_torch import wire
+from tpu_tfrecord_torch import _native, wire
 from tpu_tfrecord_torch.columnar import Column, ColumnarBatch, pad_ragged, pad_ragged2
 from tpu_tfrecord_torch.schema import ArrayType, BinaryType, DataType, StringType, StructType
 
@@ -42,12 +45,44 @@ def _validate_cast(schema: StructType, cast: Dict[str, np.dtype]) -> None:
 def hash_bytes_column(col_or_blobs, num_buckets: int) -> np.ndarray:
     """CRC32C of each byte string mod ``num_buckets``, as int32: the
     categorical-feature path (strings never go to the device). Accepts a
-    bytes-like Column or a plain list of bytes."""
-    blobs = col_or_blobs.blobs if isinstance(col_or_blobs, Column) else col_or_blobs
+    bytes-like Column (its flat blob, hashed in one native call) or a plain
+    list of bytes."""
+    if isinstance(col_or_blobs, Column):
+        col = col_or_blobs
+        return _native.hash_blob(col.blob, col.blob_offsets, num_buckets).astype(np.int32)
+    blobs = col_or_blobs
     crc = wire.crc32c
     return np.fromiter(
         (crc(b) % num_buckets for b in blobs), dtype=np.int32, count=len(blobs)
     )
+
+
+def _pad_ragged_cast(col: Column, max_len: int, out_dtype) -> tuple:
+    """One-level pad with an optional dtype cast, fused natively when the
+    dtypes allow."""
+    res = _native.pad_ragged_dense(col.values, col.offsets, max_len, out_dtype)
+    if res is not None:
+        return res
+    dense, lengths = pad_ragged(col.values, col.offsets, max_len)
+    if out_dtype is not None:
+        dense = dense.astype(out_dtype, copy=False)
+    return dense, lengths
+
+
+def _pad_ragged2_cast(col: Column, lo: int, li: int, out_dtype) -> tuple:
+    """Two-level pad with an optional dtype cast, fused natively when the
+    dtypes allow."""
+    res = _native.pad_ragged2_dense(
+        col.values, col.inner_offsets, col.offsets, lo, li, out_dtype
+    )
+    if res is not None:
+        return res
+    dense, outer_len, inner_len = pad_ragged2(
+        col.values, col.inner_offsets, col.offsets, lo, li
+    )
+    if out_dtype is not None:
+        dense = dense.astype(out_dtype, copy=False)
+    return dense, outer_len, inner_len
 
 
 def _check_fused_buckets(col: Column, name: str, buckets: int) -> None:
@@ -131,11 +166,7 @@ def host_batch_from_columnar(
         if isinstance(dt, ArrayType):
             if isinstance(dt.element_type, ArrayType):
                 lo, li = pad_to[f.name]
-                dense, outer_len, inner_len = pad_ragged2(
-                    col.values, col.inner_offsets, col.offsets, lo, li
-                )
-                if out_dtype is not None:
-                    dense = dense.astype(out_dtype, copy=False)
+                dense, outer_len, inner_len = _pad_ragged2_cast(col, lo, li, out_dtype)
                 out[f.name] = dense
                 if include_lengths:
                     out[f.name + "_len"] = outer_len
@@ -147,9 +178,7 @@ def host_batch_from_columnar(
                     raise ValueError(
                         f"ragged column {f.name!r} requires pad_to[{f.name!r}]"
                     )
-                dense, lengths = pad_ragged(col.values, col.offsets, pad_to[f.name])
-                if out_dtype is not None:
-                    dense = dense.astype(out_dtype, copy=False)
+                dense, lengths = _pad_ragged_cast(col, pad_to[f.name], out_dtype)
                 out[f.name] = dense
                 if include_lengths:
                     out[f.name + "_len"] = lengths

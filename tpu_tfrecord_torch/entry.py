@@ -5,9 +5,9 @@ from TFRecord files to logits.
   the counterpart of ``__graft_entry__.py::entry``.
 - ``write_dryrun_dataset``: SequenceExample shard dirs with the schema of
   ``__graft_entry__.py::_write_dryrun_dataset``.
-- ``score_files``: TFRecordDataset -> host_batch_from_columnar ->
-  make_device_batch -> DLRM forward, batch by batch, for every shard under
-  a directory.
+- ``score_files``: TFRecordDataset (native decode on a producer thread)
+  -> host_batch_from_columnar -> make_device_batch -> DLRM forward, batch
+  by batch, for every shard under a directory.
 """
 
 from __future__ import annotations
@@ -86,15 +86,27 @@ def write_dryrun_dataset(
 
 @dataclass
 class ScoreResult:
-    """Logits of every scored row, in file order, and the per-batch times
-    (seconds) of the host stage (read + decode + densify), the host-to-device
-    copy and the forward. The copy and forward times are synchronized on a
-    CUDA device."""
+    """Logits of every scored row, in file order, and times in seconds.
+
+    The dataset's producer thread reads and decodes ahead while the loop
+    scores, so the per-batch stage times overlap decode and do not add up
+    to the wall time:
+
+    - ``host_s``: the loop's wait for the next decoded batch plus densify
+      (``host_batch_from_columnar`` and the optional log1p);
+    - ``h2d_s``: the host-to-device copy, synchronized on a CUDA device;
+    - ``forward_s``: the forward, synchronized on a CUDA device;
+    - ``done_s``: when each batch's forward finished, from the loop's start;
+    - ``wall_s``: the whole loop, from starting the producer to the last
+      batch. Rows/s and the device's idle share come from it.
+    """
 
     logits: torch.Tensor
     host_s: List[float] = field(default_factory=list)
     h2d_s: List[float] = field(default_factory=list)
     forward_s: List[float] = field(default_factory=list)
+    done_s: List[float] = field(default_factory=list)
+    wall_s: float = 0.0
 
     @property
     def batches(self) -> int:
@@ -119,9 +131,11 @@ def score_files(
     dense_cols: Optional[List[str]] = None,
     cat_cols: Optional[List[str]] = None,
     log1p_dense: bool = False,
+    num_epochs: int = 1,
 ) -> ScoreResult:
     """Score every full batch of the dataset under ``data_dir`` (a path, a
-    list of paths, or a directory of 'shard*' dirs) with the DLRM ``params``.
+    list of paths, or a directory of 'shard*' dirs) with the DLRM ``params``,
+    ``num_epochs`` times over.
 
     Columns default to the dryrun names (d1..dN dense, c1..cM categorical,
     'frames' when the config has a sequence tower); the categorical columns
@@ -147,9 +161,11 @@ def score_files(
         recordType=recordType,
         hash_buckets=hash_buckets,
         pack=pack,
+        num_epochs=num_epochs,
     )
     result = ScoreResult(logits=torch.empty(0))
     outs = []
+    start = time.perf_counter()
     with ds.batches() as it:
         while True:
             t0 = time.perf_counter()
@@ -172,5 +188,7 @@ def score_files(
             result.host_s.append(t1 - t0)
             result.h2d_s.append(t2 - t1)
             result.forward_s.append(t3 - t2)
+            result.done_s.append(t3 - start)
+    result.wall_s = time.perf_counter() - start
     result.logits = torch.cat(outs) if outs else torch.empty(0, device=device)
     return result

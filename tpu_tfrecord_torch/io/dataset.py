@@ -1,104 +1,71 @@
 """Streaming batched read of a TFRecord dataset into ColumnarBatches.
 
-Single-process cut of ``tpu_tfrecord/io/dataset.py::TFRecordDataset``: the
-shards are read in discovery order, records are framed and CRC-checked by
-``wire``, and every ``batch_size`` records decode into one ColumnarBatch, so
-a batch may straddle shards. ``hash_buckets`` and ``pack`` shape the batch
-the way the JAX package's native decoder does: a hashed bytes column carries
-int32 bucket ids in ``values`` (``Column.hash_buckets`` set), and each pack
-group is one ``[B, K]`` matrix column that replaces its members.
+Single-process cut of ``tpu_tfrecord/io/dataset.py::TFRecordDataset`` along
+the JAX package's main path:
 
-Left out against the JAX dataset: threads, shuffling, checkpointable
-positions, stall defense, caching, the data service, autotuning, partition
-columns and column selection.
+- the native decoder (``_native.NativeDecoder``): a local uncompressed shard
+  is mmapped and scanned + decoded in one C++ pass per chunk of
+  ``max(batch_size, 2048)`` records; a gzip or deflate shard streams in
+  slabs of complete frames through ``_native.scan_partial`` and
+  ``decode_spans``. A record type or schema the C++ side cannot represent
+  (``ByteArray``, ``UnsupportedSchemaError``) decodes with the Python
+  ``ColumnarDecoder``; ``decoder="python"`` asks for that decoder on any
+  schema (the tests' oracle). A library that fails to build raises;
+- ``hash_buckets`` and ``pack`` shape the batch as the native decoder does
+  (with either decoder): a hashed bytes column carries int32 bucket ids in
+  ``values`` (``Column.hash_buckets`` set), and each pack group is one
+  ``[B, K]`` matrix column in place of its members;
+- a background producer thread decodes ahead into a queue of ``PREFETCH``
+  batches; the native calls release the GIL, so decode overlaps the
+  consumer. Batches cross chunks, shards and epochs: a chunk that is
+  exactly one batch passes through with no copy, anything else is cut and
+  joined with ``slice_batch`` / ``concat_batches``.
+
+Left out against the JAX dataset: shuffling, checkpointable positions,
+``num_workers > 1``, stall defense, caching, the data service, autotuning,
+partition columns and column selection.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional
+import collections
+import contextlib
+import mmap
+import os
+import queue
+import threading
+import weakref
+from typing import Deque, Dict, Iterator, List, Optional
 
 import numpy as np
 
-from tpu_tfrecord_torch import wire
-from tpu_tfrecord_torch.columnar import Column, ColumnarBatch, ColumnarDecoder
+from tpu_tfrecord_torch import _native, wire
+from tpu_tfrecord_torch.columnar import (
+    Column,
+    ColumnarBatch,
+    ColumnarDecoder,
+    concat_batches,
+    slice_batch,
+)
 from tpu_tfrecord_torch.infer import infer_from_records, type_map_to_schema
 from tpu_tfrecord_torch.io.paths import discover_shards
 from tpu_tfrecord_torch.options import RecordType, TFRecordOptions
-from tpu_tfrecord_torch.schema import (
-    ArrayType,
-    BinaryType,
-    StringType,
-    StructType,
-    numpy_dtype,
-)
+from tpu_tfrecord_torch.schema import StructType
 
-
-def validate_hash_buckets(schema: StructType, hash_buckets) -> Dict[str, int]:
-    """Every hashed column must be a (multi-hot) string/binary data column
-    with a positive bucket count."""
-    out: Dict[str, int] = {}
-    for name, buckets in (hash_buckets or {}).items():
-        if name not in schema:
-            raise ValueError(
-                f"hash_buckets[{name!r}]: no such data column (have {schema.names})"
-            )
-        dt = schema[name].data_type
-        if isinstance(dt, ArrayType):
-            dt = dt.element_type
-        if not isinstance(dt, (StringType, BinaryType)):
-            raise ValueError(f"hash_buckets[{name!r}]: not a string/binary column")
-        b = int(buckets)
-        if b <= 0:
-            raise ValueError(f"hash_buckets[{name!r}] must be positive, got {b}")
-        out[name] = b
-    return out
-
-
-def validate_pack(schema: StructType, pack, hash_buckets) -> Dict[str, List[str]]:
-    """Group names must not collide with columns; members must exist, be
-    scalar, be numeric (or hashed bytes), appear once, and share a dtype."""
-    seen: Dict[str, str] = {}
-    out: Dict[str, List[str]] = {}
-    for gname, members in (pack or {}).items():
-        if gname in schema:
-            raise ValueError(f"pack group {gname!r} collides with a column name")
-        if not members:
-            raise ValueError(f"pack[{gname}]: group has no members")
-        dtypes = set()
-        for m in members:
-            if m in seen:
-                raise ValueError(
-                    f"pack[{gname}]: column {m!r} already in group {seen[m]!r}"
-                    " — a column may be packed once"
-                )
-            seen[m] = gname
-            if m not in schema:
-                raise ValueError(
-                    f"pack[{gname}]: no such data column {m!r} (have {schema.names})"
-                )
-            mdt = schema[m].data_type
-            if isinstance(mdt, ArrayType):
-                raise ValueError(f"pack[{gname}]: {m} is not a scalar column")
-            if isinstance(mdt, (StringType, BinaryType)):
-                if m not in hash_buckets:
-                    raise ValueError(
-                        f"pack[{gname}]: {m} is a bytes column (add it to "
-                        "hash_buckets to pack it)"
-                    )
-                dtypes.add(np.dtype(np.int32))
-            else:
-                dtypes.add(numpy_dtype(mdt))
-        if len(dtypes) != 1:
-            raise ValueError(f"pack[{gname}]: members must share one dtype")
-        out[gname] = list(members)
-    return out
+DECODERS = ("native", "python")
+MIN_CHUNK_RECORDS = 2048
+PREFETCH = 2  # decoded batches queued ahead of the consumer
+SLAB_BYTES = 32 << 20  # decompressed bytes read at a time from a compressed shard
+# a declared record length past this is a corrupt length field
+MAX_RECORD_BYTES = 1 << 30
 
 
 class TFRecordDataset:
     """Plan a streaming read: ``TFRecordDataset(paths, batch_size,
     schema=None, recordType="Example", hash_buckets=None, pack=None,
-    drop_remainder=True)``. Without a schema, it is inferred from the first
-    non-empty shard."""
+    drop_remainder=True, num_epochs=1, decoder="native")``. Without a
+    schema, it is inferred from the first non-empty shard.
+    ``num_epochs=None`` repeats the shards without end."""
 
     def __init__(
         self,
@@ -109,19 +76,37 @@ class TFRecordDataset:
         hash_buckets: Optional[Dict[str, int]] = None,
         pack: Optional[Dict[str, List[str]]] = None,
         drop_remainder: bool = True,
+        num_epochs: Optional[int] = 1,
+        decoder: str = "native",
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if num_epochs is not None and num_epochs < 1:
+            raise ValueError(f"num_epochs must be >= 1 or None, got {num_epochs}")
+        if decoder not in DECODERS:
+            raise ValueError(f"decoder must be one of {DECODERS}, got {decoder!r}")
         self.options = TFRecordOptions.from_map(recordType=recordType, schema=schema)
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder
+        self.num_epochs = num_epochs
         self.shards = discover_shards(paths)
         self.schema: StructType = (
             self.options.schema if self.options.schema is not None else self._infer_schema()
         )
-        self._decoder = ColumnarDecoder(self.schema, self.options.record_type)
-        self.hash_buckets = validate_hash_buckets(self.schema, hash_buckets)
-        self.pack = validate_pack(self.schema, pack, self.hash_buckets)
+        rt = self.options.record_type
+        self._decoder = ColumnarDecoder(self.schema, rt)
+        self.hash_buckets = _native.validate_hash_buckets(self.schema, hash_buckets)
+        self.pack = _native.validate_pack(self.schema, pack, self.hash_buckets)
+        self._native_decoder = (
+            _native.make_decoder(self.schema, rt, self.hash_buckets, self.pack)
+            if decoder == "native"
+            else None
+        )
+
+    @property
+    def decoder(self) -> str:
+        """'native' or 'python': the decoder this dataset's batches come from."""
+        return "python" if self._native_decoder is None else "native"
 
     def _infer_schema(self) -> StructType:
         """Schema of the first non-empty shard whose records yield one."""
@@ -142,11 +127,109 @@ class TFRecordDataset:
             else "Could not infer schema: no input files"
         )
 
-    def _records(self) -> Iterator[bytes]:
-        for shard in self.shards:
-            yield from wire.read_records(shard.path)
+    # -- decode chunks ---------------------------------------------------------
 
-    def _decode(self, records: List[bytes]) -> ColumnarBatch:
+    def _chunks(self) -> Iterator[ColumnarBatch]:
+        """Decoded chunks of every epoch, in shard order."""
+        shards = [sh for sh in self.shards if sh.size]
+        if not shards:
+            return
+        chunk_records = max(self.batch_size, MIN_CHUNK_RECORDS)
+        epoch = 0
+        while self.num_epochs is None or epoch < self.num_epochs:
+            for shard in shards:
+                if self._native_decoder is None:
+                    yield from self._python_chunks(shard.path, chunk_records)
+                elif wire.codec_from_path(shard.path) is None:
+                    yield from self._mmap_chunks(shard.path, chunk_records)
+                else:
+                    yield from self._slab_chunks(shard.path, chunk_records)
+            epoch += 1
+
+    def _mmap_chunks(self, path: str, chunk_records: int) -> Iterator[ColumnarBatch]:
+        """A local uncompressed shard: mmap it and scan + decode straight out
+        of the page cache, one native call per chunk."""
+        dec = self._native_decoder
+        with open(path, "rb") as fh:
+            size = os.fstat(fh.fileno()).st_size
+            if size == 0:
+                return
+            mm = mmap.mmap(fh.fileno(), 0, prot=mmap.PROT_READ)
+            buf = np.frombuffer(mm, np.uint8)
+            try:
+                pos = 0
+                while True:
+                    cb, _, n_done, pos = dec.scan_decode(
+                        buf, pos, True, 0, chunk_records,
+                        length=size, max_record_bytes=MAX_RECORD_BYTES,
+                    )
+                    if n_done == 0:
+                        if pos != size:  # a partial frame is all that is left
+                            raise wire.TFRecordCorruptionError(
+                                f"truncated TFRecord at end of {path}"
+                            )
+                        return
+                    yield cb
+            finally:
+                # decoded chunks copy or own their bytes, so only this view
+                # exports the map's buffer, unless an exception's traceback
+                # still holds it: then the map closes when that is collected
+                del buf
+                try:
+                    mm.close()
+                except BufferError:
+                    pass
+
+    def _slab_spans(self, path: str) -> Iterator[tuple]:
+        """A compressed shard as (buf, offsets, lengths) slabs of complete
+        frames: a partial trailing frame carries into the next slab, and a
+        declared length past MAX_RECORD_BYTES raises instead of buffering
+        the rest of a corrupt shard."""
+        with wire.open_compressed(path, "rb", wire.codec_from_path(path)) as fh:
+            carry = b""
+            while True:
+                want = SLAB_BYTES
+                if len(carry) >= 8:
+                    declared = int.from_bytes(carry[:8], "little")
+                    if declared > MAX_RECORD_BYTES:
+                        raise wire.TFRecordCorruptionError(
+                            f"record length {declared} exceeds {MAX_RECORD_BYTES} "
+                            f"in {path}: corrupt length field?"
+                        )
+                    want = max(want, 16 + declared - len(carry))
+                data = fh.read(want)
+                if not data:
+                    if carry:
+                        raise wire.TFRecordCorruptionError(
+                            f"truncated TFRecord at end of {path}"
+                        )
+                    return
+                buf = carry + data if carry else data
+                offsets, lengths, consumed = _native.scan_partial(buf)
+                carry = buf[consumed:]
+                if len(offsets):
+                    yield buf, offsets, lengths
+
+    def _slab_chunks(self, path: str, chunk_records: int) -> Iterator[ColumnarBatch]:
+        dec = self._native_decoder
+        for buf, offsets, lengths in self._slab_spans(path):
+            for start in range(0, len(offsets), chunk_records):
+                stop = start + chunk_records
+                yield dec.decode_spans(buf, offsets[start:stop], lengths[start:stop])
+
+    def _python_chunks(self, path: str, chunk_records: int) -> Iterator[ColumnarBatch]:
+        records: List[bytes] = []
+        for rec in wire.read_records(path):
+            records.append(rec)
+            if len(records) == chunk_records:
+                yield self._python_decode(records)
+                records = []
+        if records:
+            yield self._python_decode(records)
+
+    def _python_decode(self, records: List[bytes]) -> ColumnarBatch:
+        """``ColumnarDecoder``, then the hashing and packing that the native
+        decoder fuses into its decode."""
         from tpu_tfrecord_torch.device.ingest import hash_bytes_column
 
         batch = self._decoder.decode_batch(records)
@@ -168,36 +251,122 @@ class TFRecordDataset:
             cols[gname] = Column(gname, self.schema[members[0]].data_type, values=values)
         return ColumnarBatch(cols, batch.num_rows)
 
-    def _batches(self) -> Iterator[ColumnarBatch]:
-        pending: List[bytes] = []
-        for rec in self._records():
-            pending.append(rec)
-            if len(pending) == self.batch_size:
-                yield self._decode(pending)
-                pending = []
-        if pending and not self.drop_remainder:
-            yield self._decode(pending)
+    # -- batches ---------------------------------------------------------------
 
     def batches(self) -> "BatchIterator":
-        """One pass over the dataset; iterate it, or use it in a ``with``
-        block so an early exit closes the open shard."""
-        return BatchIterator(self._batches())
+        """One run over ``num_epochs`` epochs, decoded ahead by a producer
+        thread. Use it in a ``with`` block (or call ``close()``) so an early
+        exit stops and joins the thread."""
+        return BatchIterator(self)
+
+
+def _take(pending: Deque[list], n: int) -> ColumnarBatch:
+    """The next ``n`` rows of the pending [chunk, rows_used] entries."""
+    chunk, used = pending[0]
+    if used == 0 and chunk.num_rows == n:
+        # aligned: the chunk is the batch, its buffers pass through uncopied
+        pending.popleft()
+        return chunk
+    parts = []
+    while n:
+        entry = pending[0]
+        chunk, used = entry
+        take = min(n, chunk.num_rows - used)
+        parts.append(slice_batch(chunk, used, used + take))
+        n -= take
+        entry[1] = used + take
+        if entry[1] == chunk.num_rows:
+            pending.popleft()
+    return concat_batches(parts)
+
+
+def _put(out: queue.Queue, item, stop: threading.Event) -> bool:
+    """Enqueue, polling ``stop`` so that a consumer that went away never
+    leaves the producer blocked on a full queue."""
+    while not stop.is_set():
+        try:
+            out.put(item, timeout=0.1)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def _produce(ds: TFRecordDataset, out: queue.Queue, stop: threading.Event) -> None:
+    """The producer thread: batches, then None at the end, or the exception
+    that stopped it. A module-level function, so the thread holds no
+    reference to the iterator and an abandoned iterator can be collected."""
+    try:
+        with contextlib.closing(ds._chunks()) as chunks:
+            pending: Deque[list] = collections.deque()
+            avail = 0
+            for chunk in chunks:
+                if stop.is_set():
+                    return
+                if chunk.num_rows == 0:
+                    continue
+                pending.append([chunk, 0])
+                avail += chunk.num_rows
+                while avail >= ds.batch_size:
+                    if not _put(out, _take(pending, ds.batch_size), stop):
+                        return
+                    avail -= ds.batch_size
+            if avail and not ds.drop_remainder:
+                if not _put(out, _take(pending, avail), stop):
+                    return
+        _put(out, None, stop)
+    except BaseException as e:  # re-raised in the consumer by BatchIterator.__next__
+        _put(out, e, stop)
 
 
 class BatchIterator:
-    """Iterator over ColumnarBatches that is also a context manager."""
+    """Iterator over the batches a producer thread decodes ahead; also a
+    context manager. An exception in the producer is raised here, at the
+    batch where it happened."""
 
-    def __init__(self, gen: Iterator[ColumnarBatch]):
-        self._gen = gen
+    def __init__(self, ds: TFRecordDataset):
+        self._queue: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        self._stop = threading.Event()
+        self._done = False
+        self._thread = threading.Thread(
+            target=_produce, args=(ds, self._queue, self._stop),
+            name="tfrecord-producer", daemon=True,
+        )
+        # an iterator dropped without close() still stops its producer
+        self._finalizer = weakref.finalize(self, self._stop.set)
+        self._thread.start()
 
     def __iter__(self) -> "BatchIterator":
         return self
 
     def __next__(self) -> ColumnarBatch:
-        return next(self._gen)
+        if self._done:
+            raise StopIteration
+        while True:
+            try:
+                item = self._queue.get(timeout=0.1)
+                break
+            except queue.Empty:
+                if self._stop.is_set():  # close()d
+                    self._done = True
+                    raise StopIteration
+        if item is None or isinstance(item, BaseException):
+            self.close()
+            if item is None:
+                raise StopIteration
+            raise item
+        return item
 
     def close(self) -> None:
-        self._gen.close()
+        """Stop the producer, drop the batches it queued, and join it."""
+        self._done = True
+        self._stop.set()
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join()
 
     def __enter__(self) -> "BatchIterator":
         return self

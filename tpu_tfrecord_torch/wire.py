@@ -8,8 +8,10 @@ with the uncompressed, gzip and deflate codecs. Frame layout per record::
     bytes   data[length]
     uint32  masked_crc32c(data)
 
-CRC32C here is pure Python (slicing-by-8): correct, and the largest share
-of the port's host time per batch.
+``crc32c`` goes through the native library (``_native.crc32c``, hardware
+CRC32 on x86-64), which is built at its first call; ``crc32c_py`` is the
+slicing-by-8 pure-Python version, kept as the oracle the tests hold the
+native one against.
 """
 
 from __future__ import annotations
@@ -45,8 +47,8 @@ def _make_tables(n: int = 8) -> List[List[int]]:
 _T0, _T1, _T2, _T3, _T4, _T5, _T6, _T7 = _make_tables(8)
 
 
-def crc32c(data: bytes, crc: int = 0) -> int:
-    """CRC32C of ``data`` (slicing-by-8), continuing from ``crc``."""
+def crc32c_py(data: bytes, crc: int = 0) -> int:
+    """CRC32C of ``data`` (slicing-by-8 in Python), continuing from ``crc``."""
     crc = crc ^ 0xFFFFFFFF
     n = len(data)
     i = 0
@@ -71,6 +73,14 @@ def crc32c(data: bytes, crc: int = 0) -> int:
         crc = (crc >> 8) ^ _T0[(crc ^ data[i]) & 0xFF]
         i += 1
     return crc ^ 0xFFFFFFFF
+
+
+def crc32c(data: bytes) -> int:
+    """CRC32C of ``data`` through the native library."""
+    # imported here, not at the top: _native imports options, which imports wire
+    from tpu_tfrecord_torch import _native
+
+    return _native.crc32c(data)
 
 
 _MASK_DELTA = 0xA282EAD8

@@ -36,6 +36,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its kernels (torch.profiler), the steady rows/s over batches 2-16, host
    and H2D ms per batch, and the card's idle share.
 
+5. Training at full width, in phase 4's shards. The sparse path:
+   ``train_files(sparse=True, shuffle=True, shuffle_window=2, seed=0)``
+   over 8 epochs (16 steps of 16,384 rows: Adam(1e-3) on the MLPs,
+   row-wise AdaGrad on the table at embed_lr 0.01) with its own counter
+   window; every loss finite, 16 ``bf16_mma`` launches and 0 ``f32_simt``;
+   the losses and the table match a run from the same weights under the
+   plain interaction (plain forward, autograd backward). The dense path:
+   ``train_files(sparse=False)`` over one shard for 2 epochs (2 steps,
+   Adam over every parameter, the table's 3.49 GB gradient included),
+   the same checks. The interaction's backward (``DotInteraction``)
+   against autograd through the plain version at (16384, 27, 32) in bf16
+   and f32, with its device time (graph replay) beside the kernel's. Then
+   where a training step's time goes: one sparse step's time on a resident
+   batch (CUDA events, back to back), its profile by part (gather,
+   forward, interaction backward, the rest of the backward, Adam, sort,
+   segment sums, scatters), the loop's rows/s (whole and steps 2-16), host,
+   H2D and step ms per step, and the device's idle share.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -47,6 +65,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -459,42 +478,52 @@ def score_path(label, paths, cfg, model, tol, **kw):
     return res, launches
 
 
-def main_path() -> dict:
-    """Full-width Criteo DLRM scoring from TFRecord files, in bf16 (the main
-    path) and in f32 activations; returns each kernel instance's launches
-    on the path that runs it."""
-    from tpu_tfrecord_torch.device.ingest import make_device_batch
-    from tpu_tfrecord_torch.models.dlrm import DLRMConfig, init_params, make_synthetic_batch
+def criteo_cfg():
+    from tpu_tfrecord_torch.models.dlrm import DLRMConfig
 
-    cfg = DLRMConfig(num_dense=13, num_categorical=26, vocab_size=VOCAB, embed_dim=32,
-                     bottom_mlp=(64, 32), top_mlp=(64, 1), interaction="dot",
-                     dtype=torch.bfloat16)
+    return DLRMConfig(num_dense=13, num_categorical=26, vocab_size=VOCAB, embed_dim=32,
+                      bottom_mlp=(64, 32), top_mlp=(64, 1), interaction="dot",
+                      dtype=torch.bfloat16)
+
+
+def criteo_files_kw() -> dict:
+    """The keywords of ``score_files`` / ``train_files`` for the Criteo shards."""
+    read = criteo_read_kw()
+    return dict(recordType="Example", schema=read["schema"],
+                dense_cols=read["pack"]["dense"], cat_cols=read["pack"]["cat"])
+
+
+def main_path(data_dir: str) -> dict:
+    """Full-width Criteo DLRM scoring from TFRecord files written into
+    ``data_dir``, in bf16 (the main path) and in f32 activations; returns
+    each kernel instance's launches on the path that runs it."""
+    from tpu_tfrecord_torch.device.ingest import make_device_batch
+    from tpu_tfrecord_torch.models.dlrm import init_params, make_synthetic_batch
+
+    cfg = criteo_cfg()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     model_f32 = with_dtype(model, torch.float32)
     table_gb = model.embeddings.numel() * model.embeddings.element_size() / 1e9
     print(f"DLRM at Criteo width: table {tuple(model.embeddings.shape)} f32 = {table_gb:.2f} GB on the card")
-    read = criteo_read_kw()
-    kw = dict(recordType="Example", schema=read["schema"],
-              dense_cols=read["pack"]["dense"], cat_cols=read["pack"]["cat"], log1p_dense=True)
+    kw = dict(criteo_files_kw(), log1p_dense=True)
     # warm-up forwards (cuBLAS handles, allocator) outside the counted runs
     warm = make_device_batch(make_synthetic_batch(cfg, BATCH, seed=1), "cuda")
     model(warm)
     model_f32(warm)
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_dir:
-        t0 = time.perf_counter()
-        write_criteo(data_dir)
-        print(f"wrote {CRITEO_SHARDS} x {CRITEO_ROWS_PER_SHARD} Example rows in "
-              f"{time.perf_counter() - t0:.1f} s (host)")
-        decode_only(data_dir)
-        res, bf16 = score_path("main path (bf16)", data_dir, cfg, model, 2e-2,
-                               num_epochs=EPOCHS, **kw)
-        if res.batches != EPOCHS * CRITEO_SHARDS:
-            raise SystemExit(f"main path scored {res.batches} batches, "
-                             f"want {EPOCHS * CRITEO_SHARDS}")
-        _, f32 = score_path("f32 path (shard00)", os.path.join(data_dir, "shard00"),
-                            model_f32.cfg, model_f32, 1e-3, **kw)
-        check_native_vs_python(data_dir)
+    t0 = time.perf_counter()
+    write_criteo(data_dir)
+    print(f"wrote {CRITEO_SHARDS} x {CRITEO_ROWS_PER_SHARD} Example rows in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    decode_only(data_dir)
+    res, bf16 = score_path("main path (bf16)", data_dir, cfg, model, 2e-2,
+                           num_epochs=EPOCHS, **kw)
+    if res.batches != EPOCHS * CRITEO_SHARDS:
+        raise SystemExit(f"main path scored {res.batches} batches, "
+                         f"want {EPOCHS * CRITEO_SHARDS}")
+    _, f32 = score_path("f32 path (shard00)", os.path.join(data_dir, "shard00"),
+                        model_f32.cfg, model_f32, 1e-3, **kw)
+    check_native_vs_python(data_dir)
     profile_forward(model, warm, res)
     return {"bf16_mma": bf16["bf16_mma"], "f32_simt": f32["f32_simt"]}
 
@@ -530,6 +559,215 @@ def profile_forward(model, batch, res) -> None:
           f"~{1 - busy / window:.4f}")
 
 
+# tolerances of phase 5 against the plain-interaction runs: the losses at
+# the bf16 tolerance of the scoring path; the table after the steps
+# absolutely (a row moves by about embed_lr = 0.01 a step)
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_TABLE_ATOL = 5e-3
+TRAIN_SPARSE_EPOCHS = 8  # both shards: 16 steps
+TRAIN_DENSE_EPOCHS = 2   # one shard: 2 steps
+TRAIN_SEED = 0
+
+
+def new_criteo_model():
+    from tpu_tfrecord_torch.models.dlrm import init_params
+
+    return init_params(criteo_cfg(), torch.Generator(device="cuda").manual_seed(TRAIN_SEED), "cuda")
+
+
+def free_cuda() -> None:
+    """Collect what the caller dropped and hand the cached blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_run(label, paths, steps, sparse, epochs, **kw):
+    """``train_files`` on a fresh full-width model with the counts set to 0
+    just before and read just after; then the same run from the same seed
+    under the plain interaction. Checks the launches, finite losses, the
+    losses and the table against the plain run (rows neither run moved must
+    be bit-equal). Returns (TrainResult, launches, model)."""
+    from tpu_tfrecord_torch.entry import train_files
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    cfg = criteo_cfg()
+    model = new_criteo_model()
+    reset_launch_counts()
+    res = train_files(paths, cfg, model, BATCH, "cuda", sparse=sparse, num_epochs=epochs, **kw)
+    launches = dict(dot_interaction.instance_launches)
+    want = {"bf16_mma": steps, "f32_simt": 0}
+    if res.steps != steps or not torch.isfinite(res.losses).all() or launches != want:
+        raise SystemExit(f"{label}: {res.steps} steps (want {steps}), launches {launches} "
+                         f"(want {want}), losses {res.losses}")
+    # the plain twin: the table is compared row by row, then the twin is freed
+    twin = new_criteo_model()
+    with plain_interaction():
+        ref = train_files(paths, cfg, twin, BATCH, "cuda", sparse=sparse, num_epochs=epochs, **kw)
+    ref.opt = None  # the twin's optimizer state goes with the twin
+    for i in range(res.steps):
+        print(f"{label} step {i}: loss {res.losses[i].item():.6f} (plain "
+              f"{ref.losses[i].item():.6f}); host (wait + densify) {res.host_s[i] * 1e3:.2f} ms, "
+              f"h2d {res.h2d_s[i] * 1e3:.3f} ms, step {res.step_s[i] * 1e3:.3f} ms, "
+              f"done at {res.done_s[i]:.4f} s")
+    loss_err = (res.losses - ref.losses).abs().max().item()
+    with torch.no_grad():
+        init = new_criteo_model().embeddings
+        moved = torch.maximum((model.embeddings - init).abs().amax(-1),
+                              (twin.embeddings - init).abs().amax(-1)) > 0     # [F, V]
+        del init
+        row_err = (model.embeddings - twin.embeddings).abs().amax(-1)          # [F, V]
+        table_err = row_err.max().item()
+        still_equal = bool((row_err[~moved] == 0).all())
+        n_moved = int(moved.sum())
+        del row_err, moved
+    del twin
+    free_cuda()
+    print(f"{label}: {res.steps} steps, kernel launches {launches}; max |loss - plain loss| = "
+          f"{loss_err} (tol {TRAIN_LOSS_TOL}); {n_moved} table rows moved, max |row - plain row| = "
+          f"{table_err} (atol {TRAIN_TABLE_ATOL}); rows neither run moved bit-equal: {still_equal}")
+    if not torch.allclose(res.losses, ref.losses, rtol=TRAIN_LOSS_TOL, atol=TRAIN_LOSS_TOL):
+        raise SystemExit(f"{label}: losses {res.losses} disagree with the plain run's {ref.losses}")
+    if table_err > TRAIN_TABLE_ATOL or not still_equal:
+        raise SystemExit(f"{label}: the table disagrees with the plain-interaction run")
+    return res, launches, model
+
+
+def check_backward() -> dict:
+    """``DotInteraction``'s gradient against autograd through the plain
+    version at the main-path shape, both dtypes, and the backward's device
+    time (graph replay) and bound. Returns per instance
+    {backward_max_abs_err, backward_ms, backward_bound_ms}."""
+    from tpu_tfrecord_torch.models.interaction import (
+        dot_interaction,
+        dot_interaction_backward_reference,
+        dot_interaction_reference,
+    )
+
+    tol = {torch.float32: dict(atol=1e-4, rtol=1e-5), torch.bfloat16: dict(atol=1e-2, rtol=8e-3)}
+    b, f, d = MAIN_SHAPE
+    p = f * (f - 1) // 2
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for instance, dtype in INSTANCE_DTYPE.items():
+        base = torch.randn(MAIN_SHAPE, generator=gen, device="cuda").to(dtype)
+        g = torch.randn((b, p), generator=gen, device="cuda").to(dtype)
+        emb = base.clone().requires_grad_()
+        dot_interaction(emb).backward(g)
+        ref = base.clone().requires_grad_()
+        dot_interaction_reference(ref).backward(g)
+        torch.cuda.synchronize()
+        err = (emb.grad.float() - ref.grad.float()).abs().max().item()
+        ok = torch.allclose(emb.grad.float(), ref.grad.float(), **tol[dtype])
+        elt = base.element_size()
+        nbytes = 2 * b * f * d * elt + b * p * elt        # E and g in, dE out
+        nops = 4 * b * p * d                               # each pair feeds two rows
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS_PER_S[torch.float32]) * 1e3
+        out[instance] = dict(
+            backward_max_abs_err=err,
+            backward_ms=graph_ms(lambda: dot_interaction_backward_reference(base, g)),
+            backward_bound_ms=bound,
+        )
+        print(f"interaction backward at {MAIN_SHAPE} {str(dtype)[6:]}: DotInteraction vs autograd "
+              f"through the plain version max_abs_err={err} {'ok' if ok else 'MISMATCH'} "
+              f"({tol[dtype]}); device time per call (CUDA graph replay): backward "
+              f"{out[instance]['backward_ms']:.4f} ms (torch ops: scatter, transpose add, f32 bmm); "
+              f"bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP at the f32 rate)")
+        if not ok:
+            raise SystemExit(f"interaction backward disagrees with autograd at {dtype}")
+    return out
+
+
+def step_split(events):
+    """(device ms of all kernels, {part: device ms}) of one profiled sparse
+    step. The step's named ranges ("sparse_step.<part>") hold the kernels
+    their ops launched; the backward runs on autograd's device thread, so
+    it is read from the engine's per-node events instead: the interaction's
+    node (DotInteractionBackward) and all the others (the MLPs, the casts,
+    the concat and the gather's row gradient)."""
+    from torch.autograd import DeviceType
+
+    kernels = sum(e.time_range.elapsed_us() for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    parts = {name: sum(e.device_time_total for e in cpu if e.name == f"sparse_step.{name}") / 1e3
+             for name in ("gather", "forward", "dense_opt", "dedup_sort", "segment_sums",
+                          "scatters")}
+    nodes = [e for e in cpu if e.name.startswith("autograd::engine::evaluate_function:")]
+    inter = sum(e.device_time_total for e in nodes if "DotInteractionBackward" in e.name) / 1e3
+    parts["interaction_backward"] = inter
+    parts["rest_of_backward"] = sum(e.device_time_total for e in nodes) / 1e3 - inter
+    return kernels / 1e3, parts
+
+
+def profile_sparse_step(model, opt, res) -> None:
+    """Where a sparse step's time goes: its time on a resident full-width
+    batch (CUDA events over steps back to back), one step by
+    torch.profiler split by part, and the training loop's rows/s, host /
+    H2D / step ms and the card's idle share, whole and over steps 2-16."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_tfrecord_torch.device.ingest import make_device_batch
+    from tpu_tfrecord_torch.models.dlrm import make_synthetic_batch, sparse_train_step
+
+    cfg = model.cfg
+    batch = make_device_batch(make_synthetic_batch(cfg, BATCH, seed=2), "cuda")
+    batch["cat"] = batch["cat"].int()
+    step = lambda: sparse_train_step(model, opt, batch, cfg)  # noqa: E731
+    step_ms = median_ms(step, warmup=3, reps=7, calls=5)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    print(f"sparse step at batch {BATCH}: {step_ms:.4f} ms per step, back to back (CUDA events; "
+          "host launch included where it is slower than the card); one step by torch.profiler:")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+    kernels_ms, parts = step_split(prof.events())
+    print("sparse step split (device ms of the kernels each part launched, torch.profiler): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f"; all kernels {kernels_ms:.4f}")
+    if kernels_ms <= 0:
+        print("torch.profiler recorded no device time: the split is not measured")
+    dev_step_ms = kernels_ms if kernels_ms > 0 else step_ms
+    busy = sum(res.h2d_s) + res.steps * dev_step_ms / 1e3
+    print(f"sparse training run, {res.steps} steps: {res.steps * BATCH / res.wall_s:.1f} rows/s end to "
+          f"end over {res.wall_s:.4f} s of wall time (first batch's decode included); device idle "
+          f"share ~{1 - busy / res.wall_s:.4f} (1 - (h2d + steps x {dev_step_ms:.4f} ms device "
+          "time) / wall time)")
+    steady = res.steps - 1
+    window = res.done_s[-1] - res.done_s[0]
+    busy = sum(res.h2d_s[1:]) + steady * dev_step_ms / 1e3
+    host_ms, h2d_ms, st_ms = (np.array(x[1:]) * 1e3 for x in (res.host_s, res.h2d_s, res.step_s))
+    print(f"steady state, steps 2-{res.steps}: {steady * BATCH / window:.1f} rows/s; per step host "
+          f"(wait + densify) {host_ms.mean():.3f} ms mean, {np.median(host_ms):.3f} median; h2d "
+          f"{h2d_ms.mean():.3f} ms mean, {np.median(h2d_ms):.3f} median; step (host clock, "
+          f"synchronized) {st_ms.mean():.3f} ms mean, {np.median(st_ms):.3f} median; device idle "
+          f"share ~{1 - busy / window:.4f}")
+
+
+def train_path(data_dir: str) -> dict:
+    """Phase 5: the sparse and the dense training paths at full width over
+    phase 4's shards, the backward check and the step's profile. Returns
+    each kernel instance's launches over both training paths and the
+    backward's numbers."""
+    kw = criteo_files_kw()
+    res, sparse, model = train_run(
+        "sparse training (shuffled)", data_dir, TRAIN_SPARSE_EPOCHS * CRITEO_SHARDS, True,
+        TRAIN_SPARSE_EPOCHS, shuffle=True, shuffle_window=2, seed=0, **kw)
+    profile_sparse_step(model, res.opt, res)
+    del model, res
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    _, dense, model = train_run(
+        "dense training (shard00)", os.path.join(data_dir, "shard00"), TRAIN_DENSE_EPOCHS, False,
+        TRAIN_DENSE_EPOCHS, **kw)
+    print(f"dense path: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          "(the model, its dense gradient and Adam state, and the plain twin's)")
+    del model
+    free_cuda()
+    backward = check_backward()
+    return {k: dict(train_launches=sparse[k] + dense[k], **backward[k]) for k in INSTANCE_DTYPE}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -555,7 +793,10 @@ def main() -> int:
     errs = check_interaction()
     check_small_forward()
     timing = {k: time_interaction(dtype) for k, dtype in INSTANCE_DTYPE.items()}
-    launches = main_path()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_dir:
+        launches = main_path(data_dir)
+        free_cuda()
+        train = train_path(data_dir)
     design = {
         "bf16_mma": "mma.sync m16n8k16 bf16 Gram, cp.async 16-byte double-buffered "
                     "staging, persistent grid, 16-byte stores through shared memory",
@@ -570,6 +811,7 @@ def main() -> int:
         launches=launches[k],
         max_abs_err=errs[k],
         **timing[k],
+        **train[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -23,8 +23,12 @@ from tpu_tfrecord_torch.models.dlrm import (  # noqa: E402
     DLRMConfig,
     init_params,
     make_synthetic_batch,
+    sparse_opt_init,
+    sparse_train_step,
+    train_step,
 )
 from tpu_tfrecord_torch.models.interaction import (  # noqa: E402
+    DotInteraction,
     dot_interaction,
     dot_interaction_cuda,
     dot_interaction_reference,
@@ -116,3 +120,55 @@ def test_score_files_on_card_launches_once_per_batch(cuda_device, tmp_path):
     want = score_files(str(tmp_path), cfg, model.to("cpu"), 8, "cpu")
     assert res.logits.device.type == "cuda"
     np.testing.assert_allclose(res.logits.cpu().numpy(), want.logits.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", CHECK_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_forward_is_differentiable(cuda_device, shape, dtype):
+    """On a CUDA E that requires grad the kernel's output carries a
+    grad_fn, and E gets the plain version's gradient: without it the pairs
+    would train as constants."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    base = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn((shape[0], shape[1] * (shape[1] - 1) // 2), generator=gen,
+                    device=cuda_device).to(dtype)
+    emb = base.clone().requires_grad_()
+    before = dot_interaction.instance_launches[INSTANCE[dtype]]
+    out = dot_interaction(emb)
+    assert isinstance(out.grad_fn, DotInteraction._backward_cls)
+    assert dot_interaction.instance_launches[INSTANCE[dtype]] == before + 1
+    out.backward(g)
+    assert dot_interaction.instance_launches[INSTANCE[dtype]] == before + 1  # forward only
+    ref = base.clone().requires_grad_()
+    dot_interaction_reference(ref).backward(g)
+    torch.testing.assert_close(emb.grad.float(), ref.grad.float(), **TOL[dtype])
+
+
+TRAIN = dict(num_dense=4, num_categorical=3, vocab_size=16, embed_dim=8,
+             bottom_mlp=(8, 8), top_mlp=(8, 1), interaction="dot", dtype=torch.float32)
+
+
+@pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "dense"])
+def test_train_steps_card_match_cpu(cuda_device, sparse):
+    cfg = DLRMConfig(**TRAIN)
+    card = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(4), cuda_device)
+    cpu = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(4), cuda_device).to("cpu")
+    host = make_synthetic_batch(cfg, 37, seed=5)
+    host["cat"] = np.random.default_rng(6).integers(0, 5, size=host["cat"].shape)  # duplicates
+    adam = lambda ps: torch.optim.Adam(ps, lr=1e-2)  # noqa: E731
+    states = [sparse_opt_init(m, cfg, adam) if sparse else adam(list(m.parameters()))
+              for m in (card, cpu)]
+    before = dot_interaction.launches
+    for _ in range(3):
+        losses = []
+        for model, state, device in ((card, states[0], cuda_device), (cpu, states[1], "cpu")):
+            batch = make_device_batch(host, device)
+            step = (sparse_train_step(model, state, batch, cfg) if sparse
+                    else train_step(model, state, batch))
+            losses.append(step.cpu())
+        torch.testing.assert_close(losses[0], losses[1], rtol=1e-4, atol=1e-5)
+    assert dot_interaction.launches == before + 3
+    for (name, a), (_, b) in zip(card.state_dict().items(), cpu.state_dict().items()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5, msg=name)
+    if sparse:
+        torch.testing.assert_close(states[0].accum.cpu(), states[1].accum, rtol=1e-4, atol=1e-7)

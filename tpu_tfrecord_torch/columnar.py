@@ -1,10 +1,10 @@
 """Columnar batch decoding: serialized records -> numpy column buffers.
 
 Copy of ``tpu_tfrecord/columnar.py`` (the pure-Python decoder, the row
-slice and concatenation that cut batches out of decode chunks, and the
-ragged padders). A batch of serialized tf.Example records decodes STRAIGHT
-into per-column numpy buffers — no per-record row objects, no per-field
-boxing:
+slice and concatenation that cut batches out of decode chunks, the row
+gather of the windowed shuffle, and the ragged padders). A batch of
+serialized tf.Example records decodes STRAIGHT into per-column numpy
+buffers — no per-record row objects, no per-field boxing:
 
 - numeric scalar column  -> values[N] + validity mask[N]
 - numeric array column   -> ragged: values[total] + offsets[N+1]
@@ -338,7 +338,8 @@ class ColumnarDecoder:
 
 
 # ---------------------------------------------------------------------------
-# Row slices and concatenation (batches that cross decode chunks and shards)
+# Row slices, concatenation (batches that cross decode chunks and shards)
+# and row gathers (the windowed shuffle)
 # ---------------------------------------------------------------------------
 
 
@@ -416,6 +417,75 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
             )
         out[name] = new
     return ColumnarBatch(out, sum(b.num_rows for b in batches))
+
+
+def _span_gather(offsets: np.ndarray, idx: np.ndarray):
+    """Gather plan for variable spans: for span ids ``idx`` over
+    ``offsets``, (flat element indices, new offsets) that lay spans
+    idx[0], idx[1], ... out one after another."""
+    offsets = np.asarray(offsets)
+    lengths = np.diff(offsets)[idx]
+    new_offsets = np.empty(len(idx) + 1, dtype=np.int64)
+    new_offsets[0] = 0
+    np.cumsum(lengths, out=new_offsets[1:])
+    total = int(new_offsets[-1])
+    starts = offsets[idx]
+    # element j of the output is starts[span(j)] + (j - new_offsets[span(j)])
+    flat = (
+        np.repeat(starts, lengths)
+        + np.arange(total, dtype=np.int64)
+        - np.repeat(new_offsets[:-1], lengths)
+    )
+    return flat, new_offsets
+
+
+def _gather_blob(col: Column, new: Column, value_idx: np.ndarray) -> None:
+    """Rebuild blob/blob_offsets for the values at ``value_idx``, in order."""
+    bflat, new_bo = _span_gather(col.blob_offsets, value_idx)
+    new.blob = np.frombuffer(col.blob, dtype=np.uint8)[bflat].tobytes()
+    new.blob_offsets = new_bo
+
+
+def take_rows(batch: ColumnarBatch, indices) -> ColumnarBatch:
+    """Row gather: a new batch whose row i is row ``indices[i]`` of
+    ``batch`` (the windowed row shuffle's primitive). One vectorized pass
+    per column over every layout: scalar, ragged, ragged^2, bytes-like,
+    hashed, and [N, K] group matrices."""
+    raw = np.asarray(indices)
+    if raw.dtype == np.bool_:
+        # a mask would cast to 0/1 positions without a word
+        raise TypeError(
+            "take_rows takes integer row positions, not a boolean mask; "
+            "use np.nonzero(mask)[0]"
+        )
+    idx = raw.astype(np.int64, copy=False)
+    if idx.ndim != 1:
+        raise ValueError(f"take_rows expects 1-D indices, got shape {idx.shape}")
+    if idx.size and (idx.min() < 0 or idx.max() >= batch.num_rows):
+        raise IndexError(f"take_rows indices out of range for {batch.num_rows} rows")
+    out: Dict[str, Column] = {}
+    for name, col in batch.columns.items():
+        new = Column(
+            name,
+            col.dtype,
+            mask=col.mask[idx] if col.mask is not None else None,
+            hash_buckets=col.hash_buckets,
+        )
+        if col.inner_offsets is not None:  # ragged2: rows -> inner lists -> values
+            inner_idx, new_off = _span_gather(col.offsets, idx)
+            vflat, new_inner = _span_gather(col.inner_offsets, inner_idx)
+            new.offsets = new_off
+            new.inner_offsets = new_inner
+        elif col.offsets is not None:  # ragged: rows -> values
+            vflat, new.offsets = _span_gather(col.offsets, idx)
+        else:  # scalar (1-D values, or a [N, K] group matrix)
+            vflat = idx
+        if col.values is not None:
+            new.values = np.asarray(col.values)[vflat]
+        if col.blob is not None:
+            _gather_blob(col, new, vflat)
+        out[name] = new
+    return ColumnarBatch(out, len(idx))
 
 
 def _concat_offsets(offset_arrays: List[np.ndarray]) -> np.ndarray:

@@ -9,6 +9,11 @@ The JAX parameters, as numpy arrays, are a dict::
 
 ``nn.Linear`` keeps ``weight`` as [out, in], so ``w`` is transposed on the
 way in and back on the way out. Values stay float32 and are copied exactly.
+
+The sparse step's row-wise AdaGrad accumulators ([F, V] float32, the
+``accum`` of both packages' ``SparseEmbOptState``) move the same way, so
+both sides can start from one mid-training state. The optimizer state of
+the MLPs (optax's on one side, ``torch.optim``'s on the other) does not.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from tpu_tfrecord_torch.models.dlrm import DLRM, DLRMConfig
+from tpu_tfrecord_torch.models.dlrm import DLRM, DLRMConfig, SparseEmbOptState
 
 
 def _f32(a) -> torch.Tensor:
@@ -74,3 +79,22 @@ def dlrm_params_to_jax(model: DLRM) -> Dict[str, Any]:
     if model.seq_proj is not None:
         out["seq_proj"] = linear(model.seq_proj)
     return out
+
+
+def sparse_opt_state_from_jax(
+    state, cfg: DLRMConfig, dense: torch.optim.Optimizer, device="cuda"
+) -> SparseEmbOptState:
+    """A ``SparseEmbOptState`` on ``device`` whose accumulators are those of
+    the JAX package's ``SparseEmbOptState`` (or of its ``accum`` array)
+    ``state``, beside the port's optimizer ``dense`` over the MLPs."""
+    accum = np.asarray(getattr(state, "accum", state))
+    want = (cfg.num_categorical, cfg.vocab_size)
+    if accum.shape != want:
+        raise ValueError(f"accum {accum.shape} != {want}")
+    return SparseEmbOptState(dense=dense, accum=_f32(accum).to(device))
+
+
+def sparse_opt_state_to_jax(state: SparseEmbOptState) -> np.ndarray:
+    """The accumulators [F, V] as a float32 numpy array, the ``accum`` of a
+    JAX ``SparseEmbOptState``."""
+    return state.accum.detach().float().cpu().numpy().copy()

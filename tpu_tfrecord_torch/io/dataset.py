@@ -21,9 +21,19 @@ the JAX package's main path:
   exactly one batch passes through with no copy, anything else is cut and
   joined with ``slice_batch`` / ``concat_batches``.
 
-Left out against the JAX dataset: shuffling, checkpointable positions,
-``num_workers > 1``, stall defense, caching, the data service, autotuning,
-partition columns and column selection.
+- ``shuffle`` permutes the shard order of each epoch with a permutation
+  drawn from ``(seed, epoch)``, over every shard, empty ones included;
+  ``shuffle_window`` > 0 permutes rows inside windows of that many batches,
+  each window's permutation seeded by ``seed`` and the window's start
+  position ``(epoch, shard cursor, record offset)``. Windows cross shards
+  and epochs; the last, short window keeps its partial batch unless
+  ``drop_remainder``. Batches equal the JAX dataset's for the same
+  arguments.
+
+Left out against the JAX dataset: checkpointable positions (the
+positions above only seed the windows), ``num_workers > 1``, stall
+defense, caching, the data service, autotuning, partition columns and
+column selection.
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ import os
 import queue
 import threading
 import weakref
-from typing import Deque, Dict, Iterator, List, Optional
+from typing import Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -46,6 +56,7 @@ from tpu_tfrecord_torch.columnar import (
     ColumnarDecoder,
     concat_batches,
     slice_batch,
+    take_rows,
 )
 from tpu_tfrecord_torch.infer import infer_from_records, type_map_to_schema
 from tpu_tfrecord_torch.io.paths import discover_shards
@@ -63,9 +74,10 @@ MAX_RECORD_BYTES = 1 << 30
 class TFRecordDataset:
     """Plan a streaming read: ``TFRecordDataset(paths, batch_size,
     schema=None, recordType="Example", hash_buckets=None, pack=None,
-    drop_remainder=True, num_epochs=1, decoder="native")``. Without a
-    schema, it is inferred from the first non-empty shard.
-    ``num_epochs=None`` repeats the shards without end."""
+    drop_remainder=True, num_epochs=1, decoder="native", shuffle=False,
+    shuffle_window=0, seed=0)``. Without a schema, it is inferred from the
+    first non-empty shard. ``num_epochs=None`` repeats the shards without
+    end."""
 
     def __init__(
         self,
@@ -78,6 +90,9 @@ class TFRecordDataset:
         drop_remainder: bool = True,
         num_epochs: Optional[int] = 1,
         decoder: str = "native",
+        shuffle: bool = False,
+        shuffle_window: int = 0,
+        seed: int = 0,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -85,6 +100,11 @@ class TFRecordDataset:
             raise ValueError(f"num_epochs must be >= 1 or None, got {num_epochs}")
         if decoder not in DECODERS:
             raise ValueError(f"decoder must be one of {DECODERS}, got {decoder!r}")
+        if shuffle_window < 0:
+            raise ValueError(f"shuffle_window must be >= 0, got {shuffle_window}")
+        self.shuffle = shuffle
+        self.shuffle_window = shuffle_window
+        self.seed = seed
         self.options = TFRecordOptions.from_map(recordType=recordType, schema=schema)
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder
@@ -129,21 +149,37 @@ class TFRecordDataset:
 
     # -- decode chunks ---------------------------------------------------------
 
-    def _chunks(self) -> Iterator[ColumnarBatch]:
-        """Decoded chunks of every epoch, in shard order."""
-        shards = [sh for sh in self.shards if sh.size]
-        if not shards:
+    def epoch_order(self, epoch: int) -> List[int]:
+        """The order of the shard list in ``epoch``: as listed, or with
+        ``shuffle`` a permutation drawn from ``(seed, epoch)`` alone."""
+        if not self.shuffle:
+            return list(range(len(self.shards)))
+        rng = np.random.default_rng((self.seed, epoch))
+        return rng.permutation(len(self.shards)).tolist()
+
+    def _chunks(self) -> Iterator[Tuple[ColumnarBatch, int, int, int]]:
+        """(chunk, epoch, cursor, start) for the decoded chunks of every
+        epoch: ``cursor`` is the shard's position in the epoch's order,
+        ``start`` the index of the chunk's first record in its shard."""
+        if not any(sh.size for sh in self.shards):
             return
         chunk_records = max(self.batch_size, MIN_CHUNK_RECORDS)
         epoch = 0
         while self.num_epochs is None or epoch < self.num_epochs:
-            for shard in shards:
+            for cursor, index in enumerate(self.epoch_order(epoch)):
+                path = self.shards[index].path
+                if not self.shards[index].size:
+                    continue
                 if self._native_decoder is None:
-                    yield from self._python_chunks(shard.path, chunk_records)
-                elif wire.codec_from_path(shard.path) is None:
-                    yield from self._mmap_chunks(shard.path, chunk_records)
+                    chunks = self._python_chunks(path, chunk_records)
+                elif wire.codec_from_path(path) is None:
+                    chunks = self._mmap_chunks(path, chunk_records)
                 else:
-                    yield from self._slab_chunks(shard.path, chunk_records)
+                    chunks = self._slab_chunks(path, chunk_records)
+                start = 0
+                for chunk in chunks:
+                    yield chunk, epoch, cursor, start
+                    start += chunk.num_rows
             epoch += 1
 
     def _mmap_chunks(self, path: str, chunk_records: int) -> Iterator[ColumnarBatch]:
@@ -298,25 +334,82 @@ def _produce(ds: TFRecordDataset, out: queue.Queue, stop: threading.Event) -> No
     reference to the iterator and an abandoned iterator can be collected."""
     try:
         with contextlib.closing(ds._chunks()) as chunks:
-            pending: Deque[list] = collections.deque()
-            avail = 0
-            for chunk in chunks:
-                if stop.is_set():
-                    return
-                if chunk.num_rows == 0:
-                    continue
-                pending.append([chunk, 0])
-                avail += chunk.num_rows
-                while avail >= ds.batch_size:
-                    if not _put(out, _take(pending, ds.batch_size), stop):
-                        return
-                    avail -= ds.batch_size
-            if avail and not ds.drop_remainder:
-                if not _put(out, _take(pending, avail), stop):
-                    return
+            emit = _emit_shuffled if ds.shuffle_window else _emit_in_order
+            if not emit(ds, chunks, out, stop):
+                return
         _put(out, None, stop)
     except BaseException as e:  # re-raised in the consumer by BatchIterator.__next__
         _put(out, e, stop)
+
+
+def _emit_in_order(ds: TFRecordDataset, chunks, out: queue.Queue, stop: threading.Event) -> bool:
+    """Cut the chunk stream into batches in stream order; False if the
+    consumer went away."""
+    pending: Deque[list] = collections.deque()
+    avail = 0
+    for chunk, *_ in chunks:
+        if stop.is_set():
+            return False
+        if chunk.num_rows == 0:
+            continue
+        pending.append([chunk, 0])
+        avail += chunk.num_rows
+        while avail >= ds.batch_size:
+            if not _put(out, _take(pending, ds.batch_size), stop):
+                return False
+            avail -= ds.batch_size
+    if avail and not ds.drop_remainder:
+        return _put(out, _take(pending, avail), stop)
+    return True
+
+
+def _window_permutation(seed: int, start: Tuple[int, int, int], n: int) -> np.ndarray:
+    """The row permutation of the window that starts at ``start`` =
+    (epoch, shard cursor, record offset): drawn from the seed and that
+    position alone, as the JAX dataset draws it."""
+    ss = np.random.SeedSequence([seed & 0xFFFFFFFF, *start])
+    return np.random.default_rng(ss).permutation(n)
+
+
+def _emit_shuffled(ds: TFRecordDataset, chunks, out: queue.Queue, stop: threading.Event) -> bool:
+    """Windowed row shuffle: gather ``shuffle_window`` batches of rows,
+    permute them and emit them a batch at a time. A window ends at the
+    position after its last row, (epoch, cursor, offset): a window that
+    ends on a shard's last record ends at (epoch, cursor, n), and the next
+    window starts there. False if the consumer went away."""
+    b = ds.batch_size
+    target = ds.shuffle_window * b
+    win: List[ColumnarBatch] = []
+    rows = 0
+    win_start = end = (0, 0, 0)
+
+    def flush(tail: bool) -> bool:
+        window = concat_batches(win)
+        perm = _window_permutation(ds.seed, win_start, rows)
+        n_batches = rows // b
+        if tail and rows % b and not ds.drop_remainder:
+            n_batches += 1
+        for k in range(n_batches):
+            if not _put(out, take_rows(window, perm[k * b:min((k + 1) * b, rows)]), stop):
+                return False
+        return True
+
+    for chunk, epoch, cursor, start in chunks:
+        if stop.is_set():
+            return False
+        used = 0
+        while used < chunk.num_rows:
+            take = min(target - rows, chunk.num_rows - used)
+            win.append(chunk if used == 0 and take == chunk.num_rows
+                       else slice_batch(chunk, used, used + take))
+            rows += take
+            used += take
+            end = (epoch, cursor, start + used)
+            if rows == target:
+                if not flush(tail=False):
+                    return False
+                win, rows, win_start = [], 0, end
+    return not rows or flush(tail=True)
 
 
 class BatchIterator:

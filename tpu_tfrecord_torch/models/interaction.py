@@ -1,4 +1,4 @@
-"""DLRM dot interaction: pairwise feature dots, forward only.
+"""DLRM dot interaction: pairwise feature dots, forward and backward.
 
 Given per-feature embeddings E [B, F, D], emit every pairwise dot
 <E_i, E_j> for i > j, packed in ``np.tril_indices(F, k=-1)`` order —
@@ -12,7 +12,14 @@ tensor and uses the plain version for a CPU tensor; nothing else. The
 kernel has two instances: bf16 E (the DLRM's main path) takes the Gram on
 the tensor cores, f32 E a SIMT kernel with f32 FMAs. Their launch geometry
 comes from ``_interaction_plan``, plain Python that the CPU tests reach.
-The backward pass is not ported yet.
+
+Gradients: where grad mode is on and E requires grad, ``dot_interaction``
+runs through ``DotInteraction``, a ``torch.autograd.Function`` whose
+forward is the kernel (the plain version on the CPU) and whose backward is
+``dot_interaction_backward_reference``, the port of the JAX package's
+``_bwd``: dE = (dG + dG^T) @ E in f32, dG scattered from the packed pairs.
+The JAX package computes that backward in plain XLA, outside any Pallas
+kernel, so here it is plain torch ops and launches no hand-written kernel.
 """
 
 from __future__ import annotations
@@ -49,6 +56,19 @@ def dot_interaction_reference(emb: torch.Tensor) -> torch.Tensor:
     gram = torch.einsum("bfd,bgd->bfg", e, e)
     rows, cols = tril_pairs(emb.shape[1], emb.device)
     return gram[:, rows.long(), cols.long()].to(emb.dtype)
+
+
+def dot_interaction_backward_reference(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient of the packed pairs with respect to ``emb`` [B, F, D],
+    given their gradient ``g`` [B, F*(F-1)/2]: ``g`` in f32 scattered into
+    a zero [B, F, F] at the lower-triangle pairs, plus its transpose, times
+    E in f32, cast to E's dtype."""
+    b, f, _ = emb.shape
+    rows, cols = tril_pairs(f, emb.device)
+    dgram = torch.zeros((b, f, f), dtype=torch.float32, device=emb.device)
+    dgram[:, rows.long(), cols.long()] = g.float()
+    sym = dgram + dgram.transpose(1, 2)
+    return torch.bmm(sym, emb.float()).to(emb.dtype)
 
 
 # Limits of an H100 (sm_90) and of the kernels in csrc/interaction.cu.
@@ -192,12 +212,35 @@ def dot_interaction_cuda(emb: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def dot_interaction(emb: torch.Tensor) -> torch.Tensor:
-    """Packed pairwise dots [B, F, D] -> [B, F*(F-1)/2]: the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
+def _forward(emb: torch.Tensor) -> torch.Tensor:
     if emb.device.type == "cpu":
         return dot_interaction_reference(emb)
     return dot_interaction_cuda(emb)
+
+
+class DotInteraction(torch.autograd.Function):
+    """The packed pairwise dots with their gradient: the kernel forward (the
+    plain version for a CPU tensor) and ``dot_interaction_backward_reference``
+    as the backward."""
+
+    @staticmethod
+    def forward(ctx, emb: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(emb)
+        return _forward(emb)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (emb,) = ctx.saved_tensors
+        return dot_interaction_backward_reference(emb, g)
+
+
+def dot_interaction(emb: torch.Tensor) -> torch.Tensor:
+    """Packed pairwise dots [B, F, D] -> [B, F*(F-1)/2]: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor; through
+    ``DotInteraction`` where grad mode is on and ``emb`` requires grad."""
+    if torch.is_grad_enabled() and emb.requires_grad:
+        return DotInteraction.apply(emb)
+    return _forward(emb)
 
 
 def reset_launch_counts() -> None:
@@ -207,6 +250,7 @@ def reset_launch_counts() -> None:
 
 
 #: kernel launches since the last reset, of both instances
-#: (``instance_launches`` splits them); launches of the plain version do
-#: not count
+#: (``instance_launches`` splits them): forward launches only, since the
+#: backward launches no hand-written kernel; launches of the plain version
+#: do not count
 reset_launch_counts()

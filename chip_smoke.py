@@ -28,21 +28,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    hashing into 2^20 buckets, packing dense/cat) without scoring, for the
    decode-only rate; score the same 8 epochs (16 batches) with the
    26 x 2^20 x 32 DLRM (3.49 GB table) through ``score_files`` in bf16
-   (the bf16 instance), and one shard once in f32 activations (the f32
+   (the bf16 instance), and the same 8 epochs in f32 activations (the f32
    instance). Each path's launch counts must match the batches it scored,
    and its logits must match a run whose interaction is the plain version.
    One 16,384-row batch decoded natively and by the Python oracle must give
-   identical dense and cat matrices. Then the bf16 forward's device time,
-   its kernels (torch.profiler), the steady rows/s over batches 2-16, host
-   and H2D ms per batch, and the card's idle share.
+   identical dense and cat matrices. Then, for each dtype, the forward's
+   device time, its kernels (torch.profiler), the rows/s whole and steady
+   (batches 2-16), host and H2D ms per batch, and the card's idle share.
 
 5. Training at full width, in phase 4's shards. The sparse path:
    ``train_files(sparse=True, shuffle=True, shuffle_window=2, seed=0)``
    over 8 epochs (16 steps of 16,384 rows: Adam(1e-3) on the MLPs,
    row-wise AdaGrad on the table at embed_lr 0.01) with its own counter
-   window; every loss finite, 16 ``bf16_mma`` launches and 0 ``f32_simt``;
+   window; every loss finite, 16 ``bf16_mma`` launches and 0 ``f32_tiled``;
    the losses and the table match a run from the same weights under the
-   plain interaction (plain forward, autograd backward). The dense path:
+   plain interaction (plain forward, autograd backward). The same sparse
+   run in f32 activations (16 ``f32_tiled`` launches, 0 ``bf16_mma``), with
+   the same checks and its own step profile. The dense path (bf16 only):
    ``train_files(sparse=False)`` over one shard for 2 epochs (2 steps,
    Adam over every parameter, the table's 3.49 GB gradient included),
    the same checks. The interaction's backward (``DotInteraction``)
@@ -164,9 +166,11 @@ CHECK_SHAPES = [
     (9, 128, 16),     # F=128
     (11, 127, 32),    # odd P and a tile below 8: spans start mid-chunk
     (8, 2, 8),        # F=2, P=1
+    (21, 27, 7),      # D % 4 != 0: f32 rows not whole 16-byte chunks either
 ]
 MAIN_SHAPE = (BATCH, 27, 32)
-INSTANCE_DTYPE = {"bf16_mma": torch.bfloat16, "f32_simt": torch.float32}
+INSTANCE_DTYPE = {"bf16_mma": torch.bfloat16, "f32_tiled": torch.float32}
+DTYPE_INSTANCE = {v: k for k, v in INSTANCE_DTYPE.items()}
 
 
 def check_build_log(log: str) -> None:
@@ -178,9 +182,10 @@ def check_build_log(log: str) -> None:
     if not names or not len(names) == len(spills) == len(regs):
         raise SystemExit("could not read ptxas' report of the kernel build")
     for mangled, (st, ld), r in zip(names, spills, regs):
-        m = re.search(r"(dot_interaction_[a-z]+_kernel)(?:ILb([01])ELi(\d+)EE)?", mangled)
+        m = re.search(r"(dot_interaction_[a-z]+_kernel)(?:ILb([01])E(?:Li(\d+)E)?E)?", mangled)
         name = mangled if m is None else m[1] + (
-            f"<vec_loads={m[2] == '1'}, k_steps={m[3]}>" if m[2] else "")
+            "" if not m[2] else f"<vec_loads={m[2] == '1'}, k_steps={m[3]}>" if m[3]
+            else f"<vec_loads={m[2] == '1'}>")
         print(f"ptxas {name}: {r} registers, spill stores {st} B, spill loads {ld} B")
         if int(st) or int(ld):
             raise SystemExit(f"kernel {name} spills registers")
@@ -188,8 +193,7 @@ def check_build_log(log: str) -> None:
 
 def check_interaction() -> dict:
     """Both kernel instances vs the plain version on the card at every
-    listed shape, and the bf16 one on an E whose base is not 16-byte
-    aligned; returns the max abs error of each instance at the main-path
+    listed shape, and on an E whose base is not 16-byte aligned; returns the max abs error of each instance at the main-path
     shape."""
     from tpu_tfrecord_torch.models.interaction import (
         dot_interaction_cuda,
@@ -217,8 +221,10 @@ def check_interaction() -> dict:
             err = check(torch.randn(shape, generator=gen, device="cuda").to(dtype), shape)
             if shape == MAIN_SHAPE:
                 main_err[instance] = err
-    flat = torch.randn(13 * 27 * 32 + 1, generator=gen, device="cuda").bfloat16()
-    check(flat[1:].view(13, 27, 32), "(13, 27, 32) at a base 2 bytes past 16-byte alignment")
+    for dtype in INSTANCE_DTYPE.values():
+        flat = torch.randn(13 * 27 * 32 + 1, generator=gen, device="cuda").to(dtype)
+        check(flat[1:].view(13, 27, 32),
+              f"(13, 27, 32) at a base {flat.element_size()} bytes past 16-byte alignment")
     return main_err
 
 
@@ -466,8 +472,7 @@ def score_path(label, paths, cfg, model, tol, **kw):
     if res.batches == 0 or logits.shape != (n_rows,) or not torch.isfinite(logits).all():
         raise SystemExit(f"{label}: bad logits: shape {tuple(logits.shape)}, "
                          f"finite={bool(torch.isfinite(logits).all())}")
-    instance = {torch.bfloat16: "bf16_mma", torch.float32: "f32_simt"}[cfg.dtype]
-    want = {k: (res.batches if k == instance else 0) for k in launches}
+    want = {k: (res.batches if k == DTYPE_INSTANCE[cfg.dtype] else 0) for k in launches}
     if launches != want:
         raise SystemExit(f"{label}: kernel launches {launches} for {res.batches} batches")
     err = (logits - ref.logits).abs().max().item()
@@ -478,12 +483,11 @@ def score_path(label, paths, cfg, model, tol, **kw):
     return res, launches
 
 
-def criteo_cfg():
+def criteo_cfg(dtype=torch.bfloat16):
     from tpu_tfrecord_torch.models.dlrm import DLRMConfig
 
     return DLRMConfig(num_dense=13, num_categorical=26, vocab_size=VOCAB, embed_dim=32,
-                      bottom_mlp=(64, 32), top_mlp=(64, 1), interaction="dot",
-                      dtype=torch.bfloat16)
+                      bottom_mlp=(64, 32), top_mlp=(64, 1), interaction="dot", dtype=dtype)
 
 
 def criteo_files_kw() -> dict:
@@ -495,8 +499,9 @@ def criteo_files_kw() -> dict:
 
 def main_path(data_dir: str) -> dict:
     """Full-width Criteo DLRM scoring from TFRecord files written into
-    ``data_dir``, in bf16 (the main path) and in f32 activations; returns
-    each kernel instance's launches on the path that runs it."""
+    ``data_dir``, in bf16 (the main path) and in f32 activations, each over
+    the same 8 epochs; returns each kernel instance's launches on the path
+    that runs it."""
     from tpu_tfrecord_torch.device.ingest import make_device_batch
     from tpu_tfrecord_torch.models.dlrm import init_params, make_synthetic_batch
 
@@ -516,19 +521,19 @@ def main_path(data_dir: str) -> dict:
     print(f"wrote {CRITEO_SHARDS} x {CRITEO_ROWS_PER_SHARD} Example rows in "
           f"{time.perf_counter() - t0:.1f} s (host)")
     decode_only(data_dir)
-    res, bf16 = score_path("main path (bf16)", data_dir, cfg, model, 2e-2,
-                           num_epochs=EPOCHS, **kw)
-    if res.batches != EPOCHS * CRITEO_SHARDS:
-        raise SystemExit(f"main path scored {res.batches} batches, "
-                         f"want {EPOCHS * CRITEO_SHARDS}")
-    _, f32 = score_path("f32 path (shard00)", os.path.join(data_dir, "shard00"),
-                        model_f32.cfg, model_f32, 1e-3, **kw)
+    runs = {}
+    for label, m, tol in (("main path (bf16)", model, 2e-2), ("f32 path", model_f32, 1e-3)):
+        res, launches = score_path(label, data_dir, m.cfg, m, tol, num_epochs=EPOCHS, **kw)
+        if res.batches != EPOCHS * CRITEO_SHARDS:
+            raise SystemExit(f"{label} scored {res.batches} batches, want {EPOCHS * CRITEO_SHARDS}")
+        runs[DTYPE_INSTANCE[m.cfg.dtype]] = (label, m, res, launches)
     check_native_vs_python(data_dir)
-    profile_forward(model, warm, res)
-    return {"bf16_mma": bf16["bf16_mma"], "f32_simt": f32["f32_simt"]}
+    for label, m, res, _ in runs.values():
+        profile_forward(label, m, warm, res)
+    return {k: launches[k] for k, (_, _, _, launches) in runs.items()}
 
 
-def profile_forward(model, batch, res) -> None:
+def profile_forward(label, model, batch, res) -> None:
     """Where a full-width batch's time goes on the card: the forward's device
     time (CUDA events), its kernels by device time (torch.profiler), and
     the scoring run's rows/s and the card's idle share, over the whole run
@@ -540,12 +545,12 @@ def profile_forward(model, batch, res) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model(batch)
         torch.cuda.synchronize()
-    print(f"forward at batch {BATCH}: {fwd_ms:.4f} ms device time per call (CUDA graph "
+    print(f"{label}: forward at batch {BATCH}: {fwd_ms:.4f} ms device time per call (CUDA graph "
           f"replay); {eager_ms:.4f} ms per call eager, back to back (CUDA events, host launch "
           "included); one forward by torch.profiler:")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12))
     busy = sum(res.h2d_s) + res.batches * fwd_ms / 1e3
-    print(f"scoring run, {res.batches} batches: {res.batches * BATCH / res.wall_s:.1f} rows/s end "
+    print(f"{label}: scoring run, {res.batches} batches: {res.batches * BATCH / res.wall_s:.1f} rows/s end "
           f"to end over {res.wall_s:.4f} s of wall time (first batch's decode included); device "
           f"idle share ~{1 - busy / res.wall_s:.4f} (1 - (h2d + forward device time) / wall time)")
     steady = res.batches - 1
@@ -553,7 +558,7 @@ def profile_forward(model, batch, res) -> None:
     busy = sum(res.h2d_s[1:]) + steady * fwd_ms / 1e3
     host_ms = np.array(res.host_s[1:]) * 1e3
     h2d_ms = np.array(res.h2d_s[1:]) * 1e3
-    print(f"steady state, batches 2-{res.batches}: {steady * BATCH / window:.1f} rows/s; per batch "
+    print(f"{label}: steady state, batches 2-{res.batches}: {steady * BATCH / window:.1f} rows/s; per batch "
           f"host (wait + densify) {host_ms.mean():.3f} ms mean, {np.median(host_ms):.3f} median; "
           f"h2d {h2d_ms.mean():.3f} ms mean, {np.median(h2d_ms):.3f} median; device idle share "
           f"~{1 - busy / window:.4f}")
@@ -569,10 +574,11 @@ TRAIN_DENSE_EPOCHS = 2   # one shard: 2 steps
 TRAIN_SEED = 0
 
 
-def new_criteo_model():
+def new_criteo_model(dtype=torch.bfloat16):
     from tpu_tfrecord_torch.models.dlrm import init_params
 
-    return init_params(criteo_cfg(), torch.Generator(device="cuda").manual_seed(TRAIN_SEED), "cuda")
+    return init_params(criteo_cfg(dtype), torch.Generator(device="cuda").manual_seed(TRAIN_SEED),
+                       "cuda")
 
 
 def free_cuda() -> None:
@@ -581,8 +587,9 @@ def free_cuda() -> None:
     torch.cuda.empty_cache()
 
 
-def train_run(label, paths, steps, sparse, epochs, **kw):
-    """``train_files`` on a fresh full-width model with the counts set to 0
+def train_run(label, paths, steps, sparse, epochs, dtype=torch.bfloat16, **kw):
+    """``train_files`` on a fresh full-width model in ``dtype`` activations,
+    with the counts set to 0
     just before and read just after; then the same run from the same seed
     under the plain interaction. Checks the launches, finite losses, the
     losses and the table against the plain run (rows neither run moved must
@@ -590,17 +597,17 @@ def train_run(label, paths, steps, sparse, epochs, **kw):
     from tpu_tfrecord_torch.entry import train_files
     from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
 
-    cfg = criteo_cfg()
-    model = new_criteo_model()
+    cfg = criteo_cfg(dtype)
+    model = new_criteo_model(dtype)
     reset_launch_counts()
     res = train_files(paths, cfg, model, BATCH, "cuda", sparse=sparse, num_epochs=epochs, **kw)
     launches = dict(dot_interaction.instance_launches)
-    want = {"bf16_mma": steps, "f32_simt": 0}
+    want = {k: (steps if k == DTYPE_INSTANCE[dtype] else 0) for k in INSTANCE_DTYPE}
     if res.steps != steps or not torch.isfinite(res.losses).all() or launches != want:
         raise SystemExit(f"{label}: {res.steps} steps (want {steps}), launches {launches} "
                          f"(want {want}), losses {res.losses}")
     # the plain twin: the table is compared row by row, then the twin is freed
-    twin = new_criteo_model()
+    twin = new_criteo_model(dtype)
     with plain_interaction():
         ref = train_files(paths, cfg, twin, BATCH, "cuda", sparse=sparse, num_epochs=epochs, **kw)
     ref.opt = None  # the twin's optimizer state goes with the twin
@@ -611,7 +618,7 @@ def train_run(label, paths, steps, sparse, epochs, **kw):
               f"done at {res.done_s[i]:.4f} s")
     loss_err = (res.losses - ref.losses).abs().max().item()
     with torch.no_grad():
-        init = new_criteo_model().embeddings
+        init = new_criteo_model(dtype).embeddings
         moved = torch.maximum((model.embeddings - init).abs().amax(-1),
                               (twin.embeddings - init).abs().amax(-1)) > 0     # [F, V]
         del init
@@ -701,7 +708,7 @@ def step_split(events):
     return kernels / 1e3, parts
 
 
-def profile_sparse_step(model, opt, res) -> None:
+def profile_sparse_step(label, model, opt, res) -> None:
     """Where a sparse step's time goes: its time on a resident full-width
     batch (CUDA events over steps back to back), one step by
     torch.profiler split by part, and the training loop's rows/s, host /
@@ -719,17 +726,17 @@ def profile_sparse_step(model, opt, res) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    print(f"sparse step at batch {BATCH}: {step_ms:.4f} ms per step, back to back (CUDA events; "
+    print(f"{label}: sparse step at batch {BATCH}: {step_ms:.4f} ms per step, back to back (CUDA events; "
           "host launch included where it is slower than the card); one step by torch.profiler:")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
     kernels_ms, parts = step_split(prof.events())
-    print("sparse step split (device ms of the kernels each part launched, torch.profiler): "
+    print(f"{label}: sparse step split (device ms of the kernels each part launched, torch.profiler): "
           + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f"; all kernels {kernels_ms:.4f}")
     if kernels_ms <= 0:
         print("torch.profiler recorded no device time: the split is not measured")
     dev_step_ms = kernels_ms if kernels_ms > 0 else step_ms
     busy = sum(res.h2d_s) + res.steps * dev_step_ms / 1e3
-    print(f"sparse training run, {res.steps} steps: {res.steps * BATCH / res.wall_s:.1f} rows/s end to "
+    print(f"{label}: sparse training run, {res.steps} steps: {res.steps * BATCH / res.wall_s:.1f} rows/s end to "
           f"end over {res.wall_s:.4f} s of wall time (first batch's decode included); device idle "
           f"share ~{1 - busy / res.wall_s:.4f} (1 - (h2d + steps x {dev_step_ms:.4f} ms device "
           "time) / wall time)")
@@ -737,7 +744,7 @@ def profile_sparse_step(model, opt, res) -> None:
     window = res.done_s[-1] - res.done_s[0]
     busy = sum(res.h2d_s[1:]) + steady * dev_step_ms / 1e3
     host_ms, h2d_ms, st_ms = (np.array(x[1:]) * 1e3 for x in (res.host_s, res.h2d_s, res.step_s))
-    print(f"steady state, steps 2-{res.steps}: {steady * BATCH / window:.1f} rows/s; per step host "
+    print(f"{label}: steady state, steps 2-{res.steps}: {steady * BATCH / window:.1f} rows/s; per step host "
           f"(wait + densify) {host_ms.mean():.3f} ms mean, {np.median(host_ms):.3f} median; h2d "
           f"{h2d_ms.mean():.3f} ms mean, {np.median(h2d_ms):.3f} median; step (host clock, "
           f"synchronized) {st_ms.mean():.3f} ms mean, {np.median(st_ms):.3f} median; device idle "
@@ -745,17 +752,21 @@ def profile_sparse_step(model, opt, res) -> None:
 
 
 def train_path(data_dir: str) -> dict:
-    """Phase 5: the sparse and the dense training paths at full width over
-    phase 4's shards, the backward check and the step's profile. Returns
-    each kernel instance's launches over both training paths and the
-    backward's numbers."""
+    """Phase 5: the sparse training path at full width over phase 4's
+    shards in bf16 and in f32, the dense one in bf16, the backward check and
+    each sparse step's profile. Returns each kernel instance's launches over
+    the training paths and the backward's numbers."""
     kw = criteo_files_kw()
-    res, sparse, model = train_run(
-        "sparse training (shuffled)", data_dir, TRAIN_SPARSE_EPOCHS * CRITEO_SHARDS, True,
-        TRAIN_SPARSE_EPOCHS, shuffle=True, shuffle_window=2, seed=0, **kw)
-    profile_sparse_step(model, res.opt, res)
-    del model, res
-    free_cuda()
+    launches = dict.fromkeys(INSTANCE_DTYPE, 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        label = f"sparse training (shuffled, {str(dtype)[6:]})"
+        res, sparse, model = train_run(
+            label, data_dir, TRAIN_SPARSE_EPOCHS * CRITEO_SHARDS, True, TRAIN_SPARSE_EPOCHS,
+            dtype, shuffle=True, shuffle_window=2, seed=0, **kw)
+        profile_sparse_step(label, model, res.opt, res)
+        launches = {k: launches[k] + sparse[k] for k in launches}
+        del model, res
+        free_cuda()
     torch.cuda.reset_peak_memory_stats()
     _, dense, model = train_run(
         "dense training (shard00)", os.path.join(data_dir, "shard00"), TRAIN_DENSE_EPOCHS, False,
@@ -765,7 +776,7 @@ def train_path(data_dir: str) -> dict:
     del model
     free_cuda()
     backward = check_backward()
-    return {k: dict(train_launches=sparse[k] + dense[k], **backward[k]) for k in INSTANCE_DTYPE}
+    return {k: dict(train_launches=launches[k] + dense[k], **backward[k]) for k in INSTANCE_DTYPE}
 
 
 def main() -> int:
@@ -800,7 +811,9 @@ def main() -> int:
     design = {
         "bf16_mma": "mma.sync m16n8k16 bf16 Gram, cp.async 16-byte double-buffered "
                     "staging, persistent grid, 16-byte stores through shared memory",
-        "f32_simt": "SIMT f32 FMAs over rows staged in shared memory at an odd word stride",
+        "f32_tiled": "f32 FMAs in 4x4 register blocks of row pairs, cp.async 16-byte "
+                     "double-buffered staging at an odd-chunk sample stride, persistent grid, "
+                     "16-byte stores through shared memory",
     }
     kernels = [dict(
         name=f"dot_interaction_{k}",

@@ -29,6 +29,7 @@ from tpu_tfrecord_torch.models.dlrm import (  # noqa: E402
 )
 from tpu_tfrecord_torch.models.interaction import (  # noqa: E402
     DotInteraction,
+    _interaction_plan,
     dot_interaction,
     dot_interaction_cuda,
     dot_interaction_reference,
@@ -50,7 +51,7 @@ def cuda_device():
 
 # f32: sums in another order than the einsum; bf16: one bf16 ulp
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4), torch.bfloat16: dict(rtol=8e-3, atol=1e-2)}
-INSTANCE = {torch.float32: "f32_simt", torch.bfloat16: "bf16_mma"}
+INSTANCE = {torch.float32: "f32_tiled", torch.bfloat16: "bf16_mma"}
 
 
 @pytest.mark.parametrize("shape", CHECK_SHAPES)
@@ -79,6 +80,40 @@ def test_bf16_kernel_takes_a_misaligned_e(cuda_device):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), dot_interaction_reference(emb).float(),
                                **TOL[torch.bfloat16])
+
+
+def test_f32_kernel_takes_a_misaligned_e(cuda_device):
+    # a base 4 bytes past 16-byte alignment is staged with scalar loads
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    flat = torch.randn(13 * 27 * 32 + 1, generator=gen, device=cuda_device)
+    emb = flat[1:].view(13, 27, 32)
+    assert emb.is_contiguous() and emb.data_ptr() % 16 == 4
+    before = dot_interaction.instance_launches["f32_tiled"]
+    got = dot_interaction_cuda(emb)
+    torch.cuda.synchronize()
+    assert dot_interaction.instance_launches["f32_tiled"] == before + 1
+    torch.testing.assert_close(got, dot_interaction_reference(emb), **TOL[torch.float32])
+
+
+def test_f32_kernel_stages_rows_of_odd_width(cuda_device):
+    # D % 4 != 0: rows are not whole 16-byte chunks, scalar staging into
+    # columns padded to 8
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    emb = torch.randn((21, 27, 7), generator=gen, device=cuda_device)
+    plan = _interaction_plan(21, 27, 7, torch.float32)
+    assert not plan.vec_loads and plan.dp == 8
+    got = dot_interaction_cuda(emb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, dot_interaction_reference(emb), **TOL[torch.float32])
+
+
+def test_f32_kernel_refuses_a_sample_over_shared_memory(cuda_device):
+    # one sample of (1024, 64) f32 is 256 KB, over a block's shared memory:
+    # the plan raises before any launch, and nothing falls back
+    before = dict(dot_interaction.instance_launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        dot_interaction_cuda(torch.zeros(1, 1024, 64, device=cuda_device))
+    assert dot_interaction.instance_launches == before
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda_device):

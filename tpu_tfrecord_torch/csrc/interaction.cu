@@ -61,12 +61,42 @@
 //   barrier per tile with warp-private output staging were each measured
 //   and were not faster.
 //
-// f32: dot_interaction_simt_kernel. One block of 256 threads per tile of up
-//   to 8 samples; rows staged as f32 in shared memory at an odd word stride
-//   (conflict-free), each thread computes (sample, pair) outputs with f32
-//   FMAs from index tables of np.tril_indices order. TF32 or bf16 tensor
-//   cores would round E and break the f32 tolerance, and f32 E is not on the
-//   DLRM's main path (it runs bf16 activations).
+// f32: dot_interaction_tiled_kernel.
+//   Bound on an H100 SXM: device memory. At (16384, 27, 32) the kernel must
+//   read 56.6 MB of E and write 23.0 MB of out: 23.8 us at 3.35 TB/s. The
+//   Gram is 0.37 GFLOP of f32 FMAs, 5.5 us at 67 TFLOP/s. TF32 or bf16 tensor
+//   cores would round E once and break the f32 tolerance, so the products
+//   are f32 FMAs on the CUDA cores, the same products as the plain version's.
+//   A one-thread-per-output design reads both rows of every pair from shared
+//   memory again (90 KB per sample at (27, 32), twice the byte bound's time
+//   in shared-memory traffic alone). This design:
+//   - Persistent grid, double-buffered, as the bf16 instance: 3 blocks of 8
+//     warps per SM walk tiles of `tile` samples (8 at the main shape,
+//     27.6 KB of E), copied with 16-byte cp.async.cg while the previous tile
+//     computes. With D % 4 == 0 a sample's rows are contiguous in shared
+//     memory too, so chunk j of a sample lands at j * 4: no division.
+//   - Layout of a staged sample: Fp = ceil4(F) rows of `stride` =
+//     ceil4(D) floats, then kSamplePad floats, so a sample is an odd number
+//     of 16-byte chunks. Row and column pads are zeroed once per block.
+//   - Register blocking: a thread takes one 4x4 block (4R..4R+3, 4C..4C+3),
+//     C <= R, of one sample's Gram: 16 sums in registers, 8 float4 reads of
+//     shared memory per 4 columns (29 KB of shared-memory reads per sample
+//     at (27, 32), 28 blocks of 8 rows of 128 B). Work items are numbered
+//     sample-fastest, so the 8 threads of a quarter-warp read the same row
+//     and column of 8 consecutive samples: with the odd sample stride these
+//     fall in 8 different bank groups, no conflicts (for tile % 8 == 0).
+//     The block comes from the item's number by a triangular root, with no
+//     index tables; the pair is p = r(r-1)/2 + c.
+//   - Epilogue as the bf16 one: pairs c < r < F go to a staging buffer, the
+//     tile's span of `out` leaves in 16-byte stores, scalar only at its ends.
+//   Rows that are not whole 16-byte chunks (D % 4 != 0) or an E whose base is
+//   not 16-byte aligned are staged with scalar loads into the same layout.
+//   What is left to the bound (interaction_sweep.py times it): with the Gram
+//   taken out, copy and store alone run near what copy_ reaches on the card
+//   for the same bytes; the Gram adds the rest, since a block runs copy,
+//   Gram and store one after another between its barriers. 2 and 3 blocks
+//   per SM, and tiles of 4 to 24 samples, were measured; none was clearly
+//   faster than the plan's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,49 +106,13 @@ namespace {
 
 constexpr int kDefaultSmemBytes = 48 * 1024;
 
-// ---------------------------------------------------------------- f32, SIMT
-
-constexpr int kSimtThreads = 256;
-
-__global__ void __launch_bounds__(kSimtThreads)
-dot_interaction_simt_kernel(const float* __restrict__ emb, float* __restrict__ out,
-                            const int32_t* __restrict__ rows,
-                            const int32_t* __restrict__ cols, int B, int F, int D,
-                            int P, int sb, int stride) {
-  extern __shared__ float tile[];  // [sb, F, stride]
-  const int b0 = blockIdx.x * sb;
-  const int n_s = min(sb, B - b0);
-  const int fd = F * D;
-
-  const float* src = emb + (size_t)b0 * fd;
-  for (int i = threadIdx.x; i < n_s * fd; i += blockDim.x) {
-    const int s = i / fd;
-    const int rem = i - s * fd;
-    const int f = rem / D;
-    const int d = rem - f * D;
-    tile[(s * F + f) * stride + d] = src[i];
-  }
-  __syncthreads();
-
-  float* dst = out + (size_t)b0 * P;
-  for (int i = threadIdx.x; i < n_s * P; i += blockDim.x) {
-    const int s = i / P;
-    const int p = i - s * P;
-    const float* a = tile + (s * F + rows[p]) * stride;
-    const float* c = tile + (s * F + cols[p]) * stride;
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d) acc = fmaf(a[d], c[d], acc);
-    dst[i] = acc;
-  }
-}
-
 // ------------------------------------------------------ bf16, tensor cores
 
 constexpr int kMmaThreads = 128;
 constexpr int kMmaWarps = kMmaThreads / 32;
 constexpr int kMmaMinBlocks = 4;  // models/interaction.py: _MMA_BLOCKS_PER_SM
 constexpr int kMaxKSteps = 8;     // Dp <= 128; models/interaction.py: _MMA_MAX_DP
-constexpr int kStages = 2;        // tiles of rows in flight; models/interaction.py: _MMA_STAGES
+constexpr int kStages = 2;        // tiles of rows in flight; models/interaction.py: _STAGES
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -315,6 +309,150 @@ MmaKernel mma_kernel(int nks) {
   return nullptr;
 }
 
+// ------------------------------------------------ f32, register-blocked FMAs
+
+constexpr int kTiledThreads = 256;
+constexpr int kTiledMinBlocks = 3;  // models/interaction.py: _TILED_BLOCKS_PER_SM
+constexpr int kSamplePad = 4;       // floats after a staged sample; models/interaction.py: _TILED_SAMPLE_PAD
+
+// Copy samples [t0, t0 + n_s) of E into `buf` ([tile][sample]: Fp rows of
+// `stride` floats, then kSamplePad); rows < F, columns < D only. With
+// kVecLoads (D % 4 == 0, so stride == D) the copies are asynchronous 16-byte
+// chunks, the caller commits them as one group.
+template <bool kVecLoads>
+__device__ __forceinline__ void stage_tile_f32(float* buf, const float* __restrict__ emb,
+                                               long long t0, int n_s, int F, int D,
+                                               int sample, int stride) {
+  const int fd = F * D;
+  const float* src = emb + t0 * fd;
+  if (kVecLoads) {
+    // chunk j of a sample is at j*4 on both sides; consecutive threads read
+    // consecutive chunks
+    for (int j = threadIdx.x; j < fd / 4; j += kTiledThreads) {
+      const uint32_t dst = smem_addr(buf + j * 4);
+      const float* g = src + j * 4;
+      for (int s = 0; s < n_s; ++s) cp_async_16(dst + s * sample * 4, g + (size_t)s * fd);
+    }
+  } else {
+    for (int j = threadIdx.x; j < fd; j += kTiledThreads) {
+      const int off = j + (j / D) * (stride - D);
+      for (int s = 0; s < n_s; ++s) buf[s * sample + off] = src[(size_t)s * fd + j];
+    }
+  }
+}
+
+// R of the 4x4 block number blk = R(R+1)/2 + C, 0 <= C <= R
+__device__ __forceinline__ int block_row(int blk) {
+  int r = (int)((sqrtf(8.f * blk + 1.f) - 1.f) * 0.5f);
+  if ((r + 1) * (r + 2) / 2 <= blk) ++r;
+  if (r * (r + 1) / 2 > blk) --r;
+  return r;
+}
+
+// One thread: rows 4R..4R+3 against rows 4C..4C+3 of one staged sample,
+// f32 FMAs over the padded columns in order; the pairs c < r < F into
+// stg[p], p = r(r-1)/2 + c.
+__device__ __forceinline__ void gram_block(const float* smp, float* stg, int R, int C, int F,
+                                           int stride) {
+  const float* a = smp + 4 * R * stride;
+  const float* b = smp + 4 * C * stride;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int d = 0; d < stride; d += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[i] = *reinterpret_cast<const float4*>(a + i * stride + d);
+      y[i] = *reinterpret_cast<const float4*>(b + i * stride + d);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * R + i;
+    if (r >= F) break;
+    float* row = stg + r * (r - 1) / 2;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * C + j < r) row[4 * C + j] = acc[i][j];
+  }
+}
+
+template <bool kVecLoads>
+__global__ void __launch_bounds__(kTiledThreads, kTiledMinBlocks)
+dot_interaction_tiled_kernel(const float* __restrict__ emb, float* __restrict__ out, int B,
+                             int F, int D, int P, int Fp, int stride, int tile) {
+  // [kStages][tile][sample] staged rows, then [4 + tile * P] staged outputs
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sample = Fp * stride + kSamplePad;
+  const int buf_elems = tile * sample;
+  float* bufs = reinterpret_cast<float*>(smem);
+  float* stg = bufs + kStages * buf_elems;
+  const int n_tiles = (B + tile - 1) / tile;
+  const int nb = Fp / 4;
+  const int n_items = tile * (nb * (nb + 1) / 2);  // (4x4 block, sample), sample fastest
+
+  // zero the row buffers once: the row and column pads stay zero
+  float4* z = reinterpret_cast<float4*>(smem);
+  for (int i = threadIdx.x; i < kStages * buf_elems / 4; i += kTiledThreads)
+    z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  // tile k of this block is blockIdx.x + k * gridDim.x, staged in buffer
+  // k % kStages; kStages - 1 tiles are in flight ahead of the one computed
+  auto load_tile = [&](int k) {
+    const int tt = blockIdx.x + k * gridDim.x;
+    if (tt < n_tiles)
+      stage_tile_f32<kVecLoads>(bufs + (k % kStages) * buf_elems, emb, (long long)tt * tile,
+                                min(tile, B - tt * tile), F, D, sample, stride);
+    cp_async_commit();  // one group per tile, empty or not
+  };
+  for (int k = 0; k < kStages - 1; ++k) load_tile(k);
+  for (int k = 0, t = blockIdx.x; t < n_tiles; ++k, t += gridDim.x) {
+    // buffer (k - 1) % kStages was last read before the previous tile's
+    // second barrier, so tile k + kStages - 1 may be copied into it now
+    load_tile(k + kStages - 1);
+    cp_async_wait_oldest();
+    __syncthreads();
+
+    const long long e0 = (long long)t * tile * P;  // first output of the tile
+    const int phase = (int)(e0 & 3);               // its place in a 16-byte chunk
+    const int n_s = min(tile, B - t * tile);
+    const float* buf = bufs + (k % kStages) * buf_elems;
+    for (int it = threadIdx.x; it < n_items; it += kTiledThreads) {
+      const int blk = it / tile, s = it - blk * tile;
+      if (s >= n_s) continue;
+      const int R = block_row(blk);
+      gram_block(buf + s * sample, stg + phase + s * P, R, blk - R * (R + 1) / 2, F, stride);
+    }
+    __syncthreads();
+
+    // stg[i] belongs at out[e0 - phase + i], phase <= i < phase + n_s * P;
+    // both sides are 16-byte aligned at i = 0 (out is a fresh allocation)
+    const int n = phase + n_s * P;
+    float* dst = out + (e0 - phase);
+    for (int lo = threadIdx.x * 4; lo < n; lo += kTiledThreads * 4) {
+      const int hi = min(lo + 4, n);
+      if (lo >= phase && hi - lo == 4) {
+        *reinterpret_cast<float4*>(dst + lo) = *reinterpret_cast<const float4*>(stg + lo);
+      } else {
+        for (int i = max(lo, phase); i < hi; ++i) dst[i] = stg[i];
+      }
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int smem) {
   if (smem <= kDefaultSmemBytes) return cudaSuccess;
@@ -344,18 +482,19 @@ extern "C" int dot_interaction_bf16(const void* emb, void* out, int B, int F, in
   return (int)cudaGetLastError();
 }
 
-extern "C" int dot_interaction_f32(const void* emb, void* out, const void* rows,
-                                   const void* cols, int B, int F, int D, int P,
-                                   int stride, int tile, int smem, int grid,
-                                   void* stream) {
-  if (B < 1 || P < 1 || stride < D || tile < 1 || (long long)grid * tile < B ||
-      smem < tile * F * stride * (int)sizeof(float))
+extern "C" int dot_interaction_f32(const void* emb, void* out, int B, int F, int D, int P,
+                                   int Fp, int Dp, int stride, int tile, int smem, int grid,
+                                   int vec_loads, void* stream) {
+  if (B < 1 || F < 2 || D < 1 || P != F * (F - 1) / 2 || Fp % 4 || Fp < F || Dp % 4 ||
+      Dp < D || stride != Dp || tile < 1 || grid < 1 || (vec_loads && D % 4) ||
+      smem < 4 * (kStages * (long long)tile * (Fp * stride + kSamplePad) + 4 + (long long)tile * P))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(dot_interaction_simt_kernel, smem);
+  using TiledKernel = void (*)(const float*, float*, int, int, int, int, int, int, int);
+  const TiledKernel kernel =
+      vec_loads ? dot_interaction_tiled_kernel<true> : dot_interaction_tiled_kernel<false>;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dot_interaction_simt_kernel<<<grid, kSimtThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(emb), static_cast<float*>(out),
-      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols), B, F, D, P,
-      tile, stride);
+  kernel<<<grid, kTiledThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(emb), static_cast<float*>(out), B, F, D, P, Fp, stride, tile);
   return (int)cudaGetLastError();
 }

@@ -1,18 +1,19 @@
-"""Where the bf16 dot-interaction kernel's time goes, on one NVIDIA GPU.
+"""Where the dot-interaction kernel's time goes, on one NVIDIA GPU.
 
     python -m tpu_tfrecord_torch.interaction_sweep
 
-At the DLRM main path's shape (16384, 27, 32) bf16, with cold inputs (the
-calls cycle over 6 inputs, 170 MB, past the 50 MB L2), this times:
+For each instance (bf16 ``mma``, f32 ``tiled``), at the DLRM main path's
+shape (16384, 27, 32) with cold inputs (the calls cycle over 6 inputs,
+170 MB in bf16 and 340 MB in f32, past the 50 MB L2), this times:
 
 - the kernel at the geometry ``_interaction_plan`` picks, and at other
   tiles (samples per tile) and blocks per SM, called through the C entry
   point with that geometry;
-- diagnostic builds of the same source with one part of the work taken
-  out: ``no_gram`` (no mma and no staging of outputs), ``no_store`` (no
-  output stores), ``no_load`` (only each block's first tile is copied in),
-  and a 3-stage ring of row buffers (``stages3``); their outputs are wrong
-  by design and are not checked;
+- diagnostic builds of the same source with one part of the instance's
+  work taken out: ``no_gram`` (no products and no staging of outputs),
+  ``no_store`` (no output stores), ``no_load`` (only each block's first
+  tile is copied in), and a 3-stage ring of row buffers (``stages3``, both
+  instances); their outputs are wrong by design and are not checked;
 - ``torch.Tensor.copy_`` of E, the rate this card reaches on a plain
   read + write stream.
 
@@ -32,29 +33,42 @@ import torch
 
 SHAPE = (16384, 27, 32)
 COLD_INPUTS = 6
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
-# name -> (source edits, kStages); each edit must hit the source once
+# name -> (source edits, kStages, instances it is timed for); each edit must
+# hit the source once
 VARIANTS = {
-    "kernel": ([], 2),
-    "stages3": ([("constexpr int kStages = 2;", "constexpr int kStages = 3;")], 3),
+    "kernel": ([], 2, ("bf16", "f32")),
+    "stages3": ([("constexpr int kStages = 2;", "constexpr int kStages = 3;")], 3,
+                ("bf16", "f32")),
     "no_gram": ([("      gram_sample<kNks>(buf + s * sample",
-                  "      if (B < 0) gram_sample<kNks>(buf + s * sample")], 2),
+                  "      if (B < 0) gram_sample<kNks>(buf + s * sample")], 2, ("bf16",)),
     "no_store": ([("    for (int lo = threadIdx.x * 8; lo < n;",
-                   "    for (int lo = threadIdx.x * 8; lo < (B < 0 ? n : 0);")], 2),
-    "no_load": ([("    stage(k + kStages - 1);", "    if (B < 0) stage(k + kStages - 1);")], 2),
+                   "    for (int lo = threadIdx.x * 8; lo < (B < 0 ? n : 0);")], 2, ("bf16",)),
+    "no_load": ([("    stage(k + kStages - 1);", "    if (B < 0) stage(k + kStages - 1);")], 2,
+                ("bf16",)),
+    "f32_no_gram": ([("      gram_block(buf", "      if (B < 0) gram_block(buf")], 2, ("f32",)),
+    "f32_no_store": ([("    for (int lo = threadIdx.x * 4; lo < n;",
+                       "    for (int lo = threadIdx.x * 4; lo < (B < 0 ? n : 0);")], 2, ("f32",)),
+    "f32_no_load": ([("    load_tile(k + kStages - 1);",
+                      "    if (B < 0) load_tile(k + kStages - 1);")], 2, ("f32",)),
 }
+# geometries tried besides the plan's: (tiles, blocks per SM)
+GEOMETRIES = {"bf16": ((2, 4, 8, 16), (2, 4, 6, 8)), "f32": ((4, 8, 16, 24), (1, 2, 3, 4))}
+_SMEM_SM = 233_472
+_SMEM_BLOCK_MAX = 232_448
 
 
-def build_variants() -> dict:
+def build_variants(names) -> dict:
     from tpu_tfrecord_torch import _cuda
 
     src = (_cuda.CSRC / "interaction.cu").read_text()
     out_dir = _cuda.BUILD_DIR / "sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (edits, _) in VARIANTS.items():
+    for name in names:
         text = src
-        for old, new in edits:
+        for old, new in VARIANTS[name][0]:
             if text.count(old) != 1:
                 raise SystemExit(f"variant {name}: {old!r} is not in interaction.cu once")
             text = text.replace(old, new)
@@ -63,16 +77,17 @@ def build_variants() -> dict:
         cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(cu)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
-    fns = {}
+    libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for variant {name}:\n{log}")
-        fn = ctypes.CDLL(str(out_dir / f"{name}.so")).dot_interaction_bf16
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        for fn in (lib.dot_interaction_bf16, lib.dot_interaction_f32):
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
 
 
 def median_ms(call, warmup: int = 10, reps: int = 15, calls: int = 24) -> float:
@@ -92,67 +107,77 @@ def median_ms(call, warmup: int = 10, reps: int = 15, calls: int = 24) -> float:
     return float(np.median(times))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("interaction_sweep: no CUDA device", file=sys.stderr)
-        return 1
-    from tpu_tfrecord_torch.models.interaction import (
-        _interaction_plan,
-        dot_interaction_reference,
-    )
+def sweep(key: str, libs: dict, sms: int) -> None:
+    """Time one instance's geometries and diagnostic builds, then copy_."""
+    from tpu_tfrecord_torch.models.interaction import _interaction_plan, dot_interaction_reference
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    dtype = DTYPES[key]
     b, f, d = SHAPE
     p = f * (f - 1) // 2
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = _interaction_plan(b, f, d, torch.bfloat16, sms)
-    print(f"plan at {SHAPE} bf16 on {sms} SMs: {plan}")
-    fns = build_variants()
+    plan = _interaction_plan(b, f, d, dtype, sms)
+    print(f"plan at {SHAPE} {key} on {sms} SMs: {plan}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    embs = [torch.randn(SHAPE, generator=gen, device="cuda").bfloat16() for _ in range(COLD_INPUTS)]
-    out = torch.empty((b, p), dtype=torch.bfloat16, device="cuda")
+    embs = [torch.randn(SHAPE, generator=gen, device="cuda").to(dtype) for _ in range(COLD_INPUTS)]
+    out = torch.empty((b, p), dtype=dtype, device="cuda")
     want = dot_interaction_reference(embs[0])
+    tol = dict(atol=1e-2, rtol=8e-3) if key == "bf16" else dict(atol=1e-4, rtol=1e-5)
     stream = torch.cuda.current_stream().cuda_stream
+    entry = "dot_interaction_bf16" if key == "bf16" else "dot_interaction_f32"
 
     def smem(stages, tile):
-        return stages * tile * plan.fp * plan.stride * 2 + (-(-(8 + tile * p) // 8) * 8) * 2
+        if key == "bf16":
+            return stages * tile * plan.fp * plan.stride * 2 + (-(-(8 + tile * p) // 8) * 8) * 2
+        return (stages * tile * (plan.fp * plan.stride + 4) + (-(-(4 + tile * p) // 4) * 4)) * 4
 
     def time_variant(name, tile, per_sm):
         stages = VARIANTS[name][1]
         nbytes = smem(stages, tile)
         grid = min(sms * per_sm, -(-b // tile))
         cycle = itertools.cycle(embs)
+        fn = getattr(libs[name], entry)
 
         def call(emb=None):
-            err = fns[name]((emb if emb is not None else next(cycle)).data_ptr(), out.data_ptr(),
-                            b, f, d, p, plan.fp, plan.dp, plan.stride, tile, nbytes, grid, 1,
-                            stream)
+            err = fn((emb if emb is not None else next(cycle)).data_ptr(), out.data_ptr(),
+                     b, f, d, p, plan.fp, plan.dp, plan.stride, tile, nbytes, grid, 1, stream)
             if err:
-                raise SystemExit(f"{name} tile {tile} grid {grid}: cudaError {err}")
+                raise SystemExit(f"{key} {name} tile {tile} grid {grid}: cudaError {err}")
 
         check = ""
         if name in ("kernel", "stages3"):
             call(embs[0])
             torch.cuda.synchronize()
-            ok = torch.allclose(out.float(), want.float(), atol=1e-2, rtol=8e-3)
+            ok = torch.allclose(out.float(), want.float(), **tol)
             check = " matches the plain version" if ok else " MISMATCH"
-        print(f"{name:8s} tile {tile:2d} blocks/SM {per_sm:2d} grid {grid:4d} "
+        print(f"{key} {name:12s} tile {tile:2d} blocks/SM {per_sm:2d} grid {grid:4d} "
               f"smem {nbytes:6d} B: cold {median_ms(call):.4f} ms{check}", flush=True)
 
     per_sm_plan = -(-plan.grid // sms)
-    for tile in (2, 4, 8, 16):
-        for per_sm in (2, 4, 6, 8):
-            if (smem(2, tile) + 1024) * per_sm <= 233_472:
+    tiles, per_sms = GEOMETRIES[key]
+    for tile in tiles:
+        for per_sm in per_sms:
+            if smem(2, tile) <= _SMEM_BLOCK_MAX and (smem(2, tile) + 1024) * per_sm <= _SMEM_SM:
                 time_variant("kernel", tile, per_sm)
-    for name in ("stages3", "no_gram", "no_store", "no_load"):
-        time_variant(name, plan.tile, per_sm_plan)
+    for name, (_, _, keys) in VARIANTS.items():
+        if name != "kernel" and key in keys:
+            time_variant(name, plan.tile, per_sm_plan)
     dst = torch.empty_like(embs[0])
     cycle = itertools.cycle(embs)
     copy_ms = median_ms(lambda: dst.copy_(next(cycle)))
     moved = 2 * embs[0].numel() * embs[0].element_size()
-    print(f"copy_ of E ({moved / 1e6:.1f} MB read + written): cold {copy_ms:.4f} ms, "
-          f"{moved / copy_ms / 1e9:.3f} TB/s")
+    print(f"{key} copy_ of E ({moved / 1e6:.1f} MB read + written): cold {copy_ms:.4f} ms, "
+          f"{moved / copy_ms / 1e9:.3f} TB/s", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("interaction_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    libs = build_variants(VARIANTS)
+    for key in DTYPES:
+        sweep(key, libs, sms)
     return 0
 
 

@@ -10,8 +10,9 @@ with the sums taken in f32.
 ``tpu_tfrecord/models/interaction.py::dot_interaction_pallas``) for a CUDA
 tensor and uses the plain version for a CPU tensor; nothing else. The
 kernel has two instances: bf16 E (the DLRM's main path) takes the Gram on
-the tensor cores, f32 E a SIMT kernel with f32 FMAs. Their launch geometry
-comes from ``_interaction_plan``, plain Python that the CPU tests reach.
+the tensor cores, f32 E register-blocked f32 FMAs on the CUDA cores. Their
+launch geometry comes from ``_interaction_plan``, plain Python that the CPU
+tests reach.
 
 Gradients: where grad mode is on and E requires grad, ``dot_interaction``
 runs through ``DotInteraction``, a ``torch.autograd.Function`` whose
@@ -77,21 +78,23 @@ _SMEM_SM = 233_472            # shared memory of one SM
 _SMEM_BLOCK_RESERVED = 1_024  # taken by the runtime for each resident block
 _MMA_MAX_DP = 128             # interaction.cu: kMaxKSteps * 16
 _MMA_BLOCKS_PER_SM = 4        # interaction.cu: kMmaMinBlocks
-_MMA_STAGES = 2               # interaction.cu: kStages
+_STAGES = 2                   # interaction.cu: kStages, tiles of rows in flight
 _MMA_TILE_BYTES = 8 * 1024    # bytes of E a tile aims to copy
 _MMA_MAX_TILE = 32            # samples: 8 for each of the 4 warps
-_SIMT_MAX_TILE = 8
-_SIMT_SMEM_TARGET = 48 * 1024
+_TILED_THREADS = 256          # interaction.cu: kTiledThreads
+_TILED_BLOCKS_PER_SM = 3      # interaction.cu: kTiledMinBlocks
+_TILED_SAMPLE_PAD = 4         # interaction.cu: kSamplePad, floats after a staged sample
+_TILED_MAX_TILE = 32
 
-INSTANCES = ("bf16_mma", "f32_simt")
+INSTANCES = ("bf16_mma", "f32_tiled")
 
 
 class InteractionPlan(NamedTuple):
     """Launch geometry of one kernel call (see ``csrc/interaction.cu``)."""
 
-    instance: str    # "bf16_mma" or "f32_simt"
-    fp: int          # staged rows per sample (F padded to 16 for the mma)
-    dp: int          # staged columns per row (D padded to 16 for the mma)
+    instance: str    # "bf16_mma" or "f32_tiled"
+    fp: int          # staged rows per sample (F padded to 16 for the mma, to 4 for f32)
+    dp: int          # staged columns per row (D padded to 16 for the mma, to 4 for f32)
     stride: int      # shared-memory row stride, elements
     tile: int        # samples per tile
     smem: int        # dynamic shared memory per block, bytes
@@ -117,20 +120,21 @@ def _interaction_plan(b: int, f: int, d: int, dtype: torch.dtype, sms: int = 132
     16-byte chunk, which the kernel's store handles. The grid is
     persistent: up to 4 blocks per SM.
 
-    f32: the SIMT kernel's geometry, rows at an odd word stride, up to 8
-    samples a block, one block per tile."""
+    f32: each sample's rows are staged as [Fp][stride] f32, Fp and stride =
+    Dp the next multiples of 4, then 4 floats of pad, so a sample is an odd
+    number of 16-byte chunks (8 consecutive samples at one row and column
+    fall in 8 different bank groups). A thread takes one 4x4 block of row
+    pairs of one sample, (Fp/4)(Fp/4 + 1)/2 blocks per sample. A tile is a
+    multiple of 8 samples, the most that gives each of the 256 threads at
+    most one block (8 at the main path's (27, 32)), at most 32, fewer where
+    shared memory runs out; a block holds two tiles of rows and one of
+    outputs (plus 4 floats of alignment slack). Persistent grid: up to 3
+    blocks per SM."""
     if b < 1 or f < 2 or d < 1:
         raise ValueError(f"dot_interaction kernel needs B >= 1, F >= 2, D >= 1; got ({b}, {f}, {d})")
     p = f * (f - 1) // 2
     if dtype == torch.float32:
-        stride = d | 1
-        per_sample = f * stride * 4
-        if per_sample > SMEM_BLOCK_MAX:
-            raise ValueError(f"f32 dot_interaction kernel: one sample of ({f}, {d}) needs "
-                             f"{per_sample} B of shared memory, over {SMEM_BLOCK_MAX}")
-        tile = max(1, min(_SIMT_MAX_TILE, _SIMT_SMEM_TARGET // per_sample))
-        return InteractionPlan("f32_simt", f, d, stride, tile, tile * per_sample,
-                               -(-b // tile), False)
+        return _tiled_plan(b, f, d, p, sms)
     if dtype != torch.bfloat16:
         raise ValueError(f"dot_interaction kernel takes bf16 or f32, got {dtype}")
     fp, dp = _round_up(f, 16), _round_up(d, 16)
@@ -139,7 +143,7 @@ def _interaction_plan(b: int, f: int, d: int, dtype: torch.dtype, sms: int = 132
     stride = dp + 8
 
     def smem(tile: int) -> int:
-        return _MMA_STAGES * tile * fp * stride * 2 + _round_up(8 + tile * p, 8) * 2
+        return _STAGES * tile * fp * stride * 2 + _round_up(8 + tile * p, 8) * 2
 
     tile = max(1, min(_MMA_MAX_TILE, _MMA_TILE_BYTES // (f * d * 2)))
     while tile > 1 and smem(tile) > SMEM_BLOCK_MAX:
@@ -152,16 +156,36 @@ def _interaction_plan(b: int, f: int, d: int, dtype: torch.dtype, sms: int = 132
     return InteractionPlan("bf16_mma", fp, dp, stride, tile, smem(tile), grid, d % 8 == 0)
 
 
+def _tiled_plan(b: int, f: int, d: int, p: int, sms: int) -> InteractionPlan:
+    """The f32 instance's geometry (see ``_interaction_plan``)."""
+    fp, dp = _round_up(f, 4), _round_up(d, 4)
+    sample = fp * dp + _TILED_SAMPLE_PAD
+    nb = fp // 4
+
+    def smem(tile: int) -> int:
+        return (_STAGES * tile * sample + _round_up(4 + tile * p, 4)) * 4
+
+    tile = max(8, min(_TILED_MAX_TILE, _TILED_THREADS // (nb * (nb + 1) // 2) // 8 * 8))
+    while tile > 1 and smem(tile) > SMEM_BLOCK_MAX:
+        tile -= 1
+    if smem(tile) > SMEM_BLOCK_MAX:
+        raise ValueError(f"f32 dot_interaction kernel: one sample of ({f}, {d}) needs "
+                         f"{smem(1)} B of shared memory, over {SMEM_BLOCK_MAX}")
+    per_sm = min(_TILED_BLOCKS_PER_SM, _SMEM_SM // (smem(tile) + _SMEM_BLOCK_RESERVED))
+    grid = min(-(-b // tile), sms * per_sm)
+    return InteractionPlan("f32_tiled", fp, dp, dp, tile, smem(tile), grid, d % 4 == 0)
+
+
 @functools.cache
 def _kernel_fns():
     from tpu_tfrecord_torch import _cuda
 
     lib = _cuda.load("interaction")
-    bf16, f32 = lib.dot_interaction_bf16, lib.dot_interaction_f32
-    bf16.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    bf16.restype = f32.restype = ctypes.c_int
-    return {"bf16_mma": bf16, "f32_simt": f32}
+    fns = {"bf16_mma": lib.dot_interaction_bf16, "f32_tiled": lib.dot_interaction_f32}
+    for fn in fns.values():  # both take the same arguments
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
 
 
 @functools.lru_cache(maxsize=256)
@@ -194,14 +218,9 @@ def dot_interaction_cuda(emb: torch.Tensor) -> torch.Tensor:
     fn = _kernel_fns()[plan.instance]
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.instance == "bf16_mma":
-            vec_loads = plan.vec_loads and emb.data_ptr() % 16 == 0
-            err = fn(emb.data_ptr(), out.data_ptr(), b, f, d, p, plan.fp, plan.dp,
-                     plan.stride, plan.tile, plan.smem, plan.grid, int(vec_loads), stream)
-        else:
-            rows, cols = tril_pairs(f, emb.device)
-            err = fn(emb.data_ptr(), out.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-                     b, f, d, p, plan.stride, plan.tile, plan.smem, plan.grid, stream)
+        vec_loads = plan.vec_loads and emb.data_ptr() % 16 == 0
+        err = fn(emb.data_ptr(), out.data_ptr(), b, f, d, p, plan.fp, plan.dp,
+                 plan.stride, plan.tile, plan.smem, plan.grid, int(vec_loads), stream)
     if err != 0:
         raise RuntimeError(
             f"dot_interaction kernel launch failed (cudaError {err}) at "

@@ -56,6 +56,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    segment sums, scatters), the loop's rows/s (whole and steps 2-16), host,
    H2D and step ms per step, and the device's idle share.
 
+6. The feed at full width, in phase 4's shards. Decode-only rows/s at 1, 2,
+   4 and 6 decode workers over the same 8 epochs, with every batch's
+   checksum equal across the worker counts. bf16 serving through
+   ``score_files(num_workers=n)`` at the same counts against the direct loop
+   (decode on one thread, densify inline, a synchronized copy out of fresh
+   pinned buffers) in the same run: logits bit-equal. The host side alone
+   (decode and densify at 4 workers, nothing sent to the card), and which
+   stage binds serving and training. bf16 sparse training, 16
+   shuffled steps at 4 decode workers, through three feeds (dispatch-ahead,
+   the transfer thread, the 20-bit wire), each against the direct loop at
+   phase 5's tolerances (before the wire run, the first and second call of
+   its unpack and dense transform, timed); one f32 sparse run through the
+   fastest of them, against the direct loop in f32. For each run: whole and steady rows/s, the
+   host-wait, H2D and step medians, the duty cycle and the launches. Last,
+   the staging race check: 64 batches of distinct contents through
+   ``DeviceIterator(depth=2)`` in both modes while the consumer runs a long
+   device op on each; every device batch's checksum must equal its host
+   batch's.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -68,6 +87,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import itertools
 import json
 import os
@@ -464,7 +484,7 @@ def score_path(label, paths, cfg, model, tol, **kw):
     with plain_interaction():
         ref = score_files(paths, cfg, model, BATCH, "cuda", **kw)
     for i in range(res.batches):
-        print(f"{label} batch {i}: host (wait + densify) {res.host_s[i] * 1e3:.2f} ms, "
+        print(f"{label} batch {i}: host (wait) {res.host_s[i] * 1e3:.2f} ms, "
               f"h2d {res.h2d_s[i] * 1e3:.3f} ms, forward {res.forward_s[i] * 1e3:.3f} ms, "
               f"done at {res.done_s[i]:.4f} s")
     logits = res.logits
@@ -559,7 +579,7 @@ def profile_forward(label, model, batch, res) -> None:
     host_ms = np.array(res.host_s[1:]) * 1e3
     h2d_ms = np.array(res.h2d_s[1:]) * 1e3
     print(f"{label}: steady state, batches 2-{res.batches}: {steady * BATCH / window:.1f} rows/s; per batch "
-          f"host (wait + densify) {host_ms.mean():.3f} ms mean, {np.median(host_ms):.3f} median; "
+          f"host (wait) {host_ms.mean():.3f} ms mean, {np.median(host_ms):.3f} median; "
           f"h2d {h2d_ms.mean():.3f} ms mean, {np.median(h2d_ms):.3f} median; device idle share "
           f"~{1 - busy / window:.4f}")
 
@@ -613,30 +633,41 @@ def train_run(label, paths, steps, sparse, epochs, dtype=torch.bfloat16, **kw):
     ref.opt = None  # the twin's optimizer state goes with the twin
     for i in range(res.steps):
         print(f"{label} step {i}: loss {res.losses[i].item():.6f} (plain "
-              f"{ref.losses[i].item():.6f}); host (wait + densify) {res.host_s[i] * 1e3:.2f} ms, "
+              f"{ref.losses[i].item():.6f}); host (wait) {res.host_s[i] * 1e3:.2f} ms, "
               f"h2d {res.h2d_s[i] * 1e3:.3f} ms, step {res.step_s[i] * 1e3:.3f} ms, "
               f"done at {res.done_s[i]:.4f} s")
-    loss_err = (res.losses - ref.losses).abs().max().item()
+    check_training(label, res.losses, model, ref.losses, twin, dtype, "plain", launches)
+    del twin
+    free_cuda()
+    return res, launches, model
+
+
+def check_training(label, losses, model, ref_losses, ref_model, dtype, ref_name, launches) -> None:
+    """Phase 5's check of a training run against a reference run from the
+    same weights: the losses within TRAIN_LOSS_TOL, every table row within
+    TRAIN_TABLE_ATOL, and the rows neither run moved bit-equal."""
+    loss_err = (losses - ref_losses).abs().max().item()
     with torch.no_grad():
         init = new_criteo_model(dtype).embeddings
         moved = torch.maximum((model.embeddings - init).abs().amax(-1),
-                              (twin.embeddings - init).abs().amax(-1)) > 0     # [F, V]
+                              (ref_model.embeddings - init).abs().amax(-1)) > 0     # [F, V]
         del init
-        row_err = (model.embeddings - twin.embeddings).abs().amax(-1)          # [F, V]
+        row_err = (model.embeddings - ref_model.embeddings).abs().amax(-1)          # [F, V]
         table_err = row_err.max().item()
         still_equal = bool((row_err[~moved] == 0).all())
         n_moved = int(moved.sum())
         del row_err, moved
-    del twin
     free_cuda()
-    print(f"{label}: {res.steps} steps, kernel launches {launches}; max |loss - plain loss| = "
-          f"{loss_err} (tol {TRAIN_LOSS_TOL}); {n_moved} table rows moved, max |row - plain row| = "
-          f"{table_err} (atol {TRAIN_TABLE_ATOL}); rows neither run moved bit-equal: {still_equal}")
-    if not torch.allclose(res.losses, ref.losses, rtol=TRAIN_LOSS_TOL, atol=TRAIN_LOSS_TOL):
-        raise SystemExit(f"{label}: losses {res.losses} disagree with the plain run's {ref.losses}")
+    print(f"{label}: {len(losses)} steps, kernel launches {launches}; max |loss - {ref_name} loss| = "
+          f"{loss_err} (tol {TRAIN_LOSS_TOL}); {n_moved} table rows moved, max |row - {ref_name} "
+          f"row| = {table_err} (atol {TRAIN_TABLE_ATOL}); rows neither run moved bit-equal: "
+          f"{still_equal}")
+    if len(losses) != len(ref_losses):
+        raise SystemExit(f"{label}: {len(losses)} steps against the {ref_name} run's {len(ref_losses)}")
+    if not torch.allclose(losses, ref_losses, rtol=TRAIN_LOSS_TOL, atol=TRAIN_LOSS_TOL):
+        raise SystemExit(f"{label}: losses {losses} disagree with the {ref_name} run's {ref_losses}")
     if table_err > TRAIN_TABLE_ATOL or not still_equal:
-        raise SystemExit(f"{label}: the table disagrees with the plain-interaction run")
-    return res, launches, model
+        raise SystemExit(f"{label}: the table disagrees with the {ref_name} run")
 
 
 def check_backward() -> dict:
@@ -745,7 +776,7 @@ def profile_sparse_step(label, model, opt, res) -> None:
     busy = sum(res.h2d_s[1:]) + steady * dev_step_ms / 1e3
     host_ms, h2d_ms, st_ms = (np.array(x[1:]) * 1e3 for x in (res.host_s, res.h2d_s, res.step_s))
     print(f"{label}: steady state, steps 2-{res.steps}: {steady * BATCH / window:.1f} rows/s; per step host "
-          f"(wait + densify) {host_ms.mean():.3f} ms mean, {np.median(host_ms):.3f} median; h2d "
+          f"(wait) {host_ms.mean():.3f} ms mean, {np.median(host_ms):.3f} median; h2d "
           f"{h2d_ms.mean():.3f} ms mean, {np.median(h2d_ms):.3f} median; step (host clock, "
           f"synchronized) {st_ms.mean():.3f} ms mean, {np.median(st_ms):.3f} median; device idle "
           f"share ~{1 - busy / window:.4f}")
@@ -779,6 +810,351 @@ def train_path(data_dir: str) -> dict:
     return {k: dict(train_launches=launches[k] + dense[k], **backward[k]) for k in INSTANCE_DTYPE}
 
 
+# -- phase 6: the feed -------------------------------------------------------------
+
+FEED_DECODE_WORKERS = (1, 2, 4, 6)
+FEED_WORKERS = 4
+WIRE_BITS = 20
+TRAIN_FEEDS = {
+    "dispatch-ahead": {},
+    "transfer thread": dict(transfer_thread=True),
+    "20-bit wire": dict(wire_bits=WIRE_BITS),
+}
+RACE_BATCHES = 64
+RACE_SLEEP_CYCLES = 4_000_000  # about 2 ms of one SM's clock on an H100
+
+
+def batch_digest(cb) -> str:
+    """A digest of a decoded batch's columns, names and bytes."""
+    h = hashlib.blake2b(digest_size=16)
+    for name in sorted(cb.columns):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(cb[name].values).tobytes())
+    return h.hexdigest()
+
+
+def decode_workers(data_dir: str) -> dict:
+    """Decode-only rows/s at each worker count over the same EPOCHS epochs;
+    every batch's digest must be the same at every count. The batches are
+    kept during the timed read and digested after it."""
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    want = CRITEO_SHARDS * CRITEO_ROWS_PER_SHARD * EPOCHS
+    rates, digests = {}, {}
+    for n in FEED_DECODE_WORKERS:
+        ds = TFRecordDataset(shard_dirs(data_dir), BATCH, num_epochs=EPOCHS, num_workers=n,
+                             **criteo_read_kw())
+        t0 = time.perf_counter()
+        with ds.batches() as it:
+            kept = list(it)
+        secs = time.perf_counter() - t0
+        rows = sum(cb.num_rows for cb in kept)
+        if rows != want:
+            raise SystemExit(f"decode at {n} workers: {rows} rows, want {want}")
+        digests[n] = [batch_digest(cb) for cb in kept]
+        rates[n] = rows / secs
+        print(f"feed: decode only at {n} workers ({EPOCHS} epochs of {CRITEO_SHARDS} x "
+              f"{CRITEO_ROWS_PER_SHARD} rows): {rows} rows in {secs:.4f} s = {rates[n]:.1f} rows/s "
+              f"(host)")
+        del kept
+    same = all(digests[n] == digests[1] for n in FEED_DECODE_WORKERS)
+    print(f"feed: batch digests at {FEED_DECODE_WORKERS} workers identical: {same} "
+          f"({len(digests[1])} batches)")
+    if not same:
+        raise SystemExit("feed: the batches differ between worker counts")
+    return rates
+
+
+def direct_loop(data_dir, step, *, train: bool, **read):
+    """The loop without the feed, kept as the reference of phase 6: the
+    dataset at one decode worker, densify (``log1p``, and the label cast
+    when training) on the consumer thread, ``make_device_batch`` (fresh
+    pinned buffers) synchronized, then ``step`` synchronized. Returns
+    (outputs, wall_s, host_s, h2d_s, step_s, done_s)."""
+    from tpu_tfrecord_torch.device.ingest import host_batch_from_columnar, make_device_batch
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    ds = TFRecordDataset(shard_dirs(data_dir), BATCH, **criteo_read_kw(), **read)
+    outs, host_s, h2d_s, step_s, done_s = [], [], [], [], []
+    start = time.perf_counter()
+    with ds.batches() as it:
+        while True:
+            t0 = time.perf_counter()
+            cb = next(it, None)
+            if cb is None:
+                break
+            hb = host_batch_from_columnar(cb, ds.schema, hash_buckets=ds.hash_buckets, pack=ds.pack)
+            hb["dense"] = np.log1p(hb["dense"].clip(min=0)).astype(np.float32)
+            if train:
+                hb["label"] = hb["label"].astype(np.float32)
+            t1 = time.perf_counter()
+            batch = make_device_batch(hb, "cuda")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            outs.append(step(batch))
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            host_s.append(t1 - t0)
+            h2d_s.append(t2 - t1)
+            step_s.append(t3 - t2)
+            done_s.append(t3 - start)
+    return outs, time.perf_counter() - start, host_s, h2d_s, step_s, done_s
+
+
+def loop_stats(label, wall_s, host_s, h2d_s, step_s, done_s, duty=None, launches=None) -> dict:
+    """Print and return a loop's rows/s, whole and steady (batches 2 to the
+    last), and its per-batch medians over the steady batches."""
+    n = len(step_s)
+    out = dict(whole=n * BATCH / wall_s, steady=(n - 1) * BATCH / (done_s[-1] - done_s[0]),
+               host_ms=float(np.median(host_s[1:])) * 1e3, h2d_ms=float(np.median(h2d_s[1:])) * 1e3,
+               step_ms=float(np.median(step_s[1:])) * 1e3, duty_cycle=duty)
+    print(f"{label}: {n} batches, {out['whole']:.1f} rows/s whole, {out['steady']:.1f} steady "
+          f"(batches 2-{n}); medians over batches 2-{n}: host wait {out['host_ms']:.3f} ms, "
+          f"h2d {out['h2d_ms']:.3f} ms, step {out['step_ms']:.3f} ms; duty cycle {duty}"
+          + ("" if launches is None else f"; kernel launches {launches}"))
+    return out
+
+
+def feed_serving(data_dir: str) -> tuple:
+    """bf16 scoring through ``score_files(num_workers=n)`` for each decode
+    worker count, against the direct loop over the same 8 epochs: logits
+    bit-equal, 16 launches each. Returns ({n: stats}, the launches of the
+    FEED_WORKERS run)."""
+    from tpu_tfrecord_torch.entry import score_files
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    model = new_criteo_model(torch.bfloat16)
+    with torch.no_grad():
+        outs, *times = direct_loop(data_dir, model, train=False, num_epochs=EPOCHS)
+    want = torch.cat(outs)
+    loop_stats("feed: serving bf16, the direct loop", *times)
+    stats, named = {}, None
+    for n in FEED_DECODE_WORKERS:
+        reset_launch_counts()
+        res = score_files(data_dir, model.cfg, model, BATCH, "cuda", num_epochs=EPOCHS,
+                          num_workers=n, log1p_dense=True, **criteo_files_kw())
+        launches = dict(dot_interaction.instance_launches)
+        stats[n] = loop_stats(f"feed: serving bf16, score_files(num_workers={n})", res.wall_s,
+                              res.host_s, res.h2d_s, res.forward_s, res.done_s, res.duty_cycle,
+                              launches)
+        err = (res.logits.float() - want.float()).abs().max().item()
+        equal = res.logits.shape == want.shape and torch.equal(res.logits, want)
+        print(f"feed: serving at {n} workers, logits against the direct loop: bit-equal {equal}, "
+              f"max |diff| {err}")
+        expect = {"bf16_mma": EPOCHS * CRITEO_SHARDS, "f32_tiled": 0}
+        if not equal or launches != expect or not torch.isfinite(res.logits).all():
+            raise SystemExit(f"feed: serving disagrees with the direct loop (launches {launches})")
+        if n == FEED_WORKERS:
+            named = launches
+        del res
+    del model
+    free_cuda()
+    return stats, named
+
+
+def host_feed_rate(data_dir: str, workers: int) -> float:
+    """Rows/s of the feed's host side alone: the dataset at ``workers``
+    decode workers and the prefetch thread's densify and ``log1p``, over
+    the same EPOCHS epochs, with nothing sent to the card."""
+    from tpu_tfrecord_torch.device.ingest import HostPrefetcher, host_batch_from_columnar
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    ds = TFRecordDataset(shard_dirs(data_dir), BATCH, num_epochs=EPOCHS, num_workers=workers,
+                         **criteo_read_kw())
+
+    def densify(cb):
+        hb = host_batch_from_columnar(cb, ds.schema, hash_buckets=ds.hash_buckets, pack=ds.pack)
+        hb["dense"] = np.log1p(hb["dense"].clip(min=0)).astype(np.float32)
+        return hb
+
+    t0 = time.perf_counter()
+    with ds.batches() as it, HostPrefetcher(map(densify, it)) as pf:
+        rows = sum(len(hb["label"]) for hb in pf)
+    rate = rows / (time.perf_counter() - t0)
+    print(f"feed: host side alone at {workers} workers (decode, densify and log1p on the "
+          f"prefetch thread, no device): {rows} rows, {rate:.1f} rows/s (host)")
+    return rate
+
+
+def binding_stage(label, rates: dict) -> str:
+    """Print the stages' rates (rows/s) and name the slowest."""
+    slowest = min(rates, key=rates.get)
+    print(f"{label}: binds at {slowest} ("
+          + ", ".join(f"{k} {v:.1f} rows/s" for k, v in rates.items()) + ")")
+    return slowest
+
+
+def consumer_rate(stats: dict) -> float:
+    """Rows/s the consumer thread alone could take: a batch per median step
+    plus median inline transfer."""
+    return BATCH / ((stats["step_ms"] + stats["h2d_ms"]) / 1e3)
+
+
+def wire_first_call() -> dict:
+    """Host-clock ms of the wire's unpack and dense transform on a
+    full-width batch, first call in the process and second, each
+    synchronized; then their device time per batch (graph replay) and
+    their eager time back to back (CUDA events)."""
+    from tpu_tfrecord_torch.device.bitpack import pack_mixed, unpack_bits
+
+    rng = np.random.default_rng(7)
+    host = np.concatenate([rng.integers(0, 2, size=(BATCH, 1)),
+                           rng.integers(0, 1 << 31, size=(BATCH, 13)),
+                           rng.integers(0, VOCAB, size=(BATCH, 26))], axis=1).astype(np.int32)
+    m = torch.from_numpy(pack_mixed(host, 14, WIRE_BITS)).cuda()
+    torch.cuda.synchronize()
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        return got
+
+    for call in ("first", "second"):
+        cat = timed(f"unpack_bits {call}", lambda: unpack_bits(m[:, 14:], 26, WIRE_BITS))
+        timed(f"log1p f64 {call}", lambda: torch.log1p(m[:, 1:14].clamp(min=0).double()).float())
+        timed(f"label cast {call}", lambda: m[:, 0].float())
+    if not torch.equal(cat.cpu(), torch.from_numpy(host[:, 14:])):
+        raise SystemExit("feed: unpack_bits on the card disagrees with the host matrix")
+
+    def split():
+        return (m[:, 0].float(), torch.log1p(m[:, 1:14].clamp(min=0).double()).float(),
+                unpack_bits(m[:, 14:], 26, WIRE_BITS))
+
+    out["unpack_bits device"] = graph_ms(lambda: unpack_bits(m[:, 14:], 26, WIRE_BITS))
+    out["split device"] = graph_ms(split)
+    out["split eager"] = median_ms(split)
+    print("feed: wire split on a full-width batch, host-clock ms, synchronized: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items() if "device" not in k
+                      and "eager" not in k)
+          + f"; device time per batch (CUDA graph replay): unpack_bits "
+          f"{out['unpack_bits device']:.4f} ms, the whole split (label cast, log1p in f64, "
+          f"unpack) {out['split device']:.4f} ms; eager back to back {out['split eager']:.4f} ms")
+    return out
+
+
+def feed_train_reference(data_dir: str, dtype):
+    """The direct training loop: sparse, shuffled, 16 steps, on a fresh model."""
+    from tpu_tfrecord_torch.entry import TRAIN_LR
+    from tpu_tfrecord_torch.models.dlrm import sparse_opt_init, sparse_train_step
+
+    cfg = criteo_cfg(dtype)
+    model = new_criteo_model(dtype)
+    opt = sparse_opt_init(model, cfg, lambda ps: torch.optim.Adam(ps, lr=TRAIN_LR))
+    losses, *times = direct_loop(
+        data_dir, lambda b: sparse_train_step(model, opt, b, cfg), train=True,
+        num_epochs=TRAIN_SPARSE_EPOCHS, shuffle=True, shuffle_window=2, seed=TRAIN_SEED)
+    loop_stats(f"feed: sparse training {str(dtype)[6:]}, the direct loop", *times)
+    return torch.stack(losses).cpu(), model
+
+
+def feed_train(data_dir: str, dtype, name: str, feed_kw: dict, ref) -> tuple:
+    """Sparse shuffled training through one feed at FEED_WORKERS decode
+    workers, on a fresh model, against the direct loop ``ref``. Returns (stats,
+    launches)."""
+    from tpu_tfrecord_torch.entry import train_files
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    label = f"feed: sparse training {str(dtype)[6:]}, {name}"
+    model = new_criteo_model(dtype)
+    reset_launch_counts()
+    res = train_files(data_dir, criteo_cfg(dtype), model, BATCH, "cuda", sparse=True,
+                      num_epochs=TRAIN_SPARSE_EPOCHS, shuffle=True, shuffle_window=2,
+                      seed=TRAIN_SEED, num_workers=FEED_WORKERS, **criteo_files_kw(), **feed_kw)
+    launches = dict(dot_interaction.instance_launches)
+    steps = TRAIN_SPARSE_EPOCHS * CRITEO_SHARDS
+    want = {k: (steps if k == DTYPE_INSTANCE[dtype] else 0) for k in INSTANCE_DTYPE}
+    stats = loop_stats(label, res.wall_s, res.host_s, res.h2d_s, res.step_s, res.done_s,
+                       res.duty_cycle, launches)
+    print(f"{label}: step 1 {res.step_s[0] * 1e3:.1f} ms (host clock, synchronized)")
+    if res.steps != steps or launches != want or not torch.isfinite(res.losses).all():
+        raise SystemExit(f"{label}: {res.steps} steps, launches {launches} (want {want})")
+    res.opt = None
+    check_training(label, res.losses, model, ref[0], ref[1], dtype, "direct loop", launches)
+    del model, res
+    free_cuda()
+    return stats, launches
+
+
+def staging_race_check(transfer_thread: bool) -> None:
+    """RACE_BATCHES batches of distinct contents through
+    ``DeviceIterator(depth=2)``: the consumer spins the card for a while on
+    each batch and then digests it, and drops the batch before the digest
+    has run. A ring slot rewritten before its copy finished, a copy the
+    consumer did not wait for, or a block the allocator handed out again
+    too early would change a digest."""
+    from tpu_tfrecord_torch.device.ingest import DeviceIterator
+
+    rng = np.random.default_rng(6)
+    base = rng.integers(0, 1 << 31, size=(1024, 1024), dtype=np.int64).astype(np.int32)
+    weights_np = (np.arange(base.size, dtype=np.int64) % 251 + 1).reshape(base.shape)
+    weights = torch.from_numpy(weights_np).cuda()
+
+    def host_batches():
+        for i in range(RACE_BATCHES):
+            a = (base ^ np.int32((i * 0x9E3779B) & 0x7FFFFFFF)) & np.int32(0x7FFFFFFF)
+            yield {"a": a, "b": np.full(4096, i, np.int64)}
+
+    want = [int((hb["a"].astype(np.int64) * weights_np).sum()) + int(hb["b"].sum())
+            for hb in host_batches()]
+    got = []
+    with DeviceIterator(host_batches(), "cuda", transfer_thread=transfer_thread, depth=2) as it:
+        for batch in it:
+            torch.cuda._sleep(RACE_SLEEP_CYCLES)
+            got.append((batch["a"].long() * weights).sum() + batch["b"].sum())
+            del batch
+    got = [int(x) for x in torch.stack(got).cpu()]
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    mode = "transfer thread" if transfer_thread else "dispatch-ahead"
+    print(f"feed: staging race check ({mode}, {RACE_BATCHES} batches of 4.2 MB, "
+          f"{RACE_SLEEP_CYCLES} spin cycles each): {len(got)} digests, {len(bad)} wrong")
+    if len(got) != RACE_BATCHES or bad:
+        raise SystemExit(f"feed: staging race check ({mode}) failed at batches {bad[:8]}")
+
+
+def feed_path(data_dir: str) -> dict:
+    """Phase 6: decode at 1-6 workers, serving at 1-6 workers and sparse
+    training through the feeds against the direct loop, the f32 run through the
+    fastest feed, which stage binds each path, and the staging race check.
+    Returns each instance's launches by path."""
+    decode = decode_workers(data_dir)
+    serve, serve_launches = feed_serving(data_dir)
+    host_rate = host_feed_rate(data_dir, FEED_WORKERS)
+    binds = {"serving": binding_stage(
+        f"feed: serving at {FEED_WORKERS} workers (whole {serve[FEED_WORKERS]['whole']:.1f} rows/s)",
+        {"decode pool": decode[FEED_WORKERS], "host side (decode + densify)": host_rate,
+         "consumer (forward + inline transfer)": consumer_rate(serve[FEED_WORKERS])})}
+    paths = {"feed serving bf16": serve_launches}
+    ref = feed_train_reference(data_dir, torch.bfloat16)
+    train, wire = {}, None
+    for name, kw in TRAIN_FEEDS.items():
+        if "wire_bits" in kw:
+            wire = wire_first_call()
+        train[name], paths[f"feed training bf16, {name}"] = feed_train(
+            data_dir, torch.bfloat16, name, kw, ref)
+    del ref
+    free_cuda()
+    best = max(train, key=lambda k: train[k]["steady"])
+    print(f"feed: the fastest training feed, by steady rows/s: {best}")
+    binds["training"] = binding_stage(
+        f"feed: sparse training bf16, {best} (steady {train[best]['steady']:.1f} rows/s)",
+        {"decode pool": decode[FEED_WORKERS], "host side (decode + densify)": host_rate,
+         "consumer (step + inline transfer)": consumer_rate(train[best])})
+    ref = feed_train_reference(data_dir, torch.float32)
+    _, paths[f"feed training f32, {best}"] = feed_train(
+        data_dir, torch.float32, best, TRAIN_FEEDS[best], ref)
+    del ref
+    free_cuda()
+    for transfer_thread in (False, True):
+        staging_race_check(transfer_thread)
+    print("feed: " + json.dumps({
+        "decode_rows_per_s": decode, "host_side_rows_per_s": host_rate, "serving": serve,
+        "training": train, "best": best, "binds": binds, "wire_first_call_ms": wire}))
+    return {k: {p: launches[k] for p, launches in paths.items()} for k in INSTANCE_DTYPE}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -808,6 +1184,8 @@ def main() -> int:
         launches = main_path(data_dir)
         free_cuda()
         train = train_path(data_dir)
+        free_cuda()
+        feed = feed_path(data_dir)
     design = {
         "bf16_mma": "mma.sync m16n8k16 bf16 Gram, cp.async 16-byte double-buffered "
                     "staging, persistent grid, 16-byte stores through shared memory",
@@ -825,6 +1203,7 @@ def main() -> int:
         max_abs_err=errs[k],
         **timing[k],
         **train[k],
+        feed_launches=feed[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -17,7 +17,11 @@ torch.set_num_threads(1)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tpu_tfrecord_torch.device.ingest import make_device_batch  # noqa: E402
+from tpu_tfrecord_torch.device.ingest import (  # noqa: E402
+    DeviceIterator,
+    StagingRing,
+    make_device_batch,
+)
 from tpu_tfrecord_torch.entry import score_files, write_dryrun_dataset  # noqa: E402
 from tpu_tfrecord_torch.models.dlrm import (  # noqa: E402
     DLRMConfig,
@@ -34,7 +38,7 @@ from tpu_tfrecord_torch.models.interaction import (  # noqa: E402
     dot_interaction_cuda,
     dot_interaction_reference,
 )
-from chip_smoke import CHECK_SHAPES  # noqa: E402  the main path's shape and the design's edges
+from chip_smoke import CHECK_SHAPES, staging_race_check  # noqa: E402  the main path's shape and the design's edges
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +211,71 @@ def test_train_steps_card_match_cpu(cuda_device, sparse):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5, msg=name)
     if sparse:
         torch.testing.assert_close(states[0].accum.cpu(), states[1].accum, rtol=1e-4, atol=1e-7)
+
+
+# -- the feed --------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("transfer_thread", [False, True], ids=["dispatch_ahead", "thread"])
+def test_staging_race_check(cuda_device, transfer_thread):
+    """chip_smoke's check: 64 distinct batches through DeviceIterator(depth=2)
+    while the consumer spins the card on each; every digest matches."""
+    staging_race_check(transfer_thread)
+
+
+@pytest.mark.parametrize("transfer_thread", [False, True], ids=["dispatch_ahead", "thread"])
+def test_device_iterator_batches_equal_make_device_batch(cuda_device, transfer_thread):
+    rng = np.random.default_rng(0)
+    hosts = [{"dense": rng.normal(size=(33, 13)).astype(np.float32),
+              "cat": rng.integers(0, 1 << 20, size=(33, 26)).astype(np.int32)[:, ::2],
+              "label": rng.integers(0, 2, size=33).astype(np.float32)} for _ in range(7)]
+    with DeviceIterator(iter(hosts), cuda_device, transfer_thread=transfer_thread) as it:
+        got = list(it)
+        assert it.transfer_seconds > 0
+    assert len(got) == len(hosts)
+    for g, h in zip(got, hosts):
+        want = make_device_batch(h, cuda_device)
+        for k in want:
+            assert g[k].device.type == "cuda" and torch.equal(g[k], want[k]), k
+
+
+def test_staging_ring_reuses_pinned_slots(cuda_device):
+    ring = StagingRing(3)
+    host = {"x": np.arange(1000, dtype=np.float32), "y": np.arange(6, dtype=np.int64)}
+    ptrs = []
+    for i in range(7):
+        slot, pinned = ring.stage(host)
+        assert slot == i % 3
+        assert all(t.is_pinned() for t in pinned.values())
+        assert np.array_equal(pinned["x"].numpy(), host["x"])
+        event = torch.cuda.Event()
+        event.record()
+        ring.done(slot, event)
+        ptrs.append(pinned["x"].data_ptr())
+    assert ptrs[:3] == ptrs[3:6] and ptrs[6] == ptrs[0] and len(set(ptrs[:3])) == 3
+
+
+def _reuses_freed_block(cuda_device):
+    """Whether the next batch's copy lands in the block of a batch the
+    consumer dropped while its work on that batch was still queued."""
+    host = {"x": np.arange(1 << 20, dtype=np.int32)}
+    it = DeviceIterator(iter([host] * 3), cuda_device, depth=2)
+    first = next(it)  # also issues the second batch's copy
+    freed = first["x"].data_ptr()
+    torch.cuda._sleep(50_000_000)  # the consumer's queued work on the first batch
+    total = first["x"].sum()
+    del first
+    next(it)  # issues the third batch's copy into a new allocation
+    reused = it._pending[0]["x"].data_ptr() == freed
+    torch.cuda.synchronize()
+    del total
+    return reused
+
+
+def test_record_stream_keeps_a_dropped_batch_from_reuse(cuda_device, monkeypatch):
+    """With record_stream the allocator does not hand a dropped batch's block
+    to the next copy while the consumer's work on it is queued; without it,
+    it does (the hazard the mark guards against)."""
+    assert not _reuses_freed_block(cuda_device)
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, stream: None)
+    assert _reuses_freed_block(cuda_device)

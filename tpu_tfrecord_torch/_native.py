@@ -3,9 +3,10 @@
 The decode side of ``tpu_tfrecord/_native.py``: hardware CRC32C, TFRecord
 frame scanning, and batch Example/SequenceExample -> columnar decoding with
 fused categorical hashing and column-group packing, plus the fused ragged
-pads. The library is host C++ (no CUDA), loaded with ``ctypes.CDLL``, so
-every call releases the GIL and the dataset's producer thread decodes while
-the consumer scores.
+pads and the transfer bit-packing pass (``pack_mixed``). The library is
+host C++ (no CUDA), loaded with ``ctypes.CDLL``, so every call releases
+the GIL and the dataset's producer thread decodes while the consumer
+scores.
 
 The library is compiled with ``g++`` at first use into ``_build/`` beside
 this file, named by the source's content hash (an edited source rebuilds).
@@ -143,6 +144,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tfr_hash_blob.restype = None
     lib.tfr_hash_blob.argtypes = [
         ctypes.c_char_p, i64p, ctypes.c_int64, ctypes.c_int64, i64p
+    ]
+    lib.tfr_pack_mixed.restype = ctypes.c_int64
+    lib.tfr_pack_mixed.argtypes = [
+        i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i32p,
     ]
     lib.tfr_pad_ragged.restype = ctypes.c_int64
     lib.tfr_pad_ragged.argtypes = [
@@ -660,6 +665,28 @@ def hash_blob(blob: bytes, blob_offsets: np.ndarray, num_buckets: int) -> np.nda
         num_buckets,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
     )
+    return out
+
+
+def pack_mixed(arr: np.ndarray, keep: int, bits: int) -> np.ndarray:
+    """One pass over an int32 [B, C] matrix: the first ``keep`` lanes of
+    each row copied, the rest bit-packed to ``bits`` (the layout of
+    ``device/bitpack.py``). Raises ValueError on a negative packed value
+    (the sign check rides the packing pass)."""
+    n_rows, n_cols = arr.shape
+    w = ((n_cols - keep) * bits + 31) // 32
+    src = np.ascontiguousarray(arr, dtype=np.int32)
+    out = np.empty((n_rows, keep + w), dtype=np.int32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    bad = load().tfr_pack_mixed(
+        src.ctypes.data_as(i32p), n_rows, n_cols, keep, bits, out.ctypes.data_as(i32p)
+    )
+    if bad >= 0:
+        r, j = divmod(int(bad), n_cols)
+        raise ValueError(
+            "pack_mixed requires non-negative values in packed columns "
+            f"(found {int(src[r, j])} at row {r}, column {j})"
+        )
     return out
 
 

@@ -8,11 +8,21 @@ numpy pads of ``columnar`` only for a dtype the native pads do not take.
 ``make_device_batch`` takes the place of ``make_global_batch``: each array
 is copied into pinned host memory and sent with ``non_blocking=True`` on the
 current stream.
+
+The feed: ``HostPrefetcher`` runs a host-batch iterator on a thread behind
+a bounded queue; ``DeviceIterator`` copies each host batch to the card on a
+side stream out of a reused pinned ``StagingRing``, a batch ahead of the
+consumer (or on a transfer thread), and hands the tensors over ordered
+behind their copy on the consumer's stream.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+import queue
+import threading
+import time
+import weakref
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -211,3 +221,272 @@ def make_device_batch(
             t = t.to(device)
         out[name] = t
     return out
+
+
+# -- the feed ------------------------------------------------------------------
+
+
+def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
+    """Enqueue, polling ``stop`` so that a consumer that went away never
+    leaves the worker blocked on a full queue."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.1)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+_DONE = object()  # the end of a HostPrefetcher's stream
+
+
+def _prefetch(source: Iterable, q: queue.Queue, stop: threading.Event) -> None:
+    """HostPrefetcher's worker: the items of ``source``, then ``_DONE`` or
+    the exception that stopped it. A module-level function, so the thread
+    holds no reference to the prefetcher and an abandoned one can be
+    collected."""
+    try:
+        for item in source:
+            if not _put(q, item, stop):
+                return
+        _put(q, _DONE, stop)
+    except BaseException as e:  # re-raised in the consumer by __next__
+        _put(q, e, stop)
+
+
+class HostPrefetcher:
+    """Run an iterator on a background thread behind a bounded queue of
+    ``depth`` items, so that the host's work on each batch (densify,
+    ``log1p``, the wire packing) leaves the consumer's thread. Item-type
+    agnostic. Iterate it, or use it as a context manager.
+
+    - An exception in the iterator is raised at its item, and again on
+      every later ``next()``.
+    - ``close()`` stops the thread, drops what it queued and joins it;
+      ``next()`` after ``close()`` raises ``StopIteration``. A thread
+      blocked inside the source's own ``next()`` is joined when that
+      returns.
+    """
+
+    def __init__(self, host_batches: Iterable, depth: int = 2):
+        self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._finished: Optional[object] = None
+        self._thread = threading.Thread(
+            target=_prefetch, args=(host_batches, self._queue, self._stop),
+            name="host-prefetcher", daemon=True,
+        )
+        # a prefetcher dropped without close() still stops its thread
+        self._finalizer = weakref.finalize(self, self._stop.set)
+        self._thread.start()
+
+    def __iter__(self) -> "HostPrefetcher":
+        return self
+
+    def __next__(self):
+        # the end or the exception arrives on the queue once: keep it, so a
+        # later next() raises again instead of waiting on a finished thread
+        if self._finished is not None:
+            if self._finished is _DONE:
+                raise StopIteration
+            raise self._finished
+        while True:
+            try:
+                item = self._queue.get(timeout=0.1)
+                break
+            except queue.Empty:
+                if self._stop.is_set():  # close()d from another thread
+                    self._finished = _DONE
+                    raise StopIteration
+        if item is _DONE:
+            self._finished = item
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._finished = item
+            raise item
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._finished is None:
+            self._finished = _DONE
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join()
+
+    def __enter__(self) -> "HostPrefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+class StagingRing:
+    """Pinned host buffers for the host-to-device copies, allocated once
+    and reused: ``slots`` slots, each holding one buffer per (name, shape,
+    dtype) it has staged and the event recorded behind its last copy.
+
+    ``stage(host)`` takes the next slot, waits until that slot's last copy
+    has completed, and copies the host arrays into its buffers; the caller
+    issues the copies out of them and then ``done(slot, event)``. The
+    buffers of a slot keep their addresses from batch to batch, so a CUDA
+    graph can replay copies out of them into static device buffers.
+    """
+
+    def __init__(self, slots: int):
+        self._buffers: List[Dict[tuple, Tuple[torch.Tensor, np.ndarray]]] = [
+            {} for _ in range(slots)
+        ]
+        self._events: List[Optional[torch.cuda.Event]] = [None] * slots
+        self._next = 0
+
+    def stage(self, host: Dict[str, np.ndarray]) -> Tuple[int, Dict[str, torch.Tensor]]:
+        slot = self._next
+        self._next = (slot + 1) % len(self._buffers)
+        event = self._events[slot]
+        if event is not None:
+            event.synchronize()  # the slot's last copy has read its buffers
+        buffers = self._buffers[slot]
+        out = {}
+        for name, arr in host.items():
+            key = (name, arr.shape, arr.dtype)
+            if key not in buffers:
+                pinned = torch.empty(arr.shape, dtype=_torch_dtype(arr.dtype), pin_memory=True)
+                buffers[key] = (pinned, pinned.numpy())
+            pinned, view = buffers[key]
+            np.copyto(view, arr)
+            out[name] = pinned
+        return slot, out
+
+    def done(self, slot: int, event: torch.cuda.Event) -> None:
+        self._events[slot] = event
+
+
+# a batch on its way to the device: its tensors and the event recorded
+# behind their copies (None on the CPU)
+_Staged = Tuple[Dict[str, torch.Tensor], Optional[torch.cuda.Event]]
+
+
+class DeviceIterator:
+    """Host batches -> tensors on one device, the copy of batch N+1 issued
+    while the consumer computes on batch N.
+
+    The one-card counterpart of the JAX ``DeviceIterator``: ``device``
+    takes the place of ``mesh`` and ``axis``; the JAX shardings
+    (``data_shardings``, ``make_global_batch``) have no one-card meaning.
+
+    On a CUDA device each host array is copied into a ``StagingRing`` slot
+    (``depth + 1`` slots) and from there with ``non_blocking=True`` on a
+    side stream, into tensors allocated on that stream; an event is
+    recorded behind the copies. ``next()`` makes the consumer's current
+    stream wait for that event and marks each tensor with
+    ``record_stream``, so the caching allocator does not hand its memory
+    out while the consumer's work on it is queued. Nothing synchronizes
+    the host with the card, apart from waiting for a ring slot whose copy
+    is still running.
+
+    - dispatch-ahead (the default): ``next()`` issues the next batch's copy
+      before it returns the current one;
+    - ``transfer_thread=True``: a ``HostPrefetcher`` worker issues each
+      copy and waits for its event, ``depth`` device batches ahead.
+
+    On a CPU device a batch is a plain ``.to(device)``: no stream, no
+    pinning. ``transfer_seconds`` is the host's cumulative time spent
+    transferring: issuing the copies (host copy into the ring included),
+    plus the wait for their completion on the transfer thread. Use
+    ``close()`` or a ``with`` block to release the worker.
+    """
+
+    def __init__(
+        self,
+        host_batches: Iterable[Dict[str, np.ndarray]],
+        device="cuda",
+        transfer_thread: bool = False,
+        depth: int = 2,
+    ):
+        self._it = iter(host_batches)
+        self.device = torch.device(device)
+        self._pending: Optional[_Staged] = None
+        self._pf: Optional[HostPrefetcher] = None
+        self.transfer_seconds = 0.0
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._ring = StagingRing(depth + 1)
+        if transfer_thread:
+            def _transferred():
+                for host in self._it:
+                    t0 = time.perf_counter()
+                    staged = self._transfer(host, timed=False)
+                    if staged[1] is not None:
+                        staged[1].synchronize()
+                    self.transfer_seconds += time.perf_counter() - t0
+                    yield staged
+
+            self._pf = HostPrefetcher(_transferred(), depth=depth)
+
+    def _transfer(self, host: Dict[str, np.ndarray], timed: bool = True) -> _Staged:
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":
+            staged = ({
+                name: torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+                for name, arr in host.items()
+            }, None)
+        else:
+            slot, pinned = self._ring.stage(host)
+            with torch.cuda.stream(self._stream):
+                tensors = {}
+                for name, src in pinned.items():
+                    dst = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+                    dst.copy_(src, non_blocking=True)
+                    tensors[name] = dst
+                event = torch.cuda.Event(blocking=True)
+                event.record(self._stream)
+            self._ring.done(slot, event)
+            staged = (tensors, event)
+        if timed:  # the transfer thread times the copy and its wait together
+            self.transfer_seconds += time.perf_counter() - t0
+        return staged
+
+    def _hand_over(self, staged: _Staged) -> Dict[str, torch.Tensor]:
+        tensors, event = staged
+        if event is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(event)
+            for t in tensors.values():
+                t.record_stream(consumer)
+        return tensors
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        if self._pf is not None:
+            return self._hand_over(next(self._pf))
+        if self._pending is None:
+            self._pending = self._transfer(next(self._it))  # StopIteration at the end
+        current, self._pending = self._pending, None
+        try:
+            nxt = next(self._it)
+        except StopIteration:
+            return self._hand_over(current)
+        self._pending = self._transfer(nxt)
+        return self._hand_over(current)
+
+    def close(self) -> None:
+        """Release the transfer worker (nothing to do without one)."""
+        if self._pf is not None:
+            self._pf.close()
+
+    def __enter__(self) -> "DeviceIterator":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -19,7 +19,12 @@ the JAX package's main path:
   batches; the native calls release the GIL, so decode overlaps the
   consumer. Batches cross chunks, shards and epochs: a chunk that is
   exactly one batch passes through with no copy, anything else is cut and
-  joined with ``slice_batch`` / ``concat_batches``.
+  joined with ``slice_batch`` / ``concat_batches``;
+- ``num_workers`` > 1 decodes that many shards at a time in a thread pool
+  (``_parallel_chunks``): a dispatcher hands the shard tasks to the
+  workers, each shard decodes into a bounded queue of its own, and the
+  producer drains those queues in task order, so the chunks, and hence the
+  batches, are the sequential ones for any worker count.
 
 - ``shuffle`` permutes the shard order of each epoch with a permutation
   drawn from ``(seed, epoch)``, over every shard, empty ones included;
@@ -31,9 +36,9 @@ the JAX package's main path:
   arguments.
 
 Left out against the JAX dataset: checkpointable positions (the
-positions above only seed the windows), ``num_workers > 1``, stall
-defense, caching, the data service, autotuning, partition columns and
-column selection.
+positions above only seed the windows), the decode pool's watchdog and its
+autotuned resizing (``control``), stall defense, caching, the data
+service, partition columns and column selection.
 """
 
 from __future__ import annotations
@@ -75,9 +80,10 @@ class TFRecordDataset:
     """Plan a streaming read: ``TFRecordDataset(paths, batch_size,
     schema=None, recordType="Example", hash_buckets=None, pack=None,
     drop_remainder=True, num_epochs=1, decoder="native", shuffle=False,
-    shuffle_window=0, seed=0)``. Without a schema, it is inferred from the
-    first non-empty shard. ``num_epochs=None`` repeats the shards without
-    end."""
+    shuffle_window=0, seed=0, num_workers=1)``. Without a schema, it is
+    inferred from the first non-empty shard. ``num_epochs=None`` repeats the
+    shards without end. ``num_workers`` shards decode at a time (values
+    below 1 count as 1)."""
 
     def __init__(
         self,
@@ -93,6 +99,7 @@ class TFRecordDataset:
         shuffle: bool = False,
         shuffle_window: int = 0,
         seed: int = 0,
+        num_workers: int = 1,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -105,6 +112,7 @@ class TFRecordDataset:
         self.shuffle = shuffle
         self.shuffle_window = shuffle_window
         self.seed = seed
+        self.num_workers = max(1, num_workers)
         self.options = TFRecordOptions.from_map(recordType=recordType, schema=schema)
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder
@@ -157,30 +165,48 @@ class TFRecordDataset:
         rng = np.random.default_rng((self.seed, epoch))
         return rng.permutation(len(self.shards)).tolist()
 
-    def _chunks(self) -> Iterator[Tuple[ColumnarBatch, int, int, int]]:
-        """(chunk, epoch, cursor, start) for the decoded chunks of every
-        epoch: ``cursor`` is the shard's position in the epoch's order,
-        ``start`` the index of the chunk's first record in its shard."""
+    def _shard_tasks(self) -> Iterator[Tuple[int, int, int]]:
+        """(epoch, cursor, shard index) of every non-empty shard of every
+        epoch, lazily (epochs may be endless): ``cursor`` is the shard's
+        position in the epoch's order."""
         if not any(sh.size for sh in self.shards):
             return
-        chunk_records = max(self.batch_size, MIN_CHUNK_RECORDS)
         epoch = 0
         while self.num_epochs is None or epoch < self.num_epochs:
             for cursor, index in enumerate(self.epoch_order(epoch)):
-                path = self.shards[index].path
-                if not self.shards[index].size:
-                    continue
-                if self._native_decoder is None:
-                    chunks = self._python_chunks(path, chunk_records)
-                elif wire.codec_from_path(path) is None:
-                    chunks = self._mmap_chunks(path, chunk_records)
-                else:
-                    chunks = self._slab_chunks(path, chunk_records)
-                start = 0
-                for chunk in chunks:
-                    yield chunk, epoch, cursor, start
-                    start += chunk.num_rows
+                if self.shards[index].size:
+                    yield epoch, cursor, index
             epoch += 1
+
+    def _decode_shard(
+        self, epoch: int, cursor: int, index: int
+    ) -> Iterator[Tuple[ColumnarBatch, int, int, int]]:
+        """(chunk, epoch, cursor, start) of one shard's decoded chunks:
+        ``start`` is the index of the chunk's first record in the shard."""
+        chunk_records = max(self.batch_size, MIN_CHUNK_RECORDS)
+        path = self.shards[index].path
+        if self._native_decoder is None:
+            chunks = self._python_chunks(path, chunk_records)
+        elif wire.codec_from_path(path) is None:
+            chunks = self._mmap_chunks(path, chunk_records)
+        else:
+            chunks = self._slab_chunks(path, chunk_records)
+        start = 0
+        for chunk in chunks:
+            yield chunk, epoch, cursor, start
+            start += chunk.num_rows
+
+    def _chunks(
+        self, stop: Optional[threading.Event] = None
+    ) -> Iterator[Tuple[ColumnarBatch, int, int, int]]:
+        """(chunk, epoch, cursor, start) for the decoded chunks of every
+        epoch, in task order; with ``num_workers`` > 1 from the decode pool,
+        which ``stop`` (or closing this generator) stops and joins."""
+        if self.num_workers > 1:
+            yield from _parallel_chunks(self, stop or threading.Event())
+            return
+        for task in self._shard_tasks():
+            yield from self._decode_shard(*task)
 
     def _mmap_chunks(self, path: str, chunk_records: int) -> Iterator[ColumnarBatch]:
         """A local uncompressed shard: mmap it and scan + decode straight out
@@ -333,7 +359,7 @@ def _produce(ds: TFRecordDataset, out: queue.Queue, stop: threading.Event) -> No
     that stopped it. A module-level function, so the thread holds no
     reference to the iterator and an abandoned iterator can be collected."""
     try:
-        with contextlib.closing(ds._chunks()) as chunks:
+        with contextlib.closing(ds._chunks(stop)) as chunks:
             emit = _emit_shuffled if ds.shuffle_window else _emit_in_order
             if not emit(ds, chunks, out, stop):
                 return
@@ -361,6 +387,110 @@ def _emit_in_order(ds: TFRecordDataset, chunks, out: queue.Queue, stop: threadin
     if avail and not ds.drop_remainder:
         return _put(out, _take(pending, avail), stop)
     return True
+
+
+class _ShardJob:
+    """One shard's decode in the pool: its task, and the bounded queue its
+    worker fills with ("chunk", tuple), then ("end", None) or ("error",
+    exception)."""
+
+    __slots__ = ("task", "out")
+
+    def __init__(self, task: Tuple[int, int, int], depth: int):
+        self.task = task
+        self.out: queue.Queue = queue.Queue(maxsize=depth)
+
+
+SHARD_QUEUE_CHUNKS = 2  # decoded chunks a worker may hold ahead of the producer
+
+
+def _parallel_chunks(ds: TFRecordDataset, stop: threading.Event) -> Iterator[tuple]:
+    """Ordered parallel shard decode, the JAX ``_parallel_chunks`` without
+    its watchdog and its resizable pool.
+
+    A dispatcher enumerates the shard tasks lazily and hands each to
+    ``ds.num_workers`` workers through a task queue, after queueing its job
+    on the order queue; both queues hold ``num_workers`` jobs, so at most
+    about twice that many shards are decoded or waiting at a time. This
+    generator (run by the producer) drains the jobs' queues in task order,
+    so its chunks are the sequential stream's. A worker's exception is
+    raised here, where its shard's chunks stop. ``stop``, the end of the
+    stream, an error or closing the generator stops every thread, and the
+    generator joins them before it returns."""
+    n_workers = ds.num_workers
+    halt = threading.Event()
+    task_q: queue.Queue = queue.Queue(maxsize=n_workers)
+    order_q: queue.Queue = queue.Queue(maxsize=n_workers + 1)
+    end = object()
+
+    def dispatcher() -> None:
+        try:
+            for task in ds._shard_tasks():
+                job = _ShardJob(task, SHARD_QUEUE_CHUNKS)
+                if not (_put(order_q, job, halt) and _put(task_q, job, halt)):
+                    return
+            _put(order_q, end, halt)
+        except BaseException as e:  # raised by the generator below, in order
+            _put(order_q, e, halt)
+        finally:
+            for _ in range(n_workers):
+                if not _put(task_q, end, halt):
+                    break
+
+    def worker() -> None:
+        while not halt.is_set():
+            try:
+                job = task_q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            if job is end:
+                return
+            try:
+                for item in ds._decode_shard(*job.task):
+                    if not _put(job.out, ("chunk", item), halt):
+                        return
+                _put(job.out, ("end", None), halt)
+            except BaseException as e:  # raised by the generator below, in order
+                _put(job.out, ("error", e), halt)
+
+    threads = [threading.Thread(target=dispatcher, name="tfrecord-dispatcher", daemon=True)]
+    threads += [
+        threading.Thread(target=worker, name=f"tfrecord-decode-{i}", daemon=True)
+        for i in range(n_workers)
+    ]
+    for t in threads:
+        t.start()
+
+    def get(q: queue.Queue):
+        """The next item of ``q``, or ``end`` once ``stop`` is set."""
+        while not stop.is_set():
+            try:
+                return q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+        return end
+
+    try:
+        while True:
+            job = get(order_q)
+            if job is end:
+                return
+            if isinstance(job, BaseException):
+                raise job
+            while True:
+                item = get(job.out)
+                if item is end:
+                    return
+                kind, payload = item
+                if kind == "end":
+                    break
+                if kind == "error":
+                    raise payload
+                yield payload
+    finally:
+        halt.set()
+        for t in threads:
+            t.join()
 
 
 def _window_permutation(seed: int, start: Tuple[int, int, int], n: int) -> np.ndarray:

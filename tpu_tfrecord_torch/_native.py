@@ -1,12 +1,14 @@
 """Build, load and bind the port's native host library (``csrc/tfrecord_native.cc``).
 
-The decode side of ``tpu_tfrecord/_native.py``: hardware CRC32C, TFRecord
-frame scanning, and batch Example/SequenceExample -> columnar decoding with
-fused categorical hashing and column-group packing, plus the fused ragged
-pads and the transfer bit-packing pass (``pack_mixed``). The library is
-host C++ (no CUDA), loaded with ``ctypes.CDLL``, so every call releases
-the GIL and the dataset's producer thread decodes while the consumer
-scores.
+The bindings of ``tpu_tfrecord/_native.py``: hardware CRC32C, TFRecord
+frame scanning, batch Example/SequenceExample -> columnar decoding with
+fused categorical hashing and column-group packing, the fused ragged pads,
+the transfer bit-packing pass (``pack_mixed``), the batch encoder
+(``NativeEncoder``, columnar batch -> framed records), the schema
+inference walk (``InferScanner``) and raw snappy / lz4 block codecs. The
+library is host C++ (no CUDA), loaded with ``ctypes.CDLL``, so every call
+releases the GIL: the dataset's producer thread decodes while the
+consumer scores, and the writer's pipeline threads encode in parallel.
 
 The library is compiled with ``g++`` at first use into ``_build/`` beside
 this file, named by the source's content hash (an edited source rebuilds).
@@ -149,6 +151,38 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tfr_pack_mixed.argtypes = [
         i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i32p,
     ]
+    lib.tfr_infer_batch.restype = ctypes.c_void_p
+    lib.tfr_infer_batch.argtypes = [
+        ctypes.c_char_p, u64p, u64p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.tfr_infer_size.restype = ctypes.c_int64
+    lib.tfr_infer_size.argtypes = [ctypes.c_void_p]
+    lib.tfr_infer_entry.restype = ctypes.c_int64
+    lib.tfr_infer_entry.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.tfr_infer_free.restype = None
+    lib.tfr_infer_free.argtypes = [ctypes.c_void_p]
+    for name in ("tfr_snappy_decompress", "tfr_lz4_decompress",
+                 "tfr_snappy_compress", "tfr_lz4_compress"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_uint64, u8p, ctypes.c_uint64]
+    for name in ("tfr_snappy_max_compressed", "tfr_lz4_max_compressed"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_uint64]
+    lib.tfr_encode_batch.restype = ctypes.c_int64
+    lib.tfr_encode_batch.argtypes = [
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_char_p), i64p, i32p, i32p, i32p,
+        ctypes.POINTER(u8p), ctypes.POINTER(i64p), ctypes.POINTER(i64p),
+        ctypes.POINTER(u8p), ctypes.POINTER(i64p),
+        ctypes.POINTER(u8p),
+        u8p, ctypes.c_int64,
+    ]
     lib.tfr_pad_ragged.restype = ctypes.c_int64
     lib.tfr_pad_ragged.argtypes = [
         ctypes.c_void_p, ctypes.c_int32, i64p, ctypes.c_int64,
@@ -217,13 +251,20 @@ def scan(buf: bytes, verify_crc: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     return offsets[:n].copy(), lengths[:n].copy()
 
 
-def scan_partial(buf: bytes, verify_crc: bool = True) -> Tuple[np.ndarray, np.ndarray, int]:
+def scan_partial(
+    buf: bytes, verify_crc: bool = True, max_records: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray, int]:
     """Frame the complete records at the front of ``buf``; a record that runs
     past its end is a tail, not an error. Returns (offsets, lengths,
-    consumed_bytes)."""
+    consumed_bytes). ``max_records`` stops the scan cleanly after that many
+    records: bytes past them are neither framed nor CRC-checked."""
     from tpu_tfrecord_torch.wire import TFRecordCorruptionError
 
     cap = max(1, len(buf) // 16)
+    if max_records is not None:
+        if max_records <= 0:
+            return np.empty(0, np.uint64), np.empty(0, np.uint64), 0
+        cap = min(cap, max_records)
     offsets = np.empty(cap, dtype=np.uint64)
     lengths = np.empty(cap, dtype=np.uint64)
     consumed = ctypes.c_uint64(0)
@@ -795,3 +836,279 @@ def pad_ragged2_dense(
     if rc != 0:
         raise ValueError(f"tfr_pad_ragged2 refused kinds ({in_kind}, {out_kind}): rc={rc}")
     return dense, outer_len, inner_len
+
+
+# ---------------------------------------------------------------------------
+# Schema inference walk
+# ---------------------------------------------------------------------------
+
+
+class InferScanner:
+    """Accumulating native schema-inference seqOp. Feed batches of record
+    spans with ``update``; ``result()`` gives the per-feature
+    max-precedence map (``infer.type_map_from_precedences`` turns it into
+    a type map). The walk runs in C++ with the GIL released and
+    materializes no values, so shards scan concurrently in a thread pool.
+    The handle is C++-owned: ``close()`` (or the ``with`` block) frees it.
+    """
+
+    def __init__(self, record_type):
+        self._handle = None
+        rt = RecordType.parse(record_type)
+        if rt == RecordType.EXAMPLE:
+            self._fmt = 0
+        elif rt == RecordType.SEQUENCE_EXAMPLE:
+            self._fmt = 1
+        else:
+            raise ValueError(f"InferScanner does not support {rt}")
+        self._lib = load()
+        self._records = 0
+
+    @property
+    def records(self) -> int:
+        return self._records
+
+    def update(self, buf, offsets: np.ndarray, lengths: np.ndarray) -> None:
+        """Accumulate one batch of record spans (``buf`` bytes or a uint8
+        array; offsets/lengths as from ``scan_partial``)."""
+        buf_arg = buf.ctypes.data_as(ctypes.c_char_p) if isinstance(buf, np.ndarray) else buf
+        offsets = np.ascontiguousarray(offsets, dtype=np.uint64)
+        lengths = np.ascontiguousarray(lengths, dtype=np.uint64)
+        errbuf = ctypes.create_string_buffer(512)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        handle = self._lib.tfr_infer_batch(
+            buf_arg, offsets.ctypes.data_as(u64p), lengths.ctypes.data_as(u64p),
+            len(offsets), self._fmt, self._handle, errbuf, len(errbuf),
+        )
+        if not handle:
+            msg = errbuf.value.decode("utf-8", "replace")
+            self.close()
+            if "unsupported feature kind" in msg:
+                from tpu_tfrecord_torch.infer import SchemaInferenceError
+
+                raise SchemaInferenceError(msg)
+            raise proto.ProtoDecodeError(msg)
+        self._handle = handle
+        self._records += len(offsets)
+
+    def result(self) -> Dict[str, int]:
+        """Current (feature name -> max precedence) map."""
+        if self._handle is None:
+            return {}
+        out: Dict[str, int] = {}
+        name_ptr = ctypes.c_void_p()
+        name_len = ctypes.c_int64()
+        for i in range(self._lib.tfr_infer_size(self._handle)):
+            prec = self._lib.tfr_infer_entry(
+                self._handle, i, ctypes.byref(name_ptr), ctypes.byref(name_len)
+            )
+            out[ctypes.string_at(name_ptr.value, name_len.value).decode("utf-8")] = int(prec)
+        return out
+
+    def close(self) -> None:
+        if self._handle is not None:
+            self._lib.tfr_infer_free(self._handle)
+            self._handle = None
+
+    def __enter__(self) -> "InferScanner":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):  # last resort; close() is the contract
+        self.close()
+
+
+# ---------------------------------------------------------------------------
+# Raw snappy and lz4 block codecs
+# ---------------------------------------------------------------------------
+
+# A valid snappy stream expands at most ~21x per compressed byte (a 3-byte
+# copy2 element emits up to 64 bytes); far beyond that the length varint is
+# corrupt: refuse before allocating what untrusted bytes claim.
+_SNAPPY_MAX_EXPANSION = 100
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+
+
+def snappy_decompress(data: bytes) -> bytes:
+    """Native raw-snappy decode. Raises ValueError or
+    TFRecordCorruptionError on corrupt input."""
+    from tpu_tfrecord_torch.hadoop_codecs import _read_varint
+
+    lib = load()
+    expected, _ = _read_varint(memoryview(data), 0)
+    if expected > _SNAPPY_MAX_EXPANSION * len(data) + 1024:
+        raise ValueError(
+            f"snappy: declared output {expected} is impossible for "
+            f"{len(data)} compressed bytes — corrupt length varint"
+        )
+    out = np.empty(expected, dtype=np.uint8)
+    rc = lib.tfr_snappy_decompress(data, len(data), out.ctypes.data_as(_U8P), expected)
+    if rc < 0:
+        raise ValueError(f"corrupt snappy input (rc={rc})")
+    return out.tobytes()
+
+
+def lz4_decompress(
+    data: bytes, expected: Optional[int] = None, max_out: Optional[int] = None
+) -> bytes:
+    """Native lz4-block decode. ``expected`` = exact output size (strictly
+    enforced); ``max_out`` = an upper bound (initial capacity only). With
+    neither, the buffer grows geometrically while the decoder reports it
+    too small (rc=-2)."""
+    lib = load()
+    if expected is not None:
+        cap = expected
+    elif max_out is not None:
+        cap = max_out
+    else:
+        cap = max(4 * len(data) + 64, 1 << 16)
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        rc = lib.tfr_lz4_decompress(data, len(data), out.ctypes.data_as(_U8P), cap)
+        if rc >= 0:
+            if expected is not None and rc != expected:
+                raise ValueError(f"lz4: decoded {rc} bytes, framing promised {expected}")
+            return out[:rc].tobytes()
+        if rc == -2 and expected is None and max_out is None and cap < (1 << 31):
+            cap *= 4
+            continue
+        raise ValueError(f"corrupt lz4 input (rc={rc})")
+
+
+def snappy_compress(data: bytes) -> bytes:
+    """Native raw-snappy encode (greedy hash matcher, 64 KB blocks)."""
+    lib = load()
+    cap = lib.tfr_snappy_max_compressed(len(data))
+    out = np.empty(cap, dtype=np.uint8)
+    rc = lib.tfr_snappy_compress(data, len(data), out.ctypes.data_as(_U8P), cap)
+    if rc < 0:  # cannot happen with cap from max_compressed
+        raise ValueError(f"snappy compress failed (rc={rc})")
+    return out[:rc].tobytes()
+
+
+def lz4_compress(data: bytes) -> bytes:
+    """Native lz4-block encode (greedy hash matcher, 64 KB offset window).
+    The match table holds int32 positions, so an input of 2 GiB or more is
+    out of contract and raises (``hadoop_codecs.lz4_compress`` routes such
+    inputs to its literal-only encoder)."""
+    if len(data) > 2**31 - 1:
+        raise ValueError(f"lz4_compress: {len(data)} bytes exceed the int32 match table")
+    lib = load()
+    cap = lib.tfr_lz4_max_compressed(len(data))
+    out = np.empty(cap, dtype=np.uint8)
+    rc = lib.tfr_lz4_compress(data, len(data), out.ctypes.data_as(_U8P), cap)
+    if rc < 0:
+        raise ValueError(f"lz4 compress failed (rc={rc})")
+    return out[:rc].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# Batch encoder
+# ---------------------------------------------------------------------------
+
+
+class NativeEncoder:
+    """Columnar batch -> framed tf.Example/SequenceExample stream, one
+    native call per batch (the write-side twin of ``NativeDecoder``). For
+    SequenceExample, ragged2 columns become FeatureLists and scalar/ragged
+    columns go to the context map (TFRecordSerializer.scala:37-60).
+
+    Buffer ownership: the C++ side reads the batch's arrays through raw
+    pointers and writes into an output array allocated here, so every
+    buffer is numpy-owned. ``encode_batch`` holds each (contiguous) input
+    in ``keepalive`` until the call returns, and returns the output array
+    itself, so no pointer outlives its owner; nothing C++-owned is handed
+    out.
+    """
+
+    def __init__(self, schema: StructType, record_type: RecordType = RecordType.EXAMPLE):
+        self.schema = schema
+        self.record_type = RecordType.parse(record_type)
+        if self.record_type == RecordType.BYTE_ARRAY:
+            raise UnsupportedSchemaError("ByteArray encode is trivial in Python")
+        n = len(schema)
+        specs = [_field_spec(f.name, f.data_type) for f in schema]
+        if self.record_type == RecordType.EXAMPLE and any(
+            s[0] == _LAYOUT_RAGGED2 for s in specs
+        ):
+            raise ValueError("array-of-array columns require recordType=SequenceExample")
+        self._lib = load()
+        self._names = [f.name.encode("utf-8") for f in schema]
+        self._c_names = (ctypes.c_char_p * n)(*self._names)
+        self._name_lens = np.array([len(b) for b in self._names], dtype=np.int64)
+        self._layouts_np = np.array([s[0] for s in specs], dtype=np.int32)
+        self._layouts = self._layouts_np.tolist()
+        self._kinds = np.array([s[1] for s in specs], dtype=np.int32)
+        self._dtypes = np.array([s[2] for s in specs], dtype=np.int32)
+        self._non_nullable = [not f.nullable for f in schema]
+        self._fmt = 0 if self.record_type == RecordType.EXAMPLE else 1
+
+    def encode_batch(self, batch: ColumnarBatch) -> np.ndarray:
+        """A uint8 array holding the framed record stream of ``batch``."""
+        n_fields = len(self.schema)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        values_arr = (_U8P * n_fields)()
+        rowoff_arr = (i64p * n_fields)()
+        inneroff_arr = (i64p * n_fields)()
+        blob_arr = (_U8P * n_fields)()
+        bloboff_arr = (i64p * n_fields)()
+        mask_arr = (_U8P * n_fields)()
+        keepalive = []
+        for i, f in enumerate(self.schema):
+            col = batch[f.name]
+            if col.mask is not None and not col.mask.all():
+                if self._non_nullable[i]:
+                    raise NullValueError(f"{f.name} does not allow null values")
+                m = np.ascontiguousarray(col.mask, dtype=np.uint8)
+                keepalive.append(m)
+                mask_arr[i] = m.ctypes.data_as(_U8P)
+            if self._layouts[i] != _LAYOUT_SCALAR:
+                ro = np.ascontiguousarray(col.offsets, dtype=np.int64)
+                keepalive.append(ro)
+                rowoff_arr[i] = ro.ctypes.data_as(i64p)
+            if self._layouts[i] == _LAYOUT_RAGGED2:
+                io_ = np.ascontiguousarray(col.inner_offsets, dtype=np.int64)
+                keepalive.append(io_)
+                inneroff_arr[i] = io_.ctypes.data_as(i64p)
+            if int(self._dtypes[i]) == _DT_BYTES:
+                blob = col.blob if col.blob is not None else b""
+                keepalive.append(blob)
+                blob_arr[i] = ctypes.cast(ctypes.c_char_p(blob), _U8P)
+                bo = np.ascontiguousarray(col.blob_offsets, dtype=np.int64)
+                keepalive.append(bo)
+                bloboff_arr[i] = bo.ctypes.data_as(i64p)
+            else:
+                v = np.ascontiguousarray(col.values, dtype=_DT_NP[int(self._dtypes[i])])
+                keepalive.append(v)
+                values_arr[i] = ctypes.cast(v.ctypes.data_as(ctypes.c_void_p), _U8P)
+        args = (
+            batch.num_rows, self._fmt, n_fields, self._c_names,
+            self._name_lens.ctypes.data_as(i64p),
+            self._layouts_np.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            self._kinds.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            self._dtypes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            values_arr, rowoff_arr, inneroff_arr, blob_arr, bloboff_arr, mask_arr,
+        )
+        size = self._lib.tfr_encode_batch(*args, None, 0)
+        if size < 0:
+            raise ValueError(f"native encode sizing failed: {size}")
+        out = np.empty(int(size), dtype=np.uint8)
+        written = self._lib.tfr_encode_batch(*args, out.ctypes.data_as(_U8P), int(size))
+        if written != size:
+            raise ValueError(f"native encode failed: wrote {written} of {size}")
+        return out
+
+
+def make_encoder(schema: StructType, record_type) -> Optional[NativeEncoder]:
+    """A NativeEncoder, or None for ByteArray or a schema the C++ side
+    cannot represent (the writer then encodes rows with the serializer).
+    A library that fails to build or load raises."""
+    rt = RecordType.parse(record_type)
+    if rt == RecordType.BYTE_ARRAY:
+        return None
+    try:
+        return NativeEncoder(schema, rt)
+    except UnsupportedSchemaError:
+        return None

@@ -1,8 +1,9 @@
 """Columnar batch decoding: serialized records -> numpy column buffers.
 
-Copy of ``tpu_tfrecord/columnar.py`` (the pure-Python decoder, the row
-slice and concatenation that cut batches out of decode chunks, the row
-gather of the windowed shuffle, and the ragged padders). A batch of
+Copy of ``tpu_tfrecord/columnar.py`` (the pure-Python decoder, the rows
+of a batch that the writer encodes when a schema has no native encoder,
+the row slice and concatenation that cut batches out of decode chunks,
+the row gather of the windowed shuffle, and the ragged padders). A batch of
 serialized tf.Example records decodes STRAIGHT into per-column numpy
 buffers — no per-record row objects, no per-field boxing:
 
@@ -335,6 +336,81 @@ class ColumnarDecoder:
                         acc.append_missing()
                 n += 1
         return ColumnarBatch({name: acc.build(n) for name, acc in accs.items()}, n)
+
+
+# ---------------------------------------------------------------------------
+# Rows of a batch (the writer's row fallback)
+# ---------------------------------------------------------------------------
+
+
+def batch_to_rows(batch: ColumnarBatch, schema: StructType) -> List[list]:
+    """Materialize serde-compatible rows from a columnar batch (the slow,
+    row-oriented view — tests, partitioned writes, small exports)."""
+    import decimal as _decimal
+
+    def scalar_of(dt: DataType, v):
+        if isinstance(dt, DecimalType):
+            return _decimal.Decimal(str(v))
+        if isinstance(dt, (FloatType, DoubleType)):
+            return float(v)
+        return int(v)
+
+    n = batch.num_rows
+    rows: List[list] = [[None] * len(schema) for _ in range(n)]
+    for idx, f in enumerate(schema):
+        col = batch[f.name]
+        dt = f.data_type
+        mask = col.mask
+        if isinstance(dt, ArrayType) and isinstance(dt.element_type, ArrayType):
+            inner_dt = dt.element_type.element_type
+            blobs = col.blobs
+            for r in range(n):
+                if mask is not None and not mask[r]:
+                    continue
+                outer = []
+                for j in range(col.offsets[r], col.offsets[r + 1]):
+                    v0, v1 = int(col.inner_offsets[j]), int(col.inner_offsets[j + 1])
+                    if blobs is not None:
+                        items = blobs[v0:v1]
+                        outer.append(
+                            [b.decode("utf-8") for b in items]
+                            if isinstance(inner_dt, StringType)
+                            else list(items)
+                        )
+                    else:
+                        outer.append([scalar_of(inner_dt, v) for v in col.values[v0:v1]])
+                rows[r][idx] = outer
+        elif isinstance(dt, ArrayType):
+            elem = dt.element_type
+            blobs = col.blobs if col.blob is not None else None
+            for r in range(n):
+                if mask is not None and not mask[r]:
+                    continue
+                v0, v1 = int(col.offsets[r]), int(col.offsets[r + 1])
+                if blobs is not None:
+                    items = blobs[v0:v1]
+                    rows[r][idx] = (
+                        [b.decode("utf-8") for b in items]
+                        if isinstance(elem, StringType)
+                        else list(items)
+                    )
+                else:
+                    rows[r][idx] = [scalar_of(elem, v) for v in col.values[v0:v1]]
+        elif isinstance(dt, (StringType, BinaryType)):
+            blobs = col.blobs
+            for r in range(n):
+                if mask is not None and not mask[r]:
+                    continue
+                rows[r][idx] = (
+                    blobs[r].decode("utf-8") if isinstance(dt, StringType) else blobs[r]
+                )
+        else:
+            vals = col.values
+            for r in range(n):
+                if mask is not None and not mask[r]:
+                    continue
+                rows[r][idx] = scalar_of(dt, vals[r])
+    return rows
 
 
 # ---------------------------------------------------------------------------

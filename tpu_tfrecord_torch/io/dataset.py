@@ -5,8 +5,8 @@ the JAX package's main path:
 
 - the native decoder (``_native.NativeDecoder``): a local uncompressed shard
   is mmapped and scanned + decoded in one C++ pass per chunk of
-  ``max(batch_size, 2048)`` records; a gzip or deflate shard streams in
-  slabs of complete frames through ``_native.scan_partial`` and
+  ``max(batch_size, 2048)`` records; a compressed shard streams in
+  slabs of complete frames through ``io.reader.scan_spans_stream`` and
   ``decode_spans``. A record type or schema the C++ side cannot represent
   (``ByteArray``, ``UnsupportedSchemaError``) decodes with the Python
   ``ColumnarDecoder``; ``decoder="python"`` asks for that decoder on any
@@ -35,10 +35,18 @@ the JAX package's main path:
   ``drop_remainder``. Batches equal the JAX dataset's for the same
   arguments.
 
+- discovery, schema inference and partition typing go through
+  ``io.reader.DatasetReader``, as in the JAX dataset: the values of
+  ``col=value`` directories are columns of every batch, constant over a
+  shard (``_attach_partition_chunk``), typed long -> double -> string;
+  ``columns`` selects and orders the batch's columns, partition columns
+  included.
+
 Left out against the JAX dataset: checkpointable positions (the
 positions above only seed the windows), the decode pool's watchdog and its
-autotuned resizing (``control``), stall defense, caching, the data
-service, partition columns and column selection.
+autotuned resizing (``control``), stall defense, the tolerant
+``on_corrupt`` policies (``DatasetReader`` and ``read`` have them),
+caching and the data service.
 """
 
 from __future__ import annotations
@@ -63,10 +71,10 @@ from tpu_tfrecord_torch.columnar import (
     slice_batch,
     take_rows,
 )
-from tpu_tfrecord_torch.infer import infer_from_records, type_map_to_schema
-from tpu_tfrecord_torch.io.paths import discover_shards
-from tpu_tfrecord_torch.options import RecordType, TFRecordOptions
-from tpu_tfrecord_torch.schema import StructType
+from tpu_tfrecord_torch.io.paths import cast_partition_value
+from tpu_tfrecord_torch.io.reader import DatasetReader, scan_spans_stream
+from tpu_tfrecord_torch.options import TFRecordOptions
+from tpu_tfrecord_torch.schema import StructType, numpy_dtype
 
 DECODERS = ("native", "python")
 MIN_CHUNK_RECORDS = 2048
@@ -80,10 +88,14 @@ class TFRecordDataset:
     """Plan a streaming read: ``TFRecordDataset(paths, batch_size,
     schema=None, recordType="Example", hash_buckets=None, pack=None,
     drop_remainder=True, num_epochs=1, decoder="native", shuffle=False,
-    shuffle_window=0, seed=0, num_workers=1)``. Without a schema, it is
-    inferred from the first non-empty shard. ``num_epochs=None`` repeats the
-    shards without end. ``num_workers`` shards decode at a time (values
-    below 1 count as 1)."""
+    shuffle_window=0, seed=0, num_workers=1, columns=None, options=None,
+    **option_kwargs)``. Without a schema, it is inferred from the first
+    non-empty shard. ``num_epochs=None`` repeats the shards without end.
+    ``num_workers`` shards decode at a time (values below 1 count as 1).
+    ``options`` (a ``TFRecordOptions``) or the keyword options
+    (``verify_crc``, ``infer_sample_limit``, ...) configure the read, as
+    in the JAX dataset; ``options`` takes the place of ``schema`` and
+    ``recordType``."""
 
     def __init__(
         self,
@@ -100,6 +112,9 @@ class TFRecordDataset:
         shuffle_window: int = 0,
         seed: int = 0,
         num_workers: int = 1,
+        columns: Optional[List[str]] = None,
+        options: Optional[TFRecordOptions] = None,
+        **option_kwargs,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -113,20 +128,37 @@ class TFRecordDataset:
         self.shuffle_window = shuffle_window
         self.seed = seed
         self.num_workers = max(1, num_workers)
-        self.options = TFRecordOptions.from_map(recordType=recordType, schema=schema)
+        if options is None:
+            options = TFRecordOptions.from_map(
+                option_kwargs, recordType=recordType, schema=schema
+            )
+        elif schema is not None or recordType != "Example" or option_kwargs:
+            raise ValueError("pass either options= or schema/recordType/keyword options")
+        if options.on_corrupt != "raise":
+            raise NotImplementedError(
+                f"on_corrupt={options.on_corrupt!r}: TFRecordDataset does not "
+                "have the tolerant read policies yet (DatasetReader and read do)"
+            )
+        self._reader = DatasetReader(paths, options=options)
+        self.options = self._reader.options
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder
         self.num_epochs = num_epochs
-        self.shards = discover_shards(paths)
-        self.schema: StructType = (
-            self.options.schema if self.options.schema is not None else self._infer_schema()
-        )
+        self.shards = self._reader.shards
+        full = self._reader.schema()
+        part_cols = set(self._reader.partition_schema.names)
+        wanted = full if columns is None else full.select(columns)
+        # the decoders cover the record columns; the requested partition
+        # columns are constant per shard and attached to each decoded chunk
+        self.schema: StructType = StructType(list(wanted.fields))
+        self._data_schema = StructType([f for f in wanted if f.name not in part_cols])
+        self._partition_fields = [f for f in wanted if f.name in part_cols]
         rt = self.options.record_type
-        self._decoder = ColumnarDecoder(self.schema, rt)
-        self.hash_buckets = _native.validate_hash_buckets(self.schema, hash_buckets)
-        self.pack = _native.validate_pack(self.schema, pack, self.hash_buckets)
+        self._decoder = ColumnarDecoder(self._data_schema, rt)
+        self.hash_buckets = _native.validate_hash_buckets(self._data_schema, hash_buckets)
+        self.pack = _native.validate_pack(self._data_schema, pack, self.hash_buckets)
         self._native_decoder = (
-            _native.make_decoder(self.schema, rt, self.hash_buckets, self.pack)
+            _native.make_decoder(self._data_schema, rt, self.hash_buckets, self.pack)
             if decoder == "native"
             else None
         )
@@ -135,25 +167,6 @@ class TFRecordDataset:
     def decoder(self) -> str:
         """'native' or 'python': the decoder this dataset's batches come from."""
         return "python" if self._native_decoder is None else "native"
-
-    def _infer_schema(self) -> StructType:
-        """Schema of the first non-empty shard whose records yield one."""
-        rt = self.options.record_type
-        if rt == RecordType.BYTE_ARRAY:
-            from tpu_tfrecord_torch.infer import byte_array_schema
-
-            return byte_array_schema()
-        for shard in self.shards:
-            if shard.size == 0:
-                continue
-            type_map = infer_from_records(wire.read_records(shard.path), rt)
-            if type_map:
-                return type_map_to_schema(type_map)
-        raise ValueError(
-            "Could not infer schema: no non-empty TFRecord file found"
-            if self.shards
-            else "Could not infer schema: no input files"
-        )
 
     # -- decode chunks ---------------------------------------------------------
 
@@ -193,8 +206,26 @@ class TFRecordDataset:
             chunks = self._slab_chunks(path, chunk_records)
         start = 0
         for chunk in chunks:
+            if self._partition_fields:
+                self._attach_partition_chunk(chunk, index)
             yield chunk, epoch, cursor, start
             start += chunk.num_rows
+
+    def _attach_partition_chunk(self, chunk: ColumnarBatch, index: int) -> None:
+        """Partition values are constant within a shard: materialize them as
+        constant columns over the chunk (JAX ``_attach_partition_chunk``)."""
+        n = chunk.num_rows
+        for f in self._partition_fields:
+            val = cast_partition_value(self.shards[index].partitions.get(f.name), f.data_type)
+            col = Column(f.name, f.data_type, mask=np.full(n, val is not None, dtype=bool))
+            np_dt = numpy_dtype(f.data_type)
+            if np_dt is None:
+                item = val.encode("utf-8") if val is not None else b""
+                col.blob = item * n
+                col.blob_offsets = np.arange(n + 1, dtype=np.int64) * len(item)
+            else:
+                col.values = np.full(n, val if val is not None else 0, dtype=np_dt)
+            chunk.columns[f.name] = col
 
     def _chunks(
         self, stop: Optional[threading.Event] = None
@@ -222,7 +253,7 @@ class TFRecordDataset:
                 pos = 0
                 while True:
                     cb, _, n_done, pos = dec.scan_decode(
-                        buf, pos, True, 0, chunk_records,
+                        buf, pos, self.options.verify_crc, 0, chunk_records,
                         length=size, max_record_bytes=MAX_RECORD_BYTES,
                     )
                     if n_done == 0:
@@ -242,46 +273,22 @@ class TFRecordDataset:
                 except BufferError:
                     pass
 
-    def _slab_spans(self, path: str) -> Iterator[tuple]:
-        """A compressed shard as (buf, offsets, lengths) slabs of complete
-        frames: a partial trailing frame carries into the next slab, and a
-        declared length past MAX_RECORD_BYTES raises instead of buffering
-        the rest of a corrupt shard."""
-        with wire.open_compressed(path, "rb", wire.codec_from_path(path)) as fh:
-            carry = b""
-            while True:
-                want = SLAB_BYTES
-                if len(carry) >= 8:
-                    declared = int.from_bytes(carry[:8], "little")
-                    if declared > MAX_RECORD_BYTES:
-                        raise wire.TFRecordCorruptionError(
-                            f"record length {declared} exceeds {MAX_RECORD_BYTES} "
-                            f"in {path}: corrupt length field?"
-                        )
-                    want = max(want, 16 + declared - len(carry))
-                data = fh.read(want)
-                if not data:
-                    if carry:
-                        raise wire.TFRecordCorruptionError(
-                            f"truncated TFRecord at end of {path}"
-                        )
-                    return
-                buf = carry + data if carry else data
-                offsets, lengths, consumed = _native.scan_partial(buf)
-                carry = buf[consumed:]
-                if len(offsets):
-                    yield buf, offsets, lengths
-
     def _slab_chunks(self, path: str, chunk_records: int) -> Iterator[ColumnarBatch]:
+        """A compressed shard in slabs of complete frames
+        (``scan_spans_stream``: a partial frame carries into the next slab,
+        a declared length past MAX_RECORD_BYTES raises)."""
         dec = self._native_decoder
-        for buf, offsets, lengths in self._slab_spans(path):
+        for buf, offsets, lengths in scan_spans_stream(
+            path, self.options.verify_crc, slab_bytes=SLAB_BYTES,
+            max_record_bytes=MAX_RECORD_BYTES,
+        ):
             for start in range(0, len(offsets), chunk_records):
                 stop = start + chunk_records
                 yield dec.decode_spans(buf, offsets[start:stop], lengths[start:stop])
 
     def _python_chunks(self, path: str, chunk_records: int) -> Iterator[ColumnarBatch]:
         records: List[bytes] = []
-        for rec in wire.read_records(path):
+        for rec in wire.read_records(path, verify_crc=self.options.verify_crc):
             records.append(rec)
             if len(records) == chunk_records:
                 yield self._python_decode(records)

@@ -1,0 +1,209 @@
+"""Throughput counters, latency histograms and structured logging.
+
+Cut of ``tpu_tfrecord/metrics.py`` to what the reader and the writer
+read: the ``Metrics`` registry (per-stage totals through ``add`` /
+``count``, gauges, log-bucketed latency histograms), ``timed``,
+``log_salvage_event`` and the package ``logger``. ``Histogram`` is a copy
+of ``tpu_tfrecord/telemetry.py::Histogram`` without its exemplars and its
+mergeable state. Counters are updated at slab or shard granularity, never
+per record, and every access takes the registry's lock.
+
+Stages the port records: ``read`` and ``read.io`` / ``read.open`` (the
+reader), ``write``, ``write.encode``, ``write.compress``, ``write.io`` and
+``write.commit`` (the writer), and the event counters
+``read.corrupt_records``, ``read.resyncs``, ``read.skipped_shards``,
+``write.commit_retries``, ``write.backpressure_waits`` and
+``<stage>.errors``; the gauge ``write.inflight_slabs``.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import math
+import threading
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+logger = logging.getLogger("tpu_tfrecord_torch")
+
+
+class Histogram:
+    """Log-bucketed latency histogram with quantile estimation.
+
+    Buckets grow by ``2**0.25`` (about 19 % a bucket) from a 100 ns floor
+    over 144 fixed buckets (up to about 1.9 h). Quantiles take the
+    log-midpoint of the selected bucket, clamped to the observed [min,
+    max]. Not locked: ``Metrics`` serializes access under its own lock.
+    """
+
+    _MIN = 1e-7
+    _LOG2_GROWTH = 0.25
+    _NBUCKETS = 144
+
+    __slots__ = ("counts", "count", "total", "min", "max")
+
+    def __init__(self) -> None:
+        self.counts = [0] * self._NBUCKETS
+        self.count = 0
+        self.total = 0.0
+        self.min = math.inf
+        self.max = 0.0
+
+    def bucket_index(self, value: float) -> int:
+        if value <= self._MIN:
+            return 0
+        return min(
+            self._NBUCKETS - 1,
+            1 + int(math.log2(value / self._MIN) / self._LOG2_GROWTH),
+        )
+
+    def observe(self, value: float) -> None:
+        self.counts[self.bucket_index(value)] += 1
+        self.count += 1
+        self.total += value
+        self.min = min(self.min, value)
+        self.max = max(self.max, value)
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Estimated value at quantile ``q`` in [0, 1] (None when empty)."""
+        if self.count == 0:
+            return None
+        rank = q * self.count
+        cum = 0
+        for idx, c in enumerate(self.counts):
+            cum += c
+            if cum >= rank and c:
+                est = self._MIN if idx == 0 else self._MIN * 2 ** ((idx - 0.5) * self._LOG2_GROWTH)
+                return min(max(est, self.min), self.max)
+        return self.max
+
+
+@dataclass
+class StageStats:
+    records: int = 0
+    bytes: int = 0
+    batches: int = 0
+    seconds: float = 0.0
+
+    def throughput(self) -> Dict[str, float]:
+        dt = self.seconds or 1e-9
+        return {
+            "records_per_sec": self.records / dt,
+            "bytes_per_sec": self.bytes / dt,
+            "records": self.records,
+            "bytes": self.bytes,
+            "batches": self.batches,
+            "seconds": self.seconds,
+        }
+
+
+class Metrics:
+    """Registry of per-stage totals, gauges and latency histograms."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._stages: Dict[str, StageStats] = {}
+        self._gauges: Dict[str, float] = {}
+        self._hists: Dict[str, Histogram] = {}
+
+    def add(
+        self,
+        stage: str,
+        records: int = 0,
+        nbytes: int = 0,
+        seconds: float = 0.0,
+        latency: Optional[float] = None,
+    ) -> None:
+        """Accumulate into a stage's totals; ``latency`` also folds one
+        observation into the stage's histogram under the same lock."""
+        with self._lock:
+            st = self._stages.setdefault(stage, StageStats())
+            st.records += records
+            st.bytes += nbytes
+            st.batches += 1
+            st.seconds += seconds
+            if latency is not None:
+                hist = self._hists.get(stage)
+                if hist is None:
+                    hist = self._hists[stage] = Histogram()
+                hist.observe(latency)
+
+    def count(self, stage: str, n: int = 1) -> None:
+        """Increment an event counter (the count rides ``records``)."""
+        self.add(stage, records=n)
+
+    def counter(self, stage: str) -> int:
+        """Current value of a ``count()`` counter (0 if never hit)."""
+        with self._lock:
+            st = self._stages.get(stage)
+            return st.records if st is not None else 0
+
+    def gauge(self, name: str, value: float) -> None:
+        """Set an instantaneous gauge; last write wins."""
+        with self._lock:
+            self._gauges[name] = float(value)
+
+    def snapshot(self, prefix: Optional[str] = None) -> Dict[str, Dict[str, float]]:
+        """Per-stage throughput map (with p50/p90/p99 where a stage has a
+        histogram), gauges as ``{"gauge": value}``; ``prefix`` filters to
+        one stage family (``'write'`` -> write, write.encode, ...)."""
+
+        def keep(name: str) -> bool:
+            return prefix is None or name == prefix or name.startswith(prefix + ".")
+
+        with self._lock:
+            out: Dict[str, Dict[str, float]] = {}
+            for name, st in self._stages.items():
+                if not keep(name):
+                    continue
+                entry = st.throughput()
+                hist = self._hists.get(name)
+                if hist is not None and hist.count:
+                    entry.update(p50_s=hist.quantile(0.50), p90_s=hist.quantile(0.90),
+                                 p99_s=hist.quantile(0.99), hist_count=hist.count)
+                out[name] = entry
+            for name, value in self._gauges.items():
+                if keep(name):
+                    out[name] = {"gauge": value}
+            return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._stages.clear()
+            self._gauges.clear()
+            self._hists.clear()
+
+
+# Process-global default registry.
+METRICS = Metrics()
+
+
+def log_salvage_event(**fields) -> None:
+    """One JSON warning line per salvage or skip event (corrupt frame
+    found, resync landed, shard dropped), keyed by path, offset and kind."""
+    logger.warning("tfrecord.salvage %s", json.dumps(fields, sort_keys=True, default=str))
+
+
+class timed:
+    """Context manager adding a block's wall time (and the counts it sets)
+    to a stage, plus one latency observation. An exception through the
+    block still records the time and bumps ``<stage>.errors``."""
+
+    def __init__(self, stage: str, metrics: Optional[Metrics] = None):
+        self.stage = stage
+        self.metrics = metrics or METRICS
+        self.records = 0
+        self.bytes = 0
+
+    def __enter__(self) -> "timed":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        dt = time.perf_counter() - self._t0
+        self.metrics.add(self.stage, records=self.records, nbytes=self.bytes,
+                         seconds=dt, latency=dt)
+        if exc_type is not None:
+            self.metrics.count(self.stage + ".errors")

@@ -1,16 +1,19 @@
-"""Typed read/write options: the record type and the few knobs the port's
-read and write paths take.
+"""Typed, validated read/write options.
 
-A cut-down copy of ``tpu_tfrecord/options.py``: ``RecordType`` with the
-reference's exact spellings, and ``TFRecordOptions`` with the record type,
-the write codec and an optional user schema. Reads always verify CRCs.
+Copy of ``tpu_tfrecord/options.py`` for the options the port has:
+``RecordType`` with the reference's exact spellings, and
+``TFRecordOptions``, parsed and validated once by ``from_map``. The JAX
+package's stall-defence, watchdog, cache, trace, telemetry, autotune,
+data-service and elastic-fleet options are not ported yet: ``from_map``
+raises on any of them, naming the option, rather than dropping it.
 """
 
 from __future__ import annotations
 
+import difflib
 import enum
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 from tpu_tfrecord_torch import wire
 from tpu_tfrecord_torch.schema import StructType
@@ -38,26 +41,126 @@ class RecordType(enum.Enum):
         )
 
 
+# The JAX package's options that the port does not have yet, in both
+# spellings (snake_case, camelCase). Any of them raises in from_map.
+_NOT_PORTED = (
+    ("read_deadline_ms", "readDeadlineMs"),
+    ("open_deadline_ms", "openDeadlineMs"),
+    ("hedge_after_ms", "hedgeAfterMs"),
+    ("on_stall", "onStall"),
+    ("watchdog_timeout_ms", "watchdogTimeoutMs"),
+    ("cache", "cache"),
+    ("cache_dir", "cacheDir"),
+    ("cache_max_bytes", "cacheMaxBytes"),
+    ("trace", "trace"),
+    ("pulse_interval_s", "pulseIntervalS"),
+    ("telemetry_port", "telemetryPort"),
+    ("telemetry_spool_dir", "telemetrySpoolDir"),
+    ("spool_interval_s", "spoolIntervalS"),
+    ("telemetry_role", "telemetryRole"),
+    ("autotune", "autotune"),
+    ("autotune_interval_s", "autotuneIntervalS"),
+    ("service", "service"),
+    ("service_lease_ttl_s", "serviceLeaseTtlS"),
+    ("service_deadline_ms", "serviceDeadlineMs"),
+    ("service_fallback_ms", "serviceFallbackMs"),
+    ("elastic_min_workers", "elasticMinWorkers"),
+    ("elastic_max_workers", "elasticMaxWorkers"),
+    ("elastic_interval_s", "elasticIntervalS"),
+)
+_NOT_PORTED_KEYS = {k: snake for snake, camel in _NOT_PORTED for k in (snake, camel)}
+
+
+class OptionNotPortedError(NotImplementedError):
+    """An option of the JAX package that the port does not have yet."""
+
+
 @dataclass(frozen=True)
 class TFRecordOptions:
-    """Options for one read or write, validated at construction.
+    """All knobs of a read or write, validated at construction.
 
     - record_type: Example | SequenceExample | ByteArray
-    - codec: None | 'gzip' | 'deflate' (write side; reads infer it from the
-      file extension)
-    - schema: optional user-provided StructType (skips inference)
+    - codec: None | gzip | deflate | zstd | snappy | lz4 | bzip2 (write
+      side; reads infer it from the file extension)
+    - schema: optional user StructType (skips inference)
+    - verify_crc: check record CRCs on read
+    - infer_sample_limit: records scanned per file by schema inference
+      (None = the whole file, the reference's behaviour)
+    - write_workers: encode/compress threads of the write pipeline (1 =
+      the sequential path)
+    - num_shards: round-robin one task's output over this many shard
+      streams per partition directory; setting it engages the slab
+      pipeline even at write_workers=1, so the output bytes are a function
+      of the data and options, never of the worker count
+    - max_records_per_shard: roll a stream over to a new file after this
+      many records
+    - on_corrupt: ``raise`` (default), ``skip_record`` (resync past each
+      bad frame, bounded per shard by ``max_corrupt_records``) or
+      ``skip_shard`` (drop the rest of a shard at its first corruption)
+    - max_corrupt_records: per-shard quota of corrupt regions under
+      ``skip_record`` (None = unlimited); past it, ``corrupt_fallback``
+    - corrupt_fallback: ``raise`` (default) or ``skip_shard``
+    - write_retries: retries of the writer's commit-side filesystem
+      operations (shard open, rename into place, ``_SUCCESS``)
     """
 
     record_type: RecordType = RecordType.EXAMPLE
     codec: Optional[str] = None
     schema: Optional[StructType] = None
+    verify_crc: bool = True
+    infer_sample_limit: Optional[int] = None
+    write_workers: int = 1
+    num_shards: Optional[int] = None
+    max_records_per_shard: Optional[int] = None
+    on_corrupt: str = "raise"
+    max_corrupt_records: Optional[int] = 100
+    corrupt_fallback: str = "raise"
+    write_retries: int = 0
+
+    _KNOWN_KEYS = (
+        "recordType",
+        "record_type",
+        "codec",
+        "schema",
+        "verify_crc",
+        "verifyCrc",
+        "infer_sample_limit",
+        "inferSampleLimit",
+        "write_workers",
+        "writeWorkers",
+        "num_shards",
+        "numShards",
+        "max_records_per_shard",
+        "maxRecordsPerShard",
+        "on_corrupt",
+        "onCorrupt",
+        "max_corrupt_records",
+        "maxCorruptRecords",
+        "corrupt_fallback",
+        "corruptFallback",
+        "write_retries",
+        "writeRetries",
+    )
+
+    ON_CORRUPT_POLICIES = ("raise", "skip_record", "skip_shard")
+    CORRUPT_FALLBACKS = ("raise", "skip_shard")
 
     @staticmethod
-    def from_map(**options: Any) -> "TFRecordOptions":
-        """Build from keyword options, accepting the reference's spelling
-        ``recordType`` as well as ``record_type``. Unknown keys raise: a typo
-        must fail loudly, never change behaviour silently."""
-        merged: Dict[str, Any] = dict(options)
+    def from_map(options: Optional[Mapping[str, Any]] = None, **kwargs: Any) -> "TFRecordOptions":
+        """Build from a string-keyed map and/or keywords, accepting the
+        reference's spellings (``recordType``) as well as snake_case.
+        Unknown keys raise with a did-you-mean hint, and an option of the
+        JAX package the port does not have yet raises
+        ``OptionNotPortedError``: a typo or a missing feature must fail
+        loudly, never change behaviour silently."""
+        merged: Dict[str, Any] = dict(options or {})
+        merged.update(kwargs)
+        not_ported = sorted({_NOT_PORTED_KEYS[k] for k in merged if k in _NOT_PORTED_KEYS})
+        if not_ported:
+            raise OptionNotPortedError(
+                f"option(s) {not_ported} of tpu_tfrecord are not ported to "
+                "tpu_tfrecord_torch yet"
+            )
         record_type = RecordType.parse(
             merged.pop("recordType", merged.pop("record_type", None))
         )
@@ -65,10 +168,81 @@ class TFRecordOptions:
         schema = merged.pop("schema", None)
         if isinstance(schema, (str, dict)):
             schema = StructType.from_json(schema)
+        verify_crc = _parse_bool(merged.pop("verify_crc", merged.pop("verifyCrc", True)))
+        limit = merged.pop("infer_sample_limit", merged.pop("inferSampleLimit", None))
+        if limit is not None:
+            limit = int(limit)
+            if limit <= 0:
+                raise ValueError("infer_sample_limit must be positive")
+        write_workers = int(merged.pop("write_workers", merged.pop("writeWorkers", 1)))
+        if write_workers < 1:
+            raise ValueError("write_workers must be >= 1")
+        num_shards = merged.pop("num_shards", merged.pop("numShards", None))
+        if num_shards is not None:
+            num_shards = int(num_shards)
+            if num_shards < 1:
+                raise ValueError("num_shards must be >= 1")
+        max_per_shard = merged.pop(
+            "max_records_per_shard", merged.pop("maxRecordsPerShard", None)
+        )
+        if max_per_shard is not None:
+            max_per_shard = int(max_per_shard)
+            if max_per_shard < 1:
+                raise ValueError("max_records_per_shard must be >= 1")
+        on_corrupt = str(merged.pop("on_corrupt", merged.pop("onCorrupt", "raise"))).strip().lower()
+        if on_corrupt not in TFRecordOptions.ON_CORRUPT_POLICIES:
+            raise ValueError(
+                f"on_corrupt must be one of {TFRecordOptions.ON_CORRUPT_POLICIES}, "
+                f"got {on_corrupt!r}"
+            )
+        max_corrupt = merged.pop("max_corrupt_records", merged.pop("maxCorruptRecords", 100))
+        if max_corrupt is not None:
+            max_corrupt = int(max_corrupt)
+            if max_corrupt < 0:
+                raise ValueError("max_corrupt_records must be >= 0 (or None)")
+        corrupt_fallback = str(
+            merged.pop("corrupt_fallback", merged.pop("corruptFallback", "raise"))
+        ).strip().lower()
+        if corrupt_fallback not in TFRecordOptions.CORRUPT_FALLBACKS:
+            raise ValueError(
+                f"corrupt_fallback must be one of "
+                f"{TFRecordOptions.CORRUPT_FALLBACKS}, got {corrupt_fallback!r}"
+            )
+        write_retries = int(merged.pop("write_retries", merged.pop("writeRetries", 0)))
+        if write_retries < 0:
+            raise ValueError("write_retries must be >= 0")
         if merged:
-            raise ValueError(f"unknown TFRecord option(s): {sorted(merged)}")
-        return TFRecordOptions(record_type, codec, schema)
+            hints = []
+            for key in merged:
+                close = difflib.get_close_matches(str(key), TFRecordOptions._KNOWN_KEYS, n=1)
+                hints.append(f"{key!r}" + (f" (did you mean {close[0]!r}?)" if close else ""))
+            raise ValueError(
+                f"Unknown option(s): {', '.join(hints)}. Supported options: "
+                + ", ".join(TFRecordOptions._KNOWN_KEYS)
+            )
+        return TFRecordOptions(
+            record_type=record_type,
+            codec=codec,
+            schema=schema,
+            verify_crc=verify_crc,
+            infer_sample_limit=limit,
+            write_workers=write_workers,
+            num_shards=num_shards,
+            max_records_per_shard=max_per_shard,
+            on_corrupt=on_corrupt,
+            max_corrupt_records=max_corrupt,
+            corrupt_fallback=corrupt_fallback,
+            write_retries=write_retries,
+        )
 
     def file_extension(self) -> str:
         """'.tfrecord' + codec suffix (ref DefaultSource.scala:112-114)."""
         return ".tfrecord" + wire.codec_extension(self.codec)
+
+
+def _parse_bool(value: Any) -> bool:
+    if isinstance(value, bool):
+        return value
+    if isinstance(value, str):
+        return value.strip().lower() in ("1", "true", "yes")
+    return bool(value)

@@ -93,6 +93,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``zstandard`` is installed): every decoded batch digest equal to the
    uncompressed shard's.
 
+8. Resumable training at full width, in phase 4's shards (bf16, sparse
+   steps through ``harness.run_train_loop``, phase 5's shuffled read:
+   ``shuffle_window=2, seed=0``, 8 epochs, 16 steps). The free disk is
+   printed beside the checkpoint's size (3.6 GB; keep=1 holds two during a
+   commit) and the phase fails if it is short. An uninterrupted run with no
+   checkpoint records each step's batch digest and loss. A run from the
+   same seed with a ``TrainCheckpointer`` (async, keep=1) saving every 8
+   steps stops at step 12; a model from another seed restores step 8 and
+   its input position (every tensor bit-equal to the step-8 snapshot),
+   then runs steps 9-16: digests equal to the uninterrupted run's, losses
+   within 2e-2, table rows within 5e-3 (phase 5's gates). Async and sync
+   twins of 16 steps saving at 8 and 16 split what the background commit
+   hides: snapshot (the first save of the process apart: it pins the host
+   buffers), commit, commit wait, drain, StepPhases shares and verdict,
+   rows/s beside phase 5's loop. 68 ``bf16_mma`` launches (16 + 12 + 8 +
+   16 + 16). Last, the kill drill: ``python -m tpu_tfrecord_torch.train_dlrm``
+   (sparse, on the card) is killed with SIGKILL after its "step 16" line
+   and run again; it must resume from a nonzero position and finish, the
+   saved step plus its steps making the 32-step epoch budget.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -114,6 +134,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -826,6 +847,11 @@ def profile_sparse_step(label, model, opt, res) -> None:
           f"share ~{1 - busy / window:.4f}")
 
 
+# phase 5's bf16 sparse rows/s (train_files, one decode worker), beside which
+# phase 8 prints the harness loop's
+TRAIN_BF16: dict = {}
+
+
 def train_path(data_dir: str) -> dict:
     """Phase 5: the sparse training path at full width over phase 4's
     shards in bf16 and in f32, the dense one in bf16, the backward check and
@@ -839,6 +865,9 @@ def train_path(data_dir: str) -> dict:
             label, data_dir, TRAIN_SPARSE_EPOCHS * CRITEO_SHARDS, True, TRAIN_SPARSE_EPOCHS,
             dtype, shuffle=True, shuffle_window=2, seed=0, **kw)
         profile_sparse_step(label, model, res.opt, res)
+        if dtype == torch.bfloat16:
+            TRAIN_BF16.update(whole=res.steps * BATCH / res.wall_s,
+                              steady=(res.steps - 1) * BATCH / (res.done_s[-1] - res.done_s[0]))
         launches = {k: launches[k] + sparse[k] for k in launches}
         del model, res
         free_cuda()
@@ -1485,6 +1514,328 @@ def datasource_path(data_dir: str) -> dict:
     return launches
 
 
+# -- phase 8: resumable training -------------------------------------------------------
+
+RESUME_EPOCHS = 8          # both shards: 16 steps
+RESUME_SAVE_EVERY = 8
+RESUME_STOP = 12           # the interrupted run's last step
+RESUME_SEED = 1            # the resumed model's own weights, before the restore
+DRILL_STEPS = 32           # train_dlrm: 2 epochs of 16 batches
+DRILL_KILL_AT = "step 16"
+DRILL_TIMEOUT_S = 300
+
+
+def resume_dataset(data_dir: str):
+    """Phase 8's read: phase 5's shuffled read of phase 4's shards."""
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    return TFRecordDataset(shard_dirs(data_dir), BATCH, shuffle=True, shuffle_window=2, seed=0,
+                           num_epochs=RESUME_EPOCHS, **criteo_read_kw())
+
+
+def sparse_state(seed: int = TRAIN_SEED):
+    """A fresh full-width bf16 model from ``seed`` and its sparse optimizer
+    (Adam 1e-3 on the MLPs, row-wise AdaGrad accumulators)."""
+    from tpu_tfrecord_torch.models.dlrm import init_params, sparse_opt_init
+
+    cfg = criteo_cfg()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    opt = sparse_opt_init(model, cfg, lambda ps: torch.optim.Adam(ps, lr=1e-3))
+    return model, opt
+
+
+def harness_run(model, opt, data_dir, state=None, *, save=None, max_steps=None, metrics=None):
+    """Sparse steps through ``harness.run_train_loop`` over phase 8's read
+    from ``state``: produce = densify + log1p + label cast +
+    ``make_device_batch``. Returns a dict of the batch digests and losses
+    of every step, the StepPhases recorder and the loop's rows/s (whole:
+    from opening the iterator to the last step's end; steady: from step 2's
+    dispatch, which waits for step 1, to the end)."""
+    from tpu_tfrecord_torch import harness
+    from tpu_tfrecord_torch.device.ingest import host_batch_from_columnar, make_device_batch
+    from tpu_tfrecord_torch.models.dlrm import sparse_train_step
+
+    ds = resume_dataset(data_dir)
+    cfg = model.cfg
+    kept, losses, dispatched = [], [], []
+
+    def produce(cb):
+        kept.append(cb)  # digested after the run, outside the timed loop
+        hb = host_batch_from_columnar(cb, ds.schema, hash_buckets=ds.hash_buckets, pack=ds.pack)
+        hb["dense"] = np.log1p(hb["dense"].clip(min=0)).astype(np.float32)
+        hb["label"] = hb["label"].astype(np.float32)
+        return make_device_batch(hb, "cuda")
+
+    def step(st, gb):
+        dispatched.append(time.perf_counter())
+        loss = sparse_train_step(model, opt, gb, cfg)
+        losses.append(loss)
+        return st, loss
+
+    phases = harness.StepPhases(metrics=metrics)
+    t0 = time.perf_counter()
+    with ds.batches(state) as it:
+        _, steps, duty = harness.run_train_loop(it, produce, step, (), save=save,
+                                                save_every=RESUME_SAVE_EVERY, log_every=1 << 30,
+                                                max_steps=max_steps, phases=phases)
+    end = time.perf_counter()
+    return dict(
+        ds=ds, steps=steps, digests=[batch_digest(cb) for cb in kept],
+        losses=torch.stack(losses).float().cpu() if losses else torch.empty(0),
+        phases=phases, duty=duty.value(), whole=steps * BATCH / (end - t0),
+        steady=(steps - 1) * BATCH / (end - dispatched[1]) if steps > 1 else None,
+    )
+
+
+def tree_bytes(tree) -> int:
+    from tpu_tfrecord_torch.checkpoint import tree_flatten
+
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0])
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as an integer tensor of the same element size."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def print_run(label, run, ref=None) -> None:
+    shares = {k: round(v, 4) for k, v in run["phases"].shares().items()}
+    print(f"resume: {label}: {run['steps']} steps, {run['whole']:.1f} rows/s whole, "
+          f"{run['steady']:.1f} steady (steps 2-{run['steps']}); duty cycle {run['duty']:.4f}; "
+          f"StepPhases shares {shares}, verdict {run['phases'].verdict()}")
+    if ref is not None:
+        n = run["steps"]
+        if run["digests"] != ref["digests"][:n]:
+            raise SystemExit(f"resume: {label}: batch digests differ from the uninterrupted run's")
+        err = (run["losses"] - ref["losses"][:n]).abs().max().item()
+        print(f"resume: {label}: batch digests of steps 1-{n} equal the uninterrupted run's; "
+              f"max |loss - uninterrupted loss| = {err} (tol {TRAIN_LOSS_TOL})")
+        if not torch.allclose(run["losses"], ref["losses"][:n], rtol=TRAIN_LOSS_TOL,
+                              atol=TRAIN_LOSS_TOL):
+            raise SystemExit(f"resume: {label}: losses disagree with the uninterrupted run's")
+
+
+def save_times(metrics, saves: list):
+    """A save callback's wrapper that records each save's snapshot, commit
+    wait and (sync) commit seconds from the run's own registry."""
+    def timed_save(ck, step, it, tree) -> None:
+        before = {k: metrics.stage(k).seconds for k in ("ckpt.snapshot", "ckpt.commit_wait",
+                                                        "ckpt.commit")}
+        t0 = time.perf_counter()
+        ck.save(step, tree, it)
+        saves.append(dict(step=step, call_s=time.perf_counter() - t0,
+                          **{k: metrics.stage(k).seconds - v for k, v in before.items()}))
+    return timed_save
+
+
+def checkpoint_twin(data_dir, ckpt_dir, sync: bool, ref) -> dict:
+    """16 sparse steps with a TrainCheckpointer (keep=1) saving at 8 and 16,
+    async or sync: the commit's cost split by where it lands."""
+    from tpu_tfrecord_torch.checkpoint import TrainCheckpointer
+    from tpu_tfrecord_torch.metrics import Metrics
+    from tpu_tfrecord_torch.models.dlrm import train_state
+
+    label = "sync twin" if sync else "async twin"
+    model, opt = sparse_state()
+    m = Metrics()
+    saves: list = []
+    timed_save = save_times(m, saves)
+    with TrainCheckpointer(ckpt_dir, max_to_keep=1, async_save=not sync, metrics=m) as ck:
+        run = harness_run(model, opt, data_dir, metrics=m,
+                          save=lambda s, it, _: timed_save(ck, s, it, train_state(model, opt)))
+        t0 = time.perf_counter()
+        ck.wait()
+        drain = time.perf_counter() - t0
+        gens = sorted(os.listdir(ckpt_dir))
+        ck.clear()
+    print_run(label, run, ref)
+    commit = m.stage("ckpt.commit")
+    out = dict(saves=saves, drain_s=drain, commit_s=commit.seconds / max(1, commit.records),
+               commits=commit.records, bytes_written=m.counter("ckpt.bytes_written"),
+               commit_wait_s=m.stage("ckpt.commit_wait").seconds,
+               shares=run["phases"].shares(), verdict=run["phases"].verdict(),
+               whole=run["whole"], steady=run["steady"])
+    print(f"resume: {label}: saves {saves}; commit {out['commit_s']:.3f} s each over "
+          f"{commit.records} commits, {out['bytes_written']} bytes written; commit wait "
+          f"{out['commit_wait_s']:.3f} s; drain after the loop {drain:.3f} s; generations on "
+          f"disk at the end (keep=1): {gens}")
+    if gens != ["gen-00000016"]:
+        raise SystemExit(f"resume: {label}: generations {gens}, want the last only")
+    del model, opt, run
+    free_cuda()
+    return out
+
+
+def kill_drill(work: str) -> dict:
+    """The twin trainer (``python -m tpu_tfrecord_torch.train_dlrm``, sparse,
+    on the card) killed with SIGKILL after its "step 16" line, then run
+    again: it must resume from a nonzero position, finish with "done:", and
+    the saved step plus the second run's steps must be the epoch budget."""
+    import signal
+
+    from tpu_tfrecord_torch import checkpoint
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    data, ckpt = os.path.join(work, "drill_data"), os.path.join(work, "drill_ckpt")
+    cmd = [sys.executable, "-m", "tpu_tfrecord_torch.train_dlrm", "--data-dir", data,
+           "--ckpt-dir", ckpt]
+    env = dict(os.environ, DLRM_SPARSE="1", PYTHONPATH=repo)
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "drill_1.err"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+        first = []
+        timer = threading.Timer(DRILL_TIMEOUT_S, proc.kill)  # a hung run ends the read
+        timer.start()
+        try:
+            for line in proc.stdout:
+                first.append(line.rstrip())
+                if line.startswith(DRILL_KILL_AT + " "):
+                    proc.send_signal(signal.SIGKILL)
+                    break
+        finally:
+            timer.cancel()
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+            proc.stdout.close()
+    killed_s = time.perf_counter() - t0
+    print("resume: drill run 1 (killed): " + " | ".join(first))
+    if proc.returncode != -signal.SIGKILL:
+        raise SystemExit(f"resume: drill run 1 ended with {proc.returncode} before {DRILL_KILL_AT!r}; "
+                         f"stderr: {open(os.path.join(work, 'drill_1.err')).read()[-2000:]}")
+    with open(checkpoint.state_path(ckpt, 0)) as fh:
+        saved = json.load(fh)
+    t0 = time.perf_counter()
+    second = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                            timeout=DRILL_TIMEOUT_S)
+    resumed_s = time.perf_counter() - t0
+    lines = second.stdout.strip().splitlines()
+    print("resume: drill run 2: " + " | ".join(lines))
+    if second.returncode != 0:
+        raise SystemExit(f"resume: drill run 2 failed ({second.returncode}): {second.stderr[-2000:]}")
+    resumed = [ln for ln in lines if ln.startswith("resuming from")]
+    done = [ln for ln in lines if ln.startswith("done:")]
+    pos = saved["state"]
+    nonzero = any(pos.get(k, 0) for k in ("epoch", "shard_cursor", "record_offset"))
+    steps2 = int(done[0].split()[1]) if done else -1
+    ok = (bool(resumed) and nonzero and saved.get("step") in (8, 16)
+          and steps2 + saved["step"] == DRILL_STEPS
+          and not os.path.exists(checkpoint.state_path(ckpt, 0)))
+    print(f"resume: drill: saved position {pos} at step {saved.get('step')}; run 2 took "
+          f"{steps2} steps; {saved.get('step')} + {steps2} = {DRILL_STEPS} (the epoch budget): "
+          f"{ok}; run 1 {killed_s:.1f} s to the kill, run 2 {resumed_s:.1f} s (host clock)")
+    if not ok:
+        raise SystemExit("resume: the kill drill did not resume and finish the epoch budget")
+    return dict(saved_step=saved["step"], second_steps=steps2, killed_s=killed_s,
+                resumed_s=resumed_s)
+
+
+def resume_path(data_dir: str) -> dict:
+    """Phase 8: resumable sparse training at full width through the harness
+    and the TrainCheckpointer. Returns each kernel instance's launches."""
+    from tpu_tfrecord_torch.checkpoint import TrainCheckpointer, tree_flatten_with_path
+    from tpu_tfrecord_torch.metrics import Metrics
+    from tpu_tfrecord_torch.models.dlrm import load_train_state, train_state
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    model, opt = sparse_state()
+    need = tree_bytes(train_state(model, opt))
+    free = shutil.disk_usage(data_dir).free
+    print(f"resume: a checkpoint of the full-width sparse state is {need} bytes; keep=1 holds "
+          f"at most 2 on disk during a commit; free in {data_dir}: {free} bytes")
+    if free < 2 * need + (1 << 30):
+        raise SystemExit(f"resume: {2 * need + (1 << 30)} bytes of free disk needed, {free} free")
+    reset_launch_counts()
+    ref = harness_run(model, opt, data_dir)
+    ref_model = model
+    del opt
+    print_run("uninterrupted (no checkpoint)", ref)
+    print(f"resume: phase 5's bf16 sparse loop (train_files, one decode worker) in this call: "
+          f"{TRAIN_BF16.get('whole', float('nan')):.1f} rows/s whole, "
+          f"{TRAIN_BF16.get('steady', float('nan')):.1f} steady")
+
+    # interrupted at step 12, with one async save at step 8
+    ckpt_dir = os.path.join(data_dir, "resume_ckpt")
+    model, opt = sparse_state()
+    m = Metrics()
+    saves: list = []
+    timed_save = save_times(m, saves)
+    snap = {}
+
+    def save(step, it, _):
+        tree = train_state(model, opt)
+        timed_save(ck, step, it, tree)
+        # the snapshot's bits, kept on the card, to hold the restore against
+        snap.update({p: t.detach().clone() for p, t in tree_flatten_with_path(tree)[0]})
+
+    ck = TrainCheckpointer(ckpt_dir, max_to_keep=1, metrics=m)
+    part = harness_run(model, opt, data_dir, save=save, max_steps=RESUME_STOP, metrics=m)
+    t0 = time.perf_counter()
+    ck.wait()
+    drain = time.perf_counter() - t0
+    ck.close()
+    print_run(f"interrupted at step {RESUME_STOP}", part, ref)
+    print(f"resume: interrupted run: save {saves}; commit {m.stage('ckpt.commit').seconds:.3f} s, "
+          f"{m.counter('ckpt.bytes_written')} bytes; drained {drain:.3f} s after the loop")
+    del model, opt, ck, part
+    free_cuda()
+
+    # resumed from another seed's weights
+    model, opt = sparse_state(RESUME_SEED)
+    ck = TrainCheckpointer(ckpt_dir, max_to_keep=1)
+    t0 = time.perf_counter()
+    step, tree, resume = ck.restore(train_state(model, opt))
+    t1 = time.perf_counter()
+    load_train_state(model, opt, tree)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ck.close()
+    del tree
+    live = tree_flatten_with_path(train_state(model, opt))[0]
+    same = [p for p, t in live if torch.equal(bits(t), bits(snap[p].to(t.device)))]
+    print(f"resume: restore of step {step} at {resume}: disk -> host {t1 - t0:.3f} s, host -> "
+          f"device {t2 - t1:.3f} s (load_train_state, synchronized); {len(same)} of {len(live)} "
+          f"tensors bit-equal to the step-{RESUME_SAVE_EVERY} snapshot")
+    if step != RESUME_SAVE_EVERY or resume is None or len(same) != len(live) or len(live) != len(snap):
+        raise SystemExit(f"resume: restored step {step}, position {resume}, "
+                         f"{len(same)}/{len(live)} tensors equal to the snapshot")
+    del snap, live
+    rest = harness_run(model, opt, data_dir, resume)
+    if rest["ds"].fingerprint() != resume.fingerprint or rest["steps"] != 16 - RESUME_SAVE_EVERY:
+        raise SystemExit(f"resume: the resumed run took {rest['steps']} steps")
+    if rest["digests"] != ref["digests"][RESUME_SAVE_EVERY:]:
+        raise SystemExit("resume: the resumed batches differ from steps 9-16 of the uninterrupted run")
+    print("resume: batch digests of the resumed steps 9-16 equal the uninterrupted run's")
+    check_training("resume: resumed steps 9-16", rest["losses"], model,
+                   ref["losses"][RESUME_SAVE_EVERY:], ref_model, torch.bfloat16, "uninterrupted",
+                   "counted at the end of the phase")
+    print_run("resumed, steps 9-16", rest)
+    restore = dict(disk_to_host_s=t1 - t0, host_to_device_s=t2 - t1)
+    interrupted = dict(saves=saves, commit_s=m.stage("ckpt.commit").seconds,
+                       bytes_written=m.counter("ckpt.bytes_written"), drain_s=drain)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del model, opt, ref_model, rest
+    free_cuda()
+
+    twins = {mode: checkpoint_twin(data_dir, os.path.join(data_dir, f"ckpt_{mode}"),
+                                   mode == "sync", ref) for mode in ("async", "sync")}
+    launches = dict(dot_interaction.instance_launches)
+    want = {"bf16_mma": 16 + RESUME_STOP + (16 - RESUME_SAVE_EVERY) + 16 + 16, "f32_tiled": 0}
+    print(f"resume: kernel launches over phase 8 (uninterrupted 16 + interrupted {RESUME_STOP} + "
+          f"resumed {16 - RESUME_SAVE_EVERY} + async twin 16 + sync twin 16): {launches}")
+    if launches != want:
+        raise SystemExit(f"resume: launches {launches}, want {want}")
+    drill = kill_drill(data_dir)
+    print("resume: " + json.dumps({
+        "free_bytes": free, "checkpoint_bytes": need, "interrupted": interrupted,
+        "restore": restore, "twins": twins, "drill": drill,
+        "rows_per_s": {"uninterrupted": [ref["whole"], ref["steady"]],
+                       "phase5_train_files": [TRAIN_BF16.get("whole"), TRAIN_BF16.get("steady")]},
+    }, default=float))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1518,6 +1869,8 @@ def main() -> int:
         feed = feed_path(data_dir)
         free_cuda()
         datasource = datasource_path(data_dir)
+        free_cuda()
+        resume = resume_path(data_dir)
     design = {
         "bf16_mma": "mma.sync m16n8k16 bf16 Gram, cp.async 16-byte double-buffered "
                     "staging, persistent grid, 16-byte stores through shared memory",
@@ -1537,6 +1890,7 @@ def main() -> int:
         **train[k],
         feed_launches=feed[k],
         datasource_launches=datasource[k],
+        resume_launches=resume[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -130,7 +130,8 @@ def test_tasks_are_enumerated_lazily(shards):
     ds = TDataset(shards["criteo"], batch_size=8, schema=ts, num_epochs=8, **common)
     tasks = list(ds._shard_tasks())
     assert len(tasks) == 8 * 4  # the empty shard has no task
-    assert tasks[:4] == [(0, 0, 0), (0, 2, 2), (0, 3, 3), (0, 4, 4)]
+    # (epoch, cursor, shard index, records to skip): no skip from the start
+    assert tasks[:4] == [(0, 0, 0, 0), (0, 2, 2, 0), (0, 3, 3, 0), (0, 4, 4, 0)]
     endless = TDataset(shards["criteo"], batch_size=8, schema=ts, num_epochs=None,
                        shuffle=True, **common)
     first = list(itertools.islice(endless._shard_tasks(), 100))

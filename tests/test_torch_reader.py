@@ -251,8 +251,15 @@ def test_salvage_events_are_logged(corrupt_ds, caplog):
 
 
 def test_dataset_refuses_tolerant_policies(corrupt_ds):
-    with pytest.raises(NotImplementedError, match="on_corrupt"):
-        TDataset(corrupt_ds, 4, on_corrupt="skip_record")
+    """The dataset refuses an unknown policy; the tolerant ones it has
+    (since the resume slice) and reads the rows the JAX dataset reads."""
+    with pytest.raises(ValueError, match="on_corrupt"):
+        TDataset(corrupt_ds, 4, on_corrupt="skip_some")
+    for policy in ("skip_record", "skip_shard"):
+        want = [b["uid"].values.tolist() for b in JDataset(
+            corrupt_ds, 4, drop_remainder=False, on_corrupt=policy).batches()]
+        with TDataset(corrupt_ds, 4, drop_remainder=False, on_corrupt=policy).batches() as it:
+            assert [b["uid"].values.tolist() for b in it] == want
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 from typing import Any, Iterable, List, Optional, Sequence
 
-from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+from tpu_tfrecord_torch.io.dataset import CheckpointableIterator, IteratorState, TFRecordDataset
 from tpu_tfrecord_torch.io.paths import Shard, discover_shards, has_success_marker
 from tpu_tfrecord_torch.io.reader import DatasetReader, ShardReader
 from tpu_tfrecord_torch.io.table import Table
@@ -149,6 +149,8 @@ def write(
 __all__ = [
     "TFRecordDataSource",
     "TFRecordDataset",
+    "CheckpointableIterator",
+    "IteratorState",
     "DatasetReader",
     "DatasetWriter",
     "ShardReader",

@@ -5,9 +5,10 @@ the JAX package's main path:
 
 - the native decoder (``_native.NativeDecoder``): a local uncompressed shard
   is mmapped and scanned + decoded in one C++ pass per chunk of
-  ``max(batch_size, 2048)`` records; a compressed shard streams in
-  slabs of complete frames through ``io.reader.scan_spans_stream`` and
-  ``decode_spans``. A record type or schema the C++ side cannot represent
+  ``max(batch_size, 2048)`` records; a compressed shard is decompressed
+  into a reused buffer of ``SLAB_BYTES`` and scanned + decoded there the
+  same way (the JAX dataset's fused path). A record type or schema the
+  C++ side cannot represent
   (``ByteArray``, ``UnsupportedSchemaError``) decodes with the Python
   ``ColumnarDecoder``; ``decoder="python"`` asks for that decoder on any
   schema (the tests' oracle). A library that fails to build raises;
@@ -42,27 +43,44 @@ the JAX package's main path:
   ``columns`` selects and orders the batch's columns, partition columns
   included.
 
-Left out against the JAX dataset: checkpointable positions (the
-positions above only seed the windows), the decode pool's watchdog and its
-autotuned resizing (``control``), stall defense, the tolerant
-``on_corrupt`` policies (``DatasetReader`` and ``read`` have them),
-caching and the data service.
+- a checkpointable position (``IteratorState``, O(1): epoch, shard
+  cursor, record offset and, inside a shuffle window, the batches already
+  emitted from it) rides with every batch out of the producer;
+  ``CheckpointableIterator.state()`` is the position of the last batch
+  yielded, and ``batches(state)`` resumes there, re-opening one shard and
+  skipping records in it. ``fingerprint()`` identifies the dataset a
+  state belongs to, with the JAX dataset's digest, so a state moves
+  between the two packages;
+
+- ``on_corrupt``: ``skip_record`` decodes the frames that the reader's
+  salvage scan keeps (``max_corrupt_records`` a shard, then
+  ``corrupt_fallback``), ``skip_shard`` drops the rest of a shard at its
+  first corrupt chunk; record offsets count emitted records, so a resume
+  over a corrupt shard skips what the first pass skipped.
+
+Left out against the JAX dataset: more than one process (the process slot
+is 0 of 1), the decode pool's watchdog and its autotuned resizing
+(``control``), stall defense, retries, caching and the data service.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
+import json
 import mmap
 import os
 import queue
 import threading
+import time
 import weakref
-from typing import Deque, Dict, Iterator, List, Optional, Tuple
+from dataclasses import dataclass, field, fields, replace
+from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from tpu_tfrecord_torch import _native, wire
+from tpu_tfrecord_torch import _native, telemetry, wire
 from tpu_tfrecord_torch.columnar import (
     Column,
     ColumnarBatch,
@@ -72,7 +90,15 @@ from tpu_tfrecord_torch.columnar import (
     take_rows,
 )
 from tpu_tfrecord_torch.io.paths import cast_partition_value
-from tpu_tfrecord_torch.io.reader import DatasetReader, scan_spans_stream
+from tpu_tfrecord_torch.io.reader import (
+    CorruptQuotaError,
+    DatasetReader,
+    SalvageTracker,
+    _timed_open,
+    _timed_read,
+    salvage_spans_stream,
+)
+from tpu_tfrecord_torch.metrics import METRICS, log_salvage_event
 from tpu_tfrecord_torch.options import TFRecordOptions
 from tpu_tfrecord_torch.schema import StructType, numpy_dtype
 
@@ -80,8 +106,47 @@ DECODERS = ("native", "python")
 MIN_CHUNK_RECORDS = 2048
 PREFETCH = 2  # decoded batches queued ahead of the consumer
 SLAB_BYTES = 32 << 20  # decompressed bytes read at a time from a compressed shard
+# (the JAX dataset's IO scratch starts at this size)
 # a declared record length past this is a corrupt length field
 MAX_RECORD_BYTES = 1 << 30
+
+
+@dataclass(frozen=True)
+class IteratorState:
+    """Resumable position, the JAX ``IteratorState``: ``shard_cursor`` is
+    the position in the epoch's shard order (``epoch_order``, empty shards
+    included), ``record_offset`` the records already consumed from that
+    shard. Inside a shuffle window the position is the window's START and
+    ``window_emitted`` counts the batches already yielded from it: a resume
+    decodes the window again, draws the same permutation and skips them.
+
+    ``fingerprint`` names the dataset the position belongs to
+    (``TFRecordDataset.fingerprint``); None skips the check. It takes no
+    part in equality."""
+
+    epoch: int = 0
+    shard_cursor: int = 0
+    record_offset: int = 0
+    fingerprint: Optional[str] = field(default=None, compare=False)
+    window_emitted: int = 0
+
+    def to_json(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "epoch": self.epoch,
+            "shard_cursor": self.shard_cursor,
+            "record_offset": self.record_offset,
+        }
+        if self.fingerprint is not None:
+            out["fingerprint"] = self.fingerprint
+        if self.window_emitted:
+            out["window_emitted"] = self.window_emitted
+        return out
+
+    @staticmethod
+    def from_json(obj: Dict[str, Any]) -> "IteratorState":
+        # unknown keys (a newer writer's fields) are ignored
+        known = {f.name for f in fields(IteratorState)}
+        return IteratorState(**{k: v for k, v in obj.items() if k in known})
 
 
 class TFRecordDataset:
@@ -134,11 +199,6 @@ class TFRecordDataset:
             )
         elif schema is not None or recordType != "Example" or option_kwargs:
             raise ValueError("pass either options= or schema/recordType/keyword options")
-        if options.on_corrupt != "raise":
-            raise NotImplementedError(
-                f"on_corrupt={options.on_corrupt!r}: TFRecordDataset does not "
-                "have the tolerant read policies yet (DatasetReader and read do)"
-            )
         self._reader = DatasetReader(paths, options=options)
         self.options = self._reader.options
         self.batch_size = batch_size
@@ -162,6 +222,7 @@ class TFRecordDataset:
             if decoder == "native"
             else None
         )
+        self._fingerprint: Optional[str] = None
 
     @property
     def decoder(self) -> str:
@@ -178,38 +239,76 @@ class TFRecordDataset:
         rng = np.random.default_rng((self.seed, epoch))
         return rng.permutation(len(self.shards)).tolist()
 
-    def _shard_tasks(self) -> Iterator[Tuple[int, int, int]]:
-        """(epoch, cursor, shard index) of every non-empty shard of every
-        epoch, lazily (epochs may be endless): ``cursor`` is the shard's
-        position in the epoch's order."""
+    def _shard_tasks(self, state: Optional[IteratorState] = None) -> Iterator[Tuple[int, int, int, int]]:
+        """(epoch, cursor, shard index, skip) of every non-empty shard of
+        every epoch from ``state`` on, lazily (epochs may be endless):
+        ``cursor`` is the shard's position in the epoch's order, ``skip``
+        the records to pass over in it (the state's offset in the state's
+        shard, else 0)."""
+        state = state or IteratorState()
         if not any(sh.size for sh in self.shards):
             return
-        epoch = 0
+        epoch = state.epoch
         while self.num_epochs is None or epoch < self.num_epochs:
-            for cursor, index in enumerate(self.epoch_order(epoch)):
-                if self.shards[index].size:
-                    yield epoch, cursor, index
+            order = self.epoch_order(epoch)
+            first = state.shard_cursor if epoch == state.epoch else 0
+            for cursor in range(first, len(order)):
+                if self.shards[order[cursor]].size:
+                    at_state = epoch == state.epoch and cursor == state.shard_cursor
+                    yield epoch, cursor, order[cursor], state.record_offset if at_state else 0
             epoch += 1
 
     def _decode_shard(
-        self, epoch: int, cursor: int, index: int
+        self, epoch: int, cursor: int, index: int, skip: int = 0
     ) -> Iterator[Tuple[ColumnarBatch, int, int, int]]:
-        """(chunk, epoch, cursor, start) of one shard's decoded chunks:
-        ``start`` is the index of the chunk's first record in the shard."""
+        """(chunk, epoch, cursor, start) of one shard's decoded chunks from
+        its record ``skip`` on: ``start`` is the index of the chunk's first
+        record among the shard's emitted records. ``on_corrupt`` applies:
+        ``skip_record`` decodes the salvage scan's frames, ``skip_shard``
+        ends the shard at its first corrupt chunk (counted in
+        ``read.corrupt_records`` and ``read.skipped_shards``)."""
         chunk_records = max(self.batch_size, MIN_CHUNK_RECORDS)
         path = self.shards[index].path
-        if self._native_decoder is None:
-            chunks = self._python_chunks(path, chunk_records)
-        elif wire.codec_from_path(path) is None:
-            chunks = self._mmap_chunks(path, chunk_records)
-        else:
-            chunks = self._slab_chunks(path, chunk_records)
-        start = 0
+        mode = self.options.on_corrupt
+        if mode == "skip_record":
+            try:
+                yield from self._positioned(
+                    self._salvage_chunks(path, chunk_records, skip), epoch, cursor, index, skip)
+            except CorruptQuotaError as e:
+                if self.options.corrupt_fallback != "skip_shard":
+                    raise wire.TFRecordCorruptionError(str(e)) from e
+                self._note_skipped_shard(index, str(e))
+            return
+        chunks = self._strict_chunks(path, chunk_records, skip)
+        if mode != "skip_shard":
+            yield from self._positioned(chunks, epoch, cursor, index, skip)
+            return
+        try:
+            yield from self._positioned(chunks, epoch, cursor, index, skip)
+        except wire.TFRecordCorruptionError as e:
+            METRICS.count("read.corrupt_records")
+            self._note_skipped_shard(index, str(e))
+
+    def _positioned(self, chunks, epoch: int, cursor: int, index: int, skip: int):
+        """Number the chunks of one shard from record ``skip`` and attach
+        its partition columns."""
+        start = skip
         for chunk in chunks:
             if self._partition_fields:
                 self._attach_partition_chunk(chunk, index)
             yield chunk, epoch, cursor, start
             start += chunk.num_rows
+
+    def _strict_chunks(self, path: str, chunk_records: int, skip: int) -> Iterator[ColumnarBatch]:
+        if self._native_decoder is None:
+            return self._python_chunks(path, chunk_records, skip)
+        if wire.codec_from_path(path) is None:
+            return self._mmap_chunks(path, chunk_records, skip)
+        return self._slab_chunks(path, chunk_records, skip)
+
+    def _note_skipped_shard(self, index: int, reason: str) -> None:
+        log_salvage_event(path=self.shards[index].path, kind="shard_skipped", error=reason)
+        METRICS.count("read.skipped_shards")
 
     def _attach_partition_chunk(self, chunk: ColumnarBatch, index: int) -> None:
         """Partition values are constant within a shard: materialize them as
@@ -228,20 +327,23 @@ class TFRecordDataset:
             chunk.columns[f.name] = col
 
     def _chunks(
-        self, stop: Optional[threading.Event] = None
+        self, stop: Optional[threading.Event] = None, state: Optional[IteratorState] = None
     ) -> Iterator[Tuple[ColumnarBatch, int, int, int]]:
         """(chunk, epoch, cursor, start) for the decoded chunks of every
-        epoch, in task order; with ``num_workers`` > 1 from the decode pool,
-        which ``stop`` (or closing this generator) stops and joins."""
+        epoch from ``state`` on, in task order; with ``num_workers`` > 1
+        from the decode pool, which ``stop`` (or closing this generator)
+        stops and joins."""
+        state = state or IteratorState()
         if self.num_workers > 1:
-            yield from _parallel_chunks(self, stop or threading.Event())
+            yield from _parallel_chunks(self, stop or threading.Event(), state)
             return
-        for task in self._shard_tasks():
+        for task in self._shard_tasks(state):
             yield from self._decode_shard(*task)
 
-    def _mmap_chunks(self, path: str, chunk_records: int) -> Iterator[ColumnarBatch]:
+    def _mmap_chunks(self, path: str, chunk_records: int, skip: int = 0) -> Iterator[ColumnarBatch]:
         """A local uncompressed shard: mmap it and scan + decode straight out
-        of the page cache, one native call per chunk."""
+        of the page cache, one native call per chunk; the first call
+        CRC-checks and passes over ``skip`` records."""
         dec = self._native_decoder
         with open(path, "rb") as fh:
             size = os.fstat(fh.fileno()).st_size
@@ -251,11 +353,13 @@ class TFRecordDataset:
             buf = np.frombuffer(mm, np.uint8)
             try:
                 pos = 0
+                to_skip = skip
                 while True:
-                    cb, _, n_done, pos = dec.scan_decode(
-                        buf, pos, self.options.verify_crc, 0, chunk_records,
+                    cb, n_skipped, n_done, pos = dec.scan_decode(
+                        buf, pos, self.options.verify_crc, to_skip, chunk_records,
                         length=size, max_record_bytes=MAX_RECORD_BYTES,
                     )
+                    to_skip -= n_skipped
                     if n_done == 0:
                         if pos != size:  # a partial frame is all that is left
                             raise wire.TFRecordCorruptionError(
@@ -273,22 +377,74 @@ class TFRecordDataset:
                 except BufferError:
                     pass
 
-    def _slab_chunks(self, path: str, chunk_records: int) -> Iterator[ColumnarBatch]:
-        """A compressed shard in slabs of complete frames
-        (``scan_spans_stream``: a partial frame carries into the next slab,
-        a declared length past MAX_RECORD_BYTES raises)."""
+    def _slab_chunks(self, path: str, chunk_records: int, skip: int = 0) -> Iterator[ColumnarBatch]:
+        """A compressed shard, as the JAX dataset's fused path reads it:
+        decompressed into a buffer of SLAB_BYTES, scanned + decoded one
+        native call per chunk (the first calls CRC-check and pass over
+        ``skip`` records); a partial frame at the buffer's end moves to its
+        front before the next read, the buffer grows for a record larger
+        than it, a declared length past MAX_RECORD_BYTES raises. Chunks
+        before a corrupt one are yielded, as the JAX dataset yields them."""
         dec = self._native_decoder
-        for buf, offsets, lengths in scan_spans_stream(
-            path, self.options.verify_crc, slab_bytes=SLAB_BYTES,
+        verify = self.options.verify_crc
+        buf = np.empty(SLAB_BYTES, np.uint8)
+        to_skip = skip
+        data_len = pos = 0
+        with _timed_open(path) as fh:
+            while True:
+                tail = data_len - pos
+                if tail and pos:
+                    buf[:tail] = buf[pos:data_len].copy()
+                if tail >= 8:
+                    declared = int(buf[:8].view(np.uint64)[0])
+                    if declared > MAX_RECORD_BYTES:
+                        raise wire.TFRecordCorruptionError(
+                            f"record length {declared} exceeds max_record_bytes "
+                            f"({MAX_RECORD_BYTES}) in {path} — corrupt length field?")
+                    if 16 + declared > buf.nbytes:
+                        grown = np.empty(16 + declared, np.uint8)
+                        grown[:tail] = buf[:tail]
+                        buf = grown
+                data = _timed_read(fh, buf.nbytes - tail, path)
+                if not data:
+                    if tail:
+                        raise wire.TFRecordCorruptionError(f"truncated TFRecord at end of {path}")
+                    return
+                buf[tail:tail + len(data)] = np.frombuffer(data, np.uint8)
+                data_len, pos = tail + len(data), 0
+                while True:
+                    cb, n_skipped, n_done, pos = dec.scan_decode(
+                        buf, pos, verify, to_skip, chunk_records, length=data_len,
+                        max_record_bytes=MAX_RECORD_BYTES)
+                    to_skip -= n_skipped
+                    if n_done == 0:
+                        break  # a partial frame, or nothing, is left: read on
+                    yield cb
+
+    def _salvage_chunks(self, path: str, chunk_records: int, skip: int = 0) -> Iterator[ColumnarBatch]:
+        """``skip_record``: the frames the reader's salvage scan keeps (CRCs
+        checked, corrupt regions resynced past and logged by a
+        ``SalvageTracker``, which raises ``CorruptQuotaError`` past
+        ``max_corrupt_records``), chunk-decoded from the ``skip``-th."""
+        base = 0  # index of the slab's first frame among the kept ones
+        for buf, offsets, lengths in salvage_spans_stream(
+            path, on_event=SalvageTracker(path, self.options), slab_bytes=SLAB_BYTES,
             max_record_bytes=MAX_RECORD_BYTES,
         ):
-            for start in range(0, len(offsets), chunk_records):
-                stop = start + chunk_records
-                yield dec.decode_spans(buf, offsets[start:stop], lengths[start:stop])
+            for start in range(max(0, skip - base), len(offsets), chunk_records):
+                offs, lens = offsets[start:start + chunk_records], lengths[start:start + chunk_records]
+                if self._native_decoder is not None:
+                    yield self._native_decoder.decode_spans(buf, offs, lens)
+                else:
+                    yield self._python_decode([bytes(buf[o:o + n])
+                                               for o, n in zip(offs.tolist(), lens.tolist())])
+            base += len(offsets)
 
-    def _python_chunks(self, path: str, chunk_records: int) -> Iterator[ColumnarBatch]:
+    def _python_chunks(self, path: str, chunk_records: int, skip: int = 0) -> Iterator[ColumnarBatch]:
         records: List[bytes] = []
-        for rec in wire.read_records(path, verify_crc=self.options.verify_crc):
+        for i, rec in enumerate(wire.read_records(path, verify_crc=self.options.verify_crc)):
+            if i < skip:
+                continue
             records.append(rec)
             if len(records) == chunk_records:
                 yield self._python_decode(records)
@@ -320,33 +476,71 @@ class TFRecordDataset:
             cols[gname] = Column(gname, self.schema[members[0]].data_type, values=values)
         return ColumnarBatch(cols, batch.num_rows)
 
+    # -- identity --------------------------------------------------------------
+
+    def fingerprint(self) -> str:
+        """Digest of what a resume position depends on, as the JAX dataset
+        computes it: the shard list (paths and sizes), the process slot (0
+        of 1), the shuffle settings, the record type, and with
+        ``shuffle_window`` the window and the batch size (``window_emitted``
+        counts batches)."""
+        if self._fingerprint is None:
+            ident = {
+                "shards": [(sh.path, sh.size) for sh in self._reader.shards],
+                "process_index": 0,
+                "process_count": 1,
+                "shuffle": self.shuffle,
+                "seed": self.seed,
+                "record_type": self.options.record_type.value,
+            }
+            if self.shuffle_window:
+                ident["shuffle_window"] = self.shuffle_window
+                ident["batch_size"] = self.batch_size
+            blob = json.dumps(ident, sort_keys=True).encode()
+            self._fingerprint = hashlib.sha256(blob).hexdigest()[:32]
+        return self._fingerprint
+
     # -- batches ---------------------------------------------------------------
 
-    def batches(self) -> "BatchIterator":
-        """One run over ``num_epochs`` epochs, decoded ahead by a producer
-        thread. Use it in a ``with`` block (or call ``close()``) so an early
-        exit stops and joins the thread."""
-        return BatchIterator(self)
+    def batches(self, state: Optional[IteratorState] = None) -> "CheckpointableIterator":
+        """One run over ``num_epochs`` epochs from ``state`` (the start when
+        None), decoded ahead by a producer thread. Use it in a ``with``
+        block (or call ``close()``) so an early exit stops and joins the
+        thread. A state whose fingerprint is not this dataset's raises
+        ``ValueError``."""
+        if state is not None and state.fingerprint is not None:
+            mine = self.fingerprint()
+            if state.fingerprint != mine:
+                raise ValueError(
+                    "iterator state does not match this dataset (fingerprint "
+                    f"{state.fingerprint} != {mine}): the shard list, "
+                    "process slot, shuffle seed, or record type changed "
+                    "since the state was saved — resuming would read wrong "
+                    "or duplicate data"
+                )
+        return CheckpointableIterator(self, state or IteratorState())
 
 
-def _take(pending: Deque[list], n: int) -> ColumnarBatch:
-    """The next ``n`` rows of the pending [chunk, rows_used] entries."""
-    chunk, used = pending[0]
+def _take(pending: Deque[list], n: int) -> Tuple[ColumnarBatch, IteratorState]:
+    """The next ``n`` rows of the pending [chunk, rows_used, epoch, cursor,
+    chunk_start] entries, and the position after the last of them."""
+    chunk, used, epoch, cursor, chunk_start = pending[0]
     if used == 0 and chunk.num_rows == n:
         # aligned: the chunk is the batch, its buffers pass through uncopied
         pending.popleft()
-        return chunk
+        return chunk, IteratorState(epoch, cursor, chunk_start + n)
     parts = []
     while n:
         entry = pending[0]
-        chunk, used = entry
+        chunk, used, epoch, cursor, chunk_start = entry
         take = min(n, chunk.num_rows - used)
         parts.append(slice_batch(chunk, used, used + take))
         n -= take
         entry[1] = used + take
+        end = IteratorState(epoch, cursor, chunk_start + entry[1])
         if entry[1] == chunk.num_rows:
             pending.popleft()
-    return concat_batches(parts)
+    return concat_batches(parts), end
 
 
 def _put(out: queue.Queue, item, stop: threading.Event) -> bool:
@@ -361,36 +555,38 @@ def _put(out: queue.Queue, item, stop: threading.Event) -> bool:
     return False
 
 
-def _produce(ds: TFRecordDataset, out: queue.Queue, stop: threading.Event) -> None:
-    """The producer thread: batches, then None at the end, or the exception
-    that stopped it. A module-level function, so the thread holds no
-    reference to the iterator and an abandoned iterator can be collected."""
+def _produce(ds: TFRecordDataset, start: IteratorState, out: queue.Queue,
+             stop: threading.Event) -> None:
+    """The producer thread: (batch, end position) pairs from ``start`` on,
+    then None at the end, or the exception that stopped it. A module-level
+    function, so the thread holds no reference to the iterator and an
+    abandoned iterator can be collected."""
     try:
-        with contextlib.closing(ds._chunks(stop)) as chunks:
-            emit = _emit_shuffled if ds.shuffle_window else _emit_in_order
-            if not emit(ds, chunks, out, stop):
-                return
-        _put(out, None, stop)
-    except BaseException as e:  # re-raised in the consumer by BatchIterator.__next__
+        emit = _emit_shuffled if ds.shuffle_window else _emit_in_order
+        if emit(ds, start, out, stop):
+            _put(out, None, stop)
+    except BaseException as e:  # re-raised in the consumer by CheckpointableIterator.__next__
         _put(out, e, stop)
 
 
-def _emit_in_order(ds: TFRecordDataset, chunks, out: queue.Queue, stop: threading.Event) -> bool:
-    """Cut the chunk stream into batches in stream order; False if the
-    consumer went away."""
+def _emit_in_order(ds: TFRecordDataset, start: IteratorState, out: queue.Queue,
+                   stop: threading.Event) -> bool:
+    """Cut the chunk stream into batches in stream order, each with the
+    position after its last row; False if the consumer went away."""
     pending: Deque[list] = collections.deque()
     avail = 0
-    for chunk, *_ in chunks:
-        if stop.is_set():
-            return False
-        if chunk.num_rows == 0:
-            continue
-        pending.append([chunk, 0])
-        avail += chunk.num_rows
-        while avail >= ds.batch_size:
-            if not _put(out, _take(pending, ds.batch_size), stop):
+    with contextlib.closing(ds._chunks(stop, start)) as chunks:
+        for chunk, epoch, cursor, chunk_start in chunks:
+            if stop.is_set():
                 return False
-            avail -= ds.batch_size
+            if chunk.num_rows == 0:
+                continue
+            pending.append([chunk, 0, epoch, cursor, chunk_start])
+            avail += chunk.num_rows
+            while avail >= ds.batch_size:
+                if not _put(out, _take(pending, ds.batch_size), stop):
+                    return False
+                avail -= ds.batch_size
     if avail and not ds.drop_remainder:
         return _put(out, _take(pending, avail), stop)
     return True
@@ -403,7 +599,7 @@ class _ShardJob:
 
     __slots__ = ("task", "out")
 
-    def __init__(self, task: Tuple[int, int, int], depth: int):
+    def __init__(self, task: Tuple[int, int, int, int], depth: int):
         self.task = task
         self.out: queue.Queue = queue.Queue(maxsize=depth)
 
@@ -411,9 +607,10 @@ class _ShardJob:
 SHARD_QUEUE_CHUNKS = 2  # decoded chunks a worker may hold ahead of the producer
 
 
-def _parallel_chunks(ds: TFRecordDataset, stop: threading.Event) -> Iterator[tuple]:
-    """Ordered parallel shard decode, the JAX ``_parallel_chunks`` without
-    its watchdog and its resizable pool.
+def _parallel_chunks(ds: TFRecordDataset, stop: threading.Event,
+                     state: Optional[IteratorState] = None) -> Iterator[tuple]:
+    """Ordered parallel shard decode from ``state`` on, the JAX
+    ``_parallel_chunks`` without its watchdog and its resizable pool.
 
     A dispatcher enumerates the shard tasks lazily and hands each to
     ``ds.num_workers`` workers through a task queue, after queueing its job
@@ -432,7 +629,7 @@ def _parallel_chunks(ds: TFRecordDataset, stop: threading.Event) -> Iterator[tup
 
     def dispatcher() -> None:
         try:
-            for task in ds._shard_tasks():
+            for task in ds._shard_tasks(state):
                 job = _ShardJob(task, SHARD_QUEUE_CHUNKS)
                 if not (_put(order_q, job, halt) and _put(task_q, job, halt)):
                     return
@@ -500,78 +697,103 @@ def _parallel_chunks(ds: TFRecordDataset, stop: threading.Event) -> Iterator[tup
             t.join()
 
 
-def _window_permutation(seed: int, start: Tuple[int, int, int], n: int) -> np.ndarray:
-    """The row permutation of the window that starts at ``start`` =
-    (epoch, shard cursor, record offset): drawn from the seed and that
-    position alone, as the JAX dataset draws it."""
-    ss = np.random.SeedSequence([seed & 0xFFFFFFFF, *start])
+def _window_permutation(seed: int, start: IteratorState, n: int) -> np.ndarray:
+    """The row permutation of the window that starts at ``start``: drawn
+    from the seed and that position alone, as the JAX dataset draws it."""
+    ss = np.random.SeedSequence(
+        [seed & 0xFFFFFFFF, start.epoch, start.shard_cursor, start.record_offset])
     return np.random.default_rng(ss).permutation(n)
 
 
-def _emit_shuffled(ds: TFRecordDataset, chunks, out: queue.Queue, stop: threading.Event) -> bool:
+def _emit_shuffled(ds: TFRecordDataset, start: IteratorState, out: queue.Queue,
+                   stop: threading.Event) -> bool:
     """Windowed row shuffle: gather ``shuffle_window`` batches of rows,
     permute them and emit them a batch at a time. A window ends at the
     position after its last row, (epoch, cursor, offset): a window that
     ends on a shard's last record ends at (epoch, cursor, n), and the next
-    window starts there. False if the consumer went away."""
+    window starts there. Every batch but a window's last carries the
+    window's start with ``window_emitted`` = the batches emitted from it so
+    far; the last carries the window's end. From a mid-window ``start`` the
+    window is decoded from its start again and the batches already emitted
+    are skipped. False if the consumer went away."""
     b = ds.batch_size
     target = ds.shuffle_window * b
     win: List[ColumnarBatch] = []
     rows = 0
-    win_start = end = (0, 0, 0)
+    emit_skip = start.window_emitted
+    win_start = end = IteratorState(start.epoch, start.shard_cursor, start.record_offset)
 
     def flush(tail: bool) -> bool:
+        nonlocal emit_skip
         window = concat_batches(win)
         perm = _window_permutation(ds.seed, win_start, rows)
         n_batches = rows // b
         if tail and rows % b and not ds.drop_remainder:
             n_batches += 1
-        for k in range(n_batches):
-            if not _put(out, take_rows(window, perm[k * b:min((k + 1) * b, rows)]), stop):
+        for k in range(emit_skip, n_batches):
+            pos = end if k == n_batches - 1 else replace(win_start, window_emitted=k + 1)
+            if not _put(out, (take_rows(window, perm[k * b:min((k + 1) * b, rows)]), pos), stop):
                 return False
+        emit_skip = 0
         return True
 
-    for chunk, epoch, cursor, start in chunks:
-        if stop.is_set():
-            return False
-        used = 0
-        while used < chunk.num_rows:
-            take = min(target - rows, chunk.num_rows - used)
-            win.append(chunk if used == 0 and take == chunk.num_rows
-                       else slice_batch(chunk, used, used + take))
-            rows += take
-            used += take
-            end = (epoch, cursor, start + used)
-            if rows == target:
-                if not flush(tail=False):
-                    return False
-                win, rows, win_start = [], 0, end
+    with contextlib.closing(ds._chunks(stop, win_start)) as chunks:
+        for chunk, epoch, cursor, chunk_start in chunks:
+            if stop.is_set():
+                return False
+            used = 0
+            while used < chunk.num_rows:
+                take = min(target - rows, chunk.num_rows - used)
+                win.append(chunk if used == 0 and take == chunk.num_rows
+                           else slice_batch(chunk, used, used + take))
+                rows += take
+                used += take
+                end = IteratorState(epoch, cursor, chunk_start + used)
+                if rows == target:
+                    if not flush(tail=False):
+                        return False
+                    win, rows, win_start = [], 0, end
     return not rows or flush(tail=True)
 
 
-class BatchIterator:
-    """Iterator over the batches a producer thread decodes ahead; also a
-    context manager. An exception in the producer is raised here, at the
-    batch where it happened."""
+class CheckpointableIterator:
+    """Iterator over the batches a producer thread decodes ahead, with a
+    resumable ``state()``; also a context manager. An exception in the
+    producer is raised here, at the batch where it happened.
 
-    def __init__(self, ds: TFRecordDataset):
+    Each batch crosses the queue with the position after it, so
+    ``state()`` is the position of the last batch YIELDED, never of one
+    decoded ahead: resuming from it replays nothing and skips nothing.
+    Before each get the queue's fill fraction feeds the
+    ``prefetch.occupancy`` gauge (an EMA, ``telemetry.boundness_verdict``
+    reads it); the wait lands in the ``batch.wait`` stage and a ``batch``
+    span."""
+
+    def __init__(self, ds: TFRecordDataset, state: IteratorState):
+        self._ds = ds
+        self._consumed_state = state
         self._queue: queue.Queue = queue.Queue(maxsize=PREFETCH)
         self._stop = threading.Event()
         self._done = False
+        self._occupancy = telemetry.OccupancyEma(telemetry.OCCUPANCY_GAUGE)
         self._thread = threading.Thread(
-            target=_produce, args=(ds, self._queue, self._stop),
+            target=_produce, args=(ds, state, self._queue, self._stop),
             name="tfrecord-producer", daemon=True,
         )
         # an iterator dropped without close() still stops its producer
         self._finalizer = weakref.finalize(self, self._stop.set)
         self._thread.start()
 
-    def __iter__(self) -> "BatchIterator":
+    def __iter__(self) -> "CheckpointableIterator":
         return self
 
     def __next__(self) -> ColumnarBatch:
         if self._done:
             raise StopIteration
+        depth = self._queue.qsize()
+        self._occupancy.update(depth / self._queue.maxsize)
+        METRICS.gauge("prefetch.queue_depth", depth)
+        t0_ns = time.perf_counter_ns()
         while True:
             try:
                 item = self._queue.get(timeout=0.1)
@@ -585,7 +807,17 @@ class BatchIterator:
             if item is None:
                 raise StopIteration
             raise item
-        return item
+        batch, self._consumed_state = item
+        wait_ns = time.perf_counter_ns() - t0_ns
+        METRICS.add("batch.wait", records=batch.num_rows, seconds=wait_ns / 1e9,
+                    latency=wait_ns / 1e9)
+        telemetry.record_span("batch", t0_ns, wait_ns, rows=batch.num_rows)
+        return batch
+
+    def state(self) -> IteratorState:
+        """The position of the last batch yielded, stamped with the
+        dataset's fingerprint."""
+        return replace(self._consumed_state, fingerprint=self._ds.fingerprint())
 
     def close(self) -> None:
         """Stop the producer, drop the batches it queued, and join it."""
@@ -598,7 +830,7 @@ class BatchIterator:
             pass
         self._thread.join()
 
-    def __enter__(self) -> "BatchIterator":
+    def __enter__(self) -> "CheckpointableIterator":
         return self
 
     def __exit__(self, *exc) -> None:

@@ -1,8 +1,9 @@
 """Throughput counters, latency histograms and structured logging.
 
-Cut of ``tpu_tfrecord/metrics.py`` to what the reader and the writer
-read: the ``Metrics`` registry (per-stage totals through ``add`` /
-``count``, gauges, log-bucketed latency histograms), ``timed``,
+Cut of ``tpu_tfrecord/metrics.py`` to what the reader, the writer, the
+checkpoint layer and the trainer harness read: the ``Metrics`` registry
+(per-stage totals through ``add`` / ``count``, gauges, log-bucketed
+latency histograms, ``counter`` / ``gauge_value`` / ``stage``), ``timed``,
 ``log_salvage_event`` and the package ``logger``. ``Histogram`` is a copy
 of ``tpu_tfrecord/telemetry.py::Histogram`` without its exemplars and its
 mergeable state. Counters are updated at slab or shard granularity, never
@@ -13,7 +14,13 @@ reader), ``write``, ``write.encode``, ``write.compress``, ``write.io`` and
 ``write.commit`` (the writer), and the event counters
 ``read.corrupt_records``, ``read.resyncs``, ``read.skipped_shards``,
 ``write.commit_retries``, ``write.backpressure_waits`` and
-``<stage>.errors``; the gauge ``write.inflight_slabs``.
+``<stage>.errors``; the gauge ``write.inflight_slabs``. The dataset's
+iterator adds ``batch.wait`` and the gauges ``prefetch.queue_depth`` and
+``prefetch.occupancy``; the checkpoint layer ``ckpt.snapshot``,
+``ckpt.commit``, ``ckpt.commit_wait``, ``ckpt.bytes_written``,
+``ckpt.generations_swept`` and the gauge ``ckpt.inflight``; the harness
+``train.<phase>``, ``train.step``, ``train.steps`` and the gauges
+``train.share.<phase>``.
 """
 
 from __future__ import annotations
@@ -144,6 +151,16 @@ class Metrics:
         """Set an instantaneous gauge; last write wins."""
         with self._lock:
             self._gauges[name] = float(value)
+
+    def gauge_value(self, name: str, default: Optional[float] = None) -> Optional[float]:
+        """A gauge's last value (``default`` if never set)."""
+        with self._lock:
+            return self._gauges.get(name, default)
+
+    def stage(self, stage: str) -> StageStats:
+        """A stage's totals (created empty if never hit)."""
+        with self._lock:
+            return self._stages.setdefault(stage, StageStats())
 
     def snapshot(self, prefix: Optional[str] = None) -> Dict[str, Dict[str, float]]:
         """Per-stage throughput map (with p50/p90/p99 where a stage has a

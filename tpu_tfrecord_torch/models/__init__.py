@@ -6,10 +6,12 @@ from tpu_tfrecord_torch.models.dlrm import (
     DLRMConfig,
     SparseEmbOptState,
     init_params,
+    load_train_state,
     loss_fn,
     make_synthetic_batch,
     sparse_opt_init,
     sparse_train_step,
+    train_state,
     train_step,
 )
 from tpu_tfrecord_torch.models.interaction import (
@@ -30,9 +32,11 @@ __all__ = [
     "dot_interaction_cuda",
     "dot_interaction_reference",
     "init_params",
+    "load_train_state",
     "loss_fn",
     "make_synthetic_batch",
     "sparse_opt_init",
     "sparse_train_step",
+    "train_state",
     "train_step",
 ]

@@ -19,6 +19,10 @@ the dedup-first row-wise AdaGrad. optax's transforms map onto torch's:
 eps 1e-8, the same update formula), ``optax.sgd(lr)`` is
 ``torch.optim.SGD(params, lr)``. A step returns its loss as a 0-dim tensor
 on the model's device and never reads it back to the host.
+``train_state(model, opt)`` is the train state as a tree of the live
+tensors (parameters, Adam's state, the AdaGrad accumulators) for
+``checkpoint.TrainCheckpointer``; ``load_train_state`` copies a restored
+tree back in place.
 
 Batch layout is that of ``device.ingest.host_batch_from_columnar`` for a
 Criteo-like schema: 'dense' [B, num_dense], 'cat' [B, F] hashed ids (int32
@@ -316,6 +320,72 @@ def sparse_train_step(
             scale = embed_lr * torch.rsqrt(state.accum[sf, sv] + embed_eps)  # [N]
             table.index_put_((sf, sv), -(scale * inv_m)[:, None] * g_sum, accumulate=True)
     return loss.detach()
+
+
+def _adam_state(opt: torch.optim.Optimizer, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``opt``'s state of ``p``, created as Adam creates it at its first
+    step when it is empty (zero moments, a zero ``step``), so a tree taken
+    before any step has the structure of one taken after: Adam's first
+    step then finds the state and leaves it as it is."""
+    group = next(g for g in opt.param_groups if any(q is p for q in g["params"]))
+    state = opt.state[p]
+    if not state:
+        on_device = group.get("capturable") or group.get("fused")
+        scalar = torch.float64 if torch.get_default_dtype() == torch.float64 and not \
+            group.get("fused") else torch.float32
+        state["step"] = torch.zeros((), dtype=scalar, device=p.device if on_device else "cpu")
+        state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        if group.get("amsgrad"):
+            state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    return dict(state)
+
+
+def train_state(model: DLRM, opt) -> Dict[str, object]:
+    """The train state as a tree of tensors only, for
+    ``checkpoint.TrainCheckpointer``: ``params`` (every parameter by name),
+    ``adam`` (for each parameter the optimizer steps, by name: its moments
+    and its ``step``) and, for a ``SparseEmbOptState``, ``accum`` (the
+    row-wise AdaGrad accumulators). The tensors are the live ones, not
+    copies. ``opt`` is a ``torch.optim.Adam`` / ``AdamW`` or a
+    ``SparseEmbOptState`` over one; the hyperparameters stay in code."""
+    dense = opt.dense if isinstance(opt, SparseEmbOptState) else opt
+    if not isinstance(dense, (torch.optim.Adam, torch.optim.AdamW)):
+        raise TypeError(f"train_state holds Adam's state; got {type(dense).__name__}")
+    names = {id(p): name for name, p in model.named_parameters()}
+    tree: Dict[str, object] = {
+        "params": dict(model.named_parameters()),
+        "adam": {names[id(p)]: _adam_state(dense, p)
+                 for group in dense.param_groups for p in group["params"]},
+    }
+    if isinstance(opt, SparseEmbOptState):
+        tree["accum"] = opt.accum
+    return tree
+
+
+@torch.no_grad()
+def load_train_state(model: DLRM, opt, tree) -> None:
+    """Copy a restored ``train_state`` tree (numpy arrays or tensors, on
+    any device) into ``model`` and ``opt`` in place, so the optimizer
+    keeps its parameters. Every leaf must have its target's shape and
+    dtype: nothing is cast."""
+
+    def copy(dst, src, path: str) -> None:
+        if isinstance(dst, dict):
+            if not isinstance(src, dict) or sorted(src) != sorted(dst):
+                raise ValueError(f"train state {path or '<root>'}: keys "
+                                 f"{sorted(src) if isinstance(src, dict) else type(src).__name__} "
+                                 f"!= {sorted(dst)}")
+            for k in dst:
+                copy(dst[k], src[k], f"{path}[{k!r}]")
+            return
+        src = torch.as_tensor(src)
+        if src.dtype != dst.dtype or tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"train state {path}: {src.dtype} {tuple(src.shape)} cannot "
+                             f"load into {dst.dtype} {tuple(dst.shape)}")
+        dst.copy_(src)
+
+    copy(train_state(model, opt), tree, "")
 
 
 def make_synthetic_batch(

@@ -1,0 +1,329 @@
+"""Flight recorder (spans) and the bound-ness and training verdicts.
+
+Cut of ``tpu_tfrecord/telemetry.py`` to what the dataset's iterator and
+the trainer harness (``harness.py``) read:
+
+- the span recorder: ``SpanRecorder`` (a bounded, thread-safe ring of
+  span and instant records), the process-global ``RECORDER``, ``span``,
+  ``instant``, ``record_span``, ``enable`` / ``disable`` and the
+  Chrome-trace export (``to_chrome_trace``, ``save_chrome_trace``);
+- the producer/consumer verdict: ``OCCUPANCY_GAUGE``,
+  ``boundness_verdict``, ``verdict_from_metrics`` and ``OccupancyEma``;
+- the training verdict: ``TRAIN_PHASES``, the ``train.`` and
+  ``train.share.`` prefixes, the two thresholds and ``training_verdict``.
+
+Left out: ``Pulse``, the exporters, the trace context and the trace
+merger (they wait for the port's fleet layer). The Chrome trace names its
+process ``tfrecord:<pid>``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+import uuid
+from typing import Any, Dict, List, Optional
+
+
+def atomic_write_bytes(path: str, data: bytes) -> None:
+    """Write ``data`` to ``path`` through a pid-suffixed tmp file and an
+    atomic rename, so a crash mid-write never leaves a truncated file."""
+    tmp = f"{path}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+    try:
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+
+
+# ---------------------------------------------------------------------------
+# Span tracing
+# ---------------------------------------------------------------------------
+
+
+class _NoopSpan:
+    """The shared disabled-path context manager: no state, no lock."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+    def set(self, **attrs) -> None:
+        return None
+
+
+_NOOP = _NoopSpan()
+
+
+class _SpanCtx:
+    """One live span: records (name, begin, duration, tid, attrs) into its
+    recorder on exit. An exception through the span marks it ``failed=1``."""
+
+    __slots__ = ("_rec", "name", "attrs", "_t0")
+
+    def __init__(self, rec: "SpanRecorder", name: str, attrs: Optional[dict]):
+        self._rec = rec
+        self.name = name
+        self.attrs = attrs
+
+    def set(self, **attrs) -> None:
+        """Attach attrs discovered mid-span (row counts, byte counts)."""
+        if self.attrs is None:
+            self.attrs = attrs
+        else:
+            self.attrs.update(attrs)
+
+    def __enter__(self) -> "_SpanCtx":
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        dur = time.perf_counter_ns() - self._t0
+        attrs = self.attrs
+        if exc_type is not None:
+            attrs = dict(attrs or (), failed=1)
+        self._rec._record(self.name, self._t0, dur, attrs, "X")
+        return None
+
+
+class SpanRecorder:
+    """Thread-safe bounded ring buffer of span and instant records.
+
+    The buffer keeps the newest ``capacity`` records and counts what it
+    dropped (``dropped``). ``enabled`` is a plain attribute read on the hot
+    path: when False, ``span()`` / ``instant()`` return the shared no-op
+    without taking the lock."""
+
+    def __init__(self, capacity: int = 65536, enabled: bool = False):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.capacity = capacity
+        self.enabled = enabled
+        self._lock = threading.Lock()
+        self._ring: List[Optional[tuple]] = [None] * capacity
+        self._seq = 0
+        self.dropped = 0
+
+    # -- recording -----------------------------------------------------------
+
+    def span(self, name: str, **attrs) -> "_SpanCtx | _NoopSpan":
+        if not self.enabled:
+            return _NOOP
+        return _SpanCtx(self, name, attrs or None)
+
+    def instant(self, name: str, **attrs) -> None:
+        if not self.enabled:
+            return
+        self._record(name, time.perf_counter_ns(), 0, attrs or None, "i")
+
+    def _record(
+        self,
+        name: str,
+        t0_ns: int,
+        dur_ns: int,
+        attrs: Optional[dict],
+        ph: str,
+        tid: Optional[int] = None,
+    ) -> None:
+        if tid is None:
+            tid = threading.get_ident()
+        with self._lock:
+            seq = self._seq
+            self._seq = seq + 1
+            if seq >= self.capacity:
+                self.dropped += 1
+            self._ring[seq % self.capacity] = (name, t0_ns, dur_ns, tid, attrs, ph)
+
+    # -- reading -------------------------------------------------------------
+
+    def __len__(self) -> int:
+        with self._lock:
+            return min(self._seq, self.capacity)
+
+    def spans(self) -> List[tuple]:
+        """Snapshot of retained records, oldest first:
+        (name, t0_ns, dur_ns, tid, attrs, ph)."""
+        with self._lock:
+            seq = self._seq
+            if seq <= self.capacity:
+                return list(self._ring[:seq])
+            start = seq % self.capacity
+            return [r for r in self._ring[start:] + self._ring[:start] if r is not None]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring = [None] * self.capacity
+            self._seq = 0
+            self.dropped = 0
+
+    # -- export --------------------------------------------------------------
+
+    def to_chrome_trace(self) -> Dict[str, Any]:
+        """The retained records as a Chrome trace-event JSON object (the
+        format Perfetto and chrome://tracing load): complete ("X") events
+        for spans, thread-scoped instants ("i"), led by process and thread
+        name ("M") records."""
+        pid = os.getpid()
+        events: List[Dict[str, Any]] = [
+            {"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+             "args": {"name": f"tfrecord:{pid}"}}
+        ]
+        thread_names = {t.ident: t.name for t in threading.enumerate()}
+        spans = self.spans()
+        seen = set()
+        for rec in spans:
+            tid = rec[3]
+            if tid in seen:
+                continue
+            seen.add(tid)
+            name = thread_names.get(tid)
+            if name:  # exited threads keep their bare ident
+                events.append({"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                               "args": {"name": name}})
+        for name, t0_ns, dur_ns, tid, attrs, ph in spans:
+            ev: Dict[str, Any] = {"name": name, "cat": "tfrecord", "ph": ph,
+                                  "ts": t0_ns / 1000.0, "pid": pid, "tid": tid}
+            if ph == "X":
+                ev["dur"] = dur_ns / 1000.0
+            else:
+                ev["s"] = "t"
+            if attrs:
+                ev["args"] = attrs
+            events.append(ev)
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def save_chrome_trace(self, path: str) -> None:
+        """Export atomically (tmp + rename)."""
+        atomic_write_bytes(path, json.dumps(self.to_chrome_trace()).encode("utf-8"))
+
+
+#: Process-global flight recorder: spans come from dataset iterators,
+#: decode threads and the trainer harness onto one timeline.
+RECORDER = SpanRecorder()
+
+
+def span(name: str, **attrs):
+    """A duration span on the global recorder; the shared no-op when
+    tracing is off."""
+    rec = RECORDER
+    if not rec.enabled:
+        return _NOOP
+    return _SpanCtx(rec, name, attrs or None)
+
+
+def instant(name: str, **attrs) -> None:
+    """A point event on the global recorder."""
+    rec = RECORDER
+    if rec.enabled:
+        rec._record(name, time.perf_counter_ns(), 0, attrs or None, "i")
+
+
+def record_span(name: str, t0_ns: int, dur_ns: int, tid: Optional[int] = None, **attrs) -> None:
+    """Record an already-measured duration span (the consumer's batch
+    wait, a train step) on the global recorder."""
+    rec = RECORDER
+    if rec.enabled:
+        rec._record(name, t0_ns, dur_ns, attrs or None, "X", tid=tid)
+
+
+def enable() -> SpanRecorder:
+    RECORDER.enabled = True
+    return RECORDER
+
+
+def disable() -> None:
+    RECORDER.enabled = False
+
+
+# ---------------------------------------------------------------------------
+# Bound-ness verdict
+# ---------------------------------------------------------------------------
+
+#: Gauge the consumer-side iterator maintains: EMA of the prefetch queue's
+#: fill fraction sampled at each batch get (io/dataset.py).
+OCCUPANCY_GAUGE = "prefetch.occupancy"
+
+
+def boundness_verdict(occupancy: Optional[float]) -> str:
+    """Producer/consumer verdict from a queue fill fraction in [0, 1]:
+    ``consumer_bound`` at >= 0.66 (decode keeps ahead), ``producer_bound``
+    at <= 0.33 (the consumer waits on decode), ``balanced`` between,
+    ``unknown`` without samples."""
+    if occupancy is None:
+        return "unknown"
+    if occupancy >= 0.66:
+        return "consumer_bound"
+    if occupancy <= 0.33:
+        return "producer_bound"
+    return "balanced"
+
+
+def verdict_from_metrics(metrics=None, gauge: str = OCCUPANCY_GAUGE) -> str:
+    """The verdict for a registry's occupancy gauge (the process default
+    registry when ``metrics`` is None)."""
+    if metrics is None:
+        from tpu_tfrecord_torch.metrics import METRICS as metrics  # noqa: N813
+    return boundness_verdict(metrics.gauge_value(gauge))
+
+
+# ---------------------------------------------------------------------------
+# Training verdict
+# ---------------------------------------------------------------------------
+
+#: The step-phase decomposition of the trainer harness (harness.StepPhases):
+#: disjoint wall-clock parts of one train step. Stages are
+#: ``train.<phase>``; windowed shares are ``train.share.<phase>`` gauges.
+TRAIN_PHASES = ("data_wait", "h2d", "compute", "ckpt")
+TRAIN_STAGE_PREFIX = "train."
+TRAIN_SHARE_PREFIX = "train.share."
+
+#: A step spending at least this share on checkpointing is ckpt_bound; at
+#: least this share on input (data_wait + h2d) is input_bound.
+TRAIN_CKPT_BOUND_SHARE = 0.25
+TRAIN_INPUT_BOUND_SHARE = 0.5
+
+
+def training_verdict(shares: Optional[Dict[str, float]]) -> str:
+    """``input_bound`` / ``compute_bound`` / ``ckpt_bound`` / ``unknown``
+    from a step-phase share mapping (missing phases read as 0).
+    Checkpointing is checked first: its fix (async or rarer checkpoints)
+    differs from adding decode capacity."""
+    if not shares or sum(shares.values()) <= 0:
+        return "unknown"
+    if shares.get("ckpt", 0.0) >= TRAIN_CKPT_BOUND_SHARE:
+        return "ckpt_bound"
+    input_share = shares.get("data_wait", 0.0) + shares.get("h2d", 0.0)
+    if input_share >= TRAIN_INPUT_BOUND_SHARE:
+        return "input_bound"
+    return "compute_bound"
+
+
+class OccupancyEma:
+    """One EMA (alpha 0.2: the recent regime, not the epoch's warm-up)
+    feeding one named gauge."""
+
+    __slots__ = ("gauge", "alpha", "value")
+
+    def __init__(self, gauge: str, alpha: float = 0.2):
+        self.gauge = gauge
+        self.alpha = alpha
+        self.value: Optional[float] = None
+
+    def update(self, fill: float, metrics=None) -> float:
+        v = self.value
+        self.value = fill if v is None else (1.0 - self.alpha) * v + self.alpha * fill
+        if metrics is None:
+            from tpu_tfrecord_torch.metrics import METRICS as metrics  # noqa: N813
+        metrics.gauge(self.gauge, self.value)
+        return self.value

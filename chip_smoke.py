@@ -113,6 +113,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and run again; it must resume from a nonzero position and finish, the
    saved step plus its steps making the 32-step epoch budget.
 
+9. The sequence models (no DLRM kernel runs here: every instance's launch
+   count over the phase must be 0). The twins' SequenceExamples are
+   written (``train_lm``'s 4 x 256 token documents, ``train_longdoc``'s
+   4 x 256 frame documents). (1) The LM at the twin's width (vocab 256,
+   d_model 64, 4 heads, 2 layers, L = 64, B = 32, f32, TF32 off) with one
+   set of weights on the card and on the CPU: logits within 1e-4, then 16
+   Adam steps with losses within a relative 1e-4, on slice-packed batches
+   and on ``TokenPacker(32, 64, "best_fit")`` batches with segment ids.
+   (2) The long_doc feed's bf16 frames (native pad and round,
+   ``DeviceIterator``) bit-equal to the float32 pad cast on the card, and
+   the classifier's logits card against CPU (bf16 within 2e-2, f32 within
+   1e-4). (3) ``python -m tpu_tfrecord_torch.train_lm`` for 64 steps
+   saving every 8, then killed with SIGKILL after step 20 and run again:
+   it must resume at step 16 with the uninterrupted run's digests for
+   steps 17-64 and its losses (bit-equal, or within a relative 1e-4: the
+   line says which), and its tokens/s whole and steady. (4) ``python -m
+   tpu_tfrecord_torch.train_longdoc`` whole (32 steps, bf16 frames):
+   finite losses, the phase shares and verdict. (5) Rates beside the
+   card's name and power limit: LM and long_doc train steps/s eager on a
+   resident batch, with device ms a step (torch.profiler) and the idle
+   share; ``TokenPacker`` docs/s and density at the bench's pack shape.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -1836,6 +1858,368 @@ def resume_path(data_dir: str) -> dict:
     return launches
 
 
+# -- phase 9: the sequence models -------------------------------------------------------
+
+SEQ_DEVICE = "cuda"
+SEQ_PARITY_STEPS = 16
+LM_LOGITS_ATOL = 1e-4      # f32, TF32 off: the card against the CPU
+SEQ_LOSS_RTOL = 1e-4
+LONGDOC_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+LM_DRILL_STEPS = 64
+LM_DRILL_SAVE_EVERY = 8
+LM_DRILL_KILL_AT = 20
+LM_DRILL_RESUMED_AT = 16
+SEQ_TIMEOUT_S = 300
+RATE_STEPS = 50
+PROFILE_STEPS = 5
+PACK_REPS = 40
+
+
+def seq_sync() -> None:
+    if torch.device(SEQ_DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tree_to(tree, device):
+    """A copy of a parameter tree on ``device``."""
+    from tpu_tfrecord_torch.checkpoint import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [t.detach().to(device).clone() for t in leaves])
+
+
+def packed_batches(data_dir: str, packing: str, n: int) -> tuple:
+    """The first ``n`` packed batches of the LM twin's read (its dataset,
+    ``TokenPacker(32, 64, packing)``) as dicts, and the packer's density."""
+    from tpu_tfrecord_torch import train_lm as tw
+    from tpu_tfrecord_torch.device.ingest import TokenPacker
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    ds = TFRecordDataset(data_dir, batch_size=tw.READ_BATCH, schema=tw.make_schema(),
+                         num_epochs=4, recordType="SequenceExample", shuffle=True, seed=0)
+    pk = TokenPacker(tw.BATCH, tw.SEQ_LEN, packing=packing)
+    out = []
+    with ds.batches() as it:
+        for cb in it:
+            pk.feed_column(cb["tokens"])
+            while len(out) < n and (b := pk.pop()) is not None:
+                out.append(b if isinstance(b, dict) else {"tokens": b})
+            if len(out) == n:
+                break
+    if len(out) < n:
+        raise SystemExit(f"seq: {packing} packing gave {len(out)} batches, want {n}")
+    return out, pk.density()
+
+
+def lm_parity(data_dir: str, packing: str) -> dict:
+    """Phase 9 (1): the twin's LM (f32, TF32 off) with one set of weights
+    on the card and on the CPU: logits of the first packed batch within
+    ``LM_LOGITS_ATOL``, then 16 Adam(3e-3) steps with losses within
+    ``SEQ_LOSS_RTOL``."""
+    from tpu_tfrecord_torch import train_lm as tw
+    from tpu_tfrecord_torch.models import lm, optim
+
+    cfg = tw.make_config()
+    batches, density = packed_batches(data_dir, packing, SEQ_PARITY_STEPS)
+    host = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_to(host, SEQ_DEVICE)
+
+    def args(b, device):
+        segs = b.get("segment_ids")
+        return (torch.from_numpy(b["tokens"]).to(device),
+                None if segs is None else torch.from_numpy(segs).to(device))
+
+    with torch.no_grad():
+        tok, seg = args(batches[0], "cpu")
+        want = lm.forward(host, tok, cfg, segments=seg)[0]
+        tok, seg = args(batches[0], SEQ_DEVICE)
+        got = lm.forward(card, tok, cfg, segments=seg)[0].cpu()
+    err = float((got - want).abs().max())
+    opts = {"cpu": optim.adam(host, tw.LR), SEQ_DEVICE: optim.adam(card, tw.LR)}
+    losses = {d: [] for d in opts}
+    for b in batches:
+        for device, params in (("cpu", host), (SEQ_DEVICE, card)):
+            tok, seg = args(b, device)
+            losses[device].append(float(lm.train_step(params, opts[device], tok, cfg, segments=seg)))
+    lc, lg = np.array(losses["cpu"]), np.array(losses[SEQ_DEVICE])
+    rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    ok = err <= LM_LOGITS_ATOL and rel <= SEQ_LOSS_RTOL and np.isfinite(lg).all()
+    print(f"seq: LM parity, {packing} batches ({SEQ_PARITY_STEPS} of [32, 65]"
+          f"{', segment_ids' if packing != 'slice' else ''}; density {density:.4f}): logits max abs "
+          f"err {err:.3e} (atol {LM_LOGITS_ATOL}); {SEQ_PARITY_STEPS} Adam steps, losses card "
+          f"{lg[0]:.6f} -> {lg[-1]:.6f}, max rel diff to the CPU {rel:.3e} (rtol {SEQ_LOSS_RTOL}): {ok}")
+    if not ok:
+        raise SystemExit(f"seq: LM card/CPU parity failed on {packing} batches")
+    return dict(logits_err=err, loss_rel=rel, density=density)
+
+
+def longdoc_parity(data_dir: str) -> dict:
+    """Phase 9 (2): the bf16 frames of the long_doc twin's feed (native pad
+    and round, ``DeviceIterator``) bit-equal to the float32 pad cast on the
+    card; the twin's classifier on the card and on the CPU, bf16 logits
+    within 2e-2 and float32 within 1e-4."""
+    from tpu_tfrecord_torch import train_longdoc as tw
+    from tpu_tfrecord_torch.device.ingest import DeviceIterator, host_batch_from_columnar
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+    from tpu_tfrecord_torch.models import long_doc
+
+    ds = TFRecordDataset(data_dir, batch_size=tw.BATCH, schema=tw.make_schema(),
+                         recordType="SequenceExample", shuffle=True, seed=0)
+    with ds.batches() as it:
+        cb = next(it)
+    hb = tw.host_batch(cb, ds.schema)
+    f32 = host_batch_from_columnar(cb, ds.schema, pad_to={"frames": (tw.MAX_LEN, tw.SEQ_DIM)})
+    with DeviceIterator([hb], SEQ_DEVICE) as dit:
+        fed = next(dit)
+    cast = torch.from_numpy(f32["frames"]).to(SEQ_DEVICE).to(torch.bfloat16)
+    same = (fed["frames"].dtype == torch.bfloat16
+            and torch.equal(fed["frames"].view(torch.int16), cast.view(torch.int16))
+            and all(torch.equal(fed[k].cpu(), torch.from_numpy(f32[k])) for k in ("frames_len", "label")))
+    print(f"seq: long_doc feed: frames {tuple(fed['frames'].shape)} {fed['frames'].dtype} through "
+          f"DeviceIterator bit-equal to the float32 pad cast on the card: {same}")
+    if not same:
+        raise SystemExit("seq: the bf16 frame feed disagrees with the cast on the card")
+    out = {}
+    for dtype, frames in ((torch.bfloat16, hb["frames"]), (torch.float32, torch.from_numpy(f32["frames"]))):
+        cfg = dataclasses.replace(tw.make_config(), dtype=dtype)
+        host = long_doc.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = tree_to(host, SEQ_DEVICE)
+        batch = {"frames": frames, "frames_len": torch.from_numpy(f32["frames_len"]),
+                 "label": torch.from_numpy(f32["label"])}
+        with torch.no_grad():
+            want = long_doc.forward(host, batch, cfg)
+            got = long_doc.forward(card, {k: v.to(SEQ_DEVICE) for k, v in batch.items()}, cfg).cpu()
+        err = float((got - want).abs().max())
+        tol = LONGDOC_TOL[dtype]
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        print(f"seq: long_doc logits [64, 2] {dtype}, card against the CPU: max abs err {err:.3e} "
+              f"(tol {tol}): {ok}")
+        if not ok:
+            raise SystemExit(f"seq: long_doc card/CPU parity failed in {dtype}")
+        out[str(dtype).replace("torch.", "")] = err
+    return out
+
+
+def run_twin(module: str, args: list, work: str, log: str, kill_after_step=None):
+    """``python -m <module> --device <SEQ_DEVICE> *args`` in a subprocess:
+    (return code, [(host seconds since start, line)], stderr). With
+    ``kill_after_step`` it is killed with SIGKILL after that step's
+    ``lm_step`` line."""
+    import signal
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", module, "--device", SEQ_DEVICE, *args]
+    env = dict(os.environ, PYTHONPATH=repo)
+    lines = []
+    t0 = time.perf_counter()
+    with open(os.path.join(work, log), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+        timer = threading.Timer(SEQ_TIMEOUT_S, proc.kill)  # a hung run ends the read
+        timer.start()
+        try:
+            for line in proc.stdout:
+                lines.append((time.perf_counter() - t0, line.rstrip()))
+                if (kill_after_step is not None and line.startswith("lm_step ")
+                        and json.loads(line.split(" ", 1)[1])["step"] == kill_after_step):
+                    proc.send_signal(signal.SIGKILL)
+                    break
+        finally:
+            timer.cancel()
+            if kill_after_step is None:
+                with contextlib.suppress(subprocess.TimeoutExpired):
+                    proc.wait(timeout=60)
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+            proc.stdout.close()
+    with open(os.path.join(work, log)) as fh:
+        stderr = fh.read()
+    return proc.returncode, lines, stderr
+
+
+def lm_steps(lines) -> dict:
+    out = {}
+    for t, ln in lines:
+        if ln.startswith("lm_step "):
+            rec = json.loads(ln.split(" ", 1)[1])
+            out[rec["step"]] = dict(rec, t=t)
+    return out
+
+
+def done_rate(lines) -> float:
+    """examples/s of a twin's "done: N steps, X examples/s" line."""
+    done = [m for _, ln in lines if (m := re.match(r"done: \d+ steps, ([\d,.]+) examples/s", ln))]
+    if not done:
+        raise SystemExit("seq: the twin printed no done line")
+    return float(done[-1].group(1).replace(",", ""))
+
+
+def lm_drill(work: str, data_dir: str) -> dict:
+    """Phase 9 (3): the train_lm twin, uninterrupted for 64 steps saving
+    every 8, then killed with SIGKILL after step 20 and run again: it must
+    resume at step 16 and give the uninterrupted run's digests for steps
+    17-64 and its losses, bit-equal or within ``SEQ_LOSS_RTOL``."""
+    import signal
+
+    from tpu_tfrecord_torch import train_lm as tw
+
+    common = ["--data-dir", data_dir, "--steps", str(LM_DRILL_STEPS),
+              "--save-every", str(LM_DRILL_SAVE_EVERY)]
+    runs = {}
+    for name, ckpt, kill in (("uninterrupted", "lm_ckpt_ref", None), ("killed", "lm_ckpt", LM_DRILL_KILL_AT),
+                             ("resumed", "lm_ckpt", None)):
+        rc, lines, err = run_twin("tpu_tfrecord_torch.train_lm", common + [
+            "--ckpt-dir", os.path.join(work, ckpt),
+            "--digest-out", os.path.join(work, f"lm_{name}.jsonl")], work, f"lm_{name}.err", kill)
+        want_rc = -signal.SIGKILL if kill else 0
+        if rc != want_rc:
+            raise SystemExit(f"seq: train_lm {name} run ended with {rc}: {err[-3000:]}")
+        runs[name] = lines
+        head = [ln for _, ln in lines if not ln.startswith("lm_step")]
+        print(f"seq: train_lm {name}: " + " | ".join(head))
+    ref, res = lm_steps(runs["uninterrupted"]), lm_steps(runs["resumed"])
+    first = [ln for _, ln in runs["resumed"]][:3]
+    resumed_at = f"resumed at step {LM_DRILL_RESUMED_AT}" in first
+    later = range(LM_DRILL_RESUMED_AT + 1, LM_DRILL_STEPS + 1)
+    digests = sorted(res) == list(later) and all(res[s]["digest"] == ref[s]["digest"] for s in later)
+    bit_equal = all(res[s]["loss"] == ref[s]["loss"] for s in later)
+    rel = max(abs(float(res[s]["loss"]) - float(ref[s]["loss"])) / abs(float(ref[s]["loss"]))
+              for s in later) if digests else float("inf")
+    determinism = "bit-equal" if bit_equal else f"within a relative {SEQ_LOSS_RTOL} (max {rel:.3e})"
+    print(f"seq: train_lm drill: {first[:2]}; resumed at step {LM_DRILL_RESUMED_AT}: {resumed_at}; "
+          f"digests of steps {later[0]}-{later[-1]} equal the uninterrupted run's: {digests}; "
+          f"losses {determinism}")
+    if not (resumed_at and digests and (bit_equal or rel <= SEQ_LOSS_RTOL)):
+        raise SystemExit("seq: the train_lm kill drill did not continue the uninterrupted run")
+    losses = [float(ref[s]["loss"]) for s in sorted(ref)]
+    if not np.isfinite(losses).all():
+        raise SystemExit("seq: train_lm losses are not finite")
+    whole = done_rate(runs["uninterrupted"]) * tw.SEQ_LEN
+    t2, tn = ref[2]["t"], ref[LM_DRILL_STEPS]["t"]
+    steady = (LM_DRILL_STEPS - 2) * tw.BATCH * tw.SEQ_LEN / (tn - t2)
+    print(f"seq: train_lm uninterrupted: losses {losses[0]:.4f} -> {losses[-1]:.4f}; {whole:.1f} "
+          f"tokens/s whole (its done line), {steady:.1f} steady (steps 3-{LM_DRILL_STEPS}, lm_step "
+          "lines' arrival, host clock)")
+    return dict(determinism=determinism, loss_rel=rel, tokens_per_s_whole=whole,
+                tokens_per_s_steady=steady, first_loss=losses[0], last_loss=losses[-1])
+
+
+def longdoc_twin(work: str, data_dir: str) -> dict:
+    """Phase 9 (4): the train_longdoc twin whole (2 epochs, 32 steps, bf16
+    frames): finite losses, the harness's phase shares and verdict."""
+    from tpu_tfrecord_torch import train_longdoc as tw
+
+    rc, lines, err = run_twin("tpu_tfrecord_torch.train_longdoc",
+                              ["--data-dir", data_dir, "--ckpt-dir", os.path.join(work, "ld_ckpt")],
+                              work, "longdoc.err")
+    text = [ln for _, ln in lines]
+    print("seq: train_longdoc: " + " | ".join(text))
+    losses = [float(ln.split("~")[1]) for ln in text if ln.startswith("step ")]
+    phases = [ln for ln in text if ln.startswith("train phases:")]
+    if rc != 0 or not losses or not np.isfinite(losses).all() or not phases \
+            or not any(ln.startswith("done: 32 steps") for ln in text):
+        raise SystemExit(f"seq: train_longdoc failed ({rc}): {err[-3000:]}")
+    return dict(losses=losses, phases=phases[0], steps_per_s_whole=done_rate(lines) / tw.BATCH)
+
+
+def step_rate(label, step, tokens_per_step: int) -> dict:
+    """Steps/s of ``step`` run back to back (host clock, synchronized), the
+    device ms per step of its kernels (torch.profiler over a few steps) and
+    the card's idle share (1 - device ms / wall ms per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        step()
+    seq_sync()
+    t0 = time.perf_counter()
+    for _ in range(RATE_STEPS):
+        step()
+    seq_sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / RATE_STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            step()
+        seq_sync()
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / PROFILE_STEPS
+    per_step = len(kernels) / PROFILE_STEPS
+    idle = 1 - dev_ms / wall_ms if dev_ms > 0 else float("nan")
+    print(f"seq: {label}: {1e3 / wall_ms:.1f} steps/s eager ({wall_ms:.3f} ms a step, host clock, "
+          f"{RATE_STEPS} steps back to back; {tokens_per_step * 1e3 / wall_ms:.1f} tokens/s); device "
+          f"{dev_ms:.4f} ms a step in {per_step:.0f} kernels (torch.profiler, {PROFILE_STEPS} steps"
+          f"{'' if dev_ms > 0 else ': no device time recorded, not measured'}); idle share {idle:.4f}")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=8))
+    return dict(steps_per_s=1e3 / wall_ms, step_ms=wall_ms, device_ms=dev_ms,
+                kernels_per_step=per_step, idle_share=idle)
+
+
+def seq_rates(card: str) -> dict:
+    """Phase 9 (5): LM train steps/s at the bench's shape on
+    ``make_synthetic_tokens``, long_doc steps/s on a resident full-width
+    batch, and ``TokenPacker`` docs/s and density at the bench's
+    ``pack_shape``."""
+    from tpu_tfrecord_torch import train_lm as lm_tw, train_longdoc as ld_tw
+    from tpu_tfrecord_torch.device.ingest import TokenPacker
+    from tpu_tfrecord_torch.models import lm, long_doc, optim
+
+    print(f"seq: rates on {card}")
+    cfg = lm_tw.make_config()
+    params = lm.init_params(cfg, torch.Generator(device=SEQ_DEVICE).manual_seed(0), SEQ_DEVICE)
+    opt = optim.adam(params, lm_tw.LR)
+    toks = torch.from_numpy(lm.make_synthetic_tokens(cfg, 32, seed=0)).to(SEQ_DEVICE)
+    out = {"lm": step_rate("LM train step, B=32 L=64 d=64 (make_synthetic_tokens)",
+                           lambda: lm.train_step(params, opt, toks, cfg), 32 * 64)}
+    lcfg = ld_tw.make_config()
+    lparams = long_doc.init_params(lcfg, torch.Generator(device=SEQ_DEVICE).manual_seed(0), SEQ_DEVICE)
+    lopt = optim.adam(lparams, ld_tw.LR)
+    hb = long_doc.make_synthetic_batch(lcfg, ld_tw.BATCH, seed=0)
+    batch = {"frames": torch.from_numpy(hb["frames"]).to(SEQ_DEVICE).to(torch.bfloat16),
+             "frames_len": torch.from_numpy(hb["frames_len"]).to(SEQ_DEVICE),
+             "label": torch.from_numpy(hb["label"]).to(SEQ_DEVICE)}
+    out["long_doc"] = step_rate("long_doc train step, B=64 L=64 d=32 bf16 (make_synthetic_batch)",
+                                lambda: long_doc.train_step(lparams, lopt, batch, lcfg),
+                                ld_tw.BATCH * ld_tw.MAX_LEN)
+    sizes = np.random.default_rng(15).choice([2, 6, 10, 15, 16, 21, 25, 31], size=300)
+    docs = [np.ones(int(n), np.int32) for n in sizes]
+    t0 = time.perf_counter()
+    for _ in range(PACK_REPS):
+        pk = TokenPacker(4, 32, packing="best_fit")
+        pk.feed_docs(docs)
+        while pk.pop() is not None:
+            pass
+    secs = time.perf_counter() - t0
+    out["packer"] = dict(docs_per_s=PACK_REPS * len(docs) / secs, density=pk.density())
+    print(f"seq: TokenPacker at the bench's pack_shape (B=4 L=32 best_fit ragged[2..31]x300): "
+          f"{out['packer']['docs_per_s']:.1f} docs/s (host clock, {PACK_REPS} repetitions), "
+          f"density {out['packer']['density']:.4f}")
+    return out
+
+
+def seq_path(work: str, card: str) -> dict:
+    """Phase 9: the sequence-model families at the twins' widths, on
+    ``card`` (nvidia-smi's name and power limit). Returns the phase's
+    numbers."""
+    from tpu_tfrecord_torch import train_lm, train_longdoc
+
+    lm_data, ld_data = os.path.join(work, "lm_data"), os.path.join(work, "ld_data")
+    t0 = time.perf_counter()
+    train_lm.generate(lm_data)
+    train_longdoc.generate(ld_data)
+    print(f"seq: wrote the twins' SequenceExamples (4 x 256 token documents, 4 x 256 frame "
+          f"documents) in {time.perf_counter() - t0:.1f} s")
+    out = {"lm_parity": {p: lm_parity(lm_data, p) for p in ("slice", "best_fit")},
+           "long_doc_parity": longdoc_parity(ld_data)}
+    out["train_lm"] = lm_drill(work, lm_data)
+    out["train_longdoc"] = longdoc_twin(work, ld_data)
+    out["rates"] = seq_rates(card)
+    out["card"] = card
+    print("seq: " + json.dumps(out, default=float))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1871,6 +2255,12 @@ def main() -> int:
         datasource = datasource_path(data_dir)
         free_cuda()
         resume = resume_path(data_dir)
+        free_cuda()
+        from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+        reset_launch_counts()
+        seq_path(data_dir, smi)
+        seq_launches = dict(dot_interaction.instance_launches)
     design = {
         "bf16_mma": "mma.sync m16n8k16 bf16 Gram, cp.async 16-byte double-buffered "
                     "staging, persistent grid, 16-byte stores through shared memory",
@@ -1891,6 +2281,7 @@ def main() -> int:
         feed_launches=feed[k],
         datasource_launches=datasource[k],
         resume_launches=resume[k],
+        seq_launches=seq_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

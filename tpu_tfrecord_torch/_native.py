@@ -731,40 +731,47 @@ def pack_mixed(arr: np.ndarray, keep: int, bits: int) -> np.ndarray:
     return out
 
 
-# fused pad+cast kind codes (tfr_pad_ragged/_ragged2's contract); a bf16
-# output needs a numpy dtype named "bfloat16" (ml_dtypes)
+# fused pad+cast kind codes (tfr_pad_ragged/_ragged2's contract)
 _PAD_IN_KINDS = {np.dtype(np.float32): 0, np.dtype(np.int64): 1}
 
+# The bf16 output of the fused pads: each float32 rounded to nearest even,
+# its 16 bits stored as uint16 (numpy has no bfloat16 dtype of its own;
+# device.ingest views the buffer as torch.bfloat16).
+BF16_BITS = "bf16_bits"
 
-def _pad_out_kind(in_kind: int, out_dtype) -> Optional[int]:
+
+def _pad_out_kind(in_kind: int, out_dtype) -> Optional[Tuple[int, np.dtype]]:
+    """(out kind, numpy storage dtype) of a fused pad, or None."""
+    if isinstance(out_dtype, str) and out_dtype == BF16_BITS:
+        return (1, np.dtype(np.uint16)) if in_kind == 0 else None
     dt = np.dtype(out_dtype)
     if in_kind == 0:
         if dt == np.float32:
-            return 0
-        if dt.name == "bfloat16":
-            return 1
+            return 0, dt
     else:
         if dt == np.int64:
-            return 2
+            return 2, dt
         if dt == np.int32:
-            return 3
+            return 3, dt
     return None
 
 
 def pad_ragged_dense(values, offsets, max_len, out_dtype=None, pad_value=0):
     """Fused pad(+cast): ragged [total] + offsets -> dense [N, max_len] and
-    clipped lengths [N] int32. None for a dtype pair or pad value the
-    library does not take (the caller uses ``columnar.pad_ragged``)."""
+    clipped lengths [N] int32. ``out_dtype`` is a numpy dtype or
+    ``BF16_BITS`` (float32 in, the bf16 bits out as uint16). None for a
+    dtype pair or pad value the library does not take (the caller uses
+    ``columnar.pad_ragged``)."""
     if pad_value != 0:
         return None
     values = np.ascontiguousarray(values)
     in_kind = _PAD_IN_KINDS.get(values.dtype)
     if in_kind is None:
         return None
-    out_dtype = values.dtype if out_dtype is None else np.dtype(out_dtype)
-    out_kind = _pad_out_kind(in_kind, out_dtype)
-    if out_kind is None:
+    kinds = _pad_out_kind(in_kind, values.dtype if out_dtype is None else out_dtype)
+    if kinds is None:
         return None
+    out_kind, out_dtype = kinds
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     n = len(offsets) - 1
     if n and offsets[-1] > len(values):
@@ -792,19 +799,19 @@ def pad_ragged2_dense(
     out_dtype=None, pad_value=0,
 ):
     """Fused pad(+cast): ragged² buffers -> dense [N, Lo, Li], outer lengths
-    [N] and inner lengths [N, Lo] (both int32). None for a dtype pair or pad
-    value the library does not take (the caller uses
-    ``columnar.pad_ragged2``)."""
+    [N] and inner lengths [N, Lo] (both int32); ``out_dtype`` as in
+    ``pad_ragged_dense``. None for a dtype pair or pad value the library
+    does not take (the caller uses ``columnar.pad_ragged2``)."""
     if pad_value != 0:
         return None
     values = np.ascontiguousarray(values)
     in_kind = _PAD_IN_KINDS.get(values.dtype)
     if in_kind is None:
         return None
-    out_dtype = values.dtype if out_dtype is None else np.dtype(out_dtype)
-    out_kind = _pad_out_kind(in_kind, out_dtype)
-    if out_kind is None:
+    kinds = _pad_out_kind(in_kind, values.dtype if out_dtype is None else out_dtype)
+    if kinds is None:
         return None
+    out_kind, out_dtype = kinds
     inner_offsets = np.ascontiguousarray(inner_offsets, dtype=np.int64)
     row_splits = np.ascontiguousarray(row_splits, dtype=np.int64)
     n = len(row_splits) - 1

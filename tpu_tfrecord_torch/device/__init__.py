@@ -1,10 +1,12 @@
-"""Host batch densification, the feed to the device, and transfer bit-packing."""
+"""Host batch densification, token packing, the feed to the device, and
+transfer bit-packing."""
 
 from tpu_tfrecord_torch.device.bitpack import pack_bits, pack_mixed, packed_width, unpack_bits
 from tpu_tfrecord_torch.device.ingest import (
     DeviceIterator,
     HostPrefetcher,
     StagingRing,
+    TokenPacker,
     hash_bytes_column,
     host_batch_from_columnar,
     make_device_batch,
@@ -14,6 +16,7 @@ __all__ = [
     "DeviceIterator",
     "HostPrefetcher",
     "StagingRing",
+    "TokenPacker",
     "hash_bytes_column",
     "host_batch_from_columnar",
     "make_device_batch",

@@ -7,7 +7,9 @@ Port of ``tpu_tfrecord/tpu/ingest.py`` for one device. The host half
 numpy pads of ``columnar`` only for a dtype the native pads do not take.
 ``make_device_batch`` takes the place of ``make_global_batch``: each array
 is copied into pinned host memory and sent with ``non_blocking=True`` on the
-current stream.
+current stream. A column cast to ``torch.bfloat16`` travels as a CPU bf16
+tensor (numpy has no bf16 dtype of its own), everything else as numpy.
+``TokenPacker`` packs ragged token documents into causal-LM batches.
 
 The feed: ``HostPrefetcher`` runs a host-batch iterator on a thread behind
 a bounded queue; ``DeviceIterator`` copies each host batch to the card on a
@@ -29,7 +31,12 @@ import torch
 
 from tpu_tfrecord_torch import _native, wire
 from tpu_tfrecord_torch.columnar import Column, ColumnarBatch, pad_ragged, pad_ragged2
+from tpu_tfrecord_torch.metrics import METRICS
 from tpu_tfrecord_torch.schema import ArrayType, BinaryType, DataType, StringType, StructType
+
+# a host batch's array: numpy, or a CPU tensor for a dtype numpy lacks (bf16)
+HostArray = Union[np.ndarray, torch.Tensor]
+CastDtype = Union[np.dtype, torch.dtype]
 
 
 def _is_bytes_like(dt: DataType) -> bool:
@@ -40,16 +47,52 @@ def _is_bytes_like(dt: DataType) -> bool:
     return False
 
 
-def _validate_cast(schema: StructType, cast: Dict[str, np.dtype]) -> None:
-    """Every cast key must name a numeric schema column: a typo'd name would
-    otherwise skip the cast silently."""
+def _validate_cast(schema: StructType, cast: Dict[str, CastDtype]) -> Dict[str, CastDtype]:
+    """``cast`` with each dtype normalized: ``torch.bfloat16`` as it is,
+    any other a numpy dtype. Every key must name a numeric schema column (a
+    typo'd name would otherwise skip the cast silently), and a dtype the
+    port cannot take raises, naming the column."""
     castable = {f.name for f in schema if not _is_bytes_like(f.data_type)}
-    for name in cast:
+    out: Dict[str, CastDtype] = {}
+    for name, dtype in cast.items():
         if name not in castable:
             raise ValueError(
                 f"cast: no castable data column named {name!r} "
                 f"(numeric columns: {sorted(castable)})"
             )
+        if dtype is torch.bfloat16:
+            out[name] = dtype
+            continue
+        try:
+            dt = (torch.empty(0, dtype=dtype).numpy().dtype
+                  if isinstance(dtype, torch.dtype) else np.dtype(dtype))
+        except TypeError as e:
+            raise ValueError(f"cast: column {name!r} cannot be cast to {dtype!r}") from e
+        if dt.kind not in "biuf":
+            # numpy has no bfloat16 of its own: such a dtype comes from an
+            # extension package, which the port does not use
+            raise ValueError(
+                f"cast: column {name!r} cannot be cast to {dt} "
+                "(for bf16 pass torch.bfloat16)"
+            )
+        out[name] = dt
+    return out
+
+
+def _as_tensor(arr: HostArray) -> torch.Tensor:
+    """A host array as a CPU tensor (a tensor as it is), contiguous."""
+    if isinstance(arr, torch.Tensor):
+        return arr.contiguous()
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _bf16(dense: np.ndarray, bits: bool) -> torch.Tensor:
+    """A padded array as a CPU bf16 tensor: ``bits`` says it already holds
+    bf16 bits as uint16 (the fused native pad), else it is cast (round to
+    nearest even, as the native pad rounds)."""
+    if bits:
+        return torch.from_numpy(dense).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(dense)).to(torch.bfloat16)
 
 
 def hash_bytes_column(col_or_blobs, num_buckets: int) -> np.ndarray:
@@ -70,11 +113,17 @@ def hash_bytes_column(col_or_blobs, num_buckets: int) -> np.ndarray:
 def _pad_ragged_cast(col: Column, max_len: int, out_dtype) -> tuple:
     """One-level pad with an optional dtype cast, fused natively when the
     dtypes allow."""
-    res = _native.pad_ragged_dense(col.values, col.offsets, max_len, out_dtype)
-    if res is not None:
-        return res
-    dense, lengths = pad_ragged(col.values, col.offsets, max_len)
-    if out_dtype is not None:
+    bf16 = out_dtype is torch.bfloat16
+    res = _native.pad_ragged_dense(
+        col.values, col.offsets, max_len, _native.BF16_BITS if bf16 else out_dtype
+    )
+    if res is None:
+        dense, lengths = pad_ragged(col.values, col.offsets, max_len)
+    else:
+        dense, lengths = res
+    if bf16:
+        return _bf16(dense, res is not None), lengths
+    if res is None and out_dtype is not None:
         dense = dense.astype(out_dtype, copy=False)
     return dense, lengths
 
@@ -82,15 +131,20 @@ def _pad_ragged_cast(col: Column, max_len: int, out_dtype) -> tuple:
 def _pad_ragged2_cast(col: Column, lo: int, li: int, out_dtype) -> tuple:
     """Two-level pad with an optional dtype cast, fused natively when the
     dtypes allow."""
+    bf16 = out_dtype is torch.bfloat16
     res = _native.pad_ragged2_dense(
-        col.values, col.inner_offsets, col.offsets, lo, li, out_dtype
+        col.values, col.inner_offsets, col.offsets, lo, li,
+        _native.BF16_BITS if bf16 else out_dtype,
     )
-    if res is not None:
-        return res
-    dense, outer_len, inner_len = pad_ragged2(
-        col.values, col.inner_offsets, col.offsets, lo, li
-    )
-    if out_dtype is not None:
+    if res is None:
+        dense, outer_len, inner_len = pad_ragged2(
+            col.values, col.inner_offsets, col.offsets, lo, li
+        )
+    else:
+        dense, outer_len, inner_len = res
+    if bf16:
+        return _bf16(dense, res is not None), outer_len, inner_len
+    if res is None and out_dtype is not None:
         dense = dense.astype(out_dtype, copy=False)
     return dense, outer_len, inner_len
 
@@ -110,8 +164,8 @@ def host_batch_from_columnar(
     hash_buckets: Optional[Dict[str, int]] = None,
     include_lengths: bool = True,
     pack: Optional[Dict[str, List[str]]] = None,
-    cast: Optional[Dict[str, np.dtype]] = None,
-) -> Dict[str, np.ndarray]:
+    cast: Optional[Dict[str, CastDtype]] = None,
+) -> Dict[str, HostArray]:
     """ColumnarBatch -> dict of dense numpy arrays.
 
     - numeric scalar column  -> (B,) of its numpy dtype
@@ -125,12 +179,14 @@ def host_batch_from_columnar(
     ``pad_to`` gives L (or (Lo, Li)) for every ragged column. ``pack``
     groups same-dtype scalar columns into one [B, K] array; groups the
     dataset already packed are taken as they are. ``cast`` maps a numeric
-    column to an output numpy dtype.
+    column to an output dtype: a numpy or torch dtype numpy has, or
+    ``torch.bfloat16``, which gives the column as a CPU bf16 tensor (a
+    float32 ragged column is padded and rounded in one native pass, at half
+    the bytes to copy).
     """
     pad_to = pad_to or {}
     hash_buckets = hash_buckets or {}
-    cast = cast or {}
-    _validate_cast(schema, cast)
+    cast = _validate_cast(schema, cast or {})
     if cast and pack:
         for group, names in pack.items():
             overlap = sorted(set(cast) & set(names))
@@ -139,7 +195,7 @@ def host_batch_from_columnar(
                     f"cast: columns {overlap} are members of pack group "
                     f"{group!r}; casting packed members is not supported"
                 )
-    out: Dict[str, np.ndarray] = {}
+    out: Dict[str, HostArray] = {}
     packed_members = set()
     for group, names in (pack or {}).items():
         if group in batch:
@@ -194,7 +250,9 @@ def host_batch_from_columnar(
                     out[f.name + "_len"] = lengths
         else:
             vals = col.values
-            if out_dtype is not None:
+            if out_dtype is torch.bfloat16:
+                vals = _bf16(vals, False)
+            elif out_dtype is not None:
                 vals = vals.astype(out_dtype, copy=False)
             out[f.name] = vals
     for group, names in (pack or {}).items():
@@ -204,23 +262,215 @@ def host_batch_from_columnar(
 
 
 def make_device_batch(
-    host_batch: Dict[str, np.ndarray], device="cuda"
+    host_batch: Dict[str, HostArray], device="cuda"
 ) -> Dict[str, torch.Tensor]:
-    """Host numpy batch -> dict of tensors on ``device``. For a CUDA device
-    each array goes through pinned host memory and is copied with
+    """Host batch (numpy arrays or CPU tensors) -> dict of tensors on
+    ``device``. For a CUDA device each array goes through pinned host memory and is copied with
     ``non_blocking=True`` on the current stream, so the copies queue behind
     each other without blocking the host; the caller synchronizes (or just
     uses the tensors on the same stream)."""
     device = torch.device(device)
     out: Dict[str, torch.Tensor] = {}
     for name, arr in host_batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = _as_tensor(arr)
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         else:
             t = t.to(device)
         out[name] = t
     return out
+
+
+# -- packing token documents ----------------------------------------------------
+
+
+class TokenPacker:
+    """Ragged token documents -> packed causal-LM batches [B, L+1] int32:
+    port of the JAX ``TokenPacker``, with the same batches and the same
+    ``state()`` JSON, so a carry saved by either package restores in the
+    other.
+
+    Three packing modes (``packing``):
+
+    - ``"slice"`` (default): documents are concatenated, each followed by
+      ``eos_id``, and cut into windows of L+1 tokens (the model reads
+      ``row[:-1]`` and scores ``row[1:]``). No padding, no masks; the tail
+      carries into the next batch. Documents are split across rows, and a
+      row mixes documents with no boundary signal.
+    - ``"first_fit"`` / ``"best_fit"``: bin packing. Each document plus its
+      EOS (split into L+1-sized chunks when longer, each chunk its own
+      segment) goes whole into one of up to B open row-bins of capacity
+      L+1: the lowest-indexed bin it fits (first_fit) or the fitting bin
+      with the least room left, ties to the lowest index (best_fit). When a
+      chunk fits no bin and B are open, the batch closes: rows pad to L+1
+      with EOS and ``pop()`` returns ``{"tokens": [B, L+1], "segment_ids":
+      [B, L+1]}``, ids numbering each row's documents 1..k in placement
+      order and 0 on padding (the block-diagonal mask of
+      ``models.attention``'s ``segments``). ``density()`` is the non-pad
+      share of the tokens emitted.
+
+    The carry (residual tokens or open bins, and the packed batches not
+    yet popped) is the only state: ``state()`` / ``restore()``, a small
+    JSON payload a trainer saves beside the dataset's position.
+    """
+
+    _MODES = ("slice", "first_fit", "best_fit")
+
+    def __init__(
+        self, batch_size: int, seq_len: int, eos_id: int = 0,
+        packing: str = "slice",
+    ):
+        if batch_size < 1 or seq_len < 1:
+            raise ValueError(
+                f"batch_size and seq_len must be >= 1, got "
+                f"({batch_size}, {seq_len})"
+            )
+        if packing not in self._MODES:
+            raise ValueError(
+                f"packing must be one of {self._MODES}, got {packing!r}"
+            )
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.eos_id = int(eos_id)
+        self.packing = packing
+        self._buf: List[np.ndarray] = []   # slice mode: chunks, joined lazily
+        self._buf_len = 0
+        self._bins: List[List[np.ndarray]] = []   # bin modes: open row-bins
+        self._pending: List[Union[np.ndarray, Dict[str, np.ndarray]]] = []
+        self._emitted_tokens = 0
+        self._emitted_nonpad = 0
+
+    def feed_docs(self, docs: Iterable[np.ndarray]) -> None:
+        """Append documents (1-D int arrays) to the stream, EOS after each."""
+        eos = np.asarray([self.eos_id], np.int32)
+        if self.packing != "slice":
+            cap = self.seq_len + 1
+            for doc in docs:
+                arr = np.concatenate(
+                    [np.asarray(doc).astype(np.int32, copy=False).reshape(-1), eos]
+                )
+                for at in range(0, arr.size, cap):
+                    self._place_chunk(arr[at : at + cap])
+            return
+        for doc in docs:
+            arr = np.asarray(doc).astype(np.int32, copy=False).reshape(-1)
+            self._buf.append(arr)
+            self._buf.append(eos)
+            self._buf_len += arr.size + 1
+        self._drain()
+
+    def _place_chunk(self, chunk: np.ndarray) -> None:
+        cap = self.seq_len + 1
+        fit = -1
+        if self.packing == "best_fit":
+            best_room = cap + 1
+            for i, b in enumerate(self._bins):
+                room = cap - sum(c.size for c in b)
+                if chunk.size <= room < best_room:
+                    fit, best_room = i, room
+        else:
+            for i, b in enumerate(self._bins):
+                if chunk.size <= cap - sum(c.size for c in b):
+                    fit = i
+                    break
+        if fit >= 0:
+            self._bins[fit].append(chunk)
+            return
+        if len(self._bins) == self.batch_size:
+            self._close_bins()
+        self._bins.append([chunk])
+
+    def _close_bins(self) -> None:
+        """The B open bins as one pending {tokens, segment_ids} batch."""
+        cap = self.seq_len + 1
+        toks = np.full((self.batch_size, cap), self.eos_id, np.int32)
+        segs = np.zeros((self.batch_size, cap), np.int32)
+        nonpad = 0
+        for r, b in enumerate(self._bins):
+            at = 0
+            for s, chunk in enumerate(b):
+                toks[r, at : at + chunk.size] = chunk
+                segs[r, at : at + chunk.size] = s + 1
+                at += chunk.size
+            nonpad += at
+        self._bins = []
+        self._pending.append({"tokens": toks, "segment_ids": segs})
+        self._emitted_tokens += self.batch_size * cap
+        self._emitted_nonpad += nonpad
+        METRICS.gauge("pack.density", round(self.density(), 4))
+
+    def density(self) -> float:
+        """Share of the emitted batch tokens that are document tokens (1.0
+        before a bin-mode batch closes, and always in slice mode)."""
+        if not self._emitted_tokens:
+            return 1.0
+        return self._emitted_nonpad / self._emitted_tokens
+
+    def feed_column(self, col: Column) -> None:
+        """Feed a ragged int ``Column`` of a ``ColumnarBatch``: its offsets
+        are the document boundaries."""
+        values = np.asarray(col.values)
+        offsets = np.asarray(col.offsets)
+        self.feed_docs(
+            values[offsets[i] : offsets[i + 1]] for i in range(len(offsets) - 1)
+        )
+
+    def _drain(self) -> None:
+        need = self.batch_size * (self.seq_len + 1)
+        if self._buf_len < need:
+            return
+        flat = np.concatenate(self._buf) if len(self._buf) > 1 else self._buf[0]
+        n_batches = flat.size // need
+        for i in range(n_batches):
+            self._pending.append(
+                flat[i * need : (i + 1) * need]
+                .reshape(self.batch_size, self.seq_len + 1)
+                .copy()
+            )
+        rest = flat[n_batches * need :]
+        self._buf = [rest] if rest.size else []
+        self._buf_len = int(rest.size)
+
+    def pop(self):
+        """The next ready batch, or None when more documents are needed: a
+        [B, L+1] int32 array in slice mode, ``{"tokens", "segment_ids"}``
+        in the bin modes."""
+        return self._pending.pop(0) if self._pending else None
+
+    def state(self) -> dict:
+        """The JSON-able carry, in the JAX packer's layout: slice mode
+        ``{residual, pending}``; the bin modes the open bins (chunk lists),
+        the pending batches and the density counts."""
+        if self.packing == "slice":
+            flat = np.concatenate(self._buf).tolist() if self._buf else []
+            return {"residual": flat, "pending": [b.tolist() for b in self._pending]}
+        return {
+            "bins": [[c.tolist() for c in b] for b in self._bins],
+            "pending": [
+                {"tokens": d["tokens"].tolist(), "segment_ids": d["segment_ids"].tolist()}
+                for d in self._pending
+            ],
+            "emitted_tokens": self._emitted_tokens,
+            "emitted_nonpad": self._emitted_nonpad,
+        }
+
+    def restore(self, state: dict) -> None:
+        if self.packing == "slice":
+            residual = np.asarray(state.get("residual", []), np.int32)
+            self._buf = [residual] if residual.size else []
+            self._buf_len = int(residual.size)
+            self._pending = [np.asarray(b, np.int32) for b in state.get("pending", [])]
+            return
+        self._bins = [[np.asarray(c, np.int32) for c in b] for b in state.get("bins", [])]
+        self._pending = [
+            {
+                "tokens": np.asarray(d["tokens"], np.int32),
+                "segment_ids": np.asarray(d["segment_ids"], np.int32),
+            }
+            for d in state.get("pending", [])
+        ]
+        self._emitted_tokens = int(state.get("emitted_tokens", 0))
+        self._emitted_nonpad = int(state.get("emitted_nonpad", 0))
 
 
 # -- the feed ------------------------------------------------------------------
@@ -325,8 +575,10 @@ class HostPrefetcher:
         self.close()
 
 
-def _torch_dtype(dtype: np.dtype) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, dtype)).dtype
+def _torch_dtype(arr: HostArray) -> torch.dtype:
+    if isinstance(arr, torch.Tensor):
+        return arr.dtype
+    return torch.from_numpy(np.empty(0, arr.dtype)).dtype
 
 
 class StagingRing:
@@ -342,13 +594,11 @@ class StagingRing:
     """
 
     def __init__(self, slots: int):
-        self._buffers: List[Dict[tuple, Tuple[torch.Tensor, np.ndarray]]] = [
-            {} for _ in range(slots)
-        ]
+        self._buffers: List[Dict[tuple, torch.Tensor]] = [{} for _ in range(slots)]
         self._events: List[Optional[torch.cuda.Event]] = [None] * slots
         self._next = 0
 
-    def stage(self, host: Dict[str, np.ndarray]) -> Tuple[int, Dict[str, torch.Tensor]]:
+    def stage(self, host: Dict[str, HostArray]) -> Tuple[int, Dict[str, torch.Tensor]]:
         slot = self._next
         self._next = (slot + 1) % len(self._buffers)
         event = self._events[slot]
@@ -357,12 +607,12 @@ class StagingRing:
         buffers = self._buffers[slot]
         out = {}
         for name, arr in host.items():
-            key = (name, arr.shape, arr.dtype)
+            dtype = _torch_dtype(arr)
+            key = (name, tuple(arr.shape), dtype)
             if key not in buffers:
-                pinned = torch.empty(arr.shape, dtype=_torch_dtype(arr.dtype), pin_memory=True)
-                buffers[key] = (pinned, pinned.numpy())
-            pinned, view = buffers[key]
-            np.copyto(view, arr)
+                buffers[key] = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+            pinned = buffers[key]
+            pinned.copy_(_as_tensor(arr))
             out[name] = pinned
         return slot, out
 
@@ -407,7 +657,7 @@ class DeviceIterator:
 
     def __init__(
         self,
-        host_batches: Iterable[Dict[str, np.ndarray]],
+        host_batches: Iterable[Dict[str, HostArray]],
         device="cuda",
         transfer_thread: bool = False,
         depth: int = 2,
@@ -432,13 +682,11 @@ class DeviceIterator:
 
             self._pf = HostPrefetcher(_transferred(), depth=depth)
 
-    def _transfer(self, host: Dict[str, np.ndarray], timed: bool = True) -> _Staged:
+    def _transfer(self, host: Dict[str, HostArray], timed: bool = True) -> _Staged:
         t0 = time.perf_counter()
         if self.device.type != "cuda":
-            staged = ({
-                name: torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-                for name, arr in host.items()
-            }, None)
+            staged = ({name: _as_tensor(arr).to(self.device) for name, arr in host.items()},
+                      None)
         else:
             slot, pinned = self._ring.stage(host)
             with torch.cuda.stream(self._stream):

@@ -1,4 +1,7 @@
-"""Move DLRM weights between the JAX package's pytree and the port's module.
+"""Move weights and optimizer state between the JAX package's pytrees and
+the port.
+
+The DLRM's weights go into and out of the port's ``nn.Module``:
 
 The JAX parameters, as numpy arrays, are a dict::
 
@@ -14,6 +17,15 @@ The sparse step's row-wise AdaGrad accumulators ([F, V] float32, the
 ``accum`` of both packages' ``SparseEmbOptState``) move the same way, so
 both sides can start from one mid-training state. The optimizer state of
 the MLPs (optax's on one side, ``torch.optim``'s on the other) does not.
+
+The sequence models (``models.long_doc``, ``models.lm``) keep the JAX
+pytree as it is, with tensors for leaves, so their parameters move leaf
+for leaf (``long_doc_params_from_jax`` / ``_to_jax``, ``lm_params_from_jax``
+/ ``_to_jax``), checked against the structure and shapes ``init_params``
+gives for the config. Their Adam state moves too: optax's
+``ScaleByAdamState(count, mu, nu)`` to and from ``torch.optim.Adam``'s
+``step``, ``exp_avg`` and ``exp_avg_sq`` (``adam_state_from_jax`` /
+``adam_state_to_jax``).
 """
 
 from __future__ import annotations
@@ -23,6 +35,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from tpu_tfrecord_torch.checkpoint import tree_flatten, tree_flatten_with_path, tree_unflatten
+from tpu_tfrecord_torch.models import lm, long_doc, optim
 from tpu_tfrecord_torch.models.dlrm import DLRM, DLRMConfig, SparseEmbOptState
 
 
@@ -98,3 +112,62 @@ def sparse_opt_state_to_jax(state: SparseEmbOptState) -> np.ndarray:
     """The accumulators [F, V] as a float32 numpy array, the ``accum`` of a
     JAX ``SparseEmbOptState``."""
     return state.accum.detach().float().cpu().numpy().copy()
+
+
+def _tree_from_jax(tree, template, device, what: str):
+    """The JAX pytree ``tree`` as float32 tensors on ``device`` in the
+    template's structure; its leaf paths and shapes must be the
+    template's."""
+    got = tree_flatten_with_path(tree)[0]
+    want = tree_flatten_with_path(template)[0]
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise ValueError(f"{what}: leaves {[p for p, _ in got]} != {[p for p, _ in want]}")
+    leaves = []
+    for (path, a), (_, t) in zip(got, want):
+        if tuple(np.shape(a)) != tuple(t.shape):
+            raise ValueError(f"{what}{path}: shape {np.shape(a)} != {tuple(t.shape)}")
+        leaves.append(_f32(a).to(device))
+    return tree_unflatten(tree_flatten(template)[1], leaves)
+
+
+def _tree_to_jax(tree):
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [l.detach().float().cpu().numpy().copy() for l in leaves])
+
+
+def long_doc_params_from_jax(params, cfg: long_doc.LongDocConfig, device="cuda"):
+    """The port's ``long_doc`` parameter tree on ``device`` holding the
+    JAX ``long_doc.init_params`` pytree's values."""
+    return _tree_from_jax(params, long_doc.init_params(cfg, device="cpu"), device, "long_doc")
+
+
+def long_doc_params_to_jax(params):
+    """The port's ``long_doc`` parameters as the JAX numpy pytree."""
+    return _tree_to_jax(params)
+
+
+def lm_params_from_jax(params, cfg: lm.LMConfig, device="cuda"):
+    """The port's ``lm`` parameter tree on ``device`` holding the JAX
+    ``lm.init_params`` pytree's values."""
+    return _tree_from_jax(params, lm.init_params(cfg, device="cpu"), device, "lm")
+
+
+def lm_params_to_jax(params):
+    """The port's ``lm`` parameters as the JAX numpy pytree."""
+    return _tree_to_jax(params)
+
+
+def adam_state_from_jax(state, params, opt: torch.optim.Adam) -> None:
+    """Load an ``optax.adam`` state (its ``(ScaleByAdamState, EmptyState)``
+    or the ``ScaleByAdamState`` alone) into ``opt``'s state of ``params``."""
+    if "count" not in getattr(state, "_fields", ()):
+        state = state[0]
+    optim.load_adam_state(params, opt, optim.ScaleByAdamState(state.count, state.mu, state.nu))
+
+
+def adam_state_to_jax(params, opt: torch.optim.Adam) -> optim.ScaleByAdamState:
+    """``opt``'s state of ``params`` as a ``ScaleByAdamState`` of numpy
+    arrays (``count`` int32; ``optax.ScaleByAdamState(*it)`` rebuilds
+    optax's)."""
+    st = optim.adam_state(params, opt)[0]
+    return optim.ScaleByAdamState(st.count.numpy().copy(), _tree_to_jax(st.mu), _tree_to_jax(st.nu))

@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from tpu_tfrecord_torch.models.interaction import dot_interaction
+from tpu_tfrecord_torch.models.optim import init_adam_state
 
 
 @dataclass(frozen=True)
@@ -322,25 +323,6 @@ def sparse_train_step(
     return loss.detach()
 
 
-def _adam_state(opt: torch.optim.Optimizer, p: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """``opt``'s state of ``p``, created as Adam creates it at its first
-    step when it is empty (zero moments, a zero ``step``), so a tree taken
-    before any step has the structure of one taken after: Adam's first
-    step then finds the state and leaves it as it is."""
-    group = next(g for g in opt.param_groups if any(q is p for q in g["params"]))
-    state = opt.state[p]
-    if not state:
-        on_device = group.get("capturable") or group.get("fused")
-        scalar = torch.float64 if torch.get_default_dtype() == torch.float64 and not \
-            group.get("fused") else torch.float32
-        state["step"] = torch.zeros((), dtype=scalar, device=p.device if on_device else "cpu")
-        state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-        state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-        if group.get("amsgrad"):
-            state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-    return dict(state)
-
-
 def train_state(model: DLRM, opt) -> Dict[str, object]:
     """The train state as a tree of tensors only, for
     ``checkpoint.TrainCheckpointer``: ``params`` (every parameter by name),
@@ -355,7 +337,7 @@ def train_state(model: DLRM, opt) -> Dict[str, object]:
     names = {id(p): name for name, p in model.named_parameters()}
     tree: Dict[str, object] = {
         "params": dict(model.named_parameters()),
-        "adam": {names[id(p)]: _adam_state(dense, p)
+        "adam": {names[id(p)]: init_adam_state(dense, p)
                  for group in dense.param_groups for p in group["params"]},
     }
     if isinstance(opt, SparseEmbOptState):

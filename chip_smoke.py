@@ -135,6 +135,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    resident batch, with device ms a step (torch.profiler) and the idle
    share; ``TokenPacker`` docs/s and density at the bench's pack shape.
 
+10. LM serving (no DLRM kernel runs here: every instance's launch count
+   over the phase must be 0), under deterministic algorithms. (a) The
+   serve_lm LM (vocab 256, d_model 64, 4 heads, 4 layers, L = 64) trained
+   16 Adam steps on ``make_synthetic_tokens`` and saved through
+   ``train_lm.LMCheckpoint``; a second generation parked before its
+   manifest by a writer killed there; ``serve_lm.load_checkpoint`` must
+   return the complete one, bit-equal. (b) serve_lm's timed pass (32
+   requests of mb 8) at (S, V) = (1, 2) and (2, 2): streamed logits
+   bitwise equal to ``batch_reference``, the layouts within 1e-5 of each
+   other and the card within 1e-4 of a CPU run; requests/s, sequences/s,
+   p50/p99. (c) A replica (``ServingEngine`` + ``ServeServer`` on
+   127.0.0.1, S = 1, V = 2, mb 8, max_queue 16) under 8 concurrent
+   ``ServeClient`` threads of 4 requests x 16 new tokens: every request's
+   tokens equal ``sequential_reference`` on the card; meanwhile a client
+   hangs up mid-generation (counted once), a ``burst`` of 8 past a full
+   queue on a second replica is shed by exactly 8 with a Retry-After hint,
+   and two deadlines (at admission, mid-generation) are dropped and
+   counted; tokens/s, requests/s, latencies, ticks, ``serve.*`` counters
+   and the verdict. (d) One engine tick at (1, 2) under torch.profiler:
+   host ms, device ms, kernels, idle share. (e) ``python -m
+   tpu_tfrecord_torch.serving --device cuda`` as a subprocess: its ready
+   line, 4 requests equal to the reference, SIGTERM, exit 0 within 60 s.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -2220,6 +2243,425 @@ def seq_path(work: str, card: str) -> dict:
     return out
 
 
+# -- phase 10: LM serving ----------------------------------------------------------------
+
+SERVE_DEVICE = "cuda"
+SERVE_TRAIN_STEPS = 16
+SERVE_MB = 8
+SERVE_REQUESTS = 32
+SERVE_LAYOUTS = ((1, 2), (2, 2))      # (stages of the one-device schedule, virtual chunks)
+SERVE_LAYOUT_ATOL = 1e-5              # f32 logits, (1, 2) against (2, 2) on the card
+SERVE_CPU_ATOL = 1e-4                 # f32 logits, TF32 off: the card against the CPU
+REPLICA_CLIENTS = 8
+REPLICA_REQUESTS = 4                  # a client
+REPLICA_NEW = 16                      # new tokens a request
+REPLICA_MAX_QUEUE = 16
+REPLICA_BURST = 8                     # arrivals past max_queue in the shed check
+TICK_RATE_SUBMITS = 50
+TICK_PROFILE_SUBMITS = 5
+SERVE_TIMEOUT_S = 120
+
+
+def serve_sync() -> None:
+    if torch.device(SERVE_DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+PARK_WRITER = r"""
+import sys
+sys.path.insert(0, {repo!r})
+from tpu_tfrecord_torch import serve_lm, train_lm
+ck = train_lm.LMCheckpoint({ckpt!r})
+ck.save({step}, serve_lm.checkpoint_template(serve_lm.make_config()), {{"input": None, "packer": None}})
+ck.wait()
+"""
+
+
+def serve_checkpoint(work: str) -> tuple:
+    """Phase 10 (a): the serve_lm-width LM (vocab 256, d_model 64, 4 heads,
+    4 layers, L = 64) trained 16 Adam steps on ``make_synthetic_tokens``
+    under deterministic algorithms, saved through ``train_lm.LMCheckpoint``
+    at step 16; a second generation (step 24) parked after its shard,
+    before its manifest, by a writer process killed there. Returns (step,
+    the parameters ``serve_lm.load_checkpoint`` gave, on the CPU)."""
+    import signal
+
+    from tpu_tfrecord_torch import serve_lm, train_lm
+    from tpu_tfrecord_torch.checkpoint import tree_flatten
+    from tpu_tfrecord_torch.models import lm, optim
+
+    cfg = serve_lm.make_config(2)
+    params = tree_to(lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu"), SERVE_DEVICE)
+    opt = optim.adam(params, train_lm.LR)
+    losses = []
+    for i in range(SERVE_TRAIN_STEPS):
+        toks = torch.from_numpy(lm.make_synthetic_tokens(cfg, train_lm.BATCH, seed=i)).to(SERVE_DEVICE)
+        losses.append(float(lm.train_step(params, opt, toks, cfg)))
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"serve: training losses not finite: {losses}")
+    ckpt = os.path.join(work, "serve_ckpt")
+    ck = train_lm.LMCheckpoint(ckpt, sync=True)
+    try:
+        ck.save(SERVE_TRAIN_STEPS, optim.train_state(params, opt), {"input": None, "packer": None})
+    finally:
+        ck.close()
+    mark = os.path.join(work, "serve_parked")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TFR_CKPT_CHAOS_STAGE="pre_manifest", TFR_CKPT_CHAOS_MARK=mark)
+    proc = subprocess.Popen([sys.executable, "-c", PARK_WRITER.format(
+        repo=repo, ckpt=ckpt, step=SERVE_TRAIN_STEPS + 8)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        while not os.path.exists(mark):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise SystemExit(f"serve: the parked writer never parked: {proc.communicate(timeout=30)}")
+            time.sleep(0.05)
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGKILL)
+        proc.communicate(timeout=60)
+    parked = os.path.join(ckpt, f"gen-{SERVE_TRAIN_STEPS + 8:08d}")
+    torn = os.path.isdir(parked) and not os.path.exists(os.path.join(parked, "MANIFEST.json"))
+    step, state = serve_lm.load_checkpoint(ckpt, serve_lm.checkpoint_template(cfg))
+    same = step == SERVE_TRAIN_STEPS and all(
+        torch.equal(a, b.detach().cpu()) for a, b in zip(tree_flatten(state[0])[0],
+                                                         tree_flatten(params)[0]))
+    print(f"serve: checkpoint: {SERVE_TRAIN_STEPS} Adam steps on the card under deterministic "
+          f"algorithms, losses {losses[0]:.4f} -> {losses[-1]:.4f}; generation {SERVE_TRAIN_STEPS + 8} "
+          f"parked before its manifest and killed: {torn}; load_checkpoint returned step {step}, "
+          f"parameters bit-equal to the trained ones: {same}")
+    if not (torn and same):
+        raise SystemExit("serve: the manifest-last restore did not return the complete generation")
+    return step, state[0]
+
+
+def serve_one_shot(params, step, card: str) -> dict:
+    """Phase 10 (b): serve_lm's timed pass at each layout on the card (32
+    requests of mb 8 after the warm-up, streamed logits bitwise equal to
+    ``batch_reference`` or it fails), the layouts' logits against each
+    other and the card's against a CPU run of the same checkpoint."""
+    from tpu_tfrecord_torch import serve_lm
+
+    out, logits = {}, {}
+    for stages, virtual in SERVE_LAYOUTS:
+        cfg = serve_lm.make_config(virtual)
+        line, outs = serve_lm.one_shot(params, cfg, stages, SERVE_MB, SERVE_REQUESTS, SERVE_DEVICE,
+                                       step)
+        print(f"serve: serve_lm OK: {json.dumps(line)}  ({card})")
+        out[f"S{stages}V{virtual}"] = line
+        logits[(stages, virtual)] = outs
+    a, b = (logits[k] for k in SERVE_LAYOUTS)
+    layout_err = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    _, cpu = serve_lm.one_shot(params, serve_lm.make_config(SERVE_LAYOUTS[0][1]),
+                               SERVE_LAYOUTS[0][0], SERVE_MB, SERVE_REQUESTS, "cpu", step)
+    cpu_err = max(float(np.abs(x - y).max()) for x, y in zip(a, cpu))
+    ok = layout_err <= SERVE_LAYOUT_ATOL and cpu_err <= SERVE_CPU_ATOL
+    print(f"serve: logits of {SERVE_LAYOUTS[0]} against {SERVE_LAYOUTS[1]} on the card: max abs "
+          f"diff {layout_err:.3e} (atol {SERVE_LAYOUT_ATOL}); card against the CPU at "
+          f"{SERVE_LAYOUTS[0]}: {cpu_err:.3e} (atol {SERVE_CPU_ATOL}): {ok}")
+    if not ok:
+        raise SystemExit("serve: the one-shot logits disagree across layouts or with the CPU")
+    out.update(layout_err=layout_err, cpu_err=cpu_err)
+    return out
+
+
+def replica_windows(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=64).astype(np.int32) for _ in range(n)]
+
+
+def shed_check(params, cfg) -> dict:
+    """Phase 10 (c), over-admission: a replica whose engine has not started
+    (the accept loop only) takes ``REPLICA_MAX_QUEUE`` arrivals plus a
+    ``burst`` rule's ``REPLICA_BURST`` more; exactly the excess is shed
+    with "overloaded" and a Retry-After hint, and the admitted ones are
+    served with the sequential reference's tokens once the engine runs."""
+    from tpu_tfrecord_torch import faults, serving
+    from tpu_tfrecord_torch import service_protocol as sp
+    from tpu_tfrecord_torch.metrics import Metrics
+
+    plan = faults.FaultPlan([faults.FaultRule(op="serve", kind="burst", path="load",
+                                              burst_n=REPLICA_MAX_QUEUE + REPLICA_BURST - 1)])
+    metrics = Metrics()
+    eng = serving.ServingEngine(params, cfg, 1, policy=serving.ServePolicy(
+        mb=SERVE_MB, max_queue=REPLICA_MAX_QUEUE), metrics=metrics, device=SERVE_DEVICE)
+    srv = serving.ServeServer(eng, port=0, fault_plan=plan)
+    srv._accept_thread = threading.Thread(target=srv._accept_loop, name="shed-accept", daemon=True)
+    srv._accept_thread.start()
+    socks, shed = [], []
+    ws = replica_windows(REPLICA_MAX_QUEUE, seed=77)
+    try:
+        arrivals = 1 + plan.apply_serve("load")
+        for i in range(arrivals):
+            s = sp.connect(srv.addr, timeout=30.0)
+            socks.append(s)
+            sp.send_msg(s, {"v": sp.PROTO_VERSION, "op": "generate", "req": i,
+                            "tokens": ws[i % len(ws)].tolist(), "n_new": 1, "deadline_s": None})
+            if i < REPLICA_MAX_QUEUE:
+                deadline = time.monotonic() + 30
+                while eng.report()["queue_depth"] < i + 1:
+                    if time.monotonic() > deadline:
+                        raise SystemExit("serve: an admitted arrival never queued")
+                    time.sleep(0.005)
+            else:
+                shed.append(sp.recv_msg(s, srv.addr))
+        eng.start()
+        served = [sp.recv_msg(s, srv.addr) for s in socks[:REPLICA_MAX_QUEUE]]
+    finally:
+        for s in socks:
+            s.close()
+        srv.stop()
+        srv._accept_thread.join(timeout=30)
+    ref = serving.sequential_reference(params, cfg, 1, [(w, 1) for w in ws], SERVE_MB,
+                                       device=SERVE_DEVICE)
+    hints = [r.get("retry_after_s", 0) for r in shed]
+    ok = (arrivals == REPLICA_MAX_QUEUE + REPLICA_BURST and len(shed) == REPLICA_BURST
+          and all(r.get("error") == "overloaded" for r in shed) and min(hints) > 0
+          and metrics.counter("serve.rejected") == REPLICA_BURST
+          and [r.get("tokens") for r in served] == ref
+          and not srv._accept_thread.is_alive())
+    print(f"serve: over-admission: {arrivals} arrivals (burst rule) at max_queue "
+          f"{REPLICA_MAX_QUEUE}: {len(shed)} shed 'overloaded' (serve.rejected "
+          f"{metrics.counter('serve.rejected')}), Retry-After {min(hints):.4f}-{max(hints):.4f} s, "
+          f"the {len(served)} admitted served with the reference's tokens: {ok}")
+    if not ok:
+        raise SystemExit("serve: the over-admission burst was not shed by exactly the excess")
+    return dict(arrivals=arrivals, shed=len(shed), retry_after_s=[min(hints), max(hints)])
+
+
+def replica_path(params, card: str) -> dict:
+    """Phase 10 (c): a replica (``ServingEngine`` + ``ServeServer`` on
+    127.0.0.1, S = 1, V = 2, mb 8, max_queue 16) driven by 8 concurrent
+    ``ServeClient`` threads, 4 requests of 16 new tokens each from seeded
+    64-token windows; every request's tokens equal ``sequential_reference``
+    on the card. Meanwhile: a raw client hangs up mid-generation (its slot
+    frees, counted once), the over-admission check (``shed_check``), and
+    two deadlines (one expired at admission, one of 0.25 s on a request of
+    100,000 tokens), dropped and counted, never served late."""
+    from tpu_tfrecord_torch import serving
+    from tpu_tfrecord_torch import service_protocol as sp
+    from tpu_tfrecord_torch.metrics import Metrics
+    from tpu_tfrecord_torch.serve_lm import make_config
+
+    cfg = make_config(2)
+    metrics = Metrics()
+    eng = serving.ServingEngine(params, cfg, 1, policy=serving.ServePolicy(
+        mb=SERVE_MB, max_queue=REPLICA_MAX_QUEUE), metrics=metrics, device=SERVE_DEVICE)
+    srv = serving.ServeServer(eng, port=0).start()
+    reqs = [replica_windows(REPLICA_REQUESTS, seed=100 + c) for c in range(REPLICA_CLIENTS)]
+    results, errors, lat, done = {}, [], [], []
+    lock = threading.Lock()
+
+    def client(c):
+        cl = serving.ServeClient([srv.addr], timeout_s=60.0)
+        try:
+            for r, w in enumerate(reqs[c]):
+                t0 = time.perf_counter()
+                toks = cl.generate(w, REPLICA_NEW)
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+                    results[(c, r)] = toks
+        except Exception as e:  # noqa: BLE001 - the phase fails on any client error below
+            errors.append(f"client {c}: {type(e).__name__}: {e}")
+        finally:
+            cl.close()
+            with lock:
+                done.append(time.perf_counter())
+
+    doomed = sp.connect(srv.addr, timeout=30.0)
+    sp.send_msg(doomed, {"v": sp.PROTO_VERSION, "op": "generate", "req": 1,
+                         "tokens": replica_windows(1, seed=99)[0].tolist(), "n_new": 100000,
+                         "deadline_s": None})
+    deadline = time.monotonic() + 30
+    while metrics.gauge_value("serve.in_flight", 0.0) < 1:
+        if time.monotonic() > deadline:
+            raise SystemExit("serve: the long request never started")
+        time.sleep(0.005)
+    threads = [threading.Thread(target=client, args=(c,), name=f"serve-client-{c}")
+               for c in range(REPLICA_CLIENTS)]
+    t0 = time.perf_counter()
+    expired = {}
+    try:
+        for t in threads:
+            t.start()
+        doomed.close()  # hang up mid-generation while the clients run
+        for key, kw in (("admission", dict(deadline_s=0.0)), ("mid_generation", dict(deadline_s=0.25))):
+            cl = serving.ServeClient([srv.addr], timeout_s=60.0)
+            try:
+                got = cl.generate(replica_windows(1, seed=98)[0], 100000, **kw)
+                expired[key] = f"served {len(got)} tokens"
+            except serving.DeadlineExpired:
+                expired[key] = "DeadlineExpired"
+            finally:
+                cl.close()
+        shed = shed_check(params, cfg)
+    finally:
+        for t in threads:
+            t.join(timeout=SERVE_TIMEOUT_S)
+    wall = max(done, default=time.perf_counter()) - t0  # the last client's last reply
+    hung = [t.name for t in threads if t.is_alive()]
+    deadline = time.monotonic() + 30
+    while eng.report()["in_flight"] or eng.report()["queue_depth"]:
+        if time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
+    rep = eng.report()
+    ticks = metrics.counter("serve.ticks")
+    drained = srv.drain(timeout=60)
+    ref = serving.sequential_reference(
+        params, cfg, 1, [(w, REPLICA_NEW) for c in range(REPLICA_CLIENTS) for w in reqs[c]],
+        SERVE_MB, device=SERVE_DEVICE)
+    got = [results.get((c, r)) for c in range(REPLICA_CLIENTS) for r in range(REPLICA_REQUESTS)]
+    parted = [(i, next(j for j, (a, b) in enumerate(zip(g, w)) if a != b) if g else None)
+              for i, (g, w) in enumerate(zip(got, ref)) if g != w]
+    n = len(got)
+    counters = rep["counters"]
+    ok = (not errors and not hung and not parted and drained
+          and counters["serve.requests"] == n
+          and counters["serve.disconnects"] == 1
+          and counters["serve.deadline_expired"] == 2
+          and expired == {"admission": "DeadlineExpired", "mid_generation": "DeadlineExpired"}
+          and rep["in_flight"] == 0 and rep["queue_depth"] == 0)
+    tokens_per_s = n * REPLICA_NEW / wall
+    out = dict(requests=n, tokens_per_s=tokens_per_s, requests_per_s=n / wall, wall_s=wall,
+               latency_ms_p50=float(np.percentile(lat, 50)) * 1e3 if lat else None,
+               latency_ms_p99=float(np.percentile(lat, 99)) * 1e3 if lat else None,
+               engine_p50_ms=rep["p50_ms"], engine_p99_ms=rep["p99_ms"], ticks=ticks,
+               counters=counters, verdict=rep["verdict"], expired=expired, shed=shed)
+    print(f"serve: replica S=1 V=2 mb={SERVE_MB} max_queue={REPLICA_MAX_QUEUE}: "
+          f"{REPLICA_CLIENTS} clients x {REPLICA_REQUESTS} requests x {REPLICA_NEW} tokens in "
+          f"{wall:.3f} s: {tokens_per_s:.1f} tokens/s, {n / wall:.2f} requests/s (host clock, the "
+          f"checks' requests sharing the card); client latency p50 {out['latency_ms_p50']:.2f} ms "
+          f"p99 {out['latency_ms_p99']:.2f} ms; engine serve.latency p50 {rep['p50_ms']:.2f} ms p99 "
+          f"{rep['p99_ms']:.2f} ms; {ticks} ticks; counters {counters}; verdict {rep['verdict']} "
+          f"(slo {rep['slo_p99_ms']} ms) ({card})")
+    print(f"serve: tokens equal sequential_reference on the card for {n - len(parted)}/{n} "
+          f"requests{'' if not parted else f'; parted (request, position): {parted}'}; hung-up "
+          f"client counted once: {counters['serve.disconnects'] == 1}; deadlines {expired}, "
+          f"serve.deadline_expired {counters['serve.deadline_expired']}; drained: {drained}"
+          f"{'; errors: ' + '; '.join(errors) if errors else ''}{'; hung: ' + str(hung) if hung else ''}")
+    if not ok:
+        raise SystemExit("serve: the replica check failed")
+    return out
+
+
+def tick_profile(params, card: str) -> dict:
+    """Phase 10 (d): where one serving tick's time goes at (1, 2): an
+    engine tick is one ``LMStream.submit`` of a full [8, 65] microbatch
+    (two schedule ticks at S = 1, V = 2: the previous microbatch's second
+    chunk, then this one's first; embed, head and the copy to the host).
+    Its host ms (submits back to back; each ends in the host copy), device
+    ms and kernels (torch.profiler over a few submits) and the idle share
+    (1 - device / host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_tfrecord_torch.models import lm
+    from tpu_tfrecord_torch.serve_lm import make_config
+
+    cfg = make_config(2)
+    stream = lm.LMStream(params, cfg, 1, device=SERVE_DEVICE)
+    toks = lm.make_synthetic_tokens(cfg, SERVE_MB, seed=5)
+    for _ in range(10):
+        stream.submit(toks)
+    serve_sync()
+    t0 = time.perf_counter()
+    for _ in range(TICK_RATE_SUBMITS):
+        stream.submit(toks)
+    host_ms = (time.perf_counter() - t0) * 1e3 / TICK_RATE_SUBMITS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TICK_PROFILE_SUBMITS):
+            stream.submit(toks)
+        serve_sync()
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / TICK_PROFILE_SUBMITS
+    per_tick = len(kernels) / TICK_PROFILE_SUBMITS
+    idle = 1 - dev_ms / host_ms if dev_ms > 0 else float("nan")
+    print(f"serve: one engine tick at S=1 V=2 (one submit of [{SERVE_MB}, 65]: 2 schedule ticks, "
+          f"embed, head, one host copy): {host_ms:.4f} ms host ({TICK_RATE_SUBMITS} back to back), "
+          f"device {dev_ms:.4f} ms in {per_tick:.0f} kernels (torch.profiler, "
+          f"{TICK_PROFILE_SUBMITS} submits{'' if dev_ms > 0 else ': no device time recorded, not measured'}); "
+          f"idle share {idle:.4f} ({card})")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=8))
+    return dict(host_ms=host_ms, device_ms=dev_ms, kernels=per_tick, idle_share=idle)
+
+
+def replica_subprocess(card: str) -> dict:
+    """Phase 10 (e): ``python -m tpu_tfrecord_torch.serving --device
+    <SERVE_DEVICE>`` (its synthetic seeded LM): the ready line, 4 requests
+    answered with the tokens of the same seed's weights computed here,
+    SIGTERM, exit 0 within 60 s."""
+    import argparse
+    import signal
+
+    from tpu_tfrecord_torch import serving
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "tpu_tfrecord_torch.serving", "--device",
+                             SERVE_DEVICE], cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        ready = {}
+        reader = threading.Thread(target=lambda: ready.update(json.loads(proc.stdout.readline() or "{}")))
+        reader.start()
+        reader.join(timeout=SERVE_TIMEOUT_S)
+        if "addr" not in ready:
+            raise SystemExit(f"serve: the replica printed no ready line: {proc.poll()}")
+        ready_s = time.perf_counter() - t0
+        syn = argparse.Namespace(vocab=96, d_model=32, heads=2, layers=4, max_len=16, mb=4,
+                                 virtual=1, seed=0)
+        params, cfg = serving._build_synthetic(syn)
+        rng = np.random.default_rng(3)
+        ws = [rng.integers(0, 96, size=16).astype(np.int32) for _ in range(4)]
+        cl = serving.ServeClient([ready["addr"]], timeout_s=60.0)
+        try:
+            got = [cl.generate(w, 4) for w in ws]
+        finally:
+            cl.close()
+        want = serving.sequential_reference(params, cfg, 2, [(w, 4) for w in ws], 4,
+                                            device=SERVE_DEVICE)
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        exit_s = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        err = proc.stderr.read()
+        proc.stdout.close()
+        proc.stderr.close()
+    ok = rc == 0 and got == want
+    print(f"serve: python -m tpu_tfrecord_torch.serving --device {SERVE_DEVICE}: ready in "
+          f"{ready_s:.1f} s; 4 requests equal to the reference: {got == want}; SIGTERM -> exit "
+          f"{rc} in {exit_s:.2f} s (limit 60 s)")
+    if not ok:
+        raise SystemExit(f"serve: the replica subprocess failed: {err[-3000:]}")
+    return dict(ready_s=ready_s, exit_s=exit_s, rc=rc)
+
+
+def serve_path(work: str, card: str) -> dict:
+    """Phase 10: LM serving on ``card`` (nvidia-smi's name and power limit),
+    under deterministic algorithms (cuBLAS workspace ``:4096:8``)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        step, params = serve_checkpoint(work)
+        out = {"one_shot": serve_one_shot(params, step, card)}
+        out["replica"] = replica_path(params, card)
+        out["tick"] = tick_profile(params, card)
+        out["subprocess"] = replica_subprocess(card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["card"] = card
+    print("serve: " + json.dumps(out, default=float))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2261,6 +2703,10 @@ def main() -> int:
         reset_launch_counts()
         seq_path(data_dir, smi)
         seq_launches = dict(dot_interaction.instance_launches)
+        free_cuda()
+        reset_launch_counts()
+        serve_path(data_dir, smi)
+        serve_launches = dict(dot_interaction.instance_launches)
     design = {
         "bf16_mma": "mma.sync m16n8k16 bf16 Gram, cp.async 16-byte double-buffered "
                     "staging, persistent grid, 16-byte stores through shared memory",
@@ -2282,6 +2728,7 @@ def main() -> int:
         datasource_launches=datasource[k],
         resume_launches=resume[k],
         seq_launches=seq_launches[k],
+        serve_launches=serve_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -36,7 +36,9 @@ def test_every_module_is_found():
     for want in ("tpu_tfrecord_torch.io.dataset", "tpu_tfrecord_torch.device.ingest",
                  "tpu_tfrecord_torch.models.interaction", "tpu_tfrecord_torch.entry",
                  "tpu_tfrecord_torch.interop", "tpu_tfrecord_torch._cuda",
-                 "tpu_tfrecord_torch._native"):
+                 "tpu_tfrecord_torch._native", "tpu_tfrecord_torch.serving",
+                 "tpu_tfrecord_torch.models.pipeline", "tpu_tfrecord_torch.serve_lm",
+                 "tpu_tfrecord_torch.faults", "tpu_tfrecord_torch.service_protocol"):
         assert want in mods
 
 

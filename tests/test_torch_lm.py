@@ -131,8 +131,10 @@ def test_mesh_axes_raise(axis):
 def test_moe_stream_and_shardings_raise():
     with pytest.raises(OptionNotPortedError, match="MoE"):
         tlm.init_params(tlm.LMConfig(moe_experts=4), device="cpu")
-    with pytest.raises(OptionNotPortedError, match="LMStream"):
-        tlm.LMStream()
+    # LMStream is ported; as in the JAX package it refuses the MoE FFN
+    _, tp = both_params()
+    with pytest.raises(ValueError, match="moe_experts > 0 is not supported"):
+        tlm.LMStream(tp, tlm.LMConfig(moe_experts=4, **KW), device="cpu")
     with pytest.raises(OptionNotPortedError, match="param_shardings"):
         tlm.param_shardings()
 

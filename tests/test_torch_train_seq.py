@@ -214,7 +214,10 @@ def test_twin_kill_and_resume_continues_the_digests(lm_data, tmp_path, capsys):
 
 
 def test_twin_refuses_unported_flags(lm_data):
-    for flags in (["--mesh", "dp_sp"], ["--moe", "4"], ["--virtual", "2"], ["--diagnostics"]):
+    # every --mesh kind trains on one card (test_torch_train_lm_mesh.py);
+    # --virtual 2 still needs --mesh dp_pp
+    for flags in (["--moe", "4"], ["--virtual", "2"], ["--diagnostics"],
+                  ["--mesh", "dp_pp", "--moe", "4"], ["--mesh", "dp_sp", "--virtual", "2"]):
         with pytest.raises(SystemExit):
             tw_lm.main(["--device", "cpu", "--data-dir", lm_data, *flags])
 

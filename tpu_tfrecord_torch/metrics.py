@@ -1,13 +1,16 @@
 """Throughput counters, latency histograms and structured logging.
 
 Cut of ``tpu_tfrecord/metrics.py`` to what the reader, the writer, the
-checkpoint layer and the trainer harness read: the ``Metrics`` registry
-(per-stage totals through ``add`` / ``count``, gauges, log-bucketed
-latency histograms, ``counter`` / ``gauge_value`` / ``stage``), ``timed``,
+checkpoint layer, the trainer harness and the serving tier read: the
+``Metrics`` registry (per-stage totals through ``add`` / ``count``, gauges,
+log-bucketed latency histograms fed by ``add`` or ``observe``, ``counter``
+/ ``gauge_value`` / ``stage`` / ``quantiles``), ``timed``,
 ``log_salvage_event`` and the package ``logger``. ``Histogram`` is a copy
 of ``tpu_tfrecord/telemetry.py::Histogram`` without its exemplars and its
-mergeable state. Counters are updated at slab or shard granularity, never
-per record, and every access takes the registry's lock.
+mergeable state (``observe`` takes the JAX signature's ``exemplar`` and
+drops it: the port has no exporter to show one). Counters are updated at
+slab or shard granularity, never per record, and every access takes the
+registry's lock.
 
 Stages the port records: ``read`` and ``read.io`` / ``read.open`` (the
 reader), ``write``, ``write.encode``, ``write.compress``, ``write.io`` and
@@ -20,7 +23,11 @@ iterator adds ``batch.wait`` and the gauges ``prefetch.queue_depth`` and
 ``ckpt.commit``, ``ckpt.commit_wait``, ``ckpt.bytes_written``,
 ``ckpt.generations_swept`` and the gauge ``ckpt.inflight``; the harness
 ``train.<phase>``, ``train.step``, ``train.steps`` and the gauges
-``train.share.<phase>``.
+``train.share.<phase>``; the serving tier the counters ``serve.requests``,
+``serve.ticks``, ``serve.rejected``, ``serve.deadline_expired``,
+``serve.disconnects`` and ``serve.errors``, the histograms
+``serve.latency``, ``serve.queue_wait`` and ``serve.service`` and the
+gauges ``serve.queue_depth`` and ``serve.in_flight``.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import math
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 logger = logging.getLogger("tpu_tfrecord_torch")
 
@@ -85,6 +92,18 @@ class Histogram:
                 est = self._MIN if idx == 0 else self._MIN * 2 ** ((idx - 0.5) * self._LOG2_GROWTH)
                 return min(max(est, self.min), self.max)
         return self.max
+
+    def quantiles(self) -> Dict[str, float]:
+        """p50/p90/p99 (seconds), count and mean; empty when no data."""
+        if self.count == 0:
+            return {}
+        return {
+            "p50_s": self.quantile(0.50),
+            "p90_s": self.quantile(0.90),
+            "p99_s": self.quantile(0.99),
+            "count": self.count,
+            "mean_s": self.total / self.count,
+        }
 
 
 @dataclass
@@ -156,6 +175,24 @@ class Metrics:
         """A gauge's last value (``default`` if never set)."""
         with self._lock:
             return self._gauges.get(name, default)
+
+    def observe(self, stage: str, seconds: float,
+                exemplar: Optional[Tuple[str, str]] = None) -> None:
+        """Fold one latency observation into ``stage``'s histogram without
+        touching its totals (for work timed inline rather than by
+        ``timed``). ``exemplar`` is accepted and not kept."""
+        with self._lock:
+            hist = self._hists.get(stage)
+            if hist is None:
+                hist = self._hists[stage] = Histogram()
+            hist.observe(seconds)
+
+    def quantiles(self, prefix: Optional[str] = None) -> Dict[str, Dict[str, float]]:
+        """Per-stage latency quantiles (``Histogram.quantiles``); ``prefix``
+        filters like ``snapshot``."""
+        with self._lock:
+            return {name: hist.quantiles() for name, hist in self._hists.items()
+                    if prefix is None or name == prefix or name.startswith(prefix + ".")}
 
     def stage(self, stage: str) -> StageStats:
         """A stage's totals (created empty if never hit)."""

@@ -1,10 +1,11 @@
 """Model families of the port: the Criteo DLRM, its dot interaction and
 its train steps; the long-document classifier (``long_doc``) and the causal
 LM (``lm``) over dense attention (``attention``), trained with Adam over a
-parameter tree (``optim``). The flat names are the DLRM's, as in the JAX
+parameter tree (``optim``) and served through the one-device pipeline
+schedule (``pipeline``). The flat names are the DLRM's, as in the JAX
 package; each sequence family's API lives on its module."""
 
-from tpu_tfrecord_torch.models import attention, lm, long_doc, optim
+from tpu_tfrecord_torch.models import attention, lm, long_doc, optim, pipeline
 from tpu_tfrecord_torch.models.attention import attention_reference
 from tpu_tfrecord_torch.models.dlrm import (
     DLRM,
@@ -49,6 +50,7 @@ __all__ = [
     "loss_fn",
     "make_synthetic_batch",
     "optim",
+    "pipeline",
     "sparse_opt_init",
     "sparse_train_step",
     "train_state",

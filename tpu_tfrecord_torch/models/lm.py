@@ -18,10 +18,16 @@ scores every position, or with ``segments`` only the pairs whose input and
 target share a nonzero segment. ``train_step`` is one Adam step
 (``models.optim.adam``, ``optax.adam(3e-3)``'s update).
 
-Not ported: every mesh axis (``mesh``, ``data_axis``, ``seq_axis``,
-``pipe_axis``, ``fsdp_axis``, ``expert_axis``: ring attention, the
-pipeline, FSDP, expert parallelism), the MoE FFN (``moe_experts > 0``),
-``LMStream`` and ``SpecLayout`` / ``param_shardings``. Each raises
+``LMStream`` serves the model through ``models.pipeline.PipelineStream``
+on one device: the trainer's [n_layers, ...] blocks are re-stacked once,
+at start-up, into S x V round-robin chunks (``_stage_stack``), each chunk
+runs ``n_layers / (S·V)`` decoder blocks (``_make_stage_fn``), and the
+embedding and head run per microbatch around the stream.
+
+Not ported: every mesh axis of ``forward`` (``mesh``, ``data_axis``,
+``seq_axis``, ``pipe_axis``, ``fsdp_axis``, ``expert_axis``: ring
+attention, pipelined training, FSDP, expert parallelism), the MoE FFN
+(``moe_experts > 0``) and ``SpecLayout`` / ``param_shardings``. Each raises
 ``OptionNotPortedError``.
 """
 
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_tfrecord_torch.models import pipeline as _pipeline
 from tpu_tfrecord_torch.models.attention import attention_reference
 from tpu_tfrecord_torch.models.long_doc import _dense, _gelu, _rms_norm
 from tpu_tfrecord_torch.options import OptionNotPortedError
@@ -49,6 +56,9 @@ class LMConfig:
     max_len: int = 64        # L: the model reads L tokens, predicts L
     dtype: torch.dtype = torch.float32
     moe_experts: int = 0     # > 0: the MoE FFN (not ported)
+    # interleaved virtual stages of the pipeline schedule: stage s owns the
+    # V round-robin layer chunks s, s+S, ...; n_layers must divide by S·V
+    n_virtual: int = 1
 
 
 def _refuse(cfg: LMConfig, **axes) -> None:
@@ -231,14 +241,120 @@ def bigram_table(vocab: int, n_next: int, seed: int = 1234) -> np.ndarray:
     return rng.integers(0, vocab, size=(vocab, n_next)).astype(np.int32)
 
 
-class LMStream:
-    """Not ported: the streamed serving flavour runs the pipeline mode."""
-
-    def __init__(self, *args, **kwargs):
-        raise OptionNotPortedError(
-            "LMStream: streamed serving runs the pipeline across cards, which the "
-            "port does not have yet"
+def _chunk_count(cfg: LMConfig, n_stages: int) -> int:
+    chunks = n_stages * cfg.n_virtual
+    if cfg.n_layers % chunks:
+        raise ValueError(
+            f"n_layers ({cfg.n_layers}) must divide into the pipe axis × "
+            f"n_virtual ({n_stages} stages × {cfg.n_virtual} virtual = "
+            f"{chunks} chunks)"
         )
+    return chunks
+
+
+def _stage_stack(blocks, cfg: LMConfig, n_stages: int):
+    """The stacked [n_layers, ...] blocks in the pipeline's stage layout:
+    [S, per_stage, ...], or [S, V, per_chunk, ...] interleaved, where
+    virtual stage k = v·S + s (stage s's chunk v) holds layers
+    [k·pc, (k+1)·pc): stage s owns the layer chunks s, s+S, s+2S, ..."""
+    chunks = _chunk_count(cfg, n_stages)
+    pc = cfg.n_layers // chunks
+    if cfg.n_virtual == 1:
+        return _pipeline._tree_map(lambda a: a.reshape((n_stages, pc) + a.shape[1:]), blocks)
+    v = cfg.n_virtual
+    return _pipeline._tree_map(
+        lambda a: a.reshape((v, n_stages, pc) + a.shape[1:]).transpose(0, 1).contiguous(),
+        blocks,
+    )
+
+
+def _make_stage_fn(cfg: LMConfig):
+    """One pipeline chunk: its per-chunk decoder blocks in order, dense
+    attention over the whole sequence."""
+    def stage_fn(p_chunk, xs):
+        pc = p_chunk["qkv"]["w"].shape[0]
+        for j in range(pc):
+            layer = {name: {"w": p["w"][j], "b": p["b"][j]} for name, p in p_chunk.items()}
+            xs = _block(layer, xs, cfg)
+        return xs
+
+    return stage_fn
+
+
+class LMStream:
+    """Microbatch-streamed LM inference: ``models.pipeline.PipelineStream``
+    around the decoder chunks of the trainer's checkpoint.
+
+    ``params`` is the [n_layers, ...] tree ``init_params`` and the trainer
+    keep (tensors or numpy arrays); it is copied to ``device`` and the
+    blocks are re-stacked into the S x V chunk layout once, here. The
+    embedding and the head run per microbatch around the stream.
+
+    ``submit(tokens [mb, L+1])`` feeds one microbatch and returns the
+    logits that completed, FIFO, as host numpy float32 [mb, L, V] (one copy
+    to the host a popped microbatch); ``flush()`` drains the tail. The
+    streamed logits equal ``batch_reference`` (the same embedding and head
+    around ``pipeline_apply`` on the same slices) bitwise."""
+
+    def __init__(self, params: Dict[str, Any], cfg: LMConfig, n_stages: int = 1,
+                 device="cuda"):
+        self.cfg = cfg
+        _chunk_count(cfg, n_stages)
+        if cfg.moe_experts > 0:
+            raise ValueError("moe_experts > 0 is not supported in the pipeline mode")
+        self.device = torch.device(device)
+
+        def place(a):
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+            return t.detach().to(self.device, torch.float32)
+
+        self._stage_fn = _make_stage_fn(cfg)
+        self._stage_params = _stage_stack(_pipeline._tree_map(place, params["blocks"]), cfg,
+                                          n_stages)
+        self._ep = {"embed": place(params["embed"]), "pos": place(params["pos"])}
+        self._hp = {"head": _pipeline._tree_map(place, params["head"])}
+        self.stream = _pipeline.PipelineStream(self._stage_fn, self._stage_params,
+                                               n_virtual=cfg.n_virtual, device=self.device)
+
+    def _embed(self, tokens) -> torch.Tensor:
+        return _embed_tokens(self._ep, torch.as_tensor(np.asarray(tokens), device=self.device),
+                             self.cfg)
+
+    def _head(self, x: torch.Tensor) -> np.ndarray:
+        return _head_logits(self._hp, x, self.cfg).cpu().numpy()
+
+    def submit(self, tokens) -> list:
+        """One request: tokens [mb, L+1] int32 in, zero or more finished
+        [mb, L, V] float32 logits out (FIFO, S·V ticks behind)."""
+        return [out for out, _ in self.submit_tagged(tokens)]
+
+    @torch.no_grad()
+    def submit_tagged(self, tokens, tag=None) -> list:
+        """``submit`` with an opaque host-side tag on the microbatch;
+        returns ``(logits, tag)`` pairs."""
+        return [(self._head(o), t) for o, t in self.stream.push_tagged(self._embed(tokens), tag)]
+
+    def flush(self) -> list:
+        """Drain the in-flight tail; returns the remaining logits FIFO."""
+        return [out for out, _ in self.flush_tagged()]
+
+    @torch.no_grad()
+    def flush_tagged(self) -> list:
+        """``flush`` returning ``(logits, tag)`` pairs."""
+        return [(self._head(o), t) for o, t in self.stream.flush_tagged()]
+
+    def reset(self) -> None:
+        self.stream.reset()
+
+    @torch.no_grad()
+    def batch_reference(self, batches) -> list:
+        """The batch path on the same slices: the same embedding and head
+        around ``pipeline_apply`` over the stacked [M, mb, ...] stream, which
+        the streamed logits must equal bitwise."""
+        xs = torch.stack([self._embed(t) for t in batches])
+        out = _pipeline.pipeline_apply(self._stage_fn, self._stage_params, xs,
+                                       n_virtual=self.cfg.n_virtual)
+        return [self._head(out[i]) for i in range(len(batches))]
 
 
 def param_shardings(*args, **kwargs):

@@ -10,17 +10,24 @@ the trainer harness (``harness.py``) read:
 - the producer/consumer verdict: ``OCCUPANCY_GAUGE``,
   ``boundness_verdict``, ``verdict_from_metrics`` and ``OccupancyEma``;
 - the training verdict: ``TRAIN_PHASES``, the ``train.`` and
-  ``train.share.`` prefixes, the two thresholds and ``training_verdict``.
+  ``train.share.`` prefixes, the two thresholds and ``training_verdict``;
+- what the serving tier reads: ``TraceContext`` (a request's trace and
+  span ids, shipped over the wire as ``to_json``), ``current_context``
+  (the process's identity, adopted on ``RECORDER``), ``record_instant``
+  and ``serving_verdict``.
 
-Left out: ``Pulse``, the exporters, the trace context and the trace
-merger (they wait for the port's fleet layer). The Chrome trace names its
-process ``tfrecord:<pid>``.
+Left out: ``Pulse``, the exporters, the environment hand-off of a trace
+context and the trace merger (they wait for the port's fleet layer). The
+Chrome trace names its process by the adopted context (``role@host:pid``)
+or ``tfrecord:<pid>``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import socket
 import threading
 import time
 import uuid
@@ -41,6 +48,66 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
         except OSError:
             pass
         raise
+
+
+# ---------------------------------------------------------------------------
+# Trace context
+# ---------------------------------------------------------------------------
+
+
+def _new_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceContext:
+    """Identity of one process's (or one request's) slice of a trace: the
+    JAX package's ``TraceContext``, the same JSON.
+
+    ``trace_id`` is shared by everything in one logical run, ``span_id``
+    is this slice's own id and ``parent_span_id`` names the slice that
+    spawned it (None at the root); role, host and pid identify the process
+    for humans (``label``)."""
+
+    trace_id: str
+    span_id: str
+    parent_span_id: Optional[str] = None
+    role: str = "main"
+    host: str = ""
+    pid: int = 0
+
+    @staticmethod
+    def new(role: str = "main") -> "TraceContext":
+        """A fresh root context for this process."""
+        return TraceContext(trace_id=_new_id(), span_id=_new_id(), parent_span_id=None,
+                            role=role, host=socket.gethostname(), pid=os.getpid())
+
+    def child(self, role: str) -> "TraceContext":
+        """The same trace, a new span id, this context's span as the
+        parent; host and pid are left for the child to stamp."""
+        return TraceContext(trace_id=self.trace_id, span_id=_new_id(),
+                            parent_span_id=self.span_id, role=role, host="", pid=0)
+
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_json(obj: Dict[str, Any]) -> "TraceContext":
+        known = {f.name for f in dataclasses.fields(TraceContext)}
+        return TraceContext(**{k: v for k, v in obj.items() if k in known})
+
+    def label(self) -> str:
+        """The track label of a merged timeline: ``role@host:pid``."""
+        return f"{self.role}@{self.host}:{self.pid}"
+
+
+def current_context() -> TraceContext:
+    """The process's trace context, created and adopted on the global
+    recorder at first use."""
+    ctx = RECORDER.context
+    if ctx is None:
+        ctx = RECORDER.adopt(TraceContext.new())
+    return ctx
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +181,18 @@ class SpanRecorder:
         self._ring: List[Optional[tuple]] = [None] * capacity
         self._seq = 0
         self.dropped = 0
+        #: the adopted TraceContext (None until ``adopt``/``current_context``);
+        #: metadata only, recording never reads it
+        self.context: Optional[TraceContext] = None
+
+    def adopt(self, ctx: TraceContext) -> TraceContext:
+        """Adopt ``ctx`` as this recorder's process identity, host and pid
+        re-stamped to this process."""
+        host, pid = socket.gethostname(), os.getpid()
+        if ctx.host != host or ctx.pid != pid:
+            ctx = dataclasses.replace(ctx, host=host, pid=pid)
+        self.context = ctx
+        return ctx
 
     # -- recording -----------------------------------------------------------
 
@@ -174,10 +253,12 @@ class SpanRecorder:
         format Perfetto and chrome://tracing load): complete ("X") events
         for spans, thread-scoped instants ("i"), led by process and thread
         name ("M") records."""
-        pid = os.getpid()
+        ctx = self.context
+        pid = ctx.pid if ctx is not None and ctx.pid else os.getpid()
+        pname = ctx.label() if ctx is not None else f"tfrecord:{pid}"
         events: List[Dict[str, Any]] = [
             {"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
-             "args": {"name": f"tfrecord:{pid}"}}
+             "args": {"name": pname}}
         ]
         thread_names = {t.ident: t.name for t in threading.enumerate()}
         spans = self.spans()
@@ -235,6 +316,15 @@ def record_span(name: str, t0_ns: int, dur_ns: int, tid: Optional[int] = None, *
     rec = RECORDER
     if rec.enabled:
         rec._record(name, t0_ns, dur_ns, attrs or None, "X", tid=tid)
+
+
+def record_instant(name: str, t0_ns: int, tid: Optional[int] = None, **attrs) -> None:
+    """Record a point event at an explicit timestamp (``instant`` stamps
+    now): shed and expiry markers on the same clock and lane as the
+    request spans around them."""
+    rec = RECORDER
+    if rec.enabled:
+        rec._record(name, t0_ns, 0, attrs or None, "i", tid=tid)
 
 
 def enable() -> SpanRecorder:
@@ -327,3 +417,30 @@ class OccupancyEma:
             from tpu_tfrecord_torch.metrics import METRICS as metrics  # noqa: N813
         metrics.gauge(self.gauge, self.value)
         return self.value
+
+
+# ---------------------------------------------------------------------------
+# Serving verdict
+# ---------------------------------------------------------------------------
+
+#: Queue depth at or above this fraction of the serving tier's admission
+#: bound reads as queue pressure: the p99 miss is an admission problem.
+SERVE_QUEUE_BOUND_FILL = 0.5
+
+
+def serving_verdict(p99_ms: Optional[float], queue_depth: Optional[float],
+                    slo_p99_ms: float, max_queue: int = 16) -> str:
+    """Latency-SLO verdict of the serving tier: ``meeting_slo`` when the
+    per-request p99 is within ``slo_p99_ms``; on a miss ``queue_bound``
+    when the waiting queue holds at least ``SERVE_QUEUE_BOUND_FILL`` of the
+    admission bound (latency is queueing: shed harder or add a replica),
+    else ``compute_bound`` (the step itself is too slow for the SLO);
+    ``unknown`` before any request completed."""
+    if p99_ms is None:
+        return "unknown"
+    if p99_ms <= slo_p99_ms:
+        return "meeting_slo"
+    depth = 0.0 if queue_depth is None else float(queue_depth)
+    if depth >= SERVE_QUEUE_BOUND_FILL * max(1, int(max_queue)):
+        return "queue_bound"
+    return "compute_bound"

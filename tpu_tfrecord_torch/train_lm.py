@@ -24,8 +24,10 @@ resumably; the twin of ``examples/train_lm.py`` on one card.
 
 On the card the step runs with ``torch.use_deterministic_algorithms``
 (cuBLAS workspace ``:4096:8``), so a resumed run's losses are bit-equal to
-an uninterrupted run's. Not ported: ``--mesh`` other than ``dp`` (ring
-attention, the pipeline, FSDP), ``--moe``, ``--virtual``,
+an uninterrupted run's. ``--mesh`` takes the JAX example's five kinds; on
+the one card the port trains on, every kind trains as ``dp`` with 2
+layers, as the JAX example's ``pick_mesh`` does on one device, and
+``--virtual 2`` needs ``--mesh dp_pp`` there too. Not ported: ``--moe``,
 ``--diagnostics`` and ``--spool``; each is refused, naming what is
 missing. Runs on ``cuda`` unless ``--device cpu``.
 """
@@ -62,8 +64,22 @@ def make_schema() -> StructType:
     return StructType([StructField("tokens", ArrayType(LongType()))])
 
 
-def make_config() -> lm.LMConfig:
-    return lm.LMConfig(vocab_size=VOCAB, d_model=64, n_heads=4, n_layers=2, max_len=SEQ_LEN)
+MESH_KINDS = ("dp", "dp_sp", "dp_pp", "dp_fsdp", "dp_fsdp_pp")
+
+
+def make_config(n_layers: int = 2) -> lm.LMConfig:
+    return lm.LMConfig(vocab_size=VOCAB, d_model=64, n_heads=4, n_layers=n_layers,
+                       max_len=SEQ_LEN)
+
+
+def pick_mesh(kind: str, virtual: int = 1):
+    """(mesh shape, cfg axes, n_layers) of ``--mesh kind`` on one card: the
+    JAX example's ``pick_mesh`` with one device, where every kind degrades
+    to ``dp`` with 2 layers (its sp, fsdp and pp meshes need an even device
+    count, and ``virtual`` only shapes the dp_pp mesh)."""
+    if kind not in MESH_KINDS:
+        raise ValueError(f"--mesh {kind!r}: one of {MESH_KINDS}")
+    return {"data": 1}, {"data_axis": "data"}, 2
 
 
 def generate(data_dir: str, shards: int = 4, docs: int = 256) -> None:
@@ -153,13 +169,10 @@ def packed_stream(it, packer: TokenPacker, snaps: dict):
 
 
 def refuse_unported(ap: argparse.ArgumentParser, args) -> None:
-    if args.mesh != "dp":
-        ap.error(f"--mesh {args.mesh}: not ported; the mesh modes (ring attention, the "
-                 "pipeline, FSDP) need torch.distributed across cards")
+    if args.virtual > 1 and args.mesh != "dp_pp":
+        ap.error("--virtual > 1 needs --mesh dp_pp")
     if args.moe:
         ap.error("--moe: the MoE FFN is not ported")
-    if args.virtual != 1:
-        ap.error("--virtual: the interleaved pipeline is not ported")
     if args.diagnostics:
         ap.error("--diagnostics: the MoE and pipeline diagnostics are not ported")
     harness.trainer_spool(args.spool)  # raises for a directory
@@ -168,8 +181,9 @@ def refuse_unported(ap: argparse.ArgumentParser, args) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mesh", default="dp",
-                    choices=("dp", "dp_sp", "dp_pp", "dp_fsdp", "dp_fsdp_pp"))
+    ap.add_argument("--mesh", default="dp", choices=MESH_KINDS,
+                    help="the JAX example's mesh kinds; on one card each trains as dp "
+                         "with 2 layers")
     ap.add_argument("--steps", type=int, default=64,
                     help="total train steps (absolute, resumed ones included)")
     ap.add_argument("--save-every", type=int, default=8)
@@ -183,7 +197,7 @@ def main(argv=None) -> None:
     ap.add_argument("--spool", default=None, metavar="SPOOL_DIR")
     ap.add_argument("--diagnostics", action="store_true")
     ap.add_argument("--moe", type=int, default=0, metavar="EXPERTS")
-    ap.add_argument("--virtual", type=int, default=1, metavar="V")
+    ap.add_argument("--virtual", type=int, default=1, choices=(1, 2), metavar="V")
     args = ap.parse_args(argv)
     refuse_unported(ap, args)
     device = torch.device(args.device)
@@ -194,7 +208,10 @@ def main(argv=None) -> None:
         torch.use_deterministic_algorithms(True)
         print("deterministic algorithms: on")
     generate(args.data_dir)
-    cfg = make_config()
+    mesh, _axes, n_layers = pick_mesh(args.mesh, args.virtual)
+    if args.mesh != "dp":
+        print(f"mesh: {mesh} mode={args.mesh} (one device: trains as dp with {n_layers} layers)")
+    cfg = make_config(n_layers)
     params = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     opt = optim.adam(params, LR)
     os.makedirs(args.ckpt_dir, exist_ok=True)

@@ -158,6 +158,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    tpu_tfrecord_torch.serving --device cuda`` as a subprocess: its ready
    line, 4 requests equal to the reference, SIGTERM, exit 0 within 60 s.
 
+11. Mixture-of-Experts on one card (no DLRM kernel runs here: every
+   instance's launch count over the phase must be 0), under deterministic
+   algorithms. (a) ``moe_apply`` at T = 2048 (d_model 64, d_ff 256, 4
+   experts, f32) on the card against the CPU at top_k 2, top_k 1, capacity
+   factor 0.25 and a quarter of the tokens masked out: y and aux within
+   1e-4, the routing (each rank's expert and slot) and the counts equal,
+   the gradients of x and the three weights within 1e-4 of their scale,
+   and the smallest probability margin of a choice. (b) The MoE LM of
+   ``train_lm --moe 4`` (top-2) with one set of weights on the card and on
+   the CPU: logits within 1e-4, then 16 Adam steps in lockstep (the CPU
+   takes the card's parameters and moments before each step) with losses
+   within a relative 1e-4 and each step's ``expert_tokens`` and
+   ``expert_kept`` equal; the same steps run free are printed, not gated.
+   (c) ``python -m tpu_tfrecord_torch.train_lm --moe 4 --diagnostics
+   --trace-out`` for 32 steps saving every 8, then killed with SIGKILL
+   after step 12 and run again: it must resume at step 8 with the
+   uninterrupted run's digests and losses for steps 9-32 (bit-equal, or
+   within a relative 1e-4: the line says which), finite ``moe.*`` gauges
+   and ``train.step`` spans in its trace. (d) The MoE long_doc's logits
+   card against CPU (bf16 within 2e-2, f32 within 1e-4) and
+   ``LONGDOC_MOE_EXPERTS=4 python -m tpu_tfrecord_torch.train_longdoc``
+   whole (finite losses, the phase shares and verdict), run beside (c).
+   (e) Under the default algorithms, beside the card's name and power
+   limit: the MoE LM train step and phase 9's dense step on a resident
+   batch (host ms, device ms and kernels a step, idle share) and
+   ``moe_apply``'s forward at T = 2048.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -2023,16 +2050,18 @@ def longdoc_parity(data_dir: str) -> dict:
     return out
 
 
-def run_twin(module: str, args: list, work: str, log: str, kill_after_step=None):
-    """``python -m <module> --device <SEQ_DEVICE> *args`` in a subprocess:
+def run_twin(module: str, args: list, work: str, log: str, kill_after_step=None, device=None,
+             env=None):
+    """``python -m <module> --device <device> *args`` in a subprocess
+    (``SEQ_DEVICE`` unless ``device``; ``env`` added to this process's):
     (return code, [(host seconds since start, line)], stderr). With
     ``kill_after_step`` it is killed with SIGKILL after that step's
     ``lm_step`` line."""
     import signal
 
     repo = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", module, "--device", SEQ_DEVICE, *args]
-    env = dict(os.environ, PYTHONPATH=repo)
+    cmd = [sys.executable, "-m", module, "--device", device or SEQ_DEVICE, *args]
+    env = dict(os.environ, PYTHONPATH=repo, **(env or {}))
     lines = []
     t0 = time.perf_counter()
     with open(os.path.join(work, log), "w") as err:
@@ -2661,6 +2690,320 @@ def serve_path(work: str, card: str) -> dict:
     print("serve: " + json.dumps(out, default=float))
     return out
 
+# -- phase 11: Mixture-of-Experts on one card -----------------------------------------------
+
+MOE_DEVICE = "cuda"
+MOE_EXPERTS = 4
+MOE_TOKENS = (32, 64)                 # the LM twin's B x L: T = 2048 tokens a layer
+MOE_CASES = {                         # (top_k, capacity factor, share of tokens masked out)
+    "top2": (2, 1.25, 0.0),
+    "top1": (1, 1.25, 0.0),
+    "top2_drop": (2, 0.25, 0.0),
+    "top2_valid": (2, 1.25, 0.25),
+}
+MOE_ATOL = 1e-4                       # f32, TF32 off: the card against the CPU
+MOE_PARITY_STEPS = 16
+MOE_DRILL_STEPS = 32
+MOE_DRILL_SAVE_EVERY = 8
+MOE_DRILL_KILL_AT = 12
+MOE_DRILL_RESUMED_AT = 8
+
+
+def moe_layer_run(moe, cfg, params, x, cot, valid, device) -> dict:
+    """One ``moe_apply`` forward and backward on ``device`` (float32): y,
+    aux, the diagnostics, the gradients of x and the three weights, and
+    the routing (each rank's expert and slot, kept or not) with the
+    router probabilities."""
+    p = {k: v.detach().to(device).clone().requires_grad_(True) for k, v in params.items()}
+    xx = torch.tensor(x, device=device, requires_grad=True)
+    v = None if valid is None else torch.from_numpy(valid).to(device)
+    y, aux, diag = moe.moe_apply(p, xx, cfg, valid=v, diagnostics=True)
+    (torch.sum(y * torch.from_numpy(cot).to(device)) + aux).backward()
+    with torch.no_grad():
+        xt = xx.detach().reshape(-1, cfg.d_model)
+        probs = moe._router_probs(p, xt)
+        r = moe._route(probs, cfg, moe._capacity(xt.shape[0], cfg),
+                       None if v is None else v.reshape(-1))
+    return dict(y=y.detach().cpu(), aux=float(aux), diag={k: t.cpu() for k, t in diag.items()},
+                grads=[xx.grad.cpu()] + [p[k].grad.cpu() for k in ("router", "w_in", "w_out")],
+                route=[t.cpu() for t in (r.expert, r.slot, r.kept)], probs=probs.cpu())
+
+
+def moe_layer_parity() -> dict:
+    """Phase 11 (a): ``moe_apply`` at T = 2048 (d_model 64, d_ff 256, 4
+    experts) on the card against the CPU at top_k 2, top_k 1, a capacity
+    factor of 0.25 and a quarter of the tokens masked out: y and aux within
+    ``MOE_ATOL``, the routing and the diagnostics' counts equal, the
+    gradients of x and the three weights within ``MOE_ATOL`` times their
+    largest magnitude (at least 1). The smallest probability margin between
+    a token's chosen expert and the next one says how close a tie came."""
+    from tpu_tfrecord_torch.models import moe
+
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=MOE_TOKENS + (64,)).astype(np.float32)
+    cot = rng.normal(size=x.shape).astype(np.float32)
+    mask = rng.random(MOE_TOKENS) >= 0.25
+    out = {}
+    for name, (top_k, cf, pad) in MOE_CASES.items():
+        cfg = moe.MoEConfig(d_model=64, d_ff=256, n_experts=MOE_EXPERTS, capacity_factor=cf,
+                            top_k=top_k)
+        params = moe.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        valid = mask if pad else None
+        cpu = moe_layer_run(moe, cfg, params, x, cot, valid, "cpu")
+        card = moe_layer_run(moe, cfg, params, x, cot, valid, MOE_DEVICE)
+        y_err = float((card["y"] - cpu["y"]).abs().max())
+        aux_err = abs(card["aux"] - cpu["aux"])
+        routing = all(torch.equal(a, b) for a, b in zip(card["route"], cpu["route"]))
+        counts = all(torch.equal(card["diag"][k], cpu["diag"][k]) for k in ("expert_tokens", "expert_kept"))
+        grad_errs = [float((g - h).abs().max()) for g, h in zip(card["grads"], cpu["grads"])]
+        grad_scales = [max(1.0, float(h.abs().max())) for h in cpu["grads"]]
+        grads_ok = all(e <= MOE_ATOL * s for e, s in zip(grad_errs, grad_scales))
+        top = torch.sort(cpu["probs"], dim=-1, descending=True).values
+        keep = torch.ones(top.shape[0], dtype=torch.bool) if valid is None else torch.from_numpy(valid.reshape(-1))
+        margin = float(min((top[keep, r] - top[keep, r + 1]).min() for r in range(top_k)))
+        ok = y_err <= MOE_ATOL and aux_err <= MOE_ATOL and routing and counts and grads_ok \
+            and bool(torch.isfinite(card["y"]).all())
+        kept = card["diag"]["expert_kept"].tolist()
+        print(f"moe: moe_apply {name} (top_k {top_k}, capacity factor {cf}, "
+              f"{'a quarter masked' if pad else 'no mask'}; T=2048, C={moe._capacity(2048, cfg)}): "
+              f"y max abs err {y_err:.3e}, aux {aux_err:.3e} (atol {MOE_ATOL}); routing equal "
+              f"{routing}, counts equal {counts} (kept {kept}, dropped fraction "
+              f"{float(card['diag']['dropped_fraction']):.4f}); grad errs x/router/w_in/w_out "
+              f"{['%.3e' % e for e in grad_errs]} (scales {['%.2f' % s for s in grad_scales]}); "
+              f"smallest top-{top_k} probability margin {margin:.3e}: {ok}")
+        if not ok:
+            raise SystemExit(f"moe: moe_apply {name} disagrees between the card and the CPU")
+        out[name] = dict(y_err=y_err, aux_err=aux_err, grad_errs=grad_errs, margin=margin,
+                         kept=kept)
+    return out
+
+
+def moe_lm_parity(data_dir: str) -> dict:
+    """Phase 11 (b): the MoE LM of ``train_lm --moe 4`` (vocab 256, d_model
+    64, 4 heads, 2 layers, L = 64, 4 experts top-2, f32) with one set of
+    weights on the card and on the CPU: the first packed batch's logits
+    within ``MOE_ATOL``, then 16 Adam steps in lockstep (before each step the
+    CPU takes the card's parameters and Adam moments) with losses within a
+    relative ``SEQ_LOSS_RTOL`` and each step's ``expert_tokens`` and
+    ``expert_kept`` equal. The same 16 steps run free on both sides are
+    printed beside, not gated: a top-k router's choices are discontinuous,
+    so the two trajectories part once rounding flips a near tie."""
+    from tpu_tfrecord_torch import train_lm as tw
+    from tpu_tfrecord_torch.models import lm, optim
+
+    cfg = tw.make_config(2, MOE_EXPERTS)
+    batches, _ = packed_batches(data_dir, "slice", MOE_PARITY_STEPS)
+    toks = [torch.from_numpy(b["tokens"]) for b in batches]
+    host = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_to(host, MOE_DEVICE)
+    with torch.no_grad():
+        want, want_aux, want_diag = lm.forward(host, toks[0], cfg, diagnostics=True)
+        got, got_aux, got_diag = lm.forward(card, toks[0].to(MOE_DEVICE), cfg, diagnostics=True)
+    err = float((got.cpu() - want).abs().max())
+    first_counts = all(torch.equal(got_diag[k].cpu(), want_diag[k]) for k in ("expert_tokens", "expert_kept"))
+    runs = {}
+    for mode in ("lockstep", "free"):
+        h, c = tree_to(host, "cpu"), tree_to(host, MOE_DEVICE)
+        ho, co = optim.adam(h, tw.LR), optim.adam(c, tw.LR)
+        rels, equal = [], []
+        for t in toks:
+            if mode == "lockstep":
+                optim.load_train_state(h, ho, optim.train_state(c, co))
+            lh, dh = lm.train_step(h, ho, t, cfg, diagnostics=True)
+            lc, dc = lm.train_step(c, co, t.to(MOE_DEVICE), cfg, diagnostics=True)
+            rels.append(abs(float(lc) - float(lh)) / abs(float(lh)))
+            equal.append(all(torch.equal(dc[k].cpu(), dh[k]) for k in ("expert_tokens", "expert_kept")))
+        runs[mode] = dict(max_rel=max(rels), equal_steps=sum(equal), last_loss=float(lc),
+                          last_drop=float(dc["dropped_fraction"]))
+    lock = runs["lockstep"]
+    ok = err <= MOE_ATOL and first_counts and lock["max_rel"] <= SEQ_LOSS_RTOL \
+        and lock["equal_steps"] == len(toks) and np.isfinite(lock["last_loss"])
+    print(f"moe: MoE LM parity (train_lm --moe {MOE_EXPERTS} width, [32, 65] slice batches): logits "
+          f"max abs err {err:.3e} (atol {MOE_ATOL}), aux {float(got_aux):.6f} vs {float(want_aux):.6f}, "
+          f"counts equal {first_counts}; {len(toks)} Adam steps in lockstep: max loss rel diff "
+          f"{lock['max_rel']:.3e} (rtol {SEQ_LOSS_RTOL}), expert_tokens/expert_kept equal on "
+          f"{lock['equal_steps']}/{len(toks)} steps, last loss {lock['last_loss']:.6f}, dropped "
+          f"fraction {lock['last_drop']:.4f}: {ok}")
+    print(f"moe: the same {len(toks)} steps run free on both sides (not gated): max loss rel diff "
+          f"{runs['free']['max_rel']:.3e}, counts equal on {runs['free']['equal_steps']}/{len(toks)} "
+          "steps")
+    if not ok:
+        raise SystemExit("moe: the MoE LM disagrees between the card and the CPU")
+    return dict(logits_err=err, **{f"{m}_{k}": v for m, r in runs.items() for k, v in r.items()})
+
+
+def moe_twins(work: str, lm_data: str, ld_data: str) -> dict:
+    """Phase 11 (c) and (d): ``train_lm --moe 4 --diagnostics --trace-out``
+    for 32 steps saving every 8, uninterrupted, and again killed with
+    SIGKILL after step 12 and rerun: it must resume at step 8 with the
+    uninterrupted run's digests for steps 9-32 and its losses (bit-equal,
+    or within a relative ``SEQ_LOSS_RTOL``: the line says which), print
+    finite ``moe.*`` gauges and write its trace. Beside them,
+    ``LONGDOC_MOE_EXPERTS=4 train_longdoc`` whole: finite losses, the phase
+    shares and the verdict. The uninterrupted run, the killed run and
+    train_longdoc run at once (three processes on the card)."""
+    import signal
+
+    common = ["--data-dir", lm_data, "--steps", str(MOE_DRILL_STEPS), "--save-every",
+              str(MOE_DRILL_SAVE_EVERY), "--moe", str(MOE_EXPERTS), "--diagnostics"]
+
+    def lm_run(name, ckpt, kill=None):
+        return run_twin("tpu_tfrecord_torch.train_lm", common + [
+            "--ckpt-dir", os.path.join(work, ckpt),
+            "--digest-out", os.path.join(work, f"moe_{name}.jsonl"),
+            "--trace-out", os.path.join(work, f"moe_{name}_trace.json")],
+            work, f"moe_{name}.err", kill, device=MOE_DEVICE)
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        ref_f = pool.submit(lm_run, "uninterrupted", "moe_ckpt_ref")
+        kill_f = pool.submit(lm_run, "killed", "moe_ckpt", MOE_DRILL_KILL_AT)
+        ld_f = pool.submit(run_twin, "tpu_tfrecord_torch.train_longdoc",
+                           ["--data-dir", ld_data, "--ckpt-dir", os.path.join(work, "moe_ld_ckpt")],
+                           work, "moe_longdoc.err", None, MOE_DEVICE, {"LONGDOC_MOE_EXPERTS": "4"})
+        runs = {"uninterrupted": ref_f.result(), "killed": kill_f.result()}
+        ld = ld_f.result()
+    runs["resumed"] = lm_run("resumed", "moe_ckpt")
+    for name, (rc, lines, err) in runs.items():
+        want_rc = -signal.SIGKILL if name == "killed" else 0
+        if rc != want_rc:
+            raise SystemExit(f"moe: train_lm --moe {name} run ended with {rc}: {err[-3000:]}")
+        head = [ln for _, ln in lines if not ln.startswith("lm_step")]
+        print(f"moe: train_lm --moe {MOE_EXPERTS} --diagnostics {name}: " + " | ".join(head))
+    ref, res = lm_steps(runs["uninterrupted"][1]), lm_steps(runs["resumed"][1])
+    first = [ln for _, ln in runs["resumed"][1]][:3]
+    resumed_at = f"resumed at step {MOE_DRILL_RESUMED_AT}" in first
+    later = range(MOE_DRILL_RESUMED_AT + 1, MOE_DRILL_STEPS + 1)
+    digests = sorted(res) == list(later) and all(res[s]["digest"] == ref[s]["digest"] for s in later)
+    bit_equal = digests and all(res[s]["loss"] == ref[s]["loss"] for s in later)
+    rel = max(abs(float(res[s]["loss"]) - float(ref[s]["loss"])) / abs(float(ref[s]["loss"]))
+              for s in later) if digests else float("inf")
+    determinism = "bit-equal" if bit_equal else f"within a relative {SEQ_LOSS_RTOL} (max {rel:.3e})"
+    gauges = {}
+    traces = {}
+    for name in ("uninterrupted", "resumed"):
+        line = [ln for _, ln in runs[name][1] if ln.startswith("model diagnostics: ")]
+        gauges[name] = json.loads(line[-1].split(": ", 1)[1]) if line else {}
+        path = os.path.join(work, f"moe_{name}_trace.json")
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        traces[name] = sum(1 for e in events if e.get("name") == "train.step")
+    losses = [float(ref[s]["loss"]) for s in sorted(ref)]
+    gauges_ok = all(sorted(g) == ["moe.dropped_fraction", "moe.expert_imbalance", "moe.gate_entropy"]
+                    and all(np.isfinite(v) for v in g.values()) for g in gauges.values())
+    ok = resumed_at and digests and (bit_equal or rel <= SEQ_LOSS_RTOL) and gauges_ok \
+        and np.isfinite(losses).all() and traces["uninterrupted"] == MOE_DRILL_STEPS \
+        and traces["resumed"] == MOE_DRILL_STEPS - MOE_DRILL_RESUMED_AT
+    print(f"moe: train_lm --moe drill: {first[:3]}; resumed at step {MOE_DRILL_RESUMED_AT}: "
+          f"{resumed_at}; digests of steps {later[0]}-{later[-1]} equal the uninterrupted run's: "
+          f"{digests}; losses {determinism}; losses {losses[0]:.4f} -> {losses[-1]:.4f}; moe gauges "
+          f"{gauges}; train.step spans in the traces {traces}: {ok}")
+    if not ok:
+        raise SystemExit("moe: the train_lm --moe kill drill did not continue the uninterrupted run")
+    rc, lines, err = ld
+    text = [ln for _, ln in lines]
+    print("moe: LONGDOC_MOE_EXPERTS=4 train_longdoc: " + " | ".join(text))
+    ld_losses = [float(ln.split("~")[1]) for ln in text if ln.startswith("step ")]
+    phases = [ln for ln in text if ln.startswith("train phases:")]
+    if rc != 0 or not ld_losses or not np.isfinite(ld_losses).all() or not phases \
+            or not any(ln.startswith("done: 32 steps") for ln in text):
+        raise SystemExit(f"moe: train_longdoc with MoE failed ({rc}): {err[-3000:]}")
+    return dict(determinism=determinism, loss_rel=rel, first_loss=losses[0], last_loss=losses[-1],
+                gauges=gauges, longdoc_losses=ld_losses, longdoc_phases=phases[0])
+
+
+def moe_longdoc_parity(data_dir: str) -> dict:
+    """Phase 11 (d): the MoE long_doc (4 experts, top 1, routed over the
+    valid prefix) on the twin's first batch, card against CPU: bf16 logits
+    within 2e-2, float32 within 1e-4."""
+    from tpu_tfrecord_torch import train_longdoc as tw
+    from tpu_tfrecord_torch.device.ingest import host_batch_from_columnar
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+    from tpu_tfrecord_torch.models import long_doc
+
+    ds = TFRecordDataset(data_dir, batch_size=tw.BATCH, schema=tw.make_schema(),
+                         recordType="SequenceExample", shuffle=True, seed=0)
+    with ds.batches() as it:
+        cb = next(it)
+    hb = tw.host_batch(cb, ds.schema)
+    f32 = host_batch_from_columnar(cb, ds.schema, pad_to={"frames": (tw.MAX_LEN, tw.SEQ_DIM)})
+    out = {}
+    for dtype, frames in ((torch.bfloat16, hb["frames"]), (torch.float32, torch.from_numpy(f32["frames"]))):
+        cfg = dataclasses.replace(tw.make_config(), moe_experts=MOE_EXPERTS, dtype=dtype)
+        host = long_doc.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = tree_to(host, MOE_DEVICE)
+        batch = {"frames": frames, "frames_len": torch.from_numpy(f32["frames_len"]),
+                 "label": torch.from_numpy(f32["label"])}
+        with torch.no_grad():
+            want, want_aux = long_doc.forward(host, batch, cfg, with_aux=True)
+            got, got_aux = long_doc.forward(card, {k: v.to(MOE_DEVICE) for k, v in batch.items()},
+                                            cfg, with_aux=True)
+        err = float((got.cpu() - want).abs().max())
+        tol = LONGDOC_TOL[dtype]
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        print(f"moe: MoE long_doc logits [64, 2] {dtype} (T=4096, C=1280, top 1), card against the "
+              f"CPU: max abs err {err:.3e} (tol {tol}); aux {float(got_aux):.6f} vs "
+              f"{float(want_aux):.6f}: {ok}")
+        if not ok:
+            raise SystemExit(f"moe: MoE long_doc card/CPU parity failed in {dtype}")
+        out[str(dtype).replace("torch.", "")] = err
+    return out
+
+
+def moe_rates(card: str) -> dict:
+    """Phase 11 (e), beside ``card`` (nvidia-smi's name and power limit):
+    the MoE LM train step and phase 9's dense step on a resident batch
+    (host ms, device ms and kernels a step, idle share), and ``moe_apply``'s
+    forward at T = 2048, under the default algorithms as in phase 9."""
+    from tpu_tfrecord_torch import train_lm as tw
+    from tpu_tfrecord_torch.models import lm, moe, optim
+
+    print(f"moe: rates on {card}")
+    out = {}
+    for name, experts in (("moe", MOE_EXPERTS), ("dense", 0)):
+        cfg = tw.make_config(2, experts)
+        params = lm.init_params(cfg, torch.Generator(device=MOE_DEVICE).manual_seed(0), MOE_DEVICE)
+        opt = optim.adam(params, tw.LR)
+        toks = torch.from_numpy(lm.make_synthetic_tokens(cfg, 32, seed=0)).to(MOE_DEVICE)
+        label = (f"MoE LM train step ({experts} experts, top 2)" if experts else "dense LM train step")
+        out[name] = step_rate(f"{label}, B=32 L=64 d=64 (make_synthetic_tokens)",
+                              lambda: lm.train_step(params, opt, toks, cfg), 32 * 64)
+    cfg = moe.MoEConfig(d_model=64, d_ff=256, n_experts=MOE_EXPERTS, top_k=2)
+    params = moe.init_params(cfg, torch.Generator(device=MOE_DEVICE).manual_seed(0), MOE_DEVICE)
+    x = torch.randn(MOE_TOKENS + (64,), generator=torch.Generator(device=MOE_DEVICE).manual_seed(1),
+                    device=MOE_DEVICE)
+    with torch.no_grad():
+        out["moe_apply_forward"] = step_rate("moe_apply forward, T=2048 d=64 d_ff=256 4 experts top 2",
+                                             lambda: moe.moe_apply(params, x, cfg), 2048)
+    return out
+
+
+def moe_path(work: str, card: str) -> dict:
+    """Phase 11: the Mixture-of-Experts models on ``card`` (nvidia-smi's
+    name and power limit), the parities and twins under deterministic
+    algorithms (cuBLAS workspace ``:4096:8``), the rates under the default
+    ones. Uses phase 9's SequenceExamples under ``work`` (written again
+    when absent)."""
+    from tpu_tfrecord_torch import train_lm, train_longdoc
+
+    lm_data, ld_data = os.path.join(work, "lm_data"), os.path.join(work, "ld_data")
+    train_lm.generate(lm_data)
+    train_longdoc.generate(ld_data)
+    t0 = time.perf_counter()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = {"moe_apply": moe_layer_parity(), "lm_parity": moe_lm_parity(lm_data),
+               "long_doc_parity": moe_longdoc_parity(ld_data)}
+        out["twins"] = moe_twins(work, lm_data, ld_data)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["rates"] = moe_rates(card)  # default algorithms, as phase 9 times its steps
+    out["card"] = card
+    out["seconds"] = time.perf_counter() - t0
+    print(f"moe: phase 11 took {out['seconds']:.1f} s")
+    print("moe: " + json.dumps(out, default=float))
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2707,6 +3050,14 @@ def main() -> int:
         reset_launch_counts()
         serve_path(data_dir, smi)
         serve_launches = dict(dot_interaction.instance_launches)
+        free_cuda()
+        reset_launch_counts()
+        moe_path(data_dir, smi)
+        moe_launches = dict(dot_interaction.instance_launches)
+    phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches}
+    for phase, counts in phase_launches.items():
+        if any(counts.values()):
+            raise SystemExit(f"dot_interaction launched in the {phase} phase: {counts}")
     design = {
         "bf16_mma": "mma.sync m16n8k16 bf16 Gram, cp.async 16-byte double-buffered "
                     "staging, persistent grid, 16-byte stores through shared memory",
@@ -2729,6 +3080,7 @@ def main() -> int:
         resume_launches=resume[k],
         seq_launches=seq_launches[k],
         serve_launches=serve_launches[k],
+        moe_launches=moe_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,8 @@ tokens: the forward with and without packed-document ``segments`` (f32,
 ``optax.adam(3e-3)`` (losses and parameters at 1e-5, entries whose
 gradient came within 1e-6 of zero held to Adam's step bound, as in
 ``test_torch_long_doc.py``), the synthetic language's bytes, and the
-refusal of the mesh axes and the MoE FFN."""
+refusal of the mesh axes (the MoE FFN is held to JAX in
+``test_torch_moe_models.py``)."""
 
 import functools
 
@@ -129,8 +130,11 @@ def test_mesh_axes_raise(axis):
 
 
 def test_moe_stream_and_shardings_raise():
-    with pytest.raises(OptionNotPortedError, match="MoE"):
-        tlm.init_params(tlm.LMConfig(moe_experts=4), device="cpu")
+    # the MoE FFN is ported: its parameters hold a moe subtree in place of
+    # mlp_in / mlp_out
+    params = tlm.init_params(tlm.LMConfig(moe_experts=4, **KW), device="cpu")
+    assert sorted(params["blocks"]) == ["moe", "proj", "qkv"]
+    assert params["blocks"]["moe"]["w_in"].shape == (2, 4, 16, 64)
     # LMStream is ported; as in the JAX package it refuses the MoE FFN
     _, tp = both_params()
     with pytest.raises(ValueError, match="moe_experts > 0 is not supported"):

@@ -192,20 +192,23 @@ def steps_of(lines):
             for ln in lines if ln.startswith("lm_step ")}
 
 
-def test_twin_kill_and_resume_continues_the_digests(lm_data, tmp_path, capsys):
+def test_twin_kill_and_resume_continues_the_digests(lm_data, tmp_path, capsys, monkeypatch):
+    monkeypatch.delenv("LM_MESH", raising=False)
     common = ["--data-dir", lm_data, "--steps", "12", "--save-every", "4"]
     # the uninterrupted run in this process (one torch thread, as the
     # subprocesses run)
     tw_lm.main(["--device", "cpu", *common, "--ckpt-dir", str(tmp_path / "ref"),
                 "--digest-out", str(tmp_path / "ref.jsonl")])
+    # the default --mesh (LM_MESH, else dp_sp) trains as dp and says so first
     ref = capsys.readouterr().out.splitlines()
-    assert ref[0] == "fresh start" and any(ln.startswith("done: 12 steps") for ln in ref)
+    assert ref[0].startswith("mesh: {'data': 1}"), ref[:2]
+    assert ref[1] == "fresh start" and any(ln.startswith("done: 12 steps") for ln in ref)
     ckpt = ["--ckpt-dir", str(tmp_path / "ck"), "--digest-out", str(tmp_path / "run.jsonl")]
     rc, first, err = run_twin(common + ckpt, kill_after=10)
     assert rc == -signal.SIGKILL, (rc, err)
     rc, second, err = run_twin(common + ckpt)
     assert rc == 0, err
-    assert second[0] == "resumed at step 8", second[:3]
+    assert second[1] == "resumed at step 8", second[:3]
     want, got = steps_of(ref), steps_of(second)
     assert sorted(got) == list(range(9, 13))
     for s in range(9, 13):
@@ -214,10 +217,11 @@ def test_twin_kill_and_resume_continues_the_digests(lm_data, tmp_path, capsys):
 
 
 def test_twin_refuses_unported_flags(lm_data):
-    # every --mesh kind trains on one card (test_torch_train_lm_mesh.py);
-    # --virtual 2 still needs --mesh dp_pp
-    for flags in (["--moe", "4"], ["--virtual", "2"], ["--diagnostics"],
-                  ["--mesh", "dp_pp", "--moe", "4"], ["--mesh", "dp_sp", "--virtual", "2"]):
+    # every --mesh kind trains on one card (test_torch_train_lm_mesh.py),
+    # and --moe / --diagnostics train (test_torch_train_moe.py); --virtual 2
+    # still needs --mesh dp_pp, and --moe is refused with dp_pp as in JAX
+    for flags in (["--virtual", "2"], ["--mesh", "dp_pp", "--moe", "4"],
+                  ["--mesh", "dp_sp", "--virtual", "2"]):
         with pytest.raises(SystemExit):
             tw_lm.main(["--device", "cpu", "--data-dir", lm_data, *flags])
 
@@ -257,10 +261,13 @@ def test_longdoc_twin_refuses_unported_env(monkeypatch):
     with pytest.raises(OptionNotPortedError, match="LONGDOC_SP_ATTENTION"):
         tw_ld.make_config()
     monkeypatch.delenv("LONGDOC_SP_ATTENTION")
+    # LONGDOC_MOE_EXPERTS is ported: the twin's config takes it and its
+    # MoE model initialises
     monkeypatch.setenv("LONGDOC_MOE_EXPERTS", "4")
     cfg = tw_ld.make_config()
-    with pytest.raises(OptionNotPortedError, match="MoE"):
-        tw_ld.long_doc.init_params(cfg, device="cpu")
+    assert cfg.moe_experts == 4
+    params = tw_ld.long_doc.init_params(cfg, device="cpu")
+    assert params["layers"][0]["moe"]["w_in"].shape == (4, 32, 128)
 
 
 def test_cast_dtypes_of_the_port(tmp_path):

@@ -4,12 +4,14 @@ only): a ``FaultPlan`` and its JSON are the JAX package's, so one plan
 file drives either package and fires the same ledger for the same calls.
 
 ``install_chaos`` patches the seams the port has: ``fs.filesystem_for``
-and ``fs.local_open`` (the record read and write paths), the socket seam of
-``service_protocol`` (connect / recv) and the serving tier's seam
-(``_SERVE_CHAOS``, read by ``tpu_tfrecord_torch.serving``). The JAX
-package's other seams (``io.dataset._open_local``, the remote ``httpfs``
-client, the data-service journal) belong to modules the port does not have
-yet; their rules still parse and ledger when a caller applies them.
+and ``fs.local_open`` (the record read and write paths),
+``io.dataset._open_local`` (the dataset's mmap route for local
+uncompressed shards), the socket seam of ``service_protocol`` (connect /
+recv) and the serving tier's seam (``_SERVE_CHAOS``, read by
+``tpu_tfrecord_torch.serving``). The JAX package's other seams (the remote
+``httpfs`` client, the data-service journal) belong to modules the port
+does not have yet; their rules still parse and ledger when a caller
+applies them.
 
 The pipeline is held against faults that raise, and the stall-defence
 layer against faults that merely hang. Both need a way to *reproduce* a
@@ -577,15 +579,18 @@ def install_chaos(plan: FaultPlan):
     """Route the port's filesystem and socket seams through ``plan`` for the
     duration of the with-block: ``fs.filesystem_for`` results are
     ChaosFS-wrapped, ``fs.local_open`` (the raw-open seam
-    ``wire.open_compressed`` uses for plain paths) opens through the plan,
-    the socket seams of ``service_protocol`` consult it for ``connect`` /
+    ``wire.open_compressed`` uses for plain paths) and
+    ``io.dataset._open_local`` (the mmap route's seam) open through the
+    plan, the socket seams of ``service_protocol`` consult it for ``connect`` /
     ``recv`` rules, and the serving tier for ``serve`` rules. Restores
     everything on exit and releases any in-flight default-sleep stalls."""
     from tpu_tfrecord_torch import fs as _fs
     from tpu_tfrecord_torch import service_protocol as _sp
+    from tpu_tfrecord_torch.io import dataset as _dataset
 
     orig_filesystem_for = _fs.filesystem_for
     orig_local_open = _fs.local_open
+    orig_open_local = _dataset._open_local
     orig_chaos_plan = _sp._CHAOS_PLAN
     global _SERVE_CHAOS
     orig_serve_plan = _SERVE_CHAOS
@@ -601,6 +606,7 @@ def install_chaos(plan: FaultPlan):
 
     _fs.filesystem_for = chaos_filesystem_for
     _fs.local_open = chaos_local_open
+    _dataset._open_local = chaos_local_open
     _sp._CHAOS_PLAN = plan
     _SERVE_CHAOS = plan
     try:
@@ -608,6 +614,7 @@ def install_chaos(plan: FaultPlan):
     finally:
         _fs.filesystem_for = orig_filesystem_for
         _fs.local_open = orig_local_open
+        _dataset._open_local = orig_open_local
         _sp._CHAOS_PLAN = orig_chaos_plan
         _SERVE_CHAOS = orig_serve_plan
         plan.release()

@@ -9,7 +9,9 @@ end-of-run summary. Every step is split into disjoint wall-clock phases
 ``train.steps`` counter), carries a ``train.step`` span and a profiler
 range, and every window of steps publishes the phase shares as
 ``train.share.<phase>`` gauges with the training verdict
-(``telemetry.training_verdict``).
+(``telemetry.training_verdict``). ``fold_model_diagnostics`` folds a
+model's diagnostics (the MoE counts, the pipeline bubble) into gauges and
+histograms.
 
 The pipeline blocks on the previous step through a CUDA event recorded
 on the current stream right after that step was dispatched, never through a
@@ -18,9 +20,8 @@ returns.
 
 Not ported: the trainer's telemetry spool (``trainer_spool`` raises
 ``OptionNotPortedError`` when ``TFR_TRAIN_SPOOL_DIR`` or a directory is
-given, and does nothing otherwise), and the LM-only helpers
-``report_mesh``, ``report_fsdp_param_bytes`` and
-``fold_model_diagnostics``.
+given, and does nothing otherwise), and the mesh helpers ``report_mesh``
+and ``report_fsdp_param_bytes``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import os
 import time
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpu_tfrecord_torch import checkpoint, telemetry
@@ -187,6 +189,46 @@ class StepPhases:
 
     def verdict(self) -> str:
         return telemetry.training_verdict(self.shares())
+
+
+def fold_model_diagnostics(diag, metrics=None) -> Dict[str, float]:
+    """A model's diagnostics (``lm.forward(diagnostics=True)``'s dict) ->
+    one gauge (the last value) and one histogram observation (the spread
+    over steps) a metric. Returns the folded floats.
+
+    ``moe.expert_imbalance`` (max over mean of the routed tokens per
+    expert: 1.0 is perfectly balanced), ``moe.dropped_fraction`` and
+    ``moe.gate_entropy`` come from the MoE entries,
+    ``pipeline.bubble_fraction`` (and ``pipeline.bubble_fraction_v`` when
+    ``virtual_stages`` > 1) from the pipeline's. The whole dict comes to
+    the host in one copy: call it after the step's loss has been waited
+    on, so the copy adds no wait of its own."""
+    metrics = metrics or METRICS
+    out: Dict[str, float] = {}
+    if not diag:
+        return out
+    names = sorted(diag)
+    tensors = [torch.as_tensor(diag[k]).detach().reshape(-1).float() for k in names]
+    flat = torch.cat([t.to(tensors[0].device) for t in tensors]).cpu().numpy()
+    host, at = {}, 0
+    for name, t in zip(names, tensors):
+        host[name] = flat[at:at + t.numel()]
+        at += t.numel()
+    if "expert_tokens" in host:
+        tokens = host["expert_tokens"].astype(np.float64)
+        mean = tokens.mean() if tokens.size else 0.0
+        out["moe.expert_imbalance"] = float(tokens.max() / mean) if mean > 0 else 0.0
+        out["moe.dropped_fraction"] = float(host["dropped_fraction"][0])
+        out["moe.gate_entropy"] = float(host["gate_entropy"][0])
+    if "bubble_fraction" in host:
+        out["pipeline.bubble_fraction"] = float(host["bubble_fraction"][0])
+        if "virtual_stages" in host and float(host["virtual_stages"][0]) > 1:
+            # the interleaved schedule's number, under its own name
+            out["pipeline.bubble_fraction_v"] = float(host["bubble_fraction"][0])
+    for name, v in out.items():
+        metrics.gauge(name, v)
+        metrics.observe(name, v)
+    return out
 
 
 def trainer_spool(spool_dir: Optional[str] = None, interval_s=None):

@@ -22,7 +22,8 @@ The sequence models (``models.long_doc``, ``models.lm``) keep the JAX
 pytree as it is, with tensors for leaves, so their parameters move leaf
 for leaf (``long_doc_params_from_jax`` / ``_to_jax``, ``lm_params_from_jax``
 / ``_to_jax``), checked against the structure and shapes ``init_params``
-gives for the config. Their Adam state moves too: optax's
+gives for the config, the MoE FFN's ``moe`` subtree included. Their Adam
+state moves too: optax's
 ``ScaleByAdamState(count, mu, nu)`` to and from ``torch.optim.Adam``'s
 ``step``, ``exp_avg`` and ``exp_avg_sq`` (``adam_state_from_jax`` /
 ``adam_state_to_jax``).

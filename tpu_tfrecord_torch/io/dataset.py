@@ -99,7 +99,7 @@ from tpu_tfrecord_torch.io.reader import (
     salvage_spans_stream,
 )
 from tpu_tfrecord_torch.metrics import METRICS, log_salvage_event
-from tpu_tfrecord_torch.options import TFRecordOptions
+from tpu_tfrecord_torch.options import OptionNotPortedError, TFRecordOptions
 from tpu_tfrecord_torch.schema import StructType, numpy_dtype
 
 DECODERS = ("native", "python")
@@ -109,6 +109,24 @@ SLAB_BYTES = 32 << 20  # decompressed bytes read at a time from a compressed sha
 # (the JAX dataset's IO scratch starts at this size)
 # a declared record length past this is a corrupt length field
 MAX_RECORD_BYTES = 1 << 30
+# the JAX constructor's read knobs the port does not have yet, at the JAX
+# defaults: a call that spells out a default is taken, another value raises
+# OptionNotPortedError naming the argument
+UNPORTED_ARGS = {
+    "process_index": 0,
+    "process_count": 1,
+    "prefetch": PREFETCH,
+    "read_retries": 0,
+    "retry_policy": None,
+    "slab_bytes": 256 << 20,
+    "max_record_bytes": MAX_RECORD_BYTES,
+    "use_mmap": True,
+    "readahead_bytes": 64 << 20,
+}
+
+# the raw open of the mmap route, resolved at call time so that
+# faults.install_chaos can route it through a fault plan
+_open_local = open
 
 
 @dataclass(frozen=True)
@@ -149,6 +167,16 @@ class IteratorState:
         return IteratorState(**{k: v for k, v in obj.items() if k in known})
 
 
+def _refuse_unported_args(**given) -> None:
+    for name, value in given.items():
+        default = UNPORTED_ARGS[name]
+        if value is not default and value != default:
+            raise OptionNotPortedError(
+                f"TFRecordDataset({name}={value!r}): not ported yet; the port reads with the "
+                f"JAX default {name}={default!r}"
+            )
+
+
 class TFRecordDataset:
     """Plan a streaming read: ``TFRecordDataset(paths, batch_size,
     schema=None, recordType="Example", hash_buckets=None, pack=None,
@@ -160,7 +188,11 @@ class TFRecordDataset:
     ``options`` (a ``TFRecordOptions``) or the keyword options
     (``verify_crc``, ``infer_sample_limit``, ...) configure the read, as
     in the JAX dataset; ``options`` takes the place of ``schema`` and
-    ``recordType``."""
+    ``recordType``. The JAX constructor's ``process_index``,
+    ``process_count``, ``prefetch``, ``read_retries``, ``retry_policy``,
+    ``slab_bytes``, ``max_record_bytes``, ``use_mmap`` and
+    ``readahead_bytes`` are taken at their JAX defaults
+    (``UNPORTED_ARGS``); another value raises ``OptionNotPortedError``."""
 
     def __init__(
         self,
@@ -179,8 +211,22 @@ class TFRecordDataset:
         num_workers: int = 1,
         columns: Optional[List[str]] = None,
         options: Optional[TFRecordOptions] = None,
+        process_index: int = 0,
+        process_count: int = 1,
+        prefetch: int = PREFETCH,
+        read_retries: int = 0,
+        retry_policy=None,
+        slab_bytes: int = 256 << 20,
+        max_record_bytes: int = MAX_RECORD_BYTES,
+        use_mmap: bool = True,
+        readahead_bytes: int = 64 << 20,
         **option_kwargs,
     ):
+        _refuse_unported_args(
+            process_index=process_index, process_count=process_count, prefetch=prefetch,
+            read_retries=read_retries, retry_policy=retry_policy, slab_bytes=slab_bytes,
+            max_record_bytes=max_record_bytes, use_mmap=use_mmap, readahead_bytes=readahead_bytes,
+        )
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if num_epochs is not None and num_epochs < 1:
@@ -345,7 +391,7 @@ class TFRecordDataset:
         of the page cache, one native call per chunk; the first call
         CRC-checks and passes over ``skip`` records."""
         dec = self._native_decoder
-        with open(path, "rb") as fh:
+        with _open_local(path, "rb") as fh:
             size = os.fstat(fh.fileno()).st_size
             if size == 0:
                 return

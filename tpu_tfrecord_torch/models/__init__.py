@@ -1,11 +1,12 @@
 """Model families of the port: the Criteo DLRM, its dot interaction and
 its train steps; the long-document classifier (``long_doc``) and the causal
-LM (``lm``) over dense attention (``attention``), trained with Adam over a
-parameter tree (``optim``) and served through the one-device pipeline
-schedule (``pipeline``). The flat names are the DLRM's, as in the JAX
+LM (``lm``) over dense attention (``attention``), with the dense or the
+Mixture-of-Experts FFN (``moe``), trained with Adam over a parameter tree
+(``optim``) and served through the one-device pipeline schedule
+(``pipeline``). The flat names are the DLRM's, as in the JAX
 package; each sequence family's API lives on its module."""
 
-from tpu_tfrecord_torch.models import attention, lm, long_doc, optim, pipeline
+from tpu_tfrecord_torch.models import attention, lm, long_doc, moe, optim, pipeline
 from tpu_tfrecord_torch.models.attention import attention_reference
 from tpu_tfrecord_torch.models.dlrm import (
     DLRM,
@@ -49,6 +50,7 @@ __all__ = [
     "long_doc",
     "loss_fn",
     "make_synthetic_batch",
+    "moe",
     "optim",
     "pipeline",
     "sparse_opt_init",

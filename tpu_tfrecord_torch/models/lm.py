@@ -1,5 +1,5 @@
-"""Causal language model: port of ``tpu_tfrecord/models/lm.py``'s dense
-path, on one card.
+"""Causal language model: port of ``tpu_tfrecord/models/lm.py``'s one-device
+paths (dense FFN and MoE FFN), on one card.
 
 Packed token batches from ``device.ingest.TokenPacker`` -> next-token
 cross-entropy. The parameters are the JAX pytree as float32 tensors, the
@@ -10,25 +10,34 @@ layout for every package)::
      "blocks": {"qkv" | "proj" | "mlp_in" | "mlp_out":
                 {"w": [n_layers, in, out], "b": [n_layers, out]}}}
 
-``forward`` follows the JAX dense path: pre-norm decoder blocks
+With ``moe_experts`` > 0 a ``moe`` subtree (``router`` [n_layers, D, E],
+``w_in`` [n_layers, E, D, F], ``w_out`` [n_layers, E, F, D]) takes the
+place of ``mlp_in`` / ``mlp_out``, and every block's FFN is the top-k MoE
+of ``models.moe`` (``moe_top_k``, ``moe_capacity_factor``).
+
+``forward`` follows the JAX dense-loop path: pre-norm decoder blocks
 (``models.long_doc``'s ``_rms_norm``, ``_dense`` and GELU), dense causal
 attention (``models.attention``), and with ``segments`` (the bin modes of
-the packer) the block-diagonal mask and per-document positions. ``loss_fn``
-scores every position, or with ``segments`` only the pairs whose input and
-target share a nonzero segment. ``train_step`` is one Adam step
+the packer) the block-diagonal mask and per-document positions. It
+returns the MoE aux loss summed over the layers, and with ``diagnostics``
+the MoE diagnostics: ``expert_tokens`` / ``expert_kept`` summed over the
+layers, ``dropped_fraction`` / ``gate_entropy`` averaged (``{}`` for the
+dense FFN). ``loss_fn`` scores every position, or with ``segments`` only
+the pairs whose input and target share a nonzero segment, plus
+``moe_aux_weight`` times the aux loss. ``train_step`` is one Adam step
 (``models.optim.adam``, ``optax.adam(3e-3)``'s update).
 
 ``LMStream`` serves the model through ``models.pipeline.PipelineStream``
 on one device: the trainer's [n_layers, ...] blocks are re-stacked once,
 at start-up, into S x V round-robin chunks (``_stage_stack``), each chunk
 runs ``n_layers / (S·V)`` decoder blocks (``_make_stage_fn``), and the
-embedding and head run per microbatch around the stream.
+embedding and head run per microbatch around the stream. As in JAX it
+refuses the MoE FFN.
 
 Not ported: every mesh axis of ``forward`` (``mesh``, ``data_axis``,
 ``seq_axis``, ``pipe_axis``, ``fsdp_axis``, ``expert_axis``: ring
-attention, pipelined training, FSDP, expert parallelism), the MoE FFN
-(``moe_experts > 0``) and ``SpecLayout`` / ``param_shardings``. Each raises
-``OptionNotPortedError``.
+attention, pipelined training, FSDP, expert parallelism) and
+``SpecLayout`` / ``param_shardings``. Each raises ``OptionNotPortedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_tfrecord_torch.models import moe as _moe
 from tpu_tfrecord_torch.models import pipeline as _pipeline
 from tpu_tfrecord_torch.models.attention import attention_reference
 from tpu_tfrecord_torch.models.long_doc import _dense, _gelu, _rms_norm
@@ -55,7 +65,11 @@ class LMConfig:
     mlp_mult: int = 4
     max_len: int = 64        # L: the model reads L tokens, predicts L
     dtype: torch.dtype = torch.float32
-    moe_experts: int = 0     # > 0: the MoE FFN (not ported)
+    # > 0 swaps every block's dense FFN for the top-k MoE (models.moe)
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
     # interleaved virtual stages of the pipeline schedule: stage s owns the
     # V round-robin layer chunks s, s+S, ...; n_layers must divide by S·V
     n_virtual: int = 1
@@ -69,13 +83,32 @@ def _refuse(cfg: LMConfig, **axes) -> None:
             "the pipeline, FSDP, expert parallelism) need torch.distributed across "
             "cards, which the port does not have yet"
         )
-    if cfg.moe_experts > 0:
-        raise OptionNotPortedError(f"lm moe_experts={cfg.moe_experts}: the MoE FFN is not ported yet")
 
 
 def _block_dims(cfg: LMConfig) -> Dict[str, Tuple[int, int]]:
+    """The dense layers of a block: the MoE FFN stands in for mlp_in /
+    mlp_out."""
     d, f = cfg.d_model, cfg.mlp_mult * cfg.d_model
-    return {"qkv": (d, 3 * d), "proj": (d, d), "mlp_in": (d, f), "mlp_out": (f, d)}
+    dims = {"qkv": (d, 3 * d), "proj": (d, d)}
+    if cfg.moe_experts == 0:
+        dims.update(mlp_in=(d, f), mlp_out=(f, d))
+    return dims
+
+
+def _moe_cfg(cfg: LMConfig) -> _moe.MoEConfig:
+    return _moe.MoEConfig(
+        d_model=cfg.d_model,
+        d_ff=cfg.mlp_mult * cfg.d_model,
+        n_experts=cfg.moe_experts,
+        capacity_factor=cfg.moe_capacity_factor,
+        top_k=cfg.moe_top_k,
+        dtype=cfg.dtype,
+    )
+
+
+def _layer(blocks, i: int):
+    """Layer ``i`` of the stacked [n_layers, ...] blocks."""
+    return {name: {k: a[i] for k, a in p.items()} for name, p in blocks.items()}
 
 
 @torch.no_grad()
@@ -84,11 +117,11 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     """Random parameters drawn from ``generator`` (which must live on
     ``device``; seed 0 when None) with the JAX init's distributions:
     ``embed`` and ``pos`` ~ N(0, 0.02²), each ``w`` ~ N(0, 1/fan_in),
-    biases zero. The draws differ from ``jax.random``'s; load JAX weights
-    through ``interop``."""
+    biases zero; the MoE weights as ``models.moe.init_params`` draws them,
+    layer by layer. The draws differ from ``jax.random``'s; load JAX
+    weights through ``interop``."""
     if cfg.d_model % cfg.n_heads:
         raise ValueError(f"n_heads ({cfg.n_heads}) must divide d_model ({cfg.d_model})")
-    _refuse(cfg)
     device = torch.device(device)
     gen = generator if generator is not None else torch.Generator(device=device).manual_seed(0)
 
@@ -107,13 +140,18 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
                "b": torch.zeros(n, fo, device=device)}
         for name, (fi, fo) in _block_dims(cfg).items()
     }
+    if cfg.moe_experts > 0:
+        layers = [_moe.init_params(_moe_cfg(cfg), gen, device) for _ in range(n)]
+        params["blocks"]["moe"] = {k: torch.stack([l[k] for l in layers]) for k in layers[0]}
     return params
 
 
-def _block(layer, x: torch.Tensor, cfg: LMConfig, segments=None) -> torch.Tensor:
+def _block(layer, x: torch.Tensor, cfg: LMConfig, segments=None, diagnostics: bool = False):
     """One pre-norm decoder block on x [B, L, D] (one layer's slice of the
     stacked blocks): dense causal attention, masked across packed
-    documents by ``segments`` [B, L]."""
+    documents by ``segments`` [B, L], then the dense or the MoE FFN.
+    Returns (x, aux, diag): the MoE aux loss and, with ``diagnostics``,
+    its diagnostics; both None on the dense FFN."""
     dt = cfg.dtype
     b, l, _ = x.shape
     h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
@@ -121,8 +159,11 @@ def _block(layer, x: torch.Tensor, cfg: LMConfig, segments=None) -> torch.Tensor
     q, k, v = (a.reshape(b, l, h, dh) for a in torch.split(qkv, cfg.d_model, dim=-1))
     att = attention_reference(q, k, v, causal=True, segments=segments)
     x = x + _dense(layer["proj"], att.reshape(b, l, cfg.d_model), dt)
+    if cfg.moe_experts > 0:
+        out = _moe.moe_apply(layer["moe"], _rms_norm(x), _moe_cfg(cfg), diagnostics=diagnostics)
+        return x + out[0], out[1], (out[2] if diagnostics else None)
     y = _dense(layer["mlp_in"], _rms_norm(x), dt)
-    return x + _dense(layer["mlp_out"], _gelu(y), dt)
+    return x + _dense(layer["mlp_out"], _gelu(y), dt), None, None
 
 
 def _embed_tokens(params, tokens: torch.Tensor, cfg: LMConfig, segments=None) -> torch.Tensor:
@@ -161,47 +202,76 @@ def _head_logits(params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=None,
             seq_axis=None, pipe_axis=None, expert_axis=None, fsdp_axis=None,
-            segments: Optional[torch.Tensor] = None):
-    """tokens [B, L+1] int -> (logits [B, L, V] float32, aux): the model
-    reads tokens[:, :-1]; ``aux`` is the MoE load-balance loss, 0.0 on the
-    dense path. ``segments`` [B, L+1] (the packer's bin modes) masks
-    attention across documents and restarts positions per document. The
-    mesh arguments are the JAX signature's: not ported, they raise."""
+            segments: Optional[torch.Tensor] = None, diagnostics: bool = False):
+    """tokens [B, L+1] int -> (logits [B, L, V] float32, aux), or with
+    ``diagnostics`` (logits, aux, diag): the model reads tokens[:, :-1];
+    ``aux`` is the MoE load-balance loss summed over the layers (0.0 on the
+    dense FFN); ``diag`` the MoE counts summed over the layers and the
+    fractions averaged (``{}`` on the dense FFN). ``segments`` [B, L+1]
+    (the packer's bin modes) masks attention across documents and restarts
+    positions per document. The mesh arguments are the JAX signature's:
+    not ported, they raise."""
     _refuse(cfg, mesh=mesh, data_axis=data_axis, seq_axis=seq_axis, pipe_axis=pipe_axis,
             expert_axis=expert_axis, fsdp_axis=fsdp_axis)
     x = _embed_tokens(params, tokens, cfg, segments=segments)
     segs_in = segments[:, :-1] if segments is not None else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    diags = []
     for i in range(cfg.n_layers):
-        layer = {name: {"w": p["w"][i], "b": p["b"][i]} for name, p in params["blocks"].items()}
-        x = _block(layer, x, cfg, segments=segs_in)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _head_logits(params, x, cfg), aux
+        x, aux, diag = _block(_layer(params["blocks"], i), x, cfg, segments=segs_in,
+                              diagnostics=diagnostics)
+        if aux is not None:
+            aux_total = aux_total + aux
+        if diag is not None:
+            diags.append(diag)
+    logits = _head_logits(params, x, cfg)
+    if not diagnostics:
+        return logits, aux_total
+    out: Dict[str, torch.Tensor] = {}
+    if diags:
+        # every layer routes the whole stream: counts sum, fractions average
+        n = len(diags)
+        out = {
+            "expert_tokens": sum(d["expert_tokens"] for d in diags),
+            "expert_kept": sum(d["expert_kept"] for d in diags),
+            "dropped_fraction": sum(d["dropped_fraction"] for d in diags) / n,
+            "gate_entropy": sum(d["gate_entropy"] for d in diags) / n,
+        }
+    return logits, aux_total, out
 
 
-def loss_fn(params, tokens, cfg: LMConfig, segments=None, **axes) -> torch.Tensor:
-    """Mean next-token cross-entropy. Without ``segments`` every position
-    scores; with them a position scores only when its input token and its
-    target share a nonzero segment."""
-    logits, _ = forward(params, tokens, cfg, segments=segments, **axes)
+def loss_fn(params, tokens, cfg: LMConfig, segments=None, diagnostics: bool = False, **axes):
+    """Mean next-token cross-entropy plus ``moe_aux_weight`` times the MoE
+    aux loss. Without ``segments`` every position scores; with them a
+    position scores only when its input token and its target share a
+    nonzero segment. With ``diagnostics`` returns (loss, diag)."""
+    out = forward(params, tokens, cfg, segments=segments, diagnostics=diagnostics, **axes)
+    logits, aux = out[0], out[1]
     targets = tokens[:, 1:].long()
     logp = F.log_softmax(logits, dim=-1)
     tok_ce = -torch.gather(logp, -1, targets[..., None])[..., 0]
     if segments is None:
-        return torch.mean(tok_ce)
-    valid = (segments[:, :-1] == segments[:, 1:]) & (segments[:, 1:] != 0)
-    return torch.sum(tok_ce * valid) / torch.clamp(valid.sum(), min=1)
+        loss = torch.mean(tok_ce)
+    else:
+        valid = (segments[:, :-1] == segments[:, 1:]) & (segments[:, 1:] != 0)
+        loss = torch.sum(tok_ce * valid) / torch.clamp(valid.sum(), min=1)
+    if cfg.moe_experts > 0:  # the dense FFN's aux is 0
+        loss = loss + cfg.moe_aux_weight * aux
+    return (loss, out[2]) if diagnostics else loss
 
 
 def train_step(params, opt: torch.optim.Optimizer, tokens, cfg: LMConfig, segments=None,
-               **axes) -> torch.Tensor:
+               diagnostics: bool = False, **axes):
     """One optimizer step over ``params`` in place (``opt`` from
     ``models.optim.adam(params, lr)``). Returns the loss (0-dim, on the
-    parameters' device) before the update."""
+    parameters' device) before the update; with ``diagnostics``
+    (loss, diag), the diag of ``forward``."""
     opt.zero_grad(set_to_none=True)
-    loss = loss_fn(params, tokens, cfg, segments=segments, **axes)
+    out = loss_fn(params, tokens, cfg, segments=segments, diagnostics=diagnostics, **axes)
+    loss = out[0] if diagnostics else out
     loss.backward()
     opt.step()
-    return loss.detach()
+    return (loss.detach(), out[1]) if diagnostics else loss.detach()
 
 
 def pack_slots(windows, mb: int, max_len: int) -> np.ndarray:
@@ -274,8 +344,7 @@ def _make_stage_fn(cfg: LMConfig):
     def stage_fn(p_chunk, xs):
         pc = p_chunk["qkv"]["w"].shape[0]
         for j in range(pc):
-            layer = {name: {"w": p["w"][j], "b": p["b"][j]} for name, p in p_chunk.items()}
-            xs = _block(layer, xs, cfg)
+            xs = _block(_layer(p_chunk, j), xs, cfg)[0]
         return xs
 
     return stage_fn

@@ -3,7 +3,8 @@ resumably; the twin of ``examples/train_lm.py`` on one card.
 
     python -m tpu_tfrecord_torch.train_lm [--device cpu] [--steps 64]
         [--save-every 8] [--ckpt-mode async|sync] [--epochs 4]
-        [--digest-out FILE] [--data-dir D] [--ckpt-dir C]
+        [--digest-out FILE] [--data-dir D] [--ckpt-dir C] [--mesh KIND]
+        [--moe EXPERTS] [--diagnostics] [--trace-out FILE]
 
 1. generate token documents from the sparse-bigram language (4 shards x
    256 SequenceExamples, the JAX example's generator and seed), once;
@@ -12,7 +13,11 @@ resumably; the twin of ``examples/train_lm.py`` on one card.
    with ``TokenPacker`` (slice mode: no padding, no masks);
 3. copy each packed batch to the card through ``DeviceIterator``;
 4. train the LM (vocab 256, d_model 64, 4 heads, 2 layers, L = 64) with
-   Adam(3e-3) through ``harness.run_train_loop``;
+   Adam(3e-3) through ``harness.run_train_loop``; ``--moe E`` swaps every
+   block's FFN for a top-2 MoE of E experts (capacity factor 1.25, aux
+   weight 0.01), and ``--diagnostics`` folds the model's diagnostics into
+   the ``moe.*`` gauges after each step's loss has been waited on and
+   prints the last values as a ``model diagnostics:`` line;
 5. every ``--save-every`` steps save the parameters, Adam's state, the
    input position and the packer's carry in one ``AsyncCheckpointer``
    generation (keep 2), in the JAX example's layout: a generation written
@@ -24,12 +29,15 @@ resumably; the twin of ``examples/train_lm.py`` on one card.
 
 On the card the step runs with ``torch.use_deterministic_algorithms``
 (cuBLAS workspace ``:4096:8``), so a resumed run's losses are bit-equal to
-an uninterrupted run's. ``--mesh`` takes the JAX example's five kinds; on
-the one card the port trains on, every kind trains as ``dp`` with 2
-layers, as the JAX example's ``pick_mesh`` does on one device, and
-``--virtual 2`` needs ``--mesh dp_pp`` there too. Not ported: ``--moe``,
-``--diagnostics`` and ``--spool``; each is refused, naming what is
-missing. Runs on ``cuda`` unless ``--device cpu``.
+an uninterrupted run's. ``--trace-out FILE`` turns the flight recorder on
+and saves its Chrome trace (``train.step`` spans) there at the end.
+``--mesh`` takes the JAX example's five kinds, its default ``LM_MESH`` or
+``dp_sp``; on the one card the port trains on, every kind trains as ``dp``
+with 2 layers, as the JAX example's ``pick_mesh`` does on one device,
+``--virtual 2`` needs ``--mesh dp_pp`` there too, and ``--moe`` is refused
+with ``--mesh dp_pp`` as in JAX. Not ported: ``--spool`` and
+``--spool-interval`` (the trainer's telemetry spool), which raise
+``OptionNotPortedError``. Runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -44,12 +52,13 @@ import time
 import numpy as np
 import torch
 
-from tpu_tfrecord_torch import checkpoint, harness
+from tpu_tfrecord_torch import checkpoint, harness, telemetry
 from tpu_tfrecord_torch.device.ingest import DeviceIterator, TokenPacker
 from tpu_tfrecord_torch.io.dataset import IteratorState, TFRecordDataset
 from tpu_tfrecord_torch.io.writer import DatasetWriter
+from tpu_tfrecord_torch.metrics import METRICS
 from tpu_tfrecord_torch.models import lm, optim
-from tpu_tfrecord_torch.options import TFRecordOptions
+from tpu_tfrecord_torch.options import OptionNotPortedError, TFRecordOptions
 from tpu_tfrecord_torch.schema import ArrayType, LongType, StructField, StructType
 
 VOCAB = 256
@@ -65,11 +74,12 @@ def make_schema() -> StructType:
 
 
 MESH_KINDS = ("dp", "dp_sp", "dp_pp", "dp_fsdp", "dp_fsdp_pp")
+MOE_GAUGES = ("moe.expert_imbalance", "moe.dropped_fraction", "moe.gate_entropy")
 
 
-def make_config(n_layers: int = 2) -> lm.LMConfig:
+def make_config(n_layers: int = 2, moe_experts: int = 0) -> lm.LMConfig:
     return lm.LMConfig(vocab_size=VOCAB, d_model=64, n_heads=4, n_layers=n_layers,
-                       max_len=SEQ_LEN)
+                       max_len=SEQ_LEN, moe_experts=moe_experts)
 
 
 def pick_mesh(kind: str, virtual: int = 1):
@@ -171,17 +181,20 @@ def packed_stream(it, packer: TokenPacker, snaps: dict):
 def refuse_unported(ap: argparse.ArgumentParser, args) -> None:
     if args.virtual > 1 and args.mesh != "dp_pp":
         ap.error("--virtual > 1 needs --mesh dp_pp")
-    if args.moe:
-        ap.error("--moe: the MoE FFN is not ported")
-    if args.diagnostics:
-        ap.error("--diagnostics: the MoE and pipeline diagnostics are not ported")
+    if args.moe and args.mesh == "dp_pp":
+        ap.error("--moe is not supported with --mesh dp_pp")
+    if args.spool_interval is not None:
+        raise OptionNotPortedError(
+            "--spool-interval: the trainer's telemetry spool needs the fleet layer, "
+            "which the port does not have yet"
+        )
     harness.trainer_spool(args.spool)  # raises for a directory
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mesh", default="dp", choices=MESH_KINDS,
+    ap.add_argument("--mesh", default=os.environ.get("LM_MESH", "dp_sp"), choices=MESH_KINDS,
                     help="the JAX example's mesh kinds; on one card each trains as dp "
                          "with 2 layers")
     ap.add_argument("--steps", type=int, default=64,
@@ -195,8 +208,13 @@ def main(argv=None) -> None:
     ap.add_argument("--data-dir", default=os.path.join(EXAMPLE_ROOT, "data"))
     ap.add_argument("--ckpt-dir", default=os.path.join(EXAMPLE_ROOT, "ckpt"))
     ap.add_argument("--spool", default=None, metavar="SPOOL_DIR")
-    ap.add_argument("--diagnostics", action="store_true")
-    ap.add_argument("--moe", type=int, default=0, metavar="EXPERTS")
+    ap.add_argument("--spool-interval", type=float, default=None, metavar="SECONDS")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="turn the flight recorder on and save its Chrome trace here")
+    ap.add_argument("--diagnostics", action="store_true",
+                    help="fold the model's diagnostics into gauges each step")
+    ap.add_argument("--moe", type=int, default=0, metavar="EXPERTS",
+                    help="a top-2 MoE FFN with this many experts in every block (0: dense)")
     ap.add_argument("--virtual", type=int, default=1, choices=(1, 2), metavar="V")
     args = ap.parse_args(argv)
     refuse_unported(ap, args)
@@ -211,7 +229,7 @@ def main(argv=None) -> None:
     mesh, _axes, n_layers = pick_mesh(args.mesh, args.virtual)
     if args.mesh != "dp":
         print(f"mesh: {mesh} mode={args.mesh} (one device: trains as dp with {n_layers} layers)")
-    cfg = make_config(n_layers)
+    cfg = make_config(n_layers, args.moe)
     params = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     opt = optim.adam(params, LR)
     os.makedirs(args.ckpt_dir, exist_ok=True)
@@ -235,9 +253,13 @@ def main(argv=None) -> None:
         packer.restore(payload["packer"])
     snaps: dict = {}
     digest_fh = open(args.digest_out, "a") if args.digest_out else None
+    last_diag: dict = {}
 
     def step_fn(state, gb):
-        return state, lm.train_step(params, opt, gb["tokens"], cfg)
+        if not args.diagnostics:
+            return state, lm.train_step(params, opt, gb["tokens"], cfg)
+        loss, last_diag["diag"] = lm.train_step(params, opt, gb["tokens"], cfg, diagnostics=True)
+        return state, loss
 
     def save(rel_step, _it, _state):
         snap = snaps.get(rel_step - 1)  # the stream position after that batch
@@ -247,6 +269,12 @@ def main(argv=None) -> None:
                 {"input": snap["input"], "packer": snap["packer"]})
 
     def on_step(rel_step, loss):
+        # the loss has been waited on: the diag's one copy adds no wait
+        diag = last_diag.pop("diag", None)
+        if diag is not None:
+            harness.fold_model_diagnostics(diag)
+        if digest_fh is None:
+            return
         line = {"step": start_step + rel_step,
                 "digest": snaps.get(rel_step - 1, {}).get("digest"),
                 "loss": repr(float(loss))}
@@ -254,6 +282,8 @@ def main(argv=None) -> None:
         digest_fh.write(json.dumps(line) + "\n")
         digest_fh.flush()
 
+    if args.trace_out:
+        telemetry.enable()
     phases = harness.StepPhases()
     t0 = time.perf_counter()
     try:
@@ -266,15 +296,22 @@ def main(argv=None) -> None:
                     state=(params, opt),
                     save=save,
                     save_every=args.save_every,
-                    on_step=on_step if digest_fh is not None else None,
+                    on_step=on_step if args.diagnostics or digest_fh is not None else None,
                     max_steps=args.steps - start_step if args.steps else None,
                     phases=phases,
                 )
         ck.wait()  # the in-flight commit lands before completion is judged
         if not (args.steps and start_step + steps >= args.steps):
             ck.clear()  # the epoch budget is spent: the next run starts afresh
+        if args.trace_out:
+            telemetry.RECORDER.save_chrome_trace(args.trace_out)
+            print(f"trace saved: {args.trace_out}")
         harness.finish(None, start_step + steps, BATCH, t0, duty, clear_state=False,
                        stages=True, phases=phases)
+        if args.diagnostics:
+            gauges = {k: METRICS.gauge_value(k) for k in MOE_GAUGES}
+            print("model diagnostics:", json.dumps({k: v for k, v in gauges.items()
+                                                    if v is not None}))
     finally:
         if digest_fh is not None:
             digest_fh.close()

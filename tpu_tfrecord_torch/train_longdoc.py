@@ -18,11 +18,13 @@ resumably; the twin of ``examples/train_longdoc.py`` on one card.
 5. a rerun resumes from the saved position ("resuming from ..."); a run
    that spends its epoch budget clears it ("done: ...").
 
-``LONGDOC_KV_HEADS=2`` runs GQA. Not ported: ``LONGDOC_SP_ATTENTION``
-(sequence-parallel ring or Ulysses attention: the twin's attention is the
-dense one) and ``LONGDOC_MOE_EXPERTS`` > 0 (the MoE FFN); both are
-refused, naming what is missing. Runs on ``cuda`` unless ``--device cpu``;
-``--max-steps`` stops early and keeps the position.
+``LONGDOC_KV_HEADS=2`` runs GQA; ``LONGDOC_MOE_EXPERTS=4`` swaps every
+block's FFN for a 4-expert Switch MoE (top 1, capacity factor 1.25, the
+aux loss at weight 0.01), routed over each document's valid prefix. Not
+ported: ``LONGDOC_SP_ATTENTION`` (sequence-parallel ring or Ulysses
+attention: the twin's attention is the dense one), refused, naming what is
+missing. Runs on ``cuda`` unless ``--device cpu``; ``--max-steps`` stops
+early and keeps the position.
 """
 
 from __future__ import annotations

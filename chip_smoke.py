@@ -185,6 +185,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    batch (host ms, device ms and kernels a step, idle share) and
    ``moe_apply``'s forward at T = 2048.
 
+12. The rest of the decode pool, on the card's host (``readpool_path``):
+   (a) 4 uncompressed shards of 262,144 Criteo rows (phase 4's rows, drawn
+   as arrays) through ``DatasetWriter.write_batches``, their bytes, and
+   the filesystem under them from ``/proc/mounts`` (the checkout's
+   ``_scratch/`` in place of a tmpfs or overlay temp dir). (b) The serial
+   read rate after ``fsync`` + ``POSIX_FADV_DONTNEED``, a warm pass (the
+   reference digests), then four passes at 2 workers after a drop, mmap
+   and stream routes at readahead 0 and 64 MiB: rows/s, MB/s,
+   ``ru_majflt``, CPU s over wall s, the share of the serial rate, and the
+   share of pages ``mincore`` finds resident after the drop (a pass is
+   cold only where it is 0); the pool at 1, 2 and 4 workers at the JAX
+   per-shard queue depth and at 16. (c) The warm host loop with 60 s
+   deadlines and watchdog against none, A/B/B/A twice, best of each.
+   (d) Drills under a ``FaultPlan`` on the real files (3 s stalls,
+   released at the end): a stalled read beaten by a 50 ms hedge (batches
+   bit-equal, ``read.hedge_wins`` >= 1), a stalled open retried past a
+   200 ms deadline (``read.retries`` >= 1), a wedged worker failed by a
+   500 ms watchdog at 4 workers (one restart, one ``shard_stalled`` skip,
+   the other shards' batches equal, the epoch's lost time), and the same
+   under ``on_stall="raise"`` (``WatchdogError``). (e) The bf16 DLRM
+   scores the 64 batches through the feed three times, autotuned from 1
+   worker with a pulse every 0.25 s (the pulse lines taken off the
+   package logger: decisions, pool over time), at 1 and at 4 fixed
+   workers: rows/s whole and steady, the device's idle share, logits
+   bit-equal, 64 ``bf16_mma`` launches each; a state taken under autotune
+   after a resize resumes on a fixed pool to the same batches.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -200,6 +227,7 @@ import gc
 import hashlib
 import itertools
 import json
+import logging
 import os
 import re
 import shutil
@@ -3005,6 +3033,505 @@ def moe_path(work: str, card: str) -> dict:
     return out
 
 
+# -- phase 12: the rest of the decode pool ---------------------------------------------
+
+READPOOL_SHARDS = 4
+READPOOL_ROWS = 262_144        # a shard: 16 batches, well past the readahead window
+READPOOL_COLD_WORKERS = 2
+READPOOL_READAHEAD = 64 << 20  # the JAX default window
+READPOOL_GUARD_MS = 60_000     # deadlines and watchdog that never fire
+READPOOL_PULSE_S = 0.25
+READPOOL_DEVICE = "cuda"
+READPOOL_WRITE_WORKERS = 4
+DRILL_STALL_MS = 3_000
+# filesystems that keep a file's pages in memory whatever fadvise says
+MEMORY_FS = ("tmpfs", "ramfs", "overlay", "devtmpfs", "squashfs")
+BLOCK_FS = ("ext2", "ext3", "ext4", "xfs", "btrfs", "f2fs", "zfs")
+
+
+def mount_of(path: str) -> tuple:
+    """(mount point, filesystem type) of the mount that holds ``path``."""
+    path = os.path.realpath(path)
+    best, best_len = ("/", "unknown"), -1
+    with open("/proc/mounts") as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) < 3:
+                continue
+            mnt = parts[1].replace("\\040", " ")
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) > best_len:
+                best, best_len = (mnt, parts[2]), len(mnt)
+    return best
+
+
+def readpool_dir(work: str) -> tuple:
+    """Where phase 12's shards go: the temp dir ``work`` unless its
+    filesystem keeps files in memory (tmpfs, overlay), else the
+    checkout's ``_scratch/`` (ignored by git). Whether a dropped shard is
+    read cold there is measured after the drop (``resident_fraction``).
+    Returns (dir, mount point, fstype)."""
+    with open("/proc/mounts") as fh:
+        block = sorted({f"{p[1]} ({p[2]})" for p in (line.split() for line in fh)
+                        if len(p) > 2 and p[2] in BLOCK_FS})
+    print(f"readpool: block-device filesystems mounted on this machine: {block or 'none'}")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    candidates = [os.path.join(work, "readpool"), os.path.join(repo, "_scratch", "readpool")]
+    for d in candidates:
+        mnt, fstype = mount_of(d)
+        print(f"readpool: {d} lies on {mnt}, filesystem {fstype}")
+        if fstype not in MEMORY_FS:
+            break
+    os.makedirs(d, exist_ok=True)
+    return d, mnt, fstype
+
+
+def resident_fraction(files) -> float:
+    """The share of the shards' pages in this kernel's page cache
+    (``mincore`` over a read-only map of each file)."""
+    import ctypes
+    import mmap
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_long]
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    page = os.sysconf("SC_PAGE_SIZE")
+    resident = total = 0
+    for path in files:
+        size = os.path.getsize(path)
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED, fd, 0)
+            if addr is None or addr == ctypes.c_void_p(-1).value:
+                raise OSError(ctypes.get_errno(), f"mmap of {path}")
+            try:
+                vec = np.zeros((size + page - 1) // page, np.uint8)
+                if libc.mincore(addr, size, vec.ctypes.data) != 0:
+                    raise OSError(ctypes.get_errno(), f"mincore of {path}")
+            finally:
+                libc.munmap(addr, size)
+        finally:
+            os.close(fd)
+        resident += int((vec & 1).sum())
+        total += len(vec)
+    return resident / max(total, 1)
+
+
+def readpool_batches(shard: int):
+    """One shard's rows as ColumnarBatches of BATCH rows: phase 4's rows
+    (``criteo_shard_rows``: int64 label 0/1, 13 ints below 2^31, 26 strings
+    of 8 letters a-p), drawn as arrays of the same shapes from a seed."""
+    from tpu_tfrecord_torch.columnar import Column, ColumnarBatch
+
+    schema = criteo_write_schema()
+    rng = np.random.default_rng((12, shard))
+    n = READPOOL_ROWS
+    ints = rng.integers(0, 1 << 31, size=(n, 13))
+    labels = rng.integers(0, 2, size=n)
+    cats = rng.integers(0, 16, size=(n, 26, 8), dtype=np.uint8) + 97
+    offsets = np.arange(BATCH + 1, dtype=np.int64) * 8
+    for lo in range(0, n, BATCH):
+        hi = min(n, lo + BATCH)
+        cols = {"label": Column("label", schema["label"].data_type,
+                                values=labels[lo:hi].astype(np.int64))}
+        for i in range(1, 14):
+            cols[f"I{i}"] = Column(f"I{i}", schema[f"I{i}"].data_type,
+                                   values=np.ascontiguousarray(ints[lo:hi, i - 1], np.int64))
+        for i in range(1, 27):
+            cols[f"C{i}"] = Column(f"C{i}", schema[f"C{i}"].data_type,
+                                   blob=cats[lo:hi, i - 1, :].tobytes(),
+                                   blob_offsets=offsets[:hi - lo + 1])
+        yield ColumnarBatch(cols, hi - lo)
+
+
+def write_readpool(root: str) -> tuple:
+    """Phase 12 (a): READPOOL_SHARDS shards of READPOOL_ROWS rows, one dir
+    each, through ``DatasetWriter.write_batches``. Returns (dirs, files)."""
+    from tpu_tfrecord_torch.io.writer import DatasetWriter
+    from tpu_tfrecord_torch.options import TFRecordOptions
+
+    dirs, files = [], []
+    t0 = time.perf_counter()
+    for s in range(READPOOL_SHARDS):
+        d = os.path.join(root, f"shard{s:02d}")
+        opts = TFRecordOptions.from_map(write_workers=READPOOL_WRITE_WORKERS)
+        DatasetWriter(d, criteo_write_schema(), opts, mode="overwrite").write_batches(
+            readpool_batches(s))
+        names = [n for n in os.listdir(d) if n.startswith("part-")]
+        if len(names) != 1:
+            raise SystemExit(f"readpool: {d} holds {names}, want one shard file")
+        dirs.append(d)
+        files.append(os.path.join(d, names[0]))
+    secs = time.perf_counter() - t0
+    sizes = [os.path.getsize(f) for f in files]
+    rows = READPOOL_SHARDS * READPOOL_ROWS
+    print(f"readpool: wrote {READPOOL_SHARDS} x {READPOOL_ROWS} Example rows = {sum(sizes)} bytes "
+          f"({min(sizes)}-{max(sizes)} a shard, {sum(sizes) / rows:.1f} bytes a row) in "
+          f"{secs:.2f} s (write_batches, {READPOOL_WRITE_WORKERS} workers, host)")
+    if min(sizes) <= READPOOL_READAHEAD and READPOOL_ROWS >= 262_144:
+        raise SystemExit("readpool: a shard is smaller than the readahead window")
+    return dirs, files
+
+
+def drop_page_cache(files) -> None:
+    """Evict the shards from the page cache as bench.py does: fsync (dirty
+    pages are skipped by DONTNEED), then POSIX_FADV_DONTNEED."""
+    for path in files:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def raw_disk_mbps(files) -> float:
+    """Serial cold read of the shards in 8 MB blocks with no hints, as
+    bench.py measures the store: the bound the cold passes read against."""
+    drop_page_cache(files)
+    buf = bytearray(8 << 20)
+    nb = 0
+    t0 = time.perf_counter()
+    for path in files:
+        with open(path, "rb", buffering=0) as fh:
+            while True:
+                k = fh.readinto(buf)
+                if not k:
+                    break
+                nb += k
+    return nb / (time.perf_counter() - t0) / 1e6
+
+
+def readpool_pass(dirs, **kw) -> tuple:
+    """One decode-only pass (no scoring) over the shards: (the batches'
+    digests, rows, wall s, CPU s, major faults). Each batch is digested
+    as it arrives, while the pool decodes ahead, and dropped."""
+    import resource
+
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    kw.setdefault("num_workers", READPOOL_COLD_WORKERS)
+    ds = TFRecordDataset(dirs, BATCH, **criteo_read_kw(), **kw)
+    digests, rows = [], 0
+    r0 = resource.getrusage(resource.RUSAGE_SELF)
+    t0 = time.perf_counter()
+    with ds.batches() as it:
+        for cb in it:
+            digests.append(batch_digest(cb))
+            rows += cb.num_rows
+    wall = time.perf_counter() - t0
+    r1 = resource.getrusage(resource.RUSAGE_SELF)
+    cpu = (r1.ru_utime - r0.ru_utime) + (r1.ru_stime - r0.ru_stime)
+    return digests, rows, wall, cpu, r1.ru_majflt - r0.ru_majflt
+
+
+def cold_passes(dirs, files) -> tuple:
+    """Phase 12 (b): the serial disk rate, a warm pass (the reference
+    digests), then four passes at READPOOL_COLD_WORKERS workers, {mmap,
+    stream} x readahead {0, 64 MiB}, each after dropping the shards from
+    the page cache, with the share of their pages still resident after
+    the drop; every pass's digests must equal the warm one's."""
+    nbytes = sum(os.path.getsize(f) for f in files)
+    rows_total = READPOOL_SHARDS * READPOOL_ROWS
+    disk = raw_disk_mbps(files)
+    disk_rows = disk * 1e6 / (nbytes / rows_total)
+    print(f"readpool: serial read (8 MB blocks, no hints, after DONTNEED): {disk:.1f} MB/s "
+          f"= {disk_rows:.1f} rows/s at {nbytes / rows_total:.1f} bytes a row")
+    warm, rows, wall, cpu, majflt = readpool_pass(dirs)
+    if rows != rows_total:
+        raise SystemExit(f"readpool: the warm pass read {rows} rows, want {rows_total}")
+    print(f"readpool: warm pass (mmap, readahead 64 MiB, {READPOOL_COLD_WORKERS} workers): "
+          f"{rows / wall:.1f} rows/s, {nbytes / wall / 1e6:.1f} MB/s, CPU {cpu:.3f} s over wall "
+          f"{wall:.3f} s, majflt {majflt}")
+    out = {"disk_mbps": disk, "disk_rows_per_s": disk_rows, "warm_rows_per_s": rows / wall,
+           "bytes": nbytes}
+    for route, use_mmap in (("mmap", True), ("stream", False)):
+        for ra in (0, READPOOL_READAHEAD):
+            before = resident_fraction(files)
+            drop_page_cache(files)
+            left = resident_fraction(files)
+            digests, rows, wall, cpu, majflt = readpool_pass(dirs, use_mmap=use_mmap,
+                                                             readahead_bytes=ra)
+            label = f"{route}, readahead {ra >> 20} MiB"
+            rate = rows / wall
+            print(f"readpool: pass after the drop ({label}, {READPOOL_COLD_WORKERS} workers): "
+                  f"{rate:.1f} rows/s, {nbytes / wall / 1e6:.1f} MB/s, majflt {majflt}, CPU "
+                  f"{cpu:.3f} s over wall {wall:.3f} s, {rate / disk_rows:.3f} of the serial read's "
+                  f"rate; pages resident {before:.4f} before the drop, {left:.4f} after it"
+                  f"{'' if left < 0.01 else ' (not a cold read)'}; digests equal the warm "
+                  f"pass's: {digests == warm}")
+            if digests != warm:
+                raise SystemExit(f"readpool: the pass ({label}) read other batches")
+            out[f"{route}_ra{ra >> 20}"] = dict(rows_per_s=rate, mb_per_s=nbytes / wall / 1e6,
+                                               majflt=majflt, cpu_s=cpu, wall_s=wall,
+                                               of_serial_read=rate / disk_rows,
+                                               resident_after_drop=left)
+    return warm, out
+
+
+def pool_depth_probe(dirs, warm) -> dict:
+    """Warm decode-only rows/s at 1, 2 and 4 workers with each shard's
+    queue at the JAX depth of 2 chunks and at 16: the pool emits shards in
+    order, so at depth 2 a worker can run only 2 chunks ahead of the
+    shard being drained, and a shard of 16 chunks keeps the others idle."""
+    from tpu_tfrecord_torch.io import dataset as dataset_mod
+
+    default = dataset_mod.SHARD_QUEUE_CHUNKS
+    out = {}
+    try:
+        for depth in (default, 16):
+            dataset_mod.SHARD_QUEUE_CHUNKS = depth
+            for workers in (1, 2, 4):
+                digests, rows, wall, cpu, _ = readpool_pass(dirs, num_workers=workers)
+                if digests != warm:
+                    raise SystemExit(f"readpool: depth {depth}, {workers} workers: other batches")
+                out[f"depth{depth}_w{workers}"] = rows / wall
+                print(f"readpool: pool depth probe: {depth} chunks a shard queue, {workers} "
+                      f"workers: {rows / wall:.1f} rows/s, CPU {cpu:.3f} s over wall {wall:.3f} s")
+    finally:
+        dataset_mod.SHARD_QUEUE_CHUNKS = default
+    return out
+
+
+def host_loop_rate(dirs, **kw) -> float:
+    """Rows/s of the warm host loop: the dataset at 2 workers and the
+    densify of every batch (``host_batch_from_columnar``), no device."""
+    from tpu_tfrecord_torch.device.ingest import host_batch_from_columnar
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    ds = TFRecordDataset(dirs, BATCH, num_workers=2, **criteo_read_kw(), **kw)
+    n = 0
+    t0 = time.perf_counter()
+    with ds.batches() as it:
+        for cb in it:
+            host_batch_from_columnar(cb, ds.schema, hash_buckets=ds.hash_buckets, pack=ds.pack)
+            n += cb.num_rows
+    return n / (time.perf_counter() - t0)
+
+
+def guard_overhead(dirs) -> dict:
+    """Phase 12 (c): the warm host loop with read and open deadlines and
+    the watchdog at READPOOL_GUARD_MS (they never fire) against the same
+    loop without them, A/B/B/A twice, best of each (bench.py's probe),
+    with each A/B pair's ratio."""
+    guarded = dict(read_deadline_ms=READPOOL_GUARD_MS, open_deadline_ms=READPOOL_GUARD_MS,
+                   watchdog_timeout_ms=READPOOL_GUARD_MS)
+    base, guard = [], []
+    for kw in ({}, guarded, guarded, {}) * 2:
+        (guard if kw else base).append(host_loop_rate(dirs, **kw))
+    pct = (1.0 - max(guard) / max(base)) * 100.0
+    pairs = [round((1.0 - g / b) * 100.0, 2) for b, g in zip(base, guard)]
+    print(f"readpool: stall guard's cost with no fault (warm host loop, 2 workers, A/B/B/A x 2): "
+          f"without {[round(r, 1) for r in base]} rows/s, with {[round(r, 1) for r in guard]}; "
+          f"best {max(base):.1f} vs {max(guard):.1f}: overhead {pct:.2f} % (pairs {pairs} %)")
+    return dict(base=base, guarded=guard, overhead_pct=pct, pair_pct=pairs)
+
+
+def drill(label, dirs, rule: dict, **kw) -> tuple:
+    """One read under a one-rule FaultPlan on the real shards: (digests,
+    wall s, counters, error). The plan is released at the end."""
+    from tpu_tfrecord_torch import faults
+    from tpu_tfrecord_torch.metrics import METRICS
+
+    METRICS.reset()
+    plan = faults.FaultPlan([faults.FaultRule(**rule)])
+    digests, wall, error = [], None, None
+    t0 = time.perf_counter()
+    try:
+        with faults.install_chaos(plan):
+            digests, _, wall, _, _ = readpool_pass(dirs, **kw)
+    except Exception as e:  # the raise drill's expected error, checked by the caller
+        error = e
+        wall = time.perf_counter() - t0
+    finally:
+        plan.release()
+    names = ("read.retries", "read.stalls", "read.deadline_misses", "read.hedges",
+             "read.hedge_wins", "read.watchdog_restarts", "read.skipped_shards")
+    counters = {n: METRICS.counter(n) for n in names}
+    print(f"readpool: drill {label}: {len(digests)} batches in {wall:.3f} s, counters {counters}, "
+          f"ledger {plan.ledger}, error {type(error).__name__ if error else None}")
+    return digests, wall, counters, error
+
+
+def stall_drills(dirs, warm) -> dict:
+    """Phase 12 (d): a stalled read beaten by a hedge, a stalled open
+    retried past its deadline, and a wedged worker failed by the watchdog
+    (skipped, then raised)."""
+    from tpu_tfrecord_torch.stall import WatchdogError
+
+    victim = os.path.join(dirs[1], "")  # substring of shard 1's file path only
+    per = READPOOL_ROWS // BATCH
+    out = {}
+    d, _, c, e = drill("1 (hedge)", dirs, dict(op="read", kind="stall", path=victim, ordinal=0,
+                                               times=1, stall_ms=DRILL_STALL_MS),
+                       use_mmap=False, hedge_after_ms=50, read_deadline_ms=1000)
+    if e is not None or d != warm or c["read.hedge_wins"] < 1 or c["read.stalls"]:
+        raise SystemExit(f"readpool: the hedge drill failed: equal {d == warm}, {c}, {e!r}")
+    out["hedge"] = c
+    d, _, c, e = drill("2 (open deadline)", dirs, dict(op="open", kind="stall", path=victim,
+                                                       ordinal=0, times=1,
+                                                       stall_ms=DRILL_STALL_MS),
+                       open_deadline_ms=200, read_retries=2)
+    if e is not None or d != warm or c["read.retries"] < 1:
+        raise SystemExit(f"readpool: the open-deadline drill failed: equal {d == warm}, {c}, {e!r}")
+    out["open_deadline"] = c
+    base = readpool_pass(dirs, use_mmap=False, num_workers=4)
+    base_d, base_wall = base[0], base[2]
+    if base_d != warm:
+        raise SystemExit("readpool: the stream route at 4 workers read other batches")
+    rule = dict(op="read", kind="stall", path=victim, ordinal=0, times=1, stall_ms=DRILL_STALL_MS)
+    wd = dict(use_mmap=False, num_workers=4, watchdog_timeout_ms=500)
+    d, wall, c, e = drill("3 (watchdog, skip_shard)", dirs, rule, on_stall="skip_shard", **wd)
+    want = warm[:per] + warm[2 * per:]
+    print(f"readpool: watchdog drill lost {wall - base_wall:.3f} s against the fault-free read "
+          f"at 4 workers ({base_wall:.3f} s); the other shards' batches equal: {d == want}")
+    if (e is not None or d != want or c["read.watchdog_restarts"] != 1
+            or c["read.skipped_shards"] != 1):
+        raise SystemExit(f"readpool: the watchdog drill failed: {c}, {e!r}")
+    out["watchdog"] = dict(c, lost_s=wall - base_wall)
+    _, _, c, e = drill("3 (watchdog, raise)", dirs, rule, on_stall="raise", **wd)
+    if not isinstance(e, WatchdogError):
+        raise SystemExit(f"readpool: on_stall='raise' under the watchdog gave {e!r}")
+    out["watchdog_raise"] = type(e).__name__
+    return out
+
+
+class PulseLines(logging.Handler):
+    """The pulse lines the package logger emits (``telemetry._log_pulse``)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("tfrecord.pulse "):
+            self.lines.append(json.loads(msg.split(" ", 1)[1]))
+
+
+def readpool_serving(dirs, warm, card: str) -> dict:
+    """Phase 12 (e): the bf16 Criteo DLRM scores the shards through
+    dataset -> HostPrefetcher -> DeviceIterator (``score_files``'s feed)
+    three times: autotuned from one worker with a pulse every
+    READPOOL_PULSE_S, at a fixed 1 worker and at a fixed 4. Logits
+    bit-equal, one ``bf16_mma`` launch a batch; then a state taken under
+    autotune after a resize resumes on a fixed pool to the same batches."""
+    from tpu_tfrecord_torch.entry import _read_plan, _score_dataset
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+    from tpu_tfrecord_torch.metrics import METRICS
+    from tpu_tfrecord_torch.models.dlrm import init_params
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    cfg = criteo_cfg()
+    model = init_params(cfg, torch.Generator(device=READPOOL_DEVICE).manual_seed(TRAIN_SEED),
+                        READPOOL_DEVICE)
+    read = criteo_read_kw()
+    paths, hash_buckets, pack, pad_to = _read_plan(dirs, cfg, read["pack"]["dense"],
+                                                   read["pack"]["cat"])
+    n_batches = READPOOL_SHARDS * READPOOL_ROWS // BATCH
+    # warm-up forwards (cuBLAS handles, allocator) outside the three runs
+    from tpu_tfrecord_torch.device.ingest import make_device_batch
+    from tpu_tfrecord_torch.models.dlrm import make_synthetic_batch
+
+    model(make_device_batch(make_synthetic_batch(cfg, BATCH, seed=1), READPOOL_DEVICE))
+    runs = {"autotune": dict(num_workers=1, autotune="on", pulse_interval_s=READPOOL_PULSE_S),
+            "fixed 1": dict(num_workers=1), "fixed 4": dict(num_workers=4)}
+    logger = logging.getLogger("tpu_tfrecord_torch")
+    out, logits = {}, {}
+    for name, kw in runs.items():
+        METRICS.reset()
+        pulses = PulseLines()
+        level = logger.level
+        logger.addHandler(pulses)
+        logger.setLevel(logging.INFO)
+        try:
+            ds = TFRecordDataset(paths, BATCH, schema=read["schema"], recordType="Example",
+                                 hash_buckets=hash_buckets, pack=pack, **kw)
+            reset_launch_counts()
+            res = _score_dataset(ds, model, READPOOL_DEVICE, pad_to, log1p_dense=True)
+            launches = dict(dot_interaction.instance_launches)
+        finally:
+            logger.removeHandler(pulses)
+            logger.setLevel(level)
+        logits[name] = res.logits
+        whole = res.batches * BATCH / res.wall_s
+        idle = 1.0 - sum(res.forward_s) / res.wall_s
+        stats = dict(whole=whole, steady=steady_rate(res), idle_share=idle,
+                     duty_cycle=res.duty_cycle, launches=launches, pulses=len(pulses.lines))
+        print(f"readpool: serving bf16, {name}: {res.batches} batches, {whole:.1f} rows/s whole, "
+              f"{stats['steady']:.1f} steady (batches 2-{res.batches}); device idle share at least "
+              f"{idle:.4f} (1 - synchronized forward time / wall); duty cycle {res.duty_cycle}; "
+              f"kernel launches {launches}; {len(pulses.lines)} pulse lines ({card})")
+        if name == "autotune":
+            t_first = pulses.lines[0]["ts"] if pulses.lines else 0.0
+            pool = [(round(p["ts"] - t_first, 3), p["autotune"]["workers"], p["verdict"])
+                    for p in pulses.lines if "autotune" in p]
+            decisions = [a for p in pulses.lines for a in p.get("autotune", {}).get("adjusted", [])]
+            print(f"readpool: autotune pool over time (s from the first pulse, workers, verdict): "
+                  f"{pool}")
+            print(f"readpool: autotune decisions: {decisions}")
+            stats.update(pool=pool, decisions=decisions)
+        want = {"bf16_mma": n_batches, "f32_tiled": 0}
+        if launches != want or res.batches != n_batches or not torch.isfinite(res.logits).all():
+            raise SystemExit(f"readpool: serving {name}: {res.batches} batches, launches {launches}")
+        out[name] = stats
+    same = all(torch.equal(logits[n], logits["autotune"]) for n in runs)
+    print(f"readpool: logits of the three runs bit-equal: {same}")
+    if not same:
+        raise SystemExit("readpool: the autotuned run's logits differ from a fixed pool's")
+    del model, logits
+    # a state taken under autotune, after a resize, resumes on a fixed pool
+    ds = TFRecordDataset(dirs, BATCH, num_workers=1, autotune="on",
+                         pulse_interval_s=READPOOL_PULSE_S, **read)
+    cut = n_batches * 3 // 8
+    head = []
+    with ds.batches() as it:
+        for i, cb in enumerate(it):
+            head.append(batch_digest(cb))
+            if i == cut // 3:
+                it._control.set_workers(4)
+            if i == cut - 1:
+                state = it.state()
+                break
+    fixed = TFRecordDataset(dirs, BATCH, num_workers=2, **read)
+    with fixed.batches(state) as it:
+        tail = [batch_digest(cb) for cb in it]
+    ok = head + tail == warm
+    print(f"readpool: state {state.to_json()} taken under autotune after a resize to 4 workers "
+          f"resumes at 2 fixed workers to the uninterrupted batches: {ok}")
+    if not ok:
+        raise SystemExit("readpool: the resumed batches differ")
+    out["launches"] = out["autotune"]["launches"]
+    return out
+
+
+def readpool_path(work: str, card: str) -> dict:
+    """Phase 12: the decode pool's read knobs, stall defence and autotune on
+    this machine's host, beside ``card`` (nvidia-smi's name and power
+    limit): (a) the shards, (b) cold decode rates, (c) the guard's cost,
+    (d) the stall drills, (e) autotuned serving at full width."""
+    t0 = time.perf_counter()
+    host_facts()
+    root, mnt, fstype = readpool_dir(work)
+    try:
+        dirs, files = write_readpool(root)
+        warm, rates = cold_passes(dirs, files)
+        rates["pool_depth"] = pool_depth_probe(dirs, warm)
+        overhead = guard_overhead(dirs)
+        drills = stall_drills(dirs, warm)
+        serving = readpool_serving(dirs, warm, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = dict(card=card, dir=root, mount=mnt, fstype=fstype, cold=rates, guard=overhead,
+               drills=drills, serving=serving, seconds=time.perf_counter() - t0)
+    print(f"readpool: phase 12 took {out['seconds']:.1f} s")
+    print("readpool: " + json.dumps(out, default=str))
+    return serving["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3054,6 +3581,8 @@ def main() -> int:
         reset_launch_counts()
         moe_path(data_dir, smi)
         moe_launches = dict(dot_interaction.instance_launches)
+        free_cuda()
+        readpool_launches = readpool_path(data_dir, smi)
     phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches}
     for phase, counts in phase_launches.items():
         if any(counts.values()):
@@ -3081,6 +3610,7 @@ def main() -> int:
         seq_launches=seq_launches[k],
         serve_launches=serve_launches[k],
         moe_launches=moe_launches[k],
+        readpool_launches=readpool_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

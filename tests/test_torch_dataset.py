@@ -157,14 +157,13 @@ class TestAgainstJax:
     @pytest.mark.parametrize("kind,gz,drop,epochs", CASES)
     def test_batches_equal_jax(self, datasets, kind, gz, drop, epochs, monkeypatch):
         # small slabs: records of the gzip shard straddle slab reads
-        monkeypatch.setattr(dataset_mod, "SLAB_BYTES", 4096)
         kw = CRITEO_KW if kind == "criteo" else SEQ_KW
         make_schema = criteo_schema if kind == "criteo" else seq_schema
         path = datasets[(kind, gz)]
         jb = read_all(JDataset(path, batch_size=BATCH, schema=make_schema(jschema),
                                drop_remainder=drop, num_epochs=epochs, **kw))
         tds = TDataset(path, batch_size=BATCH, schema=make_schema(tschema),
-                       drop_remainder=drop, num_epochs=epochs, **kw)
+                       drop_remainder=drop, num_epochs=epochs, slab_bytes=4096, **kw)
         assert tds.decoder == "native"
         tb = read_all(tds)
         assert [b.num_rows for b in tb] == expected_sizes(drop, epochs)
@@ -254,12 +253,12 @@ class TestProducerThread:
 
     @pytest.mark.parametrize("codec", [None, "gzip"])
     def test_truncated_shard_raises(self, tmp_path, codec, monkeypatch):
-        monkeypatch.setattr(dataset_mod, "SLAB_BYTES", 512)
         recs = criteo_records(40, np.random.default_rng(0))
         raw = b"".join(jwire.encode_record(r) for r in recs)[:-3]
         name = "part-0.tfrecord" + (".gz" if codec else "")
         (tmp_path / name).write_bytes(gzip.compress(raw) if codec else raw)
-        ds = TDataset(str(tmp_path), batch_size=8, schema=criteo_schema(tschema), **CRITEO_KW)
+        ds = TDataset(str(tmp_path), batch_size=8, schema=criteo_schema(tschema), slab_bytes=512,
+                      **CRITEO_KW)
         with pytest.raises(twire.TFRecordCorruptionError, match="truncated"):
             read_all(ds)
 

@@ -117,3 +117,15 @@ def test_entry_forward_on_cpu():
     model, (batch,) = entry("cpu")
     logits = model(batch)
     assert logits.shape == (32,) and torch.isfinite(logits).all()
+
+
+def test_dlrm_builds_on_the_card_unless_asked_for_the_cpu():
+    """``DLRM(cfg)`` makes its parameters on the card, as ``init_params``
+    does; asked for the CPU explicitly, every parameter lies there."""
+    import inspect
+
+    assert inspect.signature(tdlrm.DLRM).parameters["device"].default == "cuda"
+    assert inspect.signature(tdlrm.init_params).parameters["device"].default == "cuda"
+    _, tcfg = configs("dot", False, "f32")
+    model = tdlrm.DLRM(tcfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

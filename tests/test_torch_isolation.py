@@ -38,7 +38,8 @@ def test_every_module_is_found():
                  "tpu_tfrecord_torch.interop", "tpu_tfrecord_torch._cuda",
                  "tpu_tfrecord_torch._native", "tpu_tfrecord_torch.serving",
                  "tpu_tfrecord_torch.models.pipeline", "tpu_tfrecord_torch.serve_lm",
-                 "tpu_tfrecord_torch.faults", "tpu_tfrecord_torch.service_protocol"):
+                 "tpu_tfrecord_torch.faults", "tpu_tfrecord_torch.service_protocol",
+                 "tpu_tfrecord_torch.stall", "tpu_tfrecord_torch.autotune"):
         assert want in mods
 
 

@@ -84,9 +84,8 @@ READS = {
 def test_batches_bit_identical_to_jax(shards, monkeypatch, workers, read):
     # small chunks and slabs: every shard decodes in several chunks
     monkeypatch.setattr(dataset_mod, "MIN_CHUNK_RECORDS", 1)
-    monkeypatch.setattr(dataset_mod, "SLAB_BYTES", 2048)
     common, js, ts = _kinds("criteo")
-    kw = dict(batch_size=BATCH, num_epochs=3, **common, **READS[read])
+    kw = dict(batch_size=BATCH, num_epochs=3, slab_bytes=2048, **common, **READS[read])
     want = read_all(JDataset(shards["criteo"], schema=js, num_workers=workers, **kw))
     got = read_all(TDataset(shards["criteo"], schema=ts, num_workers=workers, **kw))
     assert len(got) == len(want) >= 3 * sum(SHARD_ROWS) // BATCH

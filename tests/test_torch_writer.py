@@ -393,11 +393,56 @@ def test_option_spellings_like_jax(mapping):
     assert t.record_type.value == j.record_type.value
 
 
-@pytest.mark.parametrize("key", [k for pair in _NOT_PORTED for k in dict.fromkeys(pair)])
+# the JAX options the port lacked before its stall, pulse and autotune
+# options were ported, in both spellings
+OPTIONS_ONCE_NOT_PORTED = (
+    ("read_deadline_ms", "readDeadlineMs"),
+    ("open_deadline_ms", "openDeadlineMs"),
+    ("hedge_after_ms", "hedgeAfterMs"),
+    ("on_stall", "onStall"),
+    ("watchdog_timeout_ms", "watchdogTimeoutMs"),
+    ("cache", "cache"),
+    ("cache_dir", "cacheDir"),
+    ("cache_max_bytes", "cacheMaxBytes"),
+    ("trace", "trace"),
+    ("pulse_interval_s", "pulseIntervalS"),
+    ("telemetry_port", "telemetryPort"),
+    ("telemetry_spool_dir", "telemetrySpoolDir"),
+    ("spool_interval_s", "spoolIntervalS"),
+    ("telemetry_role", "telemetryRole"),
+    ("autotune", "autotune"),
+    ("autotune_interval_s", "autotuneIntervalS"),
+    ("service", "service"),
+    ("service_lease_ttl_s", "serviceLeaseTtlS"),
+    ("service_deadline_ms", "serviceDeadlineMs"),
+    ("service_fallback_ms", "serviceFallbackMs"),
+    ("elastic_min_workers", "elasticMinWorkers"),
+    ("elastic_max_workers", "elasticMaxWorkers"),
+    ("elastic_interval_s", "elasticIntervalS"),
+)
+# a valid value of each ported one, spelled as a string where the JAX
+# parser takes one
+PORTED_VALUES = {
+    "read_deadline_ms": "250", "open_deadline_ms": "100", "hedge_after_ms": 50,
+    "on_stall": " Skip_Shard", "watchdog_timeout_ms": "500", "pulse_interval_s": "0.5",
+    "autotune": "ON", "autotune_interval_s": 0.25,
+}
+
+
+@pytest.mark.parametrize("key", [k for pair in OPTIONS_ONCE_NOT_PORTED
+                                 for k in dict.fromkeys(pair)])
 def test_options_not_ported_raise_and_name_themselves(key):
-    snake = next(s for s, c in _NOT_PORTED if key in (s, c))
-    with pytest.raises(OptionNotPortedError, match=snake):
-        TOptions.from_map({key: "x"})
+    """An option still missing raises naming its snake_case spelling; one
+    ported since parses in either spelling to the JAX package's value."""
+    snake = next(s for s, c in OPTIONS_ONCE_NOT_PORTED if key in (s, c))
+    assert (snake in PORTED_VALUES) != any(snake == s for s, _ in _NOT_PORTED)
+    if snake not in PORTED_VALUES:
+        with pytest.raises(OptionNotPortedError, match=snake):
+            TOptions.from_map({key: "x"})
+        return
+    value = PORTED_VALUES[snake]
+    t, j = TOptions.from_map({key: value}), JOptions.from_map({key: value})
+    assert getattr(t, snake) == getattr(j, snake) != getattr(TOptions(), snake)
 
 
 def test_write_metrics_wired(tmp_path):

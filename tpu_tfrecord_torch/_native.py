@@ -212,6 +212,28 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+_load_error: Optional[str] = None
+
+
+def available() -> bool:
+    """True when the library builds and loads; False after a failure,
+    whose message ``load_error`` returns (the JAX ``available``)."""
+    global _load_error
+    try:
+        load()
+    except Exception as e:  # a failed build or load: reported, not raised here
+        _load_error = f"{type(e).__name__}: {e}"
+        return False
+    _load_error = None
+    return True
+
+
+def load_error() -> Optional[str]:
+    """Why the library did not load (None when it did)."""
+    available()
+    return _load_error
+
+
 # ---------------------------------------------------------------------------
 # CRC32C and frame scanning
 # ---------------------------------------------------------------------------

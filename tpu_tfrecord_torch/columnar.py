@@ -3,7 +3,8 @@
 Copy of ``tpu_tfrecord/columnar.py`` (the pure-Python decoder, the rows
 of a batch that the writer encodes when a schema has no native encoder,
 the row slice and concatenation that cut batches out of decode chunks,
-the row gather of the windowed shuffle, and the ragged padders). A batch of
+the row gather of the windowed shuffle, the ragged padders and
+``bucket_boundaries``). A batch of
 serialized tf.Example records decodes STRAIGHT into per-column numpy
 buffers — no per-record row objects, no per-field boxing:
 
@@ -87,6 +88,14 @@ class Column:
     @property
     def is_ragged(self) -> bool:
         return self.offsets is not None
+
+    @property
+    def is_bytes(self) -> bool:
+        return self.blob is not None
+
+    def row_lengths(self) -> np.ndarray:
+        assert self.offsets is not None
+        return np.diff(self.offsets)
 
     @property
     def blobs(self) -> Optional[List[bytes]]:
@@ -653,3 +662,17 @@ def pad_ragged2(
         dense2[dest] = sub
         inner_len_out.reshape(-1)[dest] = clipped_inner
     return dense, clipped_outer, inner_len_out
+
+
+def bucket_boundaries(lengths: Sequence[int], num_buckets: int = 4) -> List[int]:
+    """Quantile-based bucket boundaries for length-bucketing ragged batches:
+    the ceilings of the ``num_buckets`` upper quantiles, strictly rising."""
+    if not len(lengths):
+        return []
+    qs = np.quantile(np.asarray(lengths), np.linspace(0, 1, num_buckets + 1)[1:])
+    out: List[int] = []
+    for q in qs:
+        v = int(np.ceil(q))
+        if not out or v > out[-1]:
+            out.append(v)
+    return out

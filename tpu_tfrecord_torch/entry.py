@@ -268,7 +268,6 @@ def score_files(
     to the dense group on the host. ``num_workers`` shards decode at a time;
     ``transfer_thread`` moves the copies to the ``DeviceIterator``'s
     transfer thread."""
-    device = torch.device(device)
     paths, hash_buckets, pack, pad_to = _read_plan(data_dir, cfg, dense_cols, cat_cols)
     ds = TFRecordDataset(
         paths,
@@ -280,6 +279,15 @@ def score_files(
         num_epochs=num_epochs,
         num_workers=num_workers,
     )
+    return _score_dataset(ds, params, device, pad_to, log1p_dense, transfer_thread)
+
+
+@torch.no_grad()
+def _score_dataset(ds: TFRecordDataset, params: DLRM, device, pad_to, log1p_dense: bool,
+                   transfer_thread: bool = False) -> ScoreResult:
+    """``score_files`` over a dataset already planned with the DLRM's read
+    (``_read_plan``'s hash buckets and packs)."""
+    device = torch.device(device)
     result = ScoreResult(logits=torch.empty(0))
     times = (result.host_s, result.h2d_s, result.forward_s, result.done_s)
     to_host = lambda cb: _host_batch(cb, ds, pad_to, log1p_dense)  # noqa: E731

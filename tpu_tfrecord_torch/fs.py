@@ -3,7 +3,8 @@
 Cut of ``tpu_tfrecord/fs.py`` to plain paths: ``has_scheme``,
 ``local_open`` (the one raw-open seam of the record read and write paths),
 ``LocalFS`` (the standard library behind the writer's commit and the
-reader's discovery) and ``filesystem_for``. A path with a URL scheme
+reader's discovery), ``filesystem_for`` and ``seek_to`` (positions the
+stall guard's hedge handle). A path with a URL scheme
 (``gs://``, ``s3://``, ``http://``, ``memory://``, ...) raises: the
 fsspec and HTTP filesystems, the block prefetcher and the retrying read
 stream are not ported yet.
@@ -31,6 +32,26 @@ def local_open(path: str, mode: str) -> BinaryIO:
     """The raw open of a plain path on the record read and write paths
     (``wire.open_compressed`` routes through this)."""
     return open(path, mode)  # noqa: SIM115
+
+
+def seek_to(fh, pos: int) -> None:
+    """Position a fresh handle at byte ``pos``: seek where the handle can,
+    read and discard otherwise."""
+    if pos <= 0:
+        return
+    seek = getattr(fh, "seek", None)
+    if seek is not None:
+        try:
+            seek(pos)
+            return
+        except (OSError, ValueError):
+            pass
+    left = pos
+    while left > 0:
+        chunk = fh.read(min(left, 8 << 20))
+        if not chunk:
+            return
+        left -= len(chunk)
 
 
 class LocalFS:

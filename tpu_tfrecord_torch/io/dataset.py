@@ -1,31 +1,56 @@
 """Streaming batched read of a TFRecord dataset into ColumnarBatches.
 
-Single-process cut of ``tpu_tfrecord/io/dataset.py::TFRecordDataset`` along
-the JAX package's main path:
+Single-process cut of ``tpu_tfrecord/io/dataset.py::TFRecordDataset``,
+with the JAX constructor's read knobs and its decode pool:
 
-- the native decoder (``_native.NativeDecoder``): a local uncompressed shard
-  is mmapped and scanned + decoded in one C++ pass per chunk of
-  ``max(batch_size, 2048)`` records; a compressed shard is decompressed
-  into a reused buffer of ``SLAB_BYTES`` and scanned + decoded there the
-  same way (the JAX dataset's fused path). A record type or schema the
-  C++ side cannot represent
-  (``ByteArray``, ``UnsupportedSchemaError``) decodes with the Python
-  ``ColumnarDecoder``; ``decoder="python"`` asks for that decoder on any
-  schema (the tests' oracle). A library that fails to build raises;
-- ``hash_buckets`` and ``pack`` shape the batch as the native decoder does
-  (with either decoder): a hashed bytes column carries int32 bucket ids in
-  ``values`` (``Column.hash_buckets`` set), and each pack group is one
-  ``[B, K]`` matrix column in place of its members;
-- a background producer thread decodes ahead into a queue of ``PREFETCH``
-  batches; the native calls release the GIL, so decode overlaps the
-  consumer. Batches cross chunks, shards and epochs: a chunk that is
-  exactly one batch passes through with no copy, anything else is cut and
-  joined with ``slice_batch`` / ``concat_batches``;
-- ``num_workers`` > 1 decodes that many shards at a time in a thread pool
+- the native decoder (``_native.NativeDecoder``) scans and decodes one
+  chunk of ``max(batch_size, 2048)`` records per C++ call. A local
+  uncompressed shard is mmapped and decoded out of the page cache (the
+  mmap route, ``use_mmap=True``); a compressed shard, or any shard with
+  ``use_mmap=False``, is read into a per-thread buffer that is reused
+  (``readinto``) and grows for a record larger than it (the stream route;
+  its first size is ``min(slab_bytes, 32 MiB)``). A schema or record type
+  the C++ side cannot represent decodes with the Python
+  ``ColumnarDecoder`` over ``slab_bytes`` slabs of framed spans (the
+  Python route); ``decoder="python"`` asks for it on any schema (the
+  tests' oracle). A declared record length past ``max_record_bytes``
+  raises ``TFRecordCorruptionError``;
+- ``readahead_bytes`` (default 64 MiB, 0 = off) keeps a sliding
+  ``posix_fadvise(WILLNEED)`` window ahead of the decoder on every local
+  route, after one ``POSIX_FADV_SEQUENTIAL``, as the JAX dataset does;
+- ``read_retries`` / ``retry_policy``: an IO or corruption error restarts
+  the shard's attempt under a ``retry.RetryPolicy`` (``read.retries``, a
+  ``read.retry`` instant); each attempt skips the records already
+  yielded, on every route (mmap, stream, salvage and Python);
+- stall defence (``stall.py``): with ``read_deadline_ms``,
+  ``open_deadline_ms`` or ``hedge_after_ms`` set, opens and raw reads run
+  under a ``StallGuard``; the mmap route's open runs under
+  ``open_deadline_ms``. A stall that outlives the retries is handled by
+  ``on_stall`` (``raise``, or ``skip_shard``: a ``shard_stalled`` event
+  and ``read.skipped_shards``). Unset, no guard and no thread exists;
+- ``hash_buckets`` and ``pack`` shape the batch as the native decoder
+  does (with either decoder): a hashed bytes column carries int32 bucket
+  ids in ``values`` (``Column.hash_buckets`` set), and each pack group is
+  one ``[B, K]`` matrix column in place of its members;
+- a producer thread decodes ahead into a queue of ``prefetch`` batches
+  (resizable under autotune); the native calls release the GIL, so decode
+  overlaps the consumer. Batches cross chunks, shards and epochs: a chunk
+  that is exactly one batch passes through with no copy, anything else is
+  cut and joined with ``slice_batch`` / ``concat_batches``;
+- ``num_workers`` > 1 decodes that many shards at a time
   (``_parallel_chunks``): a dispatcher hands the shard tasks to the
   workers, each shard decodes into a bounded queue of its own, and the
-  producer drains those queues in task order, so the chunks, and hence the
-  batches, are the sequential ones for any worker count.
+  producer drains those queues in task order, so the chunks, and hence
+  the batches, are the sequential ones for any worker count. With
+  ``watchdog_timeout_ms`` a watchdog fails the job of a worker whose
+  progress beat went silent (``stall.WatchdogError``, handled by
+  ``on_stall`` once the chunks it made are drained) and starts a
+  replacement; a worker blocked on its full queue is not stalled;
+- ``autotune="on"`` (``autotune.py``) runs the pool from a
+  ``PipelineControl`` that the controller resizes mid-epoch, at the
+  ticks of a ``telemetry.Pulse`` (``pulse_interval_s``, else
+  ``autotune_interval_s``); the batches and positions stay those of the
+  sequential stream.
 
 - ``shuffle`` permutes the shard order of each epoch with a permutation
   drawn from ``(seed, epoch)``, over every shard, empty ones included;
@@ -39,7 +64,7 @@ the JAX package's main path:
 - discovery, schema inference and partition typing go through
   ``io.reader.DatasetReader``, as in the JAX dataset: the values of
   ``col=value`` directories are columns of every batch, constant over a
-  shard (``_attach_partition_chunk``), typed long -> double -> string;
+  shard (``_with_partitions``), typed long -> double -> string;
   ``columns`` selects and orders the batch's columns, partition columns
   included.
 
@@ -59,8 +84,10 @@ the JAX package's main path:
   over a corrupt shard skips what the first pass skipped.
 
 Left out against the JAX dataset: more than one process (the process slot
-is 0 of 1), the decode pool's watchdog and its autotuned resizing
-(``control``), stall defense, retries, caching and the data service.
+is 0 of 1: ``process_index`` / ``process_count`` other than 0 / 1 raise
+``OptionNotPortedError``), remote paths, the columnar epoch cache, the
+data service and the telemetry spool (their options raise in
+``TFRecordOptions``).
 """
 
 from __future__ import annotations
@@ -68,6 +95,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import hashlib
+import itertools
 import json
 import mmap
 import os
@@ -76,11 +104,11 @@ import threading
 import time
 import weakref
 from dataclasses import dataclass, field, fields, replace
-from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from tpu_tfrecord_torch import _native, telemetry, wire
+from tpu_tfrecord_torch import _native, autotune, telemetry, wire
 from tpu_tfrecord_torch.columnar import (
     Column,
     ColumnarBatch,
@@ -95,38 +123,81 @@ from tpu_tfrecord_torch.io.reader import (
     DatasetReader,
     SalvageTracker,
     _timed_open,
-    _timed_read,
     salvage_spans_stream,
+    scan_spans_stream,
 )
-from tpu_tfrecord_torch.metrics import METRICS, log_salvage_event
+from tpu_tfrecord_torch.metrics import METRICS, log_salvage_event, timed
 from tpu_tfrecord_torch.options import OptionNotPortedError, TFRecordOptions
+from tpu_tfrecord_torch.retry import RetryPolicy
 from tpu_tfrecord_torch.schema import StructType, numpy_dtype
+from tpu_tfrecord_torch.stall import StallError, StallGuard, WatchdogError, guard_from_options
+from tpu_tfrecord_torch.tracing import trace
 
 DECODERS = ("native", "python")
 MIN_CHUNK_RECORDS = 2048
-PREFETCH = 2  # decoded batches queued ahead of the consumer
-SLAB_BYTES = 32 << 20  # decompressed bytes read at a time from a compressed shard
-# (the JAX dataset's IO scratch starts at this size)
-# a declared record length past this is a corrupt length field
-MAX_RECORD_BYTES = 1 << 30
-# the JAX constructor's read knobs the port does not have yet, at the JAX
-# defaults: a call that spells out a default is taken, another value raises
-# OptionNotPortedError naming the argument
+PREFETCH = 2  # decoded batches queued ahead of the consumer (the JAX default)
+SLAB_BYTES = 256 << 20  # the JAX default slab of the Python and salvage routes
+SCRATCH_INIT = 32 << 20  # the stream route's first read buffer, at most
+MAX_RECORD_BYTES = 1 << 30  # a declared record length past this is corrupt
+READAHEAD_BYTES = 64 << 20  # the JAX default readahead window
+SHARD_QUEUE_CHUNKS = 2  # decoded chunks a worker may hold ahead of the producer
+BACKPRESSURE = "read.backpressure_waits"  # batch puts that found the queue full
+# the JAX constructor's arguments the port does not have yet, at the JAX
+# defaults: a call that spells out a default is taken, another value
+# raises OptionNotPortedError naming the argument
 UNPORTED_ARGS = {
     "process_index": 0,
     "process_count": 1,
-    "prefetch": PREFETCH,
-    "read_retries": 0,
-    "retry_policy": None,
-    "slab_bytes": 256 << 20,
-    "max_record_bytes": MAX_RECORD_BYTES,
-    "use_mmap": True,
-    "readahead_bytes": 64 << 20,
 }
 
 # the raw open of the mmap route, resolved at call time so that
 # faults.install_chaos can route it through a fault plan
 _open_local = open
+
+
+class _ResizableQueue(queue.Queue):
+    """A ``queue.Queue`` whose ``maxsize`` can change while it is in use
+    (the prefetch queue under autotune): growing wakes blocked putters;
+    shrinking below the fill blocks new puts until the consumer drains
+    it, and drops nothing."""
+
+    def resize(self, maxsize: int) -> None:
+        with self.mutex:
+            self.maxsize = max(1, int(maxsize))
+            self.not_full.notify_all()
+
+
+def _noop_hint(_pos: int) -> None:
+    return
+
+
+def _make_readahead(fh, size: int, window: int) -> Callable[[int], None]:
+    """The sliding ``posix_fadvise(WILLNEED)`` hinter of a local file:
+    ``hint(pos)`` keeps ``[pos, pos + window)`` requested, so the kernel
+    streams the window in while the decoder works on the current chunk.
+    Issues ``POSIX_FADV_SEQUENTIAL`` once. A no-op for a window of 0, an
+    object without a real descriptor or a platform without fadvise."""
+    if not window or size <= 0:
+        return _noop_hint
+    try:
+        fd = fh.fileno()
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_SEQUENTIAL)
+    except (AttributeError, OSError, ValueError):
+        return _noop_hint
+    cursor = [0]
+
+    def hint(pos: int) -> None:
+        want_end = min(size, pos + window)
+        if want_end > cursor[0]:
+            try:
+                os.posix_fadvise(fd, cursor[0], want_end - cursor[0], os.POSIX_FADV_WILLNEED)
+            except OSError:
+                cursor[0] = size  # the descriptor went away: stop hinting
+                return
+            cursor[0] = want_end
+
+    hint(0)
+    return hint
 
 
 @dataclass(frozen=True)
@@ -182,17 +253,20 @@ class TFRecordDataset:
     schema=None, recordType="Example", hash_buckets=None, pack=None,
     drop_remainder=True, num_epochs=1, decoder="native", shuffle=False,
     shuffle_window=0, seed=0, num_workers=1, columns=None, options=None,
+    prefetch=2, read_retries=0, retry_policy=None, slab_bytes=256 MiB,
+    max_record_bytes=1 GiB, use_mmap=True, readahead_bytes=64 MiB,
     **option_kwargs)``. Without a schema, it is inferred from the first
     non-empty shard. ``num_epochs=None`` repeats the shards without end.
     ``num_workers`` shards decode at a time (values below 1 count as 1).
     ``options`` (a ``TFRecordOptions``) or the keyword options
-    (``verify_crc``, ``infer_sample_limit``, ...) configure the read, as
-    in the JAX dataset; ``options`` takes the place of ``schema`` and
-    ``recordType``. The JAX constructor's ``process_index``,
-    ``process_count``, ``prefetch``, ``read_retries``, ``retry_policy``,
-    ``slab_bytes``, ``max_record_bytes``, ``use_mmap`` and
-    ``readahead_bytes`` are taken at their JAX defaults
-    (``UNPORTED_ARGS``); another value raises ``OptionNotPortedError``."""
+    (``verify_crc``, ``read_deadline_ms``, ``on_stall``,
+    ``watchdog_timeout_ms``, ``autotune``, ...) configure the read, as in
+    the JAX dataset; ``options`` takes the place of ``schema`` and
+    ``recordType``. The read knobs take the JAX constructor's defaults and
+    meanings (see the module docstring); an explicit ``retry_policy`` wins
+    over ``read_retries``. ``process_index`` and ``process_count`` are
+    taken at 0 and 1 only (``UNPORTED_ARGS``); another value raises
+    ``OptionNotPortedError``."""
 
     def __init__(
         self,
@@ -215,18 +289,14 @@ class TFRecordDataset:
         process_count: int = 1,
         prefetch: int = PREFETCH,
         read_retries: int = 0,
-        retry_policy=None,
-        slab_bytes: int = 256 << 20,
+        retry_policy: Optional[RetryPolicy] = None,
+        slab_bytes: int = SLAB_BYTES,
         max_record_bytes: int = MAX_RECORD_BYTES,
         use_mmap: bool = True,
-        readahead_bytes: int = 64 << 20,
+        readahead_bytes: int = READAHEAD_BYTES,
         **option_kwargs,
     ):
-        _refuse_unported_args(
-            process_index=process_index, process_count=process_count, prefetch=prefetch,
-            read_retries=read_retries, retry_policy=retry_policy, slab_bytes=slab_bytes,
-            max_record_bytes=max_record_bytes, use_mmap=use_mmap, readahead_bytes=readahead_bytes,
-        )
+        _refuse_unported_args(process_index=process_index, process_count=process_count)
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if num_epochs is not None and num_epochs < 1:
@@ -239,6 +309,16 @@ class TFRecordDataset:
         self.shuffle_window = shuffle_window
         self.seed = seed
         self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+        self.read_retries = read_retries
+        self.retry_policy = (
+            retry_policy if retry_policy is not None else RetryPolicy(max_retries=read_retries)
+        )
+        self.slab_bytes = max(1, slab_bytes)
+        self.max_record_bytes = max_record_bytes
+        self.use_mmap = use_mmap
+        self.readahead_bytes = max(0, readahead_bytes)
+        self._scratch_local = threading.local()
         if options is None:
             options = TFRecordOptions.from_map(
                 option_kwargs, recordType=recordType, schema=schema
@@ -247,6 +327,12 @@ class TFRecordDataset:
             raise ValueError("pass either options= or schema/recordType/keyword options")
         self._reader = DatasetReader(paths, options=options)
         self.options = self._reader.options
+        # None unless a stall threshold is set: the default path pays
+        # nothing. Autotune gets an empty guard to install hedges into
+        # (streams opened after an install are guarded).
+        self._stall_guard = guard_from_options(self.options)
+        if self._stall_guard is None and self.options.autotune == "on":
+            self._stall_guard = StallGuard()
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder
         self.num_epochs = num_epochs
@@ -275,7 +361,7 @@ class TFRecordDataset:
         """'native' or 'python': the decoder this dataset's batches come from."""
         return "python" if self._native_decoder is None else "native"
 
-    # -- decode chunks ---------------------------------------------------------
+    # -- shard tasks -----------------------------------------------------------
 
     def epoch_order(self, epoch: int) -> List[int]:
         """The order of the shard list in ``epoch``: as listed, or with
@@ -304,61 +390,344 @@ class TFRecordDataset:
                     yield epoch, cursor, order[cursor], state.record_offset if at_state else 0
             epoch += 1
 
+    def _chunks(
+        self, stop: Optional[threading.Event] = None, state: Optional[IteratorState] = None,
+        control: Optional[autotune.PipelineControl] = None,
+    ) -> Iterator[Tuple[ColumnarBatch, int, int, int]]:
+        """(chunk, epoch, cursor, start) for the decoded chunks of every
+        epoch from ``state`` on, in task order: from the decode pool when
+        ``num_workers`` > 1 or a ``control`` (autotune) resizes the pool,
+        which ``stop`` (or closing this generator) stops and joins."""
+        state = state or IteratorState()
+        if self.num_workers > 1 or control is not None:
+            yield from _parallel_chunks(self, stop or threading.Event(), state, control)
+            return
+        for task in self._shard_tasks(state):
+            yield from self._decode_shard(*task)
+
+    # -- one shard: stall and corruption policies ------------------------------
+
     def _decode_shard(
         self, epoch: int, cursor: int, index: int, skip: int = 0
     ) -> Iterator[Tuple[ColumnarBatch, int, int, int]]:
         """(chunk, epoch, cursor, start) of one shard's decoded chunks from
         its record ``skip`` on: ``start`` is the index of the chunk's first
-        record among the shard's emitted records. ``on_corrupt`` applies:
-        ``skip_record`` decodes the salvage scan's frames, ``skip_shard``
-        ends the shard at its first corrupt chunk (counted in
-        ``read.corrupt_records`` and ``read.skipped_shards``)."""
-        chunk_records = max(self.batch_size, MIN_CHUNK_RECORDS)
-        path = self.shards[index].path
+        record among the shard's emitted records. ``on_corrupt`` applies
+        (``_decode_shard_inner``), then ``on_stall``: a stall that outlived
+        the retries propagates (``raise``) or drops the rest of the shard
+        as a ``shard_stalled`` event (``skip_shard``)."""
+        try:
+            yield from self._decode_shard_inner(epoch, cursor, index, skip)
+        except StallError as e:
+            if self.options.on_stall != "skip_shard":
+                raise
+            self._note_skipped_shard(index, str(e), kind="shard_stalled")
+
+    def _decode_shard_inner(self, epoch: int, cursor: int, index: int, skip: int):
+        """``on_corrupt``: ``skip_record`` decodes the salvage scan's
+        frames (a spent quota escalates to ``corrupt_fallback``),
+        ``skip_shard`` ends the shard at its first corrupt chunk (counted
+        in ``read.corrupt_records`` and ``read.skipped_shards``), ``raise``
+        takes the strict routes."""
         mode = self.options.on_corrupt
         if mode == "skip_record":
             try:
-                yield from self._positioned(
-                    self._salvage_chunks(path, chunk_records, skip), epoch, cursor, index, skip)
+                yield from self._decode_shard_salvage(epoch, cursor, index, skip)
             except CorruptQuotaError as e:
                 if self.options.corrupt_fallback != "skip_shard":
                     raise wire.TFRecordCorruptionError(str(e)) from e
                 self._note_skipped_shard(index, str(e))
             return
-        chunks = self._strict_chunks(path, chunk_records, skip)
         if mode != "skip_shard":
-            yield from self._positioned(chunks, epoch, cursor, index, skip)
+            yield from self._decode_shard_strict(epoch, cursor, index, skip)
             return
         try:
-            yield from self._positioned(chunks, epoch, cursor, index, skip)
+            yield from self._decode_shard_strict(epoch, cursor, index, skip)
         except wire.TFRecordCorruptionError as e:
             METRICS.count("read.corrupt_records")
             self._note_skipped_shard(index, str(e))
 
-    def _positioned(self, chunks, epoch: int, cursor: int, index: int, skip: int):
-        """Number the chunks of one shard from record ``skip`` and attach
-        its partition columns."""
-        start = skip
-        for chunk in chunks:
-            if self._partition_fields:
-                self._attach_partition_chunk(chunk, index)
-            yield chunk, epoch, cursor, start
-            start += chunk.num_rows
-
-    def _strict_chunks(self, path: str, chunk_records: int, skip: int) -> Iterator[ColumnarBatch]:
-        if self._native_decoder is None:
-            return self._python_chunks(path, chunk_records, skip)
-        if wire.codec_from_path(path) is None:
-            return self._mmap_chunks(path, chunk_records, skip)
-        return self._slab_chunks(path, chunk_records, skip)
-
-    def _note_skipped_shard(self, index: int, reason: str) -> None:
-        log_salvage_event(path=self.shards[index].path, kind="shard_skipped", error=reason)
+    def _note_skipped_shard(self, index: int, reason: str, kind: str = "shard_skipped") -> None:
+        log_salvage_event(path=self.shards[index].path, kind=kind, error=reason)
         METRICS.count("read.skipped_shards")
 
-    def _attach_partition_chunk(self, chunk: ColumnarBatch, index: int) -> None:
+    def _retrying(self, make_attempt: Callable[[], Iterator[tuple]]) -> Iterator[tuple]:
+        """Shard-level retry of every route: an IO or corruption error
+        restarts the attempt under ``retry_policy`` (``read.retries``, a
+        ``read.retry`` instant); each attempt skips the records its route
+        already yielded, so a retry duplicates and drops nothing."""
+        pol = self.retry_policy
+        attempt = 0
+        start = pol.clock()
+        while True:
+            try:
+                yield from make_attempt()
+                return
+            except (OSError, wire.TFRecordCorruptionError):
+                attempt += 1
+                if not pol.pause(attempt, start):
+                    raise
+                METRICS.count("read.retries")
+                telemetry.instant("read.retry", attempt=attempt)
+
+    def _guarded_open_fn(self) -> Optional[Callable[[str, Optional[str]], Any]]:
+        """The (path, codec) opener of the span streams: the stall guard's
+        when one is set, else None (``wire.open_compressed``)."""
+        return self._stall_guard.open_compressed if self._stall_guard is not None else None
+
+    def _readahead_for(self, path: str):
+        """The ``make_hint`` of a span stream: the readahead hinter over
+        the opened handle, at the window of the moment."""
+
+        def make_hint(fh):
+            try:
+                return _make_readahead(fh, os.path.getsize(path), self.readahead_bytes)
+            except OSError:
+                return None
+
+        return make_hint
+
+    # -- routes ----------------------------------------------------------------
+
+    def _emit_chunks(self, slabs: Iterator[tuple], epoch: int, cursor: int, index: int,
+                     next_index: List[int]) -> Iterator[tuple]:
+        """Chunk-decode a (buf, offsets, lengths) slab stream from record
+        ``next_index[0]`` on, yielding (chunk, epoch, cursor, start) and
+        advancing ``next_index`` past each chunk yielded (the Python and
+        salvage routes)."""
+        chunk_records = max(self.batch_size, MIN_CHUNK_RECORDS)
+        path = self.shards[index].path
+        base = 0
+        for buf, offsets, lengths in slabs:
+            n = len(offsets)
+            if base + n <= next_index[0]:
+                base += n
+                continue
+            for start in range(max(0, next_index[0] - base), n, chunk_records):
+                stop = min(start + chunk_records, n)
+                offs, lens = offsets[start:stop], lengths[start:stop]
+                with timed("decode", METRICS) as t, trace("tfr:decode"), \
+                        telemetry.span("decode", shard=path) as sp:
+                    if self._native_decoder is not None:
+                        chunk = self._native_decoder.decode_spans(buf, offs, lens)
+                    else:
+                        chunk = self._python_decode(
+                            [bytes(buf[o:o + m]) for o, m in zip(offs.tolist(), lens.tolist())])
+                    t.records += chunk.num_rows
+                    t.bytes += int(lens.sum())
+                    sp.set(rows=chunk.num_rows)
+                yield self._with_partitions(chunk, index), epoch, cursor, base + start
+                next_index[0] = base + stop
+            base += n
+
+    def _decode_shard_salvage(self, epoch: int, cursor: int, index: int, skip: int):
+        """``skip_record``: the frames the reader's salvage scan keeps (CRCs
+        checked, corrupt regions resynced past and logged by a
+        ``SalvageTracker``, which raises ``CorruptQuotaError`` past
+        ``max_corrupt_records``), chunk-decoded from the ``skip``-th."""
+        path = self.shards[index].path
+        tracker = SalvageTracker(path, self.options)
+        next_index = [skip]
+
+        def attempt() -> Iterator[tuple]:
+            tracker.reset()  # a retry re-scans the same regions
+            return self._emit_chunks(
+                salvage_spans_stream(path, on_event=tracker, slab_bytes=self.slab_bytes,
+                                     max_record_bytes=self.max_record_bytes,
+                                     open_fn=self._guarded_open_fn()),
+                epoch, cursor, index, next_index)
+
+        yield from self._retrying(attempt)
+
+    def _decode_shard_strict(self, epoch: int, cursor: int, index: int, skip: int):
+        """The strict routes: the native decoder's (mmap or stream), else
+        the Python route over framed ``slab_bytes`` slabs."""
+        if self._native_decoder is not None:
+            yield from self._decode_shard_fused(epoch, cursor, index, skip)
+            return
+        path = self.shards[index].path
+        next_index = [skip]
+
+        def attempt() -> Iterator[tuple]:
+            return self._emit_chunks(
+                scan_spans_stream(path, self.options.verify_crc, slab_bytes=self.slab_bytes,
+                                  max_record_bytes=self.max_record_bytes,
+                                  make_hint=self._readahead_for(path),
+                                  open_fn=self._guarded_open_fn()),
+                epoch, cursor, index, next_index)
+
+        yield from self._retrying(attempt)
+
+    def _io_scratch(self) -> Dict[str, Any]:
+        """The stream route's read buffer of the calling thread, reused
+        across shards (``readinto``, no allocation a read)."""
+        loc = self._scratch_local
+        if not hasattr(loc, "scratch"):
+            loc.scratch = {"buf": np.empty(min(self.slab_bytes, SCRATCH_INIT), np.uint8)}
+        return loc.scratch
+
+    def _refill_scratch(self, fh, scratch: Dict[str, Any], tail_len: int, path: str) -> int:
+        """Fill the scratch buffer after the ``tail_len`` carried bytes (a
+        partial frame), growing it first for a record larger than it; a
+        declared length past ``max_record_bytes`` raises. Returns the
+        valid length, or -1 at a clean end of file; a partial frame at
+        the end raises."""
+        buf = scratch["buf"]
+        if tail_len >= 8:
+            declared = int(buf[:8].view(np.uint64)[0])
+            if declared > self.max_record_bytes:
+                raise wire.TFRecordCorruptionError(
+                    f"record length {declared} exceeds max_record_bytes "
+                    f"({self.max_record_bytes}) in {path} — corrupt length field?")
+            if 16 + declared > buf.nbytes:
+                grown = np.empty(16 + declared, np.uint8)
+                grown[:tail_len] = buf[:tail_len]
+                scratch["buf"] = buf = grown
+        reader = getattr(fh, "readinto", None)
+        t0 = time.perf_counter()
+        with telemetry.span("read", shard=path) as sp:
+            if reader is not None:
+                n = reader(memoryview(buf)[tail_len:])
+            else:
+                # no readinto (the stall guard's stream): one copy more
+                data = fh.read(buf.nbytes - tail_len)
+                n = len(data)
+                buf[tail_len:tail_len + n] = np.frombuffer(data, np.uint8)
+            sp.set(bytes=int(n or 0))
+        dt = time.perf_counter() - t0
+        METRICS.add("read.io", nbytes=int(n or 0), seconds=dt, latency=dt)
+        if not n:
+            if tail_len:
+                raise wire.TFRecordCorruptionError(f"truncated TFRecord at end of {path}")
+            return -1
+        return tail_len + n
+
+    def _decode_shard_fused(self, epoch: int, cursor: int, index: int, skip: int):
+        """The native routes: a local uncompressed shard with ``use_mmap``
+        takes the mmap route; any other shard is read into the thread's
+        scratch buffer and scanned + decoded there, one native call per
+        chunk (the stream route). A partial frame at the buffer's end moves
+        to its front before the next read."""
+        path = self.shards[index].path
+        codec = wire.codec_from_path(path)
+        if self.use_mmap and codec is None:
+            yield from self._decode_shard_mmap(epoch, cursor, index, skip)
+            return
+        chunk_records = max(self.batch_size, MIN_CHUNK_RECORDS)
+        next_index = [skip]
+        dec = self._native_decoder
+        verify = self.options.verify_crc
+        scratch = self._io_scratch()
+        open_fn = self._guarded_open_fn()
+
+        def attempt() -> Iterator[tuple]:
+            with _timed_open(path, open_fn) as fh:
+                # the hint follows the stream's tell(): for a codec that is
+                # the decoded offset, which only makes the window eager
+                hint = self._readahead_for(path)(fh) or _noop_hint
+                to_skip = next_index[0]
+                abs_idx = 0  # the shard's record index at buffer position bpos
+                data_len = bpos = 0
+                while True:
+                    buf = scratch["buf"]
+                    tail_len = data_len - bpos
+                    if tail_len and bpos:
+                        buf[:tail_len] = buf[bpos:data_len].copy()
+                    try:
+                        hint(fh.tell())
+                    except (AttributeError, OSError, ValueError):
+                        hint = _noop_hint
+                    data_len = self._refill_scratch(fh, scratch, tail_len, path)
+                    if data_len < 0:
+                        return
+                    buf = scratch["buf"]
+                    bpos = 0
+                    while True:
+                        with timed("decode", METRICS) as t, trace("tfr:decode"), \
+                                telemetry.span("decode", shard=path) as sp:
+                            cb, n_sk, n_done, consumed = dec.scan_decode(
+                                buf, bpos, verify, to_skip, chunk_records, length=data_len,
+                                max_record_bytes=self.max_record_bytes)
+                            t.records += n_done
+                            t.bytes += consumed - bpos
+                            sp.set(rows=n_done)
+                        to_skip -= n_sk
+                        abs_idx += n_sk
+                        bpos = consumed
+                        if n_done == 0:
+                            break  # a partial frame, or nothing, is left: read on
+                        yield self._with_partitions(cb, index), epoch, cursor, abs_idx
+                        abs_idx += n_done
+                        next_index[0] = abs_idx
+
+        yield from self._retrying(attempt)
+
+    def _decode_shard_mmap(self, epoch: int, cursor: int, index: int, skip: int):
+        """A local uncompressed shard: mmap it and scan + decode straight
+        out of the page cache, one native call per chunk; the first call
+        CRC-checks and passes over the records to skip. The open runs
+        under ``open_deadline_ms`` when a guard is set (the reads are page
+        faults, which no deadline can see)."""
+        chunk_records = max(self.batch_size, MIN_CHUNK_RECORDS)
+        next_index = [skip]
+        dec = self._native_decoder
+        verify = self.options.verify_crc
+        path = self.shards[index].path
+
+        def raw_open(p: str, _codec):
+            if self._stall_guard is not None:
+                return self._stall_guard.call_open(lambda: _open_local(p, "rb"), p)
+            return _open_local(p, "rb")
+
+        def attempt() -> Iterator[tuple]:
+            with _timed_open(path, raw_open) as fh:
+                size = os.fstat(fh.fileno()).st_size
+                if size == 0:
+                    return
+                hint = _make_readahead(fh, size, self.readahead_bytes)
+                mm = mmap.mmap(fh.fileno(), 0, prot=mmap.PROT_READ)
+                buf = np.frombuffer(mm, np.uint8)
+                try:
+                    to_skip = next_index[0]
+                    abs_idx = bpos = 0
+                    while True:
+                        hint(bpos)
+                        with timed("decode", METRICS) as t, trace("tfr:decode"), \
+                                telemetry.span("decode", shard=path) as sp:
+                            cb, n_sk, n_done, consumed = dec.scan_decode(
+                                buf, bpos, verify, to_skip, chunk_records, length=size,
+                                max_record_bytes=self.max_record_bytes)
+                            t.records += n_done
+                            t.bytes += consumed - bpos
+                            sp.set(rows=n_done)
+                        to_skip -= n_sk
+                        abs_idx += n_sk
+                        bpos = consumed
+                        if n_done == 0:
+                            if bpos != size:  # a partial frame is all that is left
+                                raise wire.TFRecordCorruptionError(
+                                    f"truncated TFRecord at end of {path}")
+                            return
+                        yield self._with_partitions(cb, index), epoch, cursor, abs_idx
+                        abs_idx += n_done
+                        next_index[0] = abs_idx
+                finally:
+                    # decoded chunks copy or own their bytes, so only this view
+                    # exports the map's buffer, unless an exception's traceback
+                    # still holds it: then the map closes when that is collected
+                    del buf
+                    try:
+                        mm.close()
+                    except BufferError:
+                        pass
+
+        yield from self._retrying(attempt)
+
+    def _with_partitions(self, chunk: ColumnarBatch, index: int) -> ColumnarBatch:
         """Partition values are constant within a shard: materialize them as
         constant columns over the chunk (JAX ``_attach_partition_chunk``)."""
+        if not self._partition_fields:
+            return chunk
         n = chunk.num_rows
         for f in self._partition_fields:
             val = cast_partition_value(self.shards[index].partitions.get(f.name), f.data_type)
@@ -371,132 +740,7 @@ class TFRecordDataset:
             else:
                 col.values = np.full(n, val if val is not None else 0, dtype=np_dt)
             chunk.columns[f.name] = col
-
-    def _chunks(
-        self, stop: Optional[threading.Event] = None, state: Optional[IteratorState] = None
-    ) -> Iterator[Tuple[ColumnarBatch, int, int, int]]:
-        """(chunk, epoch, cursor, start) for the decoded chunks of every
-        epoch from ``state`` on, in task order; with ``num_workers`` > 1
-        from the decode pool, which ``stop`` (or closing this generator)
-        stops and joins."""
-        state = state or IteratorState()
-        if self.num_workers > 1:
-            yield from _parallel_chunks(self, stop or threading.Event(), state)
-            return
-        for task in self._shard_tasks(state):
-            yield from self._decode_shard(*task)
-
-    def _mmap_chunks(self, path: str, chunk_records: int, skip: int = 0) -> Iterator[ColumnarBatch]:
-        """A local uncompressed shard: mmap it and scan + decode straight out
-        of the page cache, one native call per chunk; the first call
-        CRC-checks and passes over ``skip`` records."""
-        dec = self._native_decoder
-        with _open_local(path, "rb") as fh:
-            size = os.fstat(fh.fileno()).st_size
-            if size == 0:
-                return
-            mm = mmap.mmap(fh.fileno(), 0, prot=mmap.PROT_READ)
-            buf = np.frombuffer(mm, np.uint8)
-            try:
-                pos = 0
-                to_skip = skip
-                while True:
-                    cb, n_skipped, n_done, pos = dec.scan_decode(
-                        buf, pos, self.options.verify_crc, to_skip, chunk_records,
-                        length=size, max_record_bytes=MAX_RECORD_BYTES,
-                    )
-                    to_skip -= n_skipped
-                    if n_done == 0:
-                        if pos != size:  # a partial frame is all that is left
-                            raise wire.TFRecordCorruptionError(
-                                f"truncated TFRecord at end of {path}"
-                            )
-                        return
-                    yield cb
-            finally:
-                # decoded chunks copy or own their bytes, so only this view
-                # exports the map's buffer, unless an exception's traceback
-                # still holds it: then the map closes when that is collected
-                del buf
-                try:
-                    mm.close()
-                except BufferError:
-                    pass
-
-    def _slab_chunks(self, path: str, chunk_records: int, skip: int = 0) -> Iterator[ColumnarBatch]:
-        """A compressed shard, as the JAX dataset's fused path reads it:
-        decompressed into a buffer of SLAB_BYTES, scanned + decoded one
-        native call per chunk (the first calls CRC-check and pass over
-        ``skip`` records); a partial frame at the buffer's end moves to its
-        front before the next read, the buffer grows for a record larger
-        than it, a declared length past MAX_RECORD_BYTES raises. Chunks
-        before a corrupt one are yielded, as the JAX dataset yields them."""
-        dec = self._native_decoder
-        verify = self.options.verify_crc
-        buf = np.empty(SLAB_BYTES, np.uint8)
-        to_skip = skip
-        data_len = pos = 0
-        with _timed_open(path) as fh:
-            while True:
-                tail = data_len - pos
-                if tail and pos:
-                    buf[:tail] = buf[pos:data_len].copy()
-                if tail >= 8:
-                    declared = int(buf[:8].view(np.uint64)[0])
-                    if declared > MAX_RECORD_BYTES:
-                        raise wire.TFRecordCorruptionError(
-                            f"record length {declared} exceeds max_record_bytes "
-                            f"({MAX_RECORD_BYTES}) in {path} — corrupt length field?")
-                    if 16 + declared > buf.nbytes:
-                        grown = np.empty(16 + declared, np.uint8)
-                        grown[:tail] = buf[:tail]
-                        buf = grown
-                data = _timed_read(fh, buf.nbytes - tail, path)
-                if not data:
-                    if tail:
-                        raise wire.TFRecordCorruptionError(f"truncated TFRecord at end of {path}")
-                    return
-                buf[tail:tail + len(data)] = np.frombuffer(data, np.uint8)
-                data_len, pos = tail + len(data), 0
-                while True:
-                    cb, n_skipped, n_done, pos = dec.scan_decode(
-                        buf, pos, verify, to_skip, chunk_records, length=data_len,
-                        max_record_bytes=MAX_RECORD_BYTES)
-                    to_skip -= n_skipped
-                    if n_done == 0:
-                        break  # a partial frame, or nothing, is left: read on
-                    yield cb
-
-    def _salvage_chunks(self, path: str, chunk_records: int, skip: int = 0) -> Iterator[ColumnarBatch]:
-        """``skip_record``: the frames the reader's salvage scan keeps (CRCs
-        checked, corrupt regions resynced past and logged by a
-        ``SalvageTracker``, which raises ``CorruptQuotaError`` past
-        ``max_corrupt_records``), chunk-decoded from the ``skip``-th."""
-        base = 0  # index of the slab's first frame among the kept ones
-        for buf, offsets, lengths in salvage_spans_stream(
-            path, on_event=SalvageTracker(path, self.options), slab_bytes=SLAB_BYTES,
-            max_record_bytes=MAX_RECORD_BYTES,
-        ):
-            for start in range(max(0, skip - base), len(offsets), chunk_records):
-                offs, lens = offsets[start:start + chunk_records], lengths[start:start + chunk_records]
-                if self._native_decoder is not None:
-                    yield self._native_decoder.decode_spans(buf, offs, lens)
-                else:
-                    yield self._python_decode([bytes(buf[o:o + n])
-                                               for o, n in zip(offs.tolist(), lens.tolist())])
-            base += len(offsets)
-
-    def _python_chunks(self, path: str, chunk_records: int, skip: int = 0) -> Iterator[ColumnarBatch]:
-        records: List[bytes] = []
-        for i, rec in enumerate(wire.read_records(path, verify_crc=self.options.verify_crc)):
-            if i < skip:
-                continue
-            records.append(rec)
-            if len(records) == chunk_records:
-                yield self._python_decode(records)
-                records = []
-        if records:
-            yield self._python_decode(records)
+        return chunk
 
     def _python_decode(self, records: List[bytes]) -> ColumnarBatch:
         """``ColumnarDecoder``, then the hashing and packing that the native
@@ -589,39 +833,43 @@ def _take(pending: Deque[list], n: int) -> Tuple[ColumnarBatch, IteratorState]:
     return concat_batches(parts), end
 
 
-def _put(out: queue.Queue, item, stop: threading.Event) -> bool:
+def _put(out: queue.Queue, item, stop: threading.Event, wait_counter: Optional[str] = None) -> bool:
     """Enqueue, polling ``stop`` so that a consumer that went away never
-    leaves the producer blocked on a full queue."""
+    leaves the producer blocked on a full queue; a put that found the
+    queue full counts once in ``wait_counter``."""
+    blocked = False
     while not stop.is_set():
         try:
             out.put(item, timeout=0.1)
             return True
         except queue.Full:
-            continue
+            if wait_counter and not blocked:
+                blocked = True
+                METRICS.count(wait_counter)
     return False
 
 
 def _produce(ds: TFRecordDataset, start: IteratorState, out: queue.Queue,
-             stop: threading.Event) -> None:
+             stop: threading.Event, control: Optional[autotune.PipelineControl] = None) -> None:
     """The producer thread: (batch, end position) pairs from ``start`` on,
     then None at the end, or the exception that stopped it. A module-level
     function, so the thread holds no reference to the iterator and an
     abandoned iterator can be collected."""
     try:
         emit = _emit_shuffled if ds.shuffle_window else _emit_in_order
-        if emit(ds, start, out, stop):
+        if emit(ds, start, out, stop, control):
             _put(out, None, stop)
     except BaseException as e:  # re-raised in the consumer by CheckpointableIterator.__next__
         _put(out, e, stop)
 
 
 def _emit_in_order(ds: TFRecordDataset, start: IteratorState, out: queue.Queue,
-                   stop: threading.Event) -> bool:
+                   stop: threading.Event, control=None) -> bool:
     """Cut the chunk stream into batches in stream order, each with the
     position after its last row; False if the consumer went away."""
     pending: Deque[list] = collections.deque()
     avail = 0
-    with contextlib.closing(ds._chunks(stop, start)) as chunks:
+    with contextlib.closing(ds._chunks(stop, start, control)) as chunks:
         for chunk, epoch, cursor, chunk_start in chunks:
             if stop.is_set():
                 return False
@@ -630,86 +878,193 @@ def _emit_in_order(ds: TFRecordDataset, start: IteratorState, out: queue.Queue,
             pending.append([chunk, 0, epoch, cursor, chunk_start])
             avail += chunk.num_rows
             while avail >= ds.batch_size:
-                if not _put(out, _take(pending, ds.batch_size), stop):
+                if not _put(out, _take(pending, ds.batch_size), stop, BACKPRESSURE):
                     return False
                 avail -= ds.batch_size
     if avail and not ds.drop_remainder:
-        return _put(out, _take(pending, avail), stop)
+        return _put(out, _take(pending, avail), stop, BACKPRESSURE)
     return True
 
 
 class _ShardJob:
-    """One shard's decode in the pool: its task, and the bounded queue its
+    """One shard's decode in the pool: its task, the bounded queue its
     worker fills with ("chunk", tuple), then ("end", None) or ("error",
-    exception)."""
+    exception), and the watchdog's view of it. ``beat`` is the worker's
+    progress stamp (monotonic seconds), renewed at every chunk handed over
+    and at every poll of a blocked put, so a worker waiting on a full
+    queue never looks stalled; ``wedged`` and ``failed`` (a
+    ``WatchdogError``) are set when the beat went silent; ``thread`` is
+    the worker that took the job."""
 
-    __slots__ = ("task", "out")
+    __slots__ = ("task", "out", "beat", "failed", "wedged", "thread")
 
-    def __init__(self, task: Tuple[int, int, int, int], depth: int):
+    def __init__(self, task: Tuple[int, int, int, int], depth: int, now: float = 0.0):
         self.task = task
         self.out: queue.Queue = queue.Queue(maxsize=depth)
-
-
-SHARD_QUEUE_CHUNKS = 2  # decoded chunks a worker may hold ahead of the producer
+        self.beat = now
+        self.failed: Optional[BaseException] = None
+        self.wedged = False
+        self.thread: Optional[threading.Thread] = None
 
 
 def _parallel_chunks(ds: TFRecordDataset, stop: threading.Event,
-                     state: Optional[IteratorState] = None) -> Iterator[tuple]:
-    """Ordered parallel shard decode from ``state`` on, the JAX
-    ``_parallel_chunks`` without its watchdog and its resizable pool.
+                     state: Optional[IteratorState] = None,
+                     control: Optional[autotune.PipelineControl] = None) -> Iterator[tuple]:
+    """Ordered parallel shard decode from ``state`` on, with the JAX
+    ``_parallel_chunks``'s watchdog and resizable pool.
 
-    A dispatcher enumerates the shard tasks lazily and hands each to
-    ``ds.num_workers`` workers through a task queue, after queueing its job
-    on the order queue; both queues hold ``num_workers`` jobs, so at most
-    about twice that many shards are decoded or waiting at a time. This
-    generator (run by the producer) drains the jobs' queues in task order,
-    so its chunks are the sequential stream's. A worker's exception is
-    raised here, where its shard's chunks stop. ``stop``, the end of the
-    stream, an error or closing the generator stops every thread, and the
-    generator joins them before it returns."""
-    n_workers = ds.num_workers
+    A dispatcher enumerates the shard tasks lazily and hands each to the
+    workers through a task queue, after queueing its job on the order
+    queue. This generator (run by the producer) drains the jobs' queues in
+    task order, so its chunks are the sequential stream's for any worker
+    count, which is what lets a ``control`` (autotune) resize the pool
+    mid-epoch: growth spawns workers on the same task queue, shrinking
+    lets surplus workers retire between shards (``should_exit``). The
+    queues are sized to the control's ceiling.
+
+    With ``watchdog_timeout_ms`` a watchdog thread scans the jobs in
+    flight: a worker whose beat is older than the timeout (blocked in a
+    read that never returns) has its job failed with a ``WatchdogError``
+    and a replacement worker is started (``read.stalls``,
+    ``read.watchdog_restarts``). This generator applies ``on_stall`` to
+    the failed job once it has drained the chunks made before the stall.
+
+    A worker's exception is raised here, where its shard's chunks stop.
+    ``stop``, the end of the stream, an error or closing the generator
+    stops every thread; the generator joins them before it returns, all
+    but a wedged worker, which is left blocked in its read."""
+    n_workers = ds.num_workers if control is None else control.workers
+    cap = n_workers if control is None else max(control.max_workers, n_workers)
     halt = threading.Event()
-    task_q: queue.Queue = queue.Queue(maxsize=n_workers)
-    order_q: queue.Queue = queue.Queue(maxsize=n_workers + 1)
+    task_q: queue.Queue = queue.Queue(maxsize=cap)
+    order_q: queue.Queue = queue.Queue(maxsize=cap + 1)
     end = object()
+    clock = time.monotonic
+    wd_ms = ds.options.watchdog_timeout_ms
+    wd_timeout = wd_ms / 1000.0 if wd_ms else None
+    inflight: Dict[int, _ShardJob] = {}
+    lock = threading.Lock()  # inflight, threads and stuck
+    threads: List[threading.Thread] = []
+    stuck: set = set()  # workers of wedged jobs: never joined
+    names = itertools.count()
+
+    def put_checked(q: queue.Queue, item, job: Optional[_ShardJob] = None) -> bool:
+        while not halt.is_set():
+            if job is not None:
+                job.beat = clock()  # blocked on a full queue is not a stall
+                if job.wedged:
+                    return False
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def start(target, name: str) -> None:
+        t = threading.Thread(target=target, name=name, daemon=True)
+        with lock:
+            threads.append(t)
+        t.start()
+
+    def spawn_worker() -> None:
+        start(worker, f"tfrecord-decode-{next(names)}")
 
     def dispatcher() -> None:
         try:
             for task in ds._shard_tasks(state):
-                job = _ShardJob(task, SHARD_QUEUE_CHUNKS)
-                if not (_put(order_q, job, halt) and _put(task_q, job, halt)):
+                job = _ShardJob(task, SHARD_QUEUE_CHUNKS, clock())
+                if not (put_checked(order_q, job) and put_checked(task_q, job)):
                     return
-            _put(order_q, end, halt)
+            put_checked(order_q, end)
         except BaseException as e:  # raised by the generator below, in order
-            _put(order_q, e, halt)
+            put_checked(order_q, e)
         finally:
-            for _ in range(n_workers):
-                if not _put(task_q, end, halt):
-                    break
+            if control is not None:
+                put_checked(task_q, end)  # one sentinel, passed on by each worker
+            else:
+                for _ in range(n_workers):
+                    if not put_checked(task_q, end):
+                        break
 
     def worker() -> None:
-        while not halt.is_set():
-            try:
-                job = task_q.get(timeout=0.1)
-            except queue.Empty:
-                continue
-            if job is end:
-                return
-            try:
-                for item in ds._decode_shard(*job.task):
-                    if not _put(job.out, ("chunk", item), halt):
-                        return
-                _put(job.out, ("end", None), halt)
-            except BaseException as e:  # raised by the generator below, in order
-                _put(job.out, ("error", e), halt)
+        permitted = False  # retired by the control
+        replaced = False  # declared wedged: a replacement holds this slot
+        try:
+            while not halt.is_set():
+                if control is not None and control.should_exit():
+                    permitted = True
+                    return
+                try:
+                    job = task_q.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+                if job is end:
+                    if control is not None:
+                        put_checked(task_q, end)
+                    return
+                job.beat = clock()
+                job.thread = threading.current_thread()
+                with lock:
+                    inflight[id(job)] = job
+                    METRICS.gauge("read.inflight_workers", len(inflight))
+                try:
+                    for item in ds._decode_shard(*job.task):
+                        if not put_checked(job.out, ("chunk", item), job):
+                            return
+                        job.beat = clock()
+                    if not job.wedged:
+                        put_checked(job.out, ("end", None), job)
+                except BaseException as e:  # raised by the generator below, in order
+                    if not job.wedged:
+                        put_checked(job.out, ("error", e), job)
+                    return
+                finally:
+                    with lock:
+                        # decided under the lock: a job either completes or
+                        # is declared wedged and replaced, never both
+                        inflight.pop(id(job), None)
+                        METRICS.gauge("read.inflight_workers", len(inflight))
+                        replaced = job.wedged
+                if replaced:
+                    return
+        finally:
+            if control is not None and not replaced:
+                control.note_exit(permitted)
 
-    threads = [threading.Thread(target=dispatcher, name="tfrecord-dispatcher", daemon=True)]
-    threads += [
-        threading.Thread(target=worker, name=f"tfrecord-decode-{i}", daemon=True)
-        for i in range(n_workers)
-    ]
-    for t in threads:
-        t.start()
+    def watchdog() -> None:
+        interval = max(0.01, wd_timeout / 4.0)
+        while not halt.wait(interval):
+            now = clock()
+            with lock:
+                stale = [j for j in inflight.values()
+                         if not j.wedged and now - j.beat > wd_timeout]
+                for j in stale:
+                    j.wedged = True
+                    inflight.pop(id(j), None)
+                    stuck.add(j.thread)
+            for job in stale:
+                path = ds.shards[job.task[2]].path
+                job.failed = WatchdogError(
+                    f"shard worker made no progress for {wd_timeout * 1000:.0f} ms on {path}")
+                METRICS.count("read.stalls")
+                METRICS.count("read.watchdog_restarts")
+                telemetry.instant("watchdog_restart", path=path)
+                log_salvage_event(path=path, kind="watchdog_restart", error=str(job.failed))
+                # the wedged thread cannot be cancelled (it is blocked in a
+                # C-level read): a fresh worker takes its slot in the pool,
+                # and the wedged one's late exit is not booked
+                spawn_worker()
+
+    start(dispatcher, "tfrecord-dispatcher")
+    if wd_timeout is not None:
+        start(watchdog, "tfrecord-watchdog")
+    if control is None:
+        for _ in range(n_workers):
+            spawn_worker()
+    else:
+        # the control brings the pool up to its target and grows it later
+        control.bind_spawn(spawn_worker)
 
     def get(q: queue.Queue):
         """The next item of ``q``, or ``end`` once ``stop`` is set."""
@@ -728,9 +1083,18 @@ def _parallel_chunks(ds: TFRecordDataset, stop: threading.Event,
             if isinstance(job, BaseException):
                 raise job
             while True:
-                item = get(job.out)
-                if item is end:
-                    return
+                try:
+                    item = job.out.get(timeout=0.1)
+                except queue.Empty:
+                    if stop.is_set():
+                        return
+                    if job.failed is not None:
+                        # every chunk made before the stall is out: on_stall
+                        if ds.options.on_stall != "skip_shard":
+                            raise job.failed
+                        ds._note_skipped_shard(job.task[2], str(job.failed), kind="shard_stalled")
+                        break
+                    continue
                 kind, payload = item
                 if kind == "end":
                     break
@@ -739,7 +1103,13 @@ def _parallel_chunks(ds: TFRecordDataset, stop: threading.Event,
                 yield payload
     finally:
         halt.set()
-        for t in threads:
+        with lock:
+            waiting = [t for t in threads if t not in stuck]
+        for t in waiting:
+            t.join()
+        with lock:  # workers the watchdog started while the others stopped
+            late = [t for t in threads if t not in stuck and t not in waiting]
+        for t in late:
             t.join()
 
 
@@ -752,7 +1122,7 @@ def _window_permutation(seed: int, start: IteratorState, n: int) -> np.ndarray:
 
 
 def _emit_shuffled(ds: TFRecordDataset, start: IteratorState, out: queue.Queue,
-                   stop: threading.Event) -> bool:
+                   stop: threading.Event, control=None) -> bool:
     """Windowed row shuffle: gather ``shuffle_window`` batches of rows,
     permute them and emit them a batch at a time. A window ends at the
     position after its last row, (epoch, cursor, offset): a window that
@@ -778,12 +1148,13 @@ def _emit_shuffled(ds: TFRecordDataset, start: IteratorState, out: queue.Queue,
             n_batches += 1
         for k in range(emit_skip, n_batches):
             pos = end if k == n_batches - 1 else replace(win_start, window_emitted=k + 1)
-            if not _put(out, (take_rows(window, perm[k * b:min((k + 1) * b, rows)]), pos), stop):
+            if not _put(out, (take_rows(window, perm[k * b:min((k + 1) * b, rows)]), pos), stop,
+                        BACKPRESSURE):
                 return False
         emit_skip = 0
         return True
 
-    with contextlib.closing(ds._chunks(stop, win_start)) as chunks:
+    with contextlib.closing(ds._chunks(stop, win_start, control)) as chunks:
         for chunk, epoch, cursor, chunk_start in chunks:
             if stop.is_set():
                 return False
@@ -813,17 +1184,43 @@ class CheckpointableIterator:
     Before each get the queue's fill fraction feeds the
     ``prefetch.occupancy`` gauge (an EMA, ``telemetry.boundness_verdict``
     reads it); the wait lands in the ``batch.wait`` stage and a ``batch``
-    span."""
+    span.
+
+    With ``pulse_interval_s`` a ``telemetry.Pulse`` runs while the
+    iterator is live. With ``autotune="on"`` the iterator builds a
+    ``PipelineControl`` over its decode pool, prefetch queue, readahead
+    window and stall guard (``_control``) and an ``AutotuneController``
+    (``autotune``) that observes the pulse (at ``autotune_interval_s``
+    when no pulse interval is set). The end of the iteration, its failure
+    or ``close()`` stops the pulse, with one last line."""
 
     def __init__(self, ds: TFRecordDataset, state: IteratorState):
         self._ds = ds
         self._consumed_state = state
-        self._queue: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        self._queue: queue.Queue = _ResizableQueue(maxsize=max(1, ds.prefetch))
         self._stop = threading.Event()
         self._done = False
         self._occupancy = telemetry.OccupancyEma(telemetry.OCCUPANCY_GAUGE)
+        self._control: Optional[autotune.PipelineControl] = None
+        self.autotune: Optional[autotune.AutotuneController] = None
+        pulse_interval = ds.options.pulse_interval_s
+        if ds.options.autotune == "on":
+            self._control = autotune.PipelineControl(
+                workers=ds.num_workers, queue=self._queue, dataset=ds, guard=ds._stall_guard)
+            if pulse_interval is None:
+                pulse_interval = ds.options.autotune_interval_s or autotune.DEFAULT_INTERVAL_S
+            self.autotune = autotune.AutotuneController(self._control, interval_s=pulse_interval)
+        self._pulse: Optional[telemetry.Pulse] = None
+        if pulse_interval is not None:
+            self._pulse = telemetry.Pulse(pulse_interval)
+            if self.autotune is not None:
+                self._pulse.add_observer(self.autotune.on_pulse)
+            self._pulse.start()
+            # an abandoned iterator stops its pulse too (the finalizer
+            # holds the Pulse, never this object)
+            weakref.finalize(self, telemetry.Pulse.stop, self._pulse, False)
         self._thread = threading.Thread(
-            target=_produce, args=(ds, state, self._queue, self._stop),
+            target=_produce, args=(ds, state, self._queue, self._stop, self._control),
             name="tfrecord-producer", daemon=True,
         )
         # an iterator dropped without close() still stops its producer
@@ -836,17 +1233,19 @@ class CheckpointableIterator:
     def __next__(self) -> ColumnarBatch:
         if self._done:
             raise StopIteration
-        depth = self._queue.qsize()
-        self._occupancy.update(depth / self._queue.maxsize)
+        q = self._queue
+        depth = q.qsize()
+        self._occupancy.update(depth / q.maxsize)
         METRICS.gauge("prefetch.queue_depth", depth)
         t0_ns = time.perf_counter_ns()
         while True:
             try:
-                item = self._queue.get(timeout=0.1)
+                item = q.get(timeout=0.1)
                 break
             except queue.Empty:
                 if self._stop.is_set():  # close()d
                     self._done = True
+                    self._stop_pulse()
                     raise StopIteration
         if item is None or isinstance(item, BaseException):
             self.close()
@@ -865,10 +1264,21 @@ class CheckpointableIterator:
         dataset's fingerprint."""
         return replace(self._consumed_state, fingerprint=self._ds.fingerprint())
 
+    def _stop_pulse(self) -> None:
+        """Stop the pulse (one last line for the tail interval); once."""
+        pulse, self._pulse = self._pulse, None
+        if pulse is not None:
+            try:
+                pulse.stop()
+            except Exception:  # telemetry teardown never fails the close
+                pass
+
     def close(self) -> None:
-        """Stop the producer, drop the batches it queued, and join it."""
+        """Stop the producer and the pulse, drop the batches the producer
+        queued, and join it."""
         self._done = True
         self._stop.set()
+        self._stop_pulse()
         try:
             while True:
                 self._queue.get_nowait()

@@ -1,9 +1,11 @@
 """Dataset reader: per-shard record iterators + partition-aware scans.
 
 Copy of ``tpu_tfrecord/io/reader.py`` over the port's local filesystem and
-native library. Left out: the stall guard (``on_stall``, deadlines and
-hedging) and ``infer_schema_multihost``, which wait for the port's
-multi-process layer.
+native library. The span streams take the opener of the dataset
+(``open_fn``: its stall guard's, when one is set) and a readahead hint
+(``make_hint``). Left out: the row reader's stall guard and
+``infer_schema_multihost``, which waits for the port's multi-process
+layer.
 
 The reference's read path (SURVEY.md §3.1):
 DefaultSource.buildReader + TFRecordFileReader. One ShardReader per file
@@ -26,7 +28,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from tpu_tfrecord_torch import _native, wire
+from tpu_tfrecord_torch import _native, telemetry, wire
 from tpu_tfrecord_torch.infer import (
     byte_array_schema,
     infer_from_records,
@@ -43,19 +45,27 @@ from tpu_tfrecord_torch.serde import Row, TFRecordDeserializer, decode_record
 from tpu_tfrecord_torch.tracing import trace
 
 
-def _timed_open(path: str):
-    """Open a shard (its codec from its extension) under the ``read.open``
-    latency histogram and a ``tfr:open`` profiler region."""
-    with timed("read.open", METRICS), trace("tfr:open"):
-        return wire.open_compressed(path, "rb", wire.codec_from_path(path))
+def _open_plain(path: str, codec: Optional[str]):
+    return wire.open_compressed(path, "rb", codec)
+
+
+def _timed_open(path: str, open_fn: Optional[Callable[[str, Optional[str]], Any]] = None):
+    """Open a shard (its codec from its extension) through ``open_fn(path,
+    codec)`` (``wire.open_compressed`` by default) under the ``read.open``
+    latency histogram, a ``tfr:open`` profiler region and an ``open``
+    span."""
+    with timed("read.open", METRICS), trace("tfr:open"), telemetry.span("open", shard=path):
+        return (open_fn or _open_plain)(path, wire.codec_from_path(path))
 
 
 def _timed_read(fh, want: int, path: str) -> bytes:
-    """One slab read under the ``read.io`` latency histogram. An exception
-    propagates untouched and records no totals."""
-    t0 = time.perf_counter()
-    data = fh.read(want)
-    dt = time.perf_counter() - t0
+    """One slab read under the ``read.io`` latency histogram and a ``read``
+    span. An exception propagates untouched and records no totals."""
+    with telemetry.span("read", shard=path) as sp:
+        t0 = time.perf_counter()
+        data = fh.read(want)
+        dt = time.perf_counter() - t0
+        sp.set(bytes=len(data))
     METRICS.add("read.io", nbytes=len(data), seconds=dt, latency=dt)
     return data
 
@@ -129,6 +139,7 @@ def salvage_spans_stream(
     on_event: Callable[[Dict[str, Any]], None],
     slab_bytes: int = 32 << 20,
     max_record_bytes: int = 1 << 30,
+    open_fn: Optional[Callable[[str, Optional[str]], Any]] = None,
 ) -> Iterator[tuple]:
     """Corruption-tolerant twin of ``scan_spans_stream``: yields
     (buf, offsets, lengths) span batches of VALID frames only, and instead
@@ -149,7 +160,7 @@ def salvage_spans_stream(
     window) carries between reads.
     """
     H, F = wire.HEADER_BYTES, wire.FOOTER_BYTES
-    with _timed_open(path) as fh:
+    with _timed_open(path, open_fn) as fh:
         buf = b""
         file_off = 0  # decoded-stream offset of buf[0]
         bad_at: Optional[int] = None  # absolute start of current corrupt region
@@ -408,6 +419,8 @@ def scan_spans_stream(
     slab_bytes: int = 32 << 20,
     max_record_bytes: int = 1 << 30,
     max_records: Optional[int] = None,
+    make_hint=None,
+    open_fn: Optional[Callable[[str, Optional[str]], Any]] = None,
 ) -> Iterator[tuple]:
     """Stream one shard as (buf, offsets, lengths) span batches — the ONE
     owner of the slab framing loop (bounded tail-carry: a partial trailing
@@ -419,11 +432,20 @@ def scan_spans_stream(
     ``max_records`` stops cleanly after that many records WITHOUT framing or
     CRC-checking the bytes beyond them — record-limited consumers (schema
     inference sampling) thereby match the lazy per-record reader on shards
-    whose corruption lies past the limit."""
+    whose corruption lies past the limit. ``make_hint(fh)`` may return a
+    ``hint(pos)`` readahead callback (the dataset's sliding
+    ``posix_fadvise`` window), called with the stream position before
+    each read."""
     remaining = max_records
-    with _timed_open(path) as fh:
+    with _timed_open(path, open_fn) as fh:
+        hint = make_hint(fh) if make_hint is not None else None
         carry = b""
         while remaining is None or remaining > 0:
+            if hint is not None:
+                try:
+                    hint(fh.tell())
+                except (AttributeError, OSError, ValueError):
+                    hint = None
             want = slab_bytes
             if len(carry) >= 8:
                 declared = int.from_bytes(carry[:8], "little")

@@ -99,6 +99,10 @@ class ShardWriter:
     def write(self, row: Sequence[Any]) -> None:
         self._writer.write(encode_row(self._serializer, self._record_type, row))
 
+    def write_serialized(self, record: bytes) -> None:
+        """Frame and write one already-serialized record."""
+        self._writer.write(record)
+
     def write_framed(self, framed: "bytes | memoryview", n_records: int) -> None:
         """Write an already-framed record stream (native encoder output)."""
         self._fh.write(framed)

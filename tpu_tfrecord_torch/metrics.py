@@ -4,12 +4,14 @@ Cut of ``tpu_tfrecord/metrics.py`` to what the reader, the writer, the
 checkpoint layer, the trainer harness and the serving tier read: the
 ``Metrics`` registry (per-stage totals through ``add`` / ``count``, gauges,
 log-bucketed latency histograms fed by ``add`` or ``observe``, ``counter``
-/ ``gauge_value`` / ``stage`` / ``quantiles``), ``timed``,
-``log_salvage_event`` and the package ``logger``. ``Histogram`` is a copy
-of ``tpu_tfrecord/telemetry.py::Histogram`` without its exemplars and its
-mergeable state (``observe`` takes the JAX signature's ``exemplar`` and
-drops it: the port has no exporter to show one). Counters are updated at
-slab or shard granularity, never per record, and every access takes the
+/ ``gauge_value`` / ``stage`` / ``quantiles``, and the one-lock copies the
+telemetry pulse reads: ``raw_totals``, ``gauges`` and ``hist_states``),
+``timed``, ``log_salvage_event`` and the package ``logger``.
+``Histogram`` is a copy of ``tpu_tfrecord/telemetry.py::Histogram``
+without its exemplars (``observe`` takes the JAX signature's ``exemplar``
+and drops it: the port has no exporter to show one); its ``state`` is the
+JAX one without the ``exemplars`` key. Counters are updated at slab or
+shard granularity, never per record, and every access takes the
 registry's lock.
 
 Stages the port records: ``read`` and ``read.io`` / ``read.open`` (the
@@ -19,8 +21,14 @@ reader), ``write``, ``write.encode``, ``write.compress``, ``write.io`` and
 ``write.commit_retries``, ``write.backpressure_waits`` and
 ``<stage>.errors``; the gauge ``write.inflight_slabs``. The dataset's
 iterator adds ``batch.wait`` and the gauges ``prefetch.queue_depth`` and
-``prefetch.occupancy``; the checkpoint layer ``ckpt.snapshot``,
-``ckpt.commit``, ``ckpt.commit_wait``, ``ckpt.bytes_written``,
+``prefetch.occupancy``, its decode pool ``decode``, ``read.retries``,
+the stall counters ``read.stalls``, ``read.deadline_misses``,
+``read.hedges``, ``read.hedge_wins``, ``read.watchdog_restarts``,
+``read.backpressure_waits`` and the gauge ``read.inflight_workers``; the
+autotune controller ``autotune.adjustments`` and the gauges
+``autotune.<knob>``, the pulse ``pulse.observer_errors``; the checkpoint
+layer ``ckpt.snapshot``, ``ckpt.commit``, ``ckpt.commit_wait``,
+``ckpt.bytes_written``,
 ``ckpt.generations_swept`` and the gauge ``ckpt.inflight``; the harness
 ``train.<phase>``, ``train.step``, ``train.steps`` and the gauges
 ``train.share.<phase>``; the serving tier the counters ``serve.requests``,
@@ -38,7 +46,7 @@ import math
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 logger = logging.getLogger("tpu_tfrecord_torch")
 
@@ -92,6 +100,19 @@ class Histogram:
                 est = self._MIN if idx == 0 else self._MIN * 2 ** ((idx - 0.5) * self._LOG2_GROWTH)
                 return min(max(est, self.min), self.max)
         return self.max
+
+    def state(self) -> Dict[str, Any]:
+        """JSON-serializable snapshot: the populated buckets' counts, the
+        count, total, min and max, and the bucket layout (the JAX
+        ``Histogram.state`` of a histogram with no exemplars)."""
+        return {
+            "buckets": {str(i): c for i, c in enumerate(self.counts) if c},
+            "count": self.count,
+            "total": self.total,
+            "min": self.min if self.count else None,
+            "max": self.max,
+            "layout": [self._MIN, self._LOG2_GROWTH, self._NBUCKETS],
+        }
 
     def quantiles(self) -> Dict[str, float]:
         """p50/p90/p99 (seconds), count and mean; empty when no data."""
@@ -176,6 +197,11 @@ class Metrics:
         with self._lock:
             return self._gauges.get(name, default)
 
+    def gauges(self) -> Dict[str, float]:
+        """A one-lock copy of every gauge."""
+        with self._lock:
+            return dict(self._gauges)
+
     def observe(self, stage: str, seconds: float,
                 exemplar: Optional[Tuple[str, str]] = None) -> None:
         """Fold one latency observation into ``stage``'s histogram without
@@ -193,6 +219,18 @@ class Metrics:
         with self._lock:
             return {name: hist.quantiles() for name, hist in self._hists.items()
                     if prefix is None or name == prefix or name.startswith(prefix + ".")}
+
+    def hist_states(self) -> Dict[str, dict]:
+        """A one-lock copy of every histogram's ``Histogram.state``."""
+        with self._lock:
+            return {name: hist.state() for name, hist in self._hists.items()}
+
+    def raw_totals(self) -> Dict[str, Tuple[int, int, int, float]]:
+        """A one-lock copy of every stage's totals as (records, bytes,
+        batches, seconds): the delta source of ``telemetry.Pulse``."""
+        with self._lock:
+            return {name: (st.records, st.bytes, st.batches, st.seconds)
+                    for name, st in self._stages.items()}
 
     def stage(self, stage: str) -> StageStats:
         """A stage's totals (created empty if never hit)."""

@@ -93,13 +93,15 @@ def _mlp(layers: Sequence[nn.Linear], x: torch.Tensor, dtype: torch.dtype) -> to
 
 
 class DLRM(nn.Module):
-    """The DLRM's parameters and its forward pass (see module docstring)."""
+    """The DLRM's parameters and its forward pass (see module docstring).
+    The parameters are made (uninitialized) on ``device``: the card unless
+    the caller asks for another device (``init_params`` fills them)."""
 
-    def __init__(self, cfg: DLRMConfig, device=None):
+    def __init__(self, cfg: DLRMConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         interact_dim = cfg.interact_dim()
-        with torch.device(device or "cpu"):
+        with torch.device(device):
             self.embeddings = nn.Parameter(
                 torch.empty(cfg.num_categorical, cfg.vocab_size, cfg.embed_dim),
                 requires_grad=False,

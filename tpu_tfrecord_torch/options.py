@@ -2,10 +2,11 @@
 
 Copy of ``tpu_tfrecord/options.py`` for the options the port has:
 ``RecordType`` with the reference's exact spellings, and
-``TFRecordOptions``, parsed and validated once by ``from_map``. The JAX
-package's stall-defence, watchdog, cache, trace, telemetry, autotune,
-data-service and elastic-fleet options are not ported yet: ``from_map``
-raises on any of them, naming the option, rather than dropping it.
+``TFRecordOptions``, parsed and validated once by ``from_map``, the
+stall-defence, watchdog, pulse and autotune options included. The JAX
+package's cache, trace, telemetry-export and spool, data-service and
+elastic-fleet options are not ported yet: ``from_map`` raises on any of
+them, naming the option, rather than dropping it.
 """
 
 from __future__ import annotations
@@ -44,22 +45,14 @@ class RecordType(enum.Enum):
 # The JAX package's options that the port does not have yet, in both
 # spellings (snake_case, camelCase). Any of them raises in from_map.
 _NOT_PORTED = (
-    ("read_deadline_ms", "readDeadlineMs"),
-    ("open_deadline_ms", "openDeadlineMs"),
-    ("hedge_after_ms", "hedgeAfterMs"),
-    ("on_stall", "onStall"),
-    ("watchdog_timeout_ms", "watchdogTimeoutMs"),
     ("cache", "cache"),
     ("cache_dir", "cacheDir"),
     ("cache_max_bytes", "cacheMaxBytes"),
     ("trace", "trace"),
-    ("pulse_interval_s", "pulseIntervalS"),
     ("telemetry_port", "telemetryPort"),
     ("telemetry_spool_dir", "telemetrySpoolDir"),
     ("spool_interval_s", "spoolIntervalS"),
     ("telemetry_role", "telemetryRole"),
-    ("autotune", "autotune"),
-    ("autotune_interval_s", "autotuneIntervalS"),
     ("service", "service"),
     ("service_lease_ttl_s", "serviceLeaseTtlS"),
     ("service_deadline_ms", "serviceDeadlineMs"),
@@ -102,6 +95,27 @@ class TFRecordOptions:
     - corrupt_fallback: ``raise`` (default) or ``skip_shard``
     - write_retries: retries of the writer's commit-side filesystem
       operations (shard open, rename into place, ``_SUCCESS``)
+    - read_deadline_ms / open_deadline_ms: deadline of each shard read /
+      open (None = off); a miss raises ``stall.DeadlineError`` (an
+      OSError, so read retries apply), counted in ``read.stalls`` and
+      ``read.deadline_misses``
+    - hedge_after_ms: after this long without bytes, a backup open + read
+      of the same range starts; the first answer wins (the bytes are the
+      same either way). Counted in ``read.hedges`` / ``read.hedge_wins``
+    - on_stall: ``raise`` (default) or ``skip_shard``: what a stall that
+      outlived the retries (or a worker the watchdog declared wedged) does
+    - watchdog_timeout_ms: a decode-pool worker without a progress beat
+      for this long is declared wedged; its shard fails with
+      ``stall.WatchdogError`` (handled per ``on_stall``) and a
+      replacement worker takes its place (``read.watchdog_restarts``)
+    - pulse_interval_s: one telemetry JSON line an interval while an
+      iterator is live (``telemetry.Pulse``; None = no pulse)
+    - autotune: ``off`` (default) or ``on``: a controller at pulse
+      boundaries resizes the decode pool and the prefetch queue, retargets
+      the readahead window and derives the stall thresholds from observed
+      p99s (``autotune.AutotuneController``); batches stay the same
+    - autotune_interval_s: the controller's cadence when no
+      ``pulse_interval_s`` is set (default 1.0 s)
     """
 
     record_type: RecordType = RecordType.EXAMPLE
@@ -116,6 +130,14 @@ class TFRecordOptions:
     max_corrupt_records: Optional[int] = 100
     corrupt_fallback: str = "raise"
     write_retries: int = 0
+    read_deadline_ms: Optional[float] = None
+    open_deadline_ms: Optional[float] = None
+    hedge_after_ms: Optional[float] = None
+    on_stall: str = "raise"
+    watchdog_timeout_ms: Optional[float] = None
+    pulse_interval_s: Optional[float] = None
+    autotune: str = "off"
+    autotune_interval_s: Optional[float] = None
 
     _KNOWN_KEYS = (
         "recordType",
@@ -140,10 +162,27 @@ class TFRecordOptions:
         "corruptFallback",
         "write_retries",
         "writeRetries",
+        "read_deadline_ms",
+        "readDeadlineMs",
+        "open_deadline_ms",
+        "openDeadlineMs",
+        "hedge_after_ms",
+        "hedgeAfterMs",
+        "on_stall",
+        "onStall",
+        "watchdog_timeout_ms",
+        "watchdogTimeoutMs",
+        "pulse_interval_s",
+        "pulseIntervalS",
+        "autotune",
+        "autotune_interval_s",
+        "autotuneIntervalS",
     )
 
     ON_CORRUPT_POLICIES = ("raise", "skip_record", "skip_shard")
     CORRUPT_FALLBACKS = ("raise", "skip_shard")
+    ON_STALL_POLICIES = ("raise", "skip_shard")
+    AUTOTUNE_MODES = ("off", "on")
 
     @staticmethod
     def from_map(options: Optional[Mapping[str, Any]] = None, **kwargs: Any) -> "TFRecordOptions":
@@ -211,6 +250,42 @@ class TFRecordOptions:
         write_retries = int(merged.pop("write_retries", merged.pop("writeRetries", 0)))
         if write_retries < 0:
             raise ValueError("write_retries must be >= 0")
+
+        def _pos_ms(snake: str, camel: str) -> Optional[float]:
+            v = merged.pop(snake, merged.pop(camel, None))
+            if v is None:
+                return None
+            v = float(v)
+            if v <= 0:
+                raise ValueError(f"{snake} must be > 0 (or None)")
+            return v
+
+        read_deadline_ms = _pos_ms("read_deadline_ms", "readDeadlineMs")
+        open_deadline_ms = _pos_ms("open_deadline_ms", "openDeadlineMs")
+        hedge_after_ms = _pos_ms("hedge_after_ms", "hedgeAfterMs")
+        watchdog_timeout_ms = _pos_ms("watchdog_timeout_ms", "watchdogTimeoutMs")
+        on_stall = str(merged.pop("on_stall", merged.pop("onStall", "raise"))).strip().lower()
+        if on_stall not in TFRecordOptions.ON_STALL_POLICIES:
+            raise ValueError(
+                f"on_stall must be one of {TFRecordOptions.ON_STALL_POLICIES}, got {on_stall!r}"
+            )
+        pulse_interval_s = merged.pop("pulse_interval_s", merged.pop("pulseIntervalS", None))
+        if pulse_interval_s is not None:
+            pulse_interval_s = float(pulse_interval_s)
+            if pulse_interval_s <= 0:
+                raise ValueError("pulse_interval_s must be > 0 (or None)")
+        autotune = str(merged.pop("autotune", "off") or "off").strip().lower()
+        if autotune not in TFRecordOptions.AUTOTUNE_MODES:
+            raise ValueError(
+                f"autotune must be one of {TFRecordOptions.AUTOTUNE_MODES}, got {autotune!r}"
+            )
+        autotune_interval_s = merged.pop(
+            "autotune_interval_s", merged.pop("autotuneIntervalS", None)
+        )
+        if autotune_interval_s is not None:
+            autotune_interval_s = float(autotune_interval_s)
+            if autotune_interval_s <= 0:
+                raise ValueError("autotune_interval_s must be > 0 (or None)")
         if merged:
             hints = []
             for key in merged:
@@ -233,6 +308,14 @@ class TFRecordOptions:
             max_corrupt_records=max_corrupt,
             corrupt_fallback=corrupt_fallback,
             write_retries=write_retries,
+            read_deadline_ms=read_deadline_ms,
+            open_deadline_ms=open_deadline_ms,
+            hedge_after_ms=hedge_after_ms,
+            on_stall=on_stall,
+            watchdog_timeout_ms=watchdog_timeout_ms,
+            pulse_interval_s=pulse_interval_s,
+            autotune=autotune,
+            autotune_interval_s=autotune_interval_s,
         )
 
     def file_extension(self) -> str:

@@ -6,7 +6,9 @@ backoff with full jitter (uniform in [0, cap], so failures that happen
 together do not retry in lockstep), and injectable ``sleep``/``clock``/
 ``rand`` seams, so tests prove retry behaviour without sleeping.
 
-The pause protocol (the writer's commit-side operations)::
+``policy.call(fn, retry_on=(OSError,))`` runs a plain call under the
+policy. The pause protocol (the writer's commit-side operations and the
+dataset's shard decode, which re-enters with its own skip accounting)::
 
       attempt, start = 0, policy.clock()
       while True:
@@ -24,7 +26,7 @@ from __future__ import annotations
 import random
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple, Type
 
 
 @dataclass(frozen=True)
@@ -78,3 +80,25 @@ class RetryPolicy:
         if delay > 0:
             self.sleep(delay)
         return True
+
+    def call(
+        self,
+        fn: Callable,
+        *args,
+        retry_on: Tuple[Type[BaseException], ...] = (OSError,),
+        on_retry: Optional[Callable[[int, BaseException], None]] = None,
+        **kwargs,
+    ):
+        """Run ``fn`` under this policy. ``on_retry(attempt, exc)`` fires
+        once per retry actually taken."""
+        attempt = 0
+        start = self.clock()
+        while True:
+            try:
+                return fn(*args, **kwargs)
+            except retry_on as e:
+                attempt += 1
+                if not self.pause(attempt, start):
+                    raise
+                if on_retry is not None:
+                    on_retry(attempt, e)

@@ -14,10 +14,14 @@ the trainer harness (``harness.py``) read:
 - what the serving tier reads: ``TraceContext`` (a request's trace and
   span ids, shipped over the wire as ``to_json``), ``current_context``
   (the process's identity, adopted on ``RECORDER``), ``record_instant``
-  and ``serving_verdict``.
+  and ``serving_verdict``;
+- the telemetry pulse: ``Pulse`` (one JSON line an interval: per-interval
+  stage rates, counters, gauges, latency quantiles in milliseconds and
+  the verdict, with observers such as the autotune controller merging
+  their fields in), ``quantiles_ms`` and ``is_latency_hist``.
 
-Left out: ``Pulse``, the exporters, the environment hand-off of a trace
-context and the trace merger (they wait for the port's fleet layer). The
+Left out: the exporters, the environment hand-off of a trace context and
+the trace merger (they wait for the port's fleet layer). The
 Chrome trace names its process by the adopted context (``role@host:pid``)
 or ``tfrecord:<pid>``.
 """
@@ -31,7 +35,7 @@ import socket
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 def atomic_write_bytes(path: str, data: bytes) -> None:
@@ -444,3 +448,161 @@ def serving_verdict(p99_ms: Optional[float], queue_depth: Optional[float],
     if depth >= SERVE_QUEUE_BOUND_FILL * max(1, int(max_queue)):
         return "queue_bound"
     return "compute_bound"
+
+
+# ---------------------------------------------------------------------------
+# Telemetry pulse
+# ---------------------------------------------------------------------------
+
+#: Histogram families of dimensionless values (fractions of the model
+#: diagnostics), not seconds: the millisecond renderers skip them.
+DIMENSIONLESS_HIST_PREFIXES = ("moe.", "pipeline.")
+
+
+def is_latency_hist(name: str) -> bool:
+    return not name.startswith(DIMENSIONLESS_HIST_PREFIXES)
+
+
+def quantiles_ms(source: Dict[str, Dict[str, float]]) -> Dict[str, Dict[str, float]]:
+    """A ``Metrics.quantiles()`` mapping (or any whose entries carry
+    ``p50_s`` / ``p90_s`` / ``p99_s``) in milliseconds, rounded to 3
+    places, with the observation count; entries without quantiles and the
+    dimensionless histograms are left out."""
+    out: Dict[str, Dict[str, float]] = {}
+    for name, q in sorted(source.items()):
+        if not q or "p50_s" not in q or not is_latency_hist(name):
+            continue
+        entry = {
+            "p50_ms": round(q["p50_s"] * 1e3, 3),
+            "p90_ms": round(q["p90_s"] * 1e3, 3),
+            "p99_ms": round(q["p99_s"] * 1e3, 3),
+        }
+        if "count" in q:
+            entry["count"] = q["count"]
+        elif "hist_count" in q:
+            entry["count"] = int(q["hist_count"])
+        out[name] = entry
+    return out
+
+
+class Pulse:
+    """Periodic one-line JSON telemetry, the JAX ``Pulse``.
+
+    Every ``interval_s`` a daemon thread emits one dict through ``emit``
+    (default: a ``tfrecord.pulse {json}`` INFO line on the package
+    logger). Stage rates are per-interval deltas (a stall shows as a rate
+    of zero); counters (stages with no seconds and no bytes) are
+    cumulative, with a ``.delta`` entry when they moved; gauges and
+    quantiles are snapshots. ``tick()`` forces one line."""
+
+    def __init__(
+        self,
+        interval_s: float,
+        metrics=None,
+        emit: Optional[Callable[[Dict[str, Any]], None]] = None,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if interval_s <= 0:
+            raise ValueError("interval_s must be > 0")
+        if metrics is None:
+            from tpu_tfrecord_torch.metrics import METRICS as metrics  # noqa: N813
+        self.interval_s = interval_s
+        self.metrics = metrics
+        self.emit = emit if emit is not None else _log_pulse
+        self._clock = clock
+        self._prev_totals: Dict[str, Tuple[int, int, int, float]] = {}
+        self._prev_t = clock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._observers: List[Callable[[Dict[str, Any]], Optional[Dict]]] = []
+
+    def add_observer(self, fn: Callable[[Dict[str, Any]], Optional[Dict]]) -> "Pulse":
+        """Call ``fn(payload)`` at each tick before the line is emitted and
+        merge a returned dict into it. An observer's exception is
+        swallowed and counted in ``pulse.observer_errors``."""
+        self._observers.append(fn)
+        return self
+
+    def start(self) -> "Pulse":
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run, daemon=True, name="tfr-pulse")
+            self._thread.start()
+        return self
+
+    def stop(self, final: bool = True) -> None:
+        """Stop the thread; ``final`` emits one last line for the tail
+        interval. A second stop does nothing."""
+        already = self._stop.is_set()
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2.0)
+            self._thread = None
+        if final and not already:
+            try:
+                self.tick()
+            except Exception:  # the tail line is best effort
+                pass
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.tick()
+            except Exception:  # telemetry never takes the pipeline down
+                pass
+
+    def tick(self) -> Dict[str, Any]:
+        """Compute and emit one line; returns it."""
+        now = self._clock()
+        dt = max(now - self._prev_t, 1e-9)
+        self._prev_t = now
+        totals = self.metrics.raw_totals()
+        stages: Dict[str, Dict[str, float]] = {}
+        counters: Dict[str, int] = {}
+        for name, (records, nbytes, _batches, seconds) in sorted(totals.items()):
+            prev = self._prev_totals.get(name, (0, 0, 0, 0.0))
+            d_rec = records - prev[0]
+            d_bytes = nbytes - prev[1]
+            if seconds == 0.0 and nbytes == 0:
+                counters[name] = records
+                if d_rec:
+                    counters[name + ".delta"] = d_rec
+                continue
+            stages[name] = {
+                "records_per_sec": round(d_rec / dt, 1),
+                "bytes_per_sec": round(d_bytes / dt, 1),
+                "records": records,
+            }
+        self._prev_totals = totals
+        gauges = self.metrics.gauges()
+        ctx = current_context()
+        payload = {
+            "event": "pulse",
+            "ts": round(time.time(), 3),
+            "interval_s": round(dt, 3),
+            "proc": {"host": ctx.host, "pid": ctx.pid, "role": ctx.role,
+                     "trace_id": ctx.trace_id},
+            "stages": stages,
+            "counters": counters,
+            "gauges": {k: round(v, 4) for k, v in sorted(gauges.items())},
+            "quantiles": quantiles_ms(self.metrics.quantiles()),
+            "verdict": boundness_verdict(gauges.get(OCCUPANCY_GAUGE)),
+        }
+        for fn in list(self._observers):
+            try:
+                extra = fn(payload)
+                if extra:
+                    payload.update(extra)
+            except Exception:  # shows as a counter on the next line
+                try:
+                    self.metrics.count("pulse.observer_errors")
+                except Exception:
+                    pass
+        self.emit(payload)
+        return payload
+
+
+def _log_pulse(payload: Dict[str, Any]) -> None:
+    from tpu_tfrecord_torch.metrics import logger
+
+    logger.info("tfrecord.pulse %s", json.dumps(payload, sort_keys=True))

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import gzip
 import io
+import os
 import struct
 import zlib
 from typing import BinaryIO, Iterator, List, Optional, Tuple
@@ -727,6 +728,11 @@ def write_records(
             writer.write(rec)
             count += 1
     return count
+
+
+def file_is_empty(path: str) -> bool:
+    """True if the file has zero length (ref DefaultSource.scala:82-87)."""
+    return os.path.getsize(path) == 0
 
 
 def read_records(

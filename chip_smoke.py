@@ -212,6 +212,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bit-equal, 64 ``bf16_mma`` launches each; a state taken under autotune
    after a resize resumes on a fixed pool to the same batches.
 
+13. The columnar epoch cache on phase 12's shards (``cache_path``), its
+   directory on the same mount: (a) a decode-only pass with
+   ``cache="auto"`` populates one entry a shard (rows/s, 4 misses, bytes
+   written against the shards' bytes, batches equal phase 12's); (b) the
+   bf16 DLRM scores the 64 batches uncached and then from a new dataset on
+   the cache, both traced, the second with ``telemetry_port=0``: 4 hits
+   and 0 misses, logits bit-equal, 64 ``bf16_mma`` launches and none of
+   ``f32_tiled`` in the warm run (``cache_launches``), rows/s whole and
+   steady and the idle share of each, one ``cache.serve`` span a cached
+   chunk, the two Chrome traces merged by ``merge_chrome_traces``, and one
+   scrape of ``/metrics`` holding the ``cache.hits`` family; (c) a state
+   taken on a cached read resumes on an uncached read to the
+   uninterrupted batches; (d) one byte of one entry's section flipped: the
+   next read counts one ``cache.corrupt_fallbacks``, gives the same
+   batches and rewrites the entry. The entries are unmapped
+   (``release_registry``) before the directory is removed.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -3508,14 +3525,20 @@ def readpool_serving(dirs, warm, card: str) -> dict:
     return out
 
 
-def readpool_path(work: str, card: str) -> dict:
+def readpool_path(work: str, card: str) -> tuple:
     """Phase 12: the decode pool's read knobs, stall defence and autotune on
     this machine's host, beside ``card`` (nvidia-smi's name and power
     limit): (a) the shards, (b) cold decode rates, (c) the guard's cost,
-    (d) the stall drills, (e) autotuned serving at full width."""
+    (d) the stall drills, (e) autotuned serving at full width. Then phase
+    13 (``cache_path``) on the same shards, with its cache beside them.
+    Returns the kernel launches of phase 12's autotuned serving run and of
+    phase 13's warm cached epoch."""
+    from tpu_tfrecord_torch.cache import release_registry
+
     t0 = time.perf_counter()
     host_facts()
     root, mnt, fstype = readpool_dir(work)
+    cache_dir = os.path.join(root, "cache")
     try:
         dirs, files = write_readpool(root)
         warm, rates = cold_passes(dirs, files)
@@ -3523,13 +3546,199 @@ def readpool_path(work: str, card: str) -> dict:
         overhead = guard_overhead(dirs)
         drills = stall_drills(dirs, warm)
         serving = readpool_serving(dirs, warm, card)
+        out = dict(card=card, dir=root, mount=mnt, fstype=fstype, cold=rates, guard=overhead,
+                   drills=drills, serving=serving, seconds=time.perf_counter() - t0)
+        print(f"readpool: phase 12 took {out['seconds']:.1f} s")
+        print("readpool: " + json.dumps(out, default=str))
+        cached = cache_path(dirs, files, warm, cache_dir, card)
     finally:
+        # the entries' maps are unpinned before the directory goes, or its
+        # blocks stay allocated for the rest of the run
+        release_registry(cache_dir)
         shutil.rmtree(root, ignore_errors=True)
-    out = dict(card=card, dir=root, mount=mnt, fstype=fstype, cold=rates, guard=overhead,
-               drills=drills, serving=serving, seconds=time.perf_counter() - t0)
-    print(f"readpool: phase 12 took {out['seconds']:.1f} s")
-    print("readpool: " + json.dumps(out, default=str))
-    return serving["launches"]
+    return serving["launches"], cached["launches"]
+
+
+# -- phase 13: the columnar epoch cache ----------------------------------------------
+
+CACHE_WORKERS = 4      # the serving runs' pool: phase 12's fastest fixed one
+CACHE_CUT = 24         # batches read before the state is taken: inside shard 1
+
+
+def cache_serve(dirs, model, label: str, card: str, **kw) -> tuple:
+    """One traced bf16 serving run of phase 12's shards through the feed
+    (dataset -> HostPrefetcher -> DeviceIterator -> the DLRM) at
+    CACHE_WORKERS workers; (ScoreResult, rates)."""
+    from tpu_tfrecord_torch.entry import _read_plan, _score_dataset
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    read = criteo_read_kw()
+    paths, hash_buckets, pack, pad_to = _read_plan(dirs, model.cfg, read["pack"]["dense"],
+                                                   read["pack"]["cat"])
+    ds = TFRecordDataset(paths, BATCH, schema=read["schema"], recordType="Example",
+                         hash_buckets=hash_buckets, pack=pack, num_workers=CACHE_WORKERS,
+                         trace="on", **kw)
+    res = _score_dataset(ds, model, READPOOL_DEVICE, pad_to, log1p_dense=True)
+    whole = res.batches * BATCH / res.wall_s
+    idle = 1.0 - sum(res.forward_s) / res.wall_s
+    stats = dict(whole=whole, steady=steady_rate(res), idle_share=idle,
+                 duty_cycle=res.duty_cycle, wall_s=res.wall_s)
+    print(f"cache: serving bf16, {label}, {CACHE_WORKERS} workers: {res.batches} batches, "
+          f"{whole:.1f} rows/s whole, {stats['steady']:.1f} steady (batches 2-{res.batches}); "
+          f"device idle share at least {idle:.4f} (1 - synchronized forward time / wall); "
+          f"duty cycle {res.duty_cycle} ({card})")
+    return res, stats
+
+
+def scrape_metrics() -> str:
+    """One GET of the process's Prometheus page (``telemetry_port=0``)."""
+    import urllib.request
+
+    from tpu_tfrecord_torch import telemetry
+
+    host, port = telemetry.exporter_address(0)
+    with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=10) as resp:
+        return resp.read().decode()
+
+
+def cache_path(dirs, files, warm, cache_dir: str, card: str) -> dict:
+    """Phase 13: the columnar epoch cache on phase 12's shards, beside
+    ``card``: (a) a decode-only populate pass, (b) a warm epoch scored by
+    the bf16 DLRM from a new dataset on the same cache, traced and
+    exported, against an uncached serving run of the same rows, (c) a
+    state taken on a cached read resumed on an uncached one, (d) one byte
+    of one entry flipped and read through. Returns the warm epoch's kernel
+    launches."""
+    from tpu_tfrecord_torch import cache as cache_mod
+    from tpu_tfrecord_torch import telemetry
+    from tpu_tfrecord_torch.device.ingest import make_device_batch
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+    from tpu_tfrecord_torch.metrics import METRICS
+    from tpu_tfrecord_torch.models.dlrm import init_params, make_synthetic_batch
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    t0 = time.perf_counter()
+    free_cuda()
+    n_batches = READPOOL_SHARDS * READPOOL_ROWS // BATCH
+    mnt, fstype = mount_of(os.path.dirname(cache_dir))
+    shard_bytes = sum(os.path.getsize(f) for f in files)
+    names = ("hits", "misses", "bytes_written", "corrupt_fallbacks", "populate_errors")
+
+    def counts() -> dict:
+        return {n: METRICS.counter(f"cache.{n}") for n in names}
+
+    # (a) the populate pass: decode, and append each chunk to its entry
+    METRICS.reset()
+    digests, rows, wall, cpu, _ = readpool_pass(dirs, cache="auto", cache_dir=cache_dir)
+    c = counts()
+    entries = sorted(os.path.join(cache_dir, n) for n in os.listdir(cache_dir)
+                     if n.endswith(cache_mod.ENTRY_SUFFIX))
+    entry_bytes = sum(os.path.getsize(e) for e in entries)
+    commit = METRICS.stage("cache.commit")
+    populate = dict(rows_per_s=rows / wall, wall_s=wall, cpu_s=cpu, counters=c,
+                    entry_bytes=entry_bytes, shard_bytes=shard_bytes,
+                    commit_s=commit.seconds)
+    print(f"cache: populate pass ({READPOOL_COLD_WORKERS} workers, decode + append, "
+          f"{cache_dir} on {mnt}, {fstype}): {rows / wall:.1f} rows/s, CPU {cpu:.3f} s over "
+          f"wall {wall:.3f} s, commits {commit.seconds:.3f} s; counters {c}; "
+          f"{len(entries)} entries = {entry_bytes} bytes against {shard_bytes} bytes of shards "
+          f"({entry_bytes / shard_bytes:.3f}); digests equal phase 12's warm pass: "
+          f"{digests == warm} ({card})")
+    if (digests != warm or c["misses"] != READPOOL_SHARDS or c["hits"] or c["populate_errors"]
+            or len(entries) != READPOOL_SHARDS or c["bytes_written"] != entry_bytes):
+        raise SystemExit(f"cache: the populate pass failed: {c}, {len(entries)} entries")
+    chunks = sum(len(cache_mod.load_footer(e)["chunks"]) for e in entries)
+
+    # (b) an uncached serving run, then the warm epoch from a new dataset
+    cfg = criteo_cfg()
+    model = init_params(cfg, torch.Generator(device=READPOOL_DEVICE).manual_seed(TRAIN_SEED),
+                        READPOOL_DEVICE)
+    model(make_device_batch(make_synthetic_batch(cfg, BATCH, seed=1), READPOOL_DEVICE))
+    traces = [os.path.join(os.path.dirname(cache_dir), f"trace_{n}.json")
+              for n in ("uncached", "warm")]
+    telemetry.RECORDER.clear()
+    ref, ref_stats = cache_serve(dirs, model, "uncached", card)
+    telemetry.RECORDER.save_chrome_trace(traces[0])
+    telemetry.RECORDER.clear()
+    METRICS.reset()
+    try:
+        reset_launch_counts()
+        res, stats = cache_serve(dirs, model, "warm epoch from the cache", card, cache="auto",
+                                 cache_dir=cache_dir, telemetry_port=0)
+        launches = dict(dot_interaction.instance_launches)
+        page = scrape_metrics()
+    finally:
+        telemetry.shutdown_exporter(0)
+    c = counts()
+    serve_spans = sum(1 for sp in telemetry.RECORDER.spans() if sp[0] == "cache.serve")
+    telemetry.RECORDER.save_chrome_trace(traces[1])
+    telemetry.disable()
+    telemetry.RECORDER.clear()
+    merged = telemetry.merge_chrome_traces(os.path.join(os.path.dirname(cache_dir),
+                                                        "trace_merged.json"), traces)
+    n_events = len(merged["traceEvents"])
+    exported = 'tfrecord_stage_records_total{stage="cache.hits"} ' in page
+    equal = torch.equal(res.logits, ref.logits)
+    want = {"bf16_mma": n_batches, "f32_tiled": 0}
+    print(f"cache: warm epoch counters {c}; logits bit-equal to the uncached run's: {equal}; "
+          f"kernel launches {launches}; cache.serve spans {serve_spans}, chunks in the entries "
+          f"{chunks}; the two traces merged into {n_events} events; the scrape of /metrics "
+          f"holds the cache.hits family: {exported}; warm whole rate "
+          f"{stats['whole'] / ref_stats['whole']:.3f} x the uncached run's ({card})")
+    if (c["hits"] != READPOOL_SHARDS or c["misses"] or not equal or launches != want
+            or res.batches != n_batches or not torch.isfinite(res.logits).all()
+            or serve_spans != chunks or not exported):
+        raise SystemExit(f"cache: the warm epoch failed: {c}, equal {equal}, launches "
+                         f"{launches}, spans {serve_spans} of {chunks}, exported {exported}")
+    del model, ref, res
+    free_cuda()
+
+    # (c) a state taken on a cached read resumes on an uncached one
+    read = criteo_read_kw()
+    head = []
+    ds = TFRecordDataset(dirs, BATCH, num_workers=2, cache="auto", cache_dir=cache_dir, **read)
+    with ds.batches() as it:
+        for i, cb in enumerate(it):
+            head.append(batch_digest(cb))
+            if i == CACHE_CUT - 1:
+                state = it.state()
+                break
+    with TFRecordDataset(dirs, BATCH, num_workers=2, **read).batches(state) as it:
+        tail = [batch_digest(cb) for cb in it]
+    resumed = head + tail == warm
+    print(f"cache: state {state.to_json()} taken on the cached read resumes on an uncached "
+          f"read to the uninterrupted batches: {resumed}")
+    if not resumed:
+        raise SystemExit("cache: the resumed batches differ")
+
+    # (d) one byte of one section of one entry flipped: the read falls
+    # back to the shard, gives the same batches and rewrites the entry
+    victim = entries[1]
+    sec = cache_mod.load_footer(victim)["chunks"][3]["columns"][0]["sections"][0][1]
+    ino = os.stat(victim).st_ino
+    with open(victim, "r+b") as fh:
+        fh.seek(sec["off"])
+        byte = fh.read(1)
+        fh.seek(sec["off"])
+        fh.write(bytes([byte[0] ^ 0xFF]))
+    METRICS.reset()
+    digests = readpool_pass(dirs, cache="auto", cache_dir=cache_dir)[0]
+    c = counts()
+    report = cache_mod.inspect_entry(victim)
+    rewritten = report["status"] == "ok" and os.stat(victim).st_ino != ino
+    print(f"cache: one byte flipped at offset {sec['off']} of {os.path.basename(victim)}: "
+          f"counters {c}; batches equal: {digests == warm}; entry rewritten: {rewritten} "
+          f"({report['status']})")
+    if (c["corrupt_fallbacks"] != 1 or c["hits"] != READPOOL_SHARDS - 1 or digests != warm
+            or not rewritten):
+        raise SystemExit(f"cache: the corrupt-entry read failed: {c}, {report}")
+    out = dict(card=card, populate=populate, uncached=ref_stats, warm=stats, chunks=chunks,
+               serve_spans=serve_spans, merged_events=n_events, resumed=resumed,
+               corrupt=dict(counters=c, rewritten=rewritten), launches=launches,
+               seconds=time.perf_counter() - t0)
+    print(f"cache: phase 13 took {out['seconds']:.1f} s")
+    print("cache: " + json.dumps(out, default=str))
+    return out
 
 
 def main() -> int:
@@ -3582,7 +3791,7 @@ def main() -> int:
         moe_path(data_dir, smi)
         moe_launches = dict(dot_interaction.instance_launches)
         free_cuda()
-        readpool_launches = readpool_path(data_dir, smi)
+        readpool_launches, cache_launches = readpool_path(data_dir, smi)
     phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches}
     for phase, counts in phase_launches.items():
         if any(counts.values()):
@@ -3611,6 +3820,7 @@ def main() -> int:
         serve_launches=serve_launches[k],
         moe_launches=moe_launches[k],
         readpool_launches=readpool_launches[k],
+        cache_launches=cache_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -393,8 +393,8 @@ def test_option_spellings_like_jax(mapping):
     assert t.record_type.value == j.record_type.value
 
 
-# the JAX options the port lacked before its stall, pulse and autotune
-# options were ported, in both spellings
+# the JAX options the port lacked before its stall, pulse, autotune, cache,
+# trace and telemetry-export options were ported, in both spellings
 OPTIONS_ONCE_NOT_PORTED = (
     ("read_deadline_ms", "readDeadlineMs"),
     ("open_deadline_ms", "openDeadlineMs"),
@@ -425,7 +425,8 @@ OPTIONS_ONCE_NOT_PORTED = (
 PORTED_VALUES = {
     "read_deadline_ms": "250", "open_deadline_ms": "100", "hedge_after_ms": 50,
     "on_stall": " Skip_Shard", "watchdog_timeout_ms": "500", "pulse_interval_s": "0.5",
-    "autotune": "ON", "autotune_interval_s": 0.25,
+    "autotune": "ON", "autotune_interval_s": 0.25, "cache": " Auto", "cache_dir": "/tmp/c",
+    "cache_max_bytes": "1024", "trace": "ON", "telemetry_port": "9100",
 }
 
 

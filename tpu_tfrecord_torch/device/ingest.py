@@ -80,9 +80,14 @@ def _validate_cast(schema: StructType, cast: Dict[str, CastDtype]) -> Dict[str, 
 
 
 def _as_tensor(arr: HostArray) -> torch.Tensor:
-    """A host array as a CPU tensor (a tensor as it is), contiguous."""
+    """A host array as a CPU tensor (a tensor as it is), contiguous. A
+    read-only array (a view over the epoch cache's map) is copied: torch
+    has no read-only tensor, and one over the map would alias the page
+    cache."""
     if isinstance(arr, torch.Tensor):
         return arr.contiguous()
+    if not arr.flags.writeable:
+        return torch.from_numpy(np.array(arr, order="C"))
     return torch.from_numpy(np.ascontiguousarray(arr))
 
 
@@ -612,7 +617,11 @@ class StagingRing:
             if key not in buffers:
                 buffers[key] = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
             pinned = buffers[key]
-            pinned.copy_(_as_tensor(arr))
+            if isinstance(arr, torch.Tensor):
+                pinned.copy_(arr)
+            else:
+                # one copy, read-only views over the cache's map included
+                np.copyto(pinned.numpy(), arr)
             out[name] = pinned
         return slot, out
 

@@ -83,11 +83,19 @@ with the JAX constructor's read knobs and its decode pool:
   first corrupt chunk; record offsets count emitted records, so a resume
   over a corrupt shard skips what the first pass skipped.
 
+- ``cache="auto"`` (``cache.py``): the first pass over a shard appends its
+  decoded chunks to an entry under ``cache_dir``; later passes, in this
+  run or a later one with the same decode fingerprint, serve the chunks as
+  views over the entry's mmap (``cache.serve``), at the populating pass's
+  chunk boundaries, so positions and batches are those of an uncached
+  read. Entries are the JAX cache's, byte for byte. Engaged only under
+  ``on_corrupt="raise"``. ``trace="on"`` enables the flight recorder and
+  ``telemetry_port`` starts the Prometheus endpoint.
+
 Left out against the JAX dataset: more than one process (the process slot
 is 0 of 1: ``process_index`` / ``process_count`` other than 0 / 1 raise
-``OptionNotPortedError``), remote paths, the columnar epoch cache, the
-data service and the telemetry spool (their options raise in
-``TFRecordOptions``).
+``OptionNotPortedError``), remote paths, the data service and the
+telemetry spool (their options raise in ``TFRecordOptions``).
 """
 
 from __future__ import annotations
@@ -126,7 +134,7 @@ from tpu_tfrecord_torch.io.reader import (
     salvage_spans_stream,
     scan_spans_stream,
 )
-from tpu_tfrecord_torch.metrics import METRICS, log_salvage_event, timed
+from tpu_tfrecord_torch.metrics import METRICS, log_salvage_event, logger, timed
 from tpu_tfrecord_torch.options import OptionNotPortedError, TFRecordOptions
 from tpu_tfrecord_torch.retry import RetryPolicy
 from tpu_tfrecord_torch.schema import StructType, numpy_dtype
@@ -327,6 +335,12 @@ class TFRecordDataset:
             raise ValueError("pass either options= or schema/recordType/keyword options")
         self._reader = DatasetReader(paths, options=options)
         self.options = self._reader.options
+        # the flight recorder is process-global: "on" enables it, "off"
+        # leaves it alone (another live dataset may be tracing)
+        if self.options.trace == "on":
+            telemetry.enable()
+        if self.options.telemetry_port is not None:
+            telemetry.ensure_exporter(self.options.telemetry_port)
         # None unless a stall threshold is set: the default path pays
         # nothing. Autotune gets an empty guard to install hedges into
         # (streams opened after an install are guarded).
@@ -355,6 +369,29 @@ class TFRecordDataset:
             else None
         )
         self._fingerprint: Optional[str] = None
+        # The columnar epoch cache, engaged only under the strict corruption
+        # policy: a tolerant one may emit fewer rows than the shard holds,
+        # and caching them would freeze one corruption outcome into later
+        # epochs.
+        self._cache = None
+        if self.options.cache == "auto":
+            if self.options.on_corrupt != "raise":
+                logger.warning("tfrecord.cache disabled: cache='auto' requires "
+                               "on_corrupt='raise' (got %r)", self.options.on_corrupt)
+            else:
+                from tpu_tfrecord_torch import cache as _cache_mod
+
+                # the columns of a decoded chunk: the data columns less the
+                # pack members, the pack groups (both routes of the port
+                # pack, as the native decoder does) and the partition fields
+                members = {m for ms in self.pack.values() for m in ms}
+                expect = ({f.name for f in self._data_schema if f.name not in members}
+                          | set(self.pack) | {f.name for f in self._partition_fields})
+                self._cache = _cache_mod.ShardCache(
+                    self.options.cache_dir or _cache_mod.default_cache_dir(),
+                    ident=self._cache_ident(), max_bytes=self.options.cache_max_bytes,
+                    expect_columns=expect)
+                self._cache_dtypes = self.chunk_dtypes()
 
     @property
     def decoder(self) -> str:
@@ -415,13 +452,66 @@ class TFRecordDataset:
         record among the shard's emitted records. ``on_corrupt`` applies
         (``_decode_shard_inner``), then ``on_stall``: a stall that outlived
         the retries propagates (``raise``) or drops the rest of the shard
-        as a ``shard_stalled`` event (``skip_shard``)."""
+        as a ``shard_stalled`` event (``skip_shard``). With the epoch cache
+        the shard is served from its entry or decoded and populated
+        (``_decode_shard_caching``)."""
         try:
-            yield from self._decode_shard_inner(epoch, cursor, index, skip)
+            if self._cache is not None:
+                yield from self._decode_shard_caching(epoch, cursor, index, skip)
+            else:
+                yield from self._decode_shard_inner(epoch, cursor, index, skip)
         except StallError as e:
             if self.options.on_stall != "skip_shard":
                 raise
             self._note_skipped_shard(index, str(e), kind="shard_stalled")
+
+    def _decode_shard_caching(self, epoch: int, cursor: int, index: int, skip: int):
+        """The cache around one shard's decode: a validated entry serves
+        its chunks as mmap views; a miss decodes the TFRecord source and,
+        on a pass from the shard's first record, appends each chunk to a
+        staging entry committed at the shard's end. Any exception through
+        the decode, ``GeneratorExit`` of an abandoned iterator included,
+        aborts the staging entry: only whole shards are cached."""
+        shard = self.shards[index]
+        entry = self._cache.open_entry(shard)
+        if entry is not None:
+            yield from self._serve_cached(entry, epoch, cursor, index, skip)
+            return
+        # a resume inside the shard decodes a suffix: never cached
+        pop = self._cache.populator(shard) if skip == 0 else None
+        if pop is None:
+            yield from self._decode_shard_inner(epoch, cursor, index, skip)
+            return
+        try:
+            for item in self._decode_shard_inner(epoch, cursor, index, 0):
+                pop.append(item[0], item[3])
+                yield item
+        except BaseException:
+            pop.abort()
+            raise
+        pop.commit()
+
+    def _serve_cached(self, entry, epoch: int, cursor: int, index: int, skip: int):
+        """A cached shard's chunks from record ``skip`` on, at the chunk
+        boundaries of the populating pass and with absolute record indices,
+        so a position taken on a cached read resumes on an uncached one and
+        back; a resume inside a chunk slices it (``slice_batch``). Each
+        chunk lands in the ``cache.serve`` stage and span."""
+        dtype_of = self._cache_dtypes.__getitem__
+        path = self.shards[index].path
+        for i in range(entry.num_chunks):
+            start, n = entry.chunk_span(i)
+            if n == 0 or start + n <= skip:
+                continue
+            with timed("cache.serve", METRICS) as t, trace("tfr:cache"), \
+                    telemetry.span("cache.serve", shard=path) as sp:
+                chunk = entry.chunk_batch(i, dtype_of)
+                if skip > start:
+                    chunk = slice_batch(chunk, skip - start, chunk.num_rows)
+                    start = skip
+                t.records += chunk.num_rows
+                sp.set(rows=chunk.num_rows)
+            yield chunk, epoch, cursor, start
 
     def _decode_shard_inner(self, epoch: int, cursor: int, index: int, skip: int):
         """``on_corrupt``: ``skip_record`` decodes the salvage scan's
@@ -766,7 +856,38 @@ class TFRecordDataset:
             cols[gname] = Column(gname, self.schema[members[0]].data_type, values=values)
         return ColumnarBatch(cols, batch.num_rows)
 
+    def chunk_dtypes(self) -> Dict[str, Any]:
+        """name -> schema DataType of every column a decoded chunk can
+        carry (the requested fields and the pack groups): what the epoch
+        cache rebuilds chunks with."""
+        dtypes: Dict[str, Any] = {f.name: f.data_type for f in self.schema}
+        for gname, members in self.pack.items():
+            dtypes[gname] = self._data_schema[members[0]].data_type
+        return dtypes
+
     # -- identity --------------------------------------------------------------
+
+    def _cache_ident(self) -> Dict[str, Any]:
+        """What decides a decoded chunk's content, for the epoch cache's
+        fingerprint (``cache.decode_fingerprint``): the JAX dataset's ident,
+        key for key, so the two packages share entries. Options that only
+        change how chunks are made are left out. ``fused`` says the chunks
+        carry hashed and packed columns: both routes of the port hash and
+        pack as the native decoder does, so it is True wherever there is
+        something to fuse (the JAX dataset's Python route does not fuse,
+        and its entries are keyed apart)."""
+        ident: Dict[str, Any] = {
+            "schema": self._data_schema.to_json(),
+            "partition_fields": [f.name for f in self._partition_fields],
+            "record_type": self.options.record_type.value,
+            "hash_buckets": self.hash_buckets,
+            "pack": self.pack,
+            "verify_crc": self.options.verify_crc,
+            "max_record_bytes": self.max_record_bytes,
+        }
+        if self.hash_buckets or self.pack:
+            ident["fused"] = True
+        return ident
 
     def fingerprint(self) -> str:
         """Digest of what a resume position depends on, as the JAX dataset

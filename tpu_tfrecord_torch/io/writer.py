@@ -1,8 +1,11 @@
 """Dataset writer: save modes, Hive-style partitionBy, atomic commit.
 
 Copy of ``tpu_tfrecord/io/writer.py`` over the port's local filesystem,
-native encoder and metrics; the flight recorder's spans are the port's
-``tracing.trace`` profiler regions. For the same rows, options and worker
+native encoder and metrics. With ``trace="on"`` the pipeline records the
+JAX spans ``write.encode``, ``write.compress``, ``write.io`` (``rows``) and
+``write.commit`` (``job``, ``shards``) on the flight recorder, beside the
+``tracing.trace`` profiler regions; ``telemetry_port`` starts the
+Prometheus endpoint. For the same rows, options and worker
 count the files hold the same record bytes, in the same files and order,
 as the JAX writer's (only the random job id in the names differs).
 
@@ -53,7 +56,7 @@ from typing import Any, Callable, Deque, Dict, Iterable, List, Optional, Sequenc
 
 import numpy as np
 
-from tpu_tfrecord_torch import _native, fs as _fs, wire
+from tpu_tfrecord_torch import _native, fs as _fs, telemetry, wire
 from tpu_tfrecord_torch.columnar import (
     ColumnarBatch,
     batch_to_rows,
@@ -149,6 +152,12 @@ class DatasetWriter:
         )
         self.write_workers = max(1, int(self.options.write_workers))
         self.num_shards = self.options.num_shards
+        # The flight recorder is process-global: "on" enables it, "off"
+        # leaves it as another dataset or writer set it.
+        if self.options.trace == "on":
+            telemetry.enable()
+        if self.options.telemetry_port is not None:
+            telemetry.ensure_exporter(self.options.telemetry_port)
         # Transient-fault policy for commit-side filesystem ops (shard open,
         # rename into place, _SUCCESS marker) — the remote-FS path is
         # demonstrably flaky (tests/test_fs_faults.py). An explicit policy
@@ -514,9 +523,11 @@ class _WriteJob:
         self._pending.append(path)
 
     def commit(self) -> List[str]:
-        with timed("write.commit", METRICS) as t, trace("tfr.write.commit"):
+        with timed("write.commit", METRICS) as t, trace("tfr.write.commit"), \
+                telemetry.span("write.commit", job=self.job_id) as sp:
             out = self._commit_inner()
             t.records = len(out)
+            sp.set(shards=len(out))
         return out
 
     def _commit_inner(self) -> List[str]:
@@ -697,13 +708,15 @@ class _SlabPipeline:
     # -- worker side --------------------------------------------------------
 
     def _run_task(self, encode: Callable, start: int, stop: int):
-        with trace("tfr.write.encode"), timed("write.encode", METRICS) as t:
+        with trace("tfr.write.encode"), timed("write.encode", METRICS) as t, \
+                telemetry.span("write.encode", rows=stop - start):
             framed = encode(start, stop)
             t.records = stop - start
             t.bytes = _payload_len(framed)
         if not self._compress_in_worker:
             return framed, stop - start
-        with trace("tfr.write.compress"), timed("write.compress", METRICS) as t:
+        with trace("tfr.write.compress"), timed("write.compress", METRICS) as t, \
+                telemetry.span("write.compress", rows=stop - start):
             payload = wire.compress_chunk(self.codec, framed)
             t.records = stop - start
             t.bytes = len(payload)
@@ -715,7 +728,8 @@ class _SlabPipeline:
         fut, stream, path = self._inflight.popleft()
         payload, n_records = fut.result()  # re-raises worker errors
         self.job.heartbeat()  # lease stays fresh for long pipeline jobs
-        with trace("tfr.write.io"), timed("write.io", METRICS) as t:
+        with trace("tfr.write.io"), timed("write.io", METRICS) as t, \
+                telemetry.span("write.io", rows=n_records):
             if stream.sink_path != path:
                 # all slabs of a file precede slabs of the stream's next
                 # file (FIFO commit of an in-order plan), so a path switch

@@ -7,12 +7,12 @@ log-bucketed latency histograms fed by ``add`` or ``observe``, ``counter``
 / ``gauge_value`` / ``stage`` / ``quantiles``, and the one-lock copies the
 telemetry pulse reads: ``raw_totals``, ``gauges`` and ``hist_states``),
 ``timed``, ``log_salvage_event`` and the package ``logger``.
-``Histogram`` is a copy of ``tpu_tfrecord/telemetry.py::Histogram``
-without its exemplars (``observe`` takes the JAX signature's ``exemplar``
-and drops it: the port has no exporter to show one); its ``state`` is the
-JAX one without the ``exemplars`` key. Counters are updated at slab or
+``Histogram`` is a copy of ``tpu_tfrecord/telemetry.py::Histogram``,
+exemplars included: ``add`` and ``observe`` take ``exemplar=(trace_id,
+span_id)`` and tag the observation's bucket with it, as the JAX registry
+does (``telemetry`` re-exports the name). Counters are updated at slab or
 shard granularity, never per record, and every access takes the
-registry's lock.
+registry's lock. Every name is registered in ``vocabulary.py``.
 
 Stages the port records: ``read`` and ``read.io`` / ``read.open`` (the
 reader), ``write``, ``write.encode``, ``write.compress``, ``write.io`` and
@@ -35,7 +35,11 @@ layer ``ckpt.snapshot``, ``ckpt.commit``, ``ckpt.commit_wait``,
 ``serve.ticks``, ``serve.rejected``, ``serve.deadline_expired``,
 ``serve.disconnects`` and ``serve.errors``, the histograms
 ``serve.latency``, ``serve.queue_wait`` and ``serve.service`` and the
-gauges ``serve.queue_depth`` and ``serve.in_flight``.
+gauges ``serve.queue_depth`` and ``serve.in_flight``; the epoch cache the
+counters ``cache.hits``, ``cache.misses``, ``cache.bytes_written``,
+``cache.evictions``, ``cache.corrupt_fallbacks`` and
+``cache.populate_errors`` and the stages ``cache.open``, ``cache.serve``
+and ``cache.commit``.
 """
 
 from __future__ import annotations
@@ -52,19 +56,23 @@ logger = logging.getLogger("tpu_tfrecord_torch")
 
 
 class Histogram:
-    """Log-bucketed latency histogram with quantile estimation.
+    """Log-bucketed latency histogram with quantile estimation, the JAX
+    ``telemetry.Histogram``.
 
     Buckets grow by ``2**0.25`` (about 19 % a bucket) from a 100 ns floor
     over 144 fixed buckets (up to about 1.9 h). Quantiles take the
     log-midpoint of the selected bucket, clamped to the observed [min,
-    max]. Not locked: ``Metrics`` serializes access under its own lock.
+    max]. ``exemplars`` maps a bucket to the last (trace_id, span_id,
+    value) observed into it with an exemplar: the pointer from a tail
+    bucket back to the request that filled it. Not locked: ``Metrics``
+    serializes access under its own lock.
     """
 
     _MIN = 1e-7
     _LOG2_GROWTH = 0.25
     _NBUCKETS = 144
 
-    __slots__ = ("counts", "count", "total", "min", "max")
+    __slots__ = ("counts", "count", "total", "min", "max", "exemplars")
 
     def __init__(self) -> None:
         self.counts = [0] * self._NBUCKETS
@@ -72,6 +80,7 @@ class Histogram:
         self.total = 0.0
         self.min = math.inf
         self.max = 0.0
+        self.exemplars: Dict[int, Tuple[str, str, float]] = {}
 
     def bucket_index(self, value: float) -> int:
         if value <= self._MIN:
@@ -81,12 +90,44 @@ class Histogram:
             1 + int(math.log2(value / self._MIN) / self._LOG2_GROWTH),
         )
 
-    def observe(self, value: float) -> None:
-        self.counts[self.bucket_index(value)] += 1
+    @classmethod
+    def bucket_le(cls, idx: int) -> float:
+        """Inclusive upper bound (seconds) of bucket ``idx``: the ``le``
+        label of an exemplar on the Prometheus page."""
+        if idx <= 0:
+            return cls._MIN
+        return cls._MIN * 2 ** (idx * cls._LOG2_GROWTH)
+
+    def observe(self, value: float, exemplar: Optional[Tuple[str, str]] = None) -> None:
+        idx = self.bucket_index(value)
+        self.counts[idx] += 1
         self.count += 1
         self.total += value
         self.min = min(self.min, value)
         self.max = max(self.max, value)
+        if exemplar is not None:
+            self.exemplars[idx] = (str(exemplar[0]), str(exemplar[1]), float(value))
+
+    def exemplar_at(self, q: float) -> Optional[Dict[str, Any]]:
+        """The exemplar of the highest populated bucket at or below the one
+        ``quantile(q)`` lands in, as ``{bucket, trace_id, span_id, value}``;
+        None when no exemplar lies at or below it."""
+        if self.count == 0 or not self.exemplars:
+            return None
+        rank = q * self.count
+        cum = 0
+        target = self._NBUCKETS - 1
+        for idx, c in enumerate(self.counts):
+            cum += c
+            if cum >= rank and c:
+                target = idx
+                break
+        below = [idx for idx in self.exemplars if idx <= target]
+        if not below:
+            return None
+        best = max(below)
+        trace_id, span_id, value = self.exemplars[best]
+        return {"bucket": best, "trace_id": trace_id, "span_id": span_id, "value": value}
 
     def quantile(self, q: float) -> Optional[float]:
         """Estimated value at quantile ``q`` in [0, 1] (None when empty)."""
@@ -102,10 +143,11 @@ class Histogram:
         return self.max
 
     def state(self) -> Dict[str, Any]:
-        """JSON-serializable snapshot: the populated buckets' counts, the
-        count, total, min and max, and the bucket layout (the JAX
-        ``Histogram.state`` of a histogram with no exemplars)."""
-        return {
+        """JSON-serializable snapshot, the JAX layout: the populated
+        buckets' counts, the count, total, min and max, the bucket layout
+        and, when any was observed, ``exemplars`` as {bucket: [trace_id,
+        span_id, value]}."""
+        state: Dict[str, Any] = {
             "buckets": {str(i): c for i, c in enumerate(self.counts) if c},
             "count": self.count,
             "total": self.total,
@@ -113,6 +155,10 @@ class Histogram:
             "max": self.max,
             "layout": [self._MIN, self._LOG2_GROWTH, self._NBUCKETS],
         }
+        if self.exemplars:
+            state["exemplars"] = {str(i): [t, s, v]
+                                  for i, (t, s, v) in sorted(self.exemplars.items())}
+        return state
 
     def quantiles(self) -> Dict[str, float]:
         """p50/p90/p99 (seconds), count and mean; empty when no data."""
@@ -162,9 +208,11 @@ class Metrics:
         nbytes: int = 0,
         seconds: float = 0.0,
         latency: Optional[float] = None,
+        exemplar: Optional[Tuple[str, str]] = None,
     ) -> None:
         """Accumulate into a stage's totals; ``latency`` also folds one
-        observation into the stage's histogram under the same lock."""
+        observation into the stage's histogram under the same lock, tagged
+        with ``exemplar`` = (trace_id, span_id) when given."""
         with self._lock:
             st = self._stages.setdefault(stage, StageStats())
             st.records += records
@@ -175,7 +223,7 @@ class Metrics:
                 hist = self._hists.get(stage)
                 if hist is None:
                     hist = self._hists[stage] = Histogram()
-                hist.observe(latency)
+                hist.observe(latency, exemplar=exemplar)
 
     def count(self, stage: str, n: int = 1) -> None:
         """Increment an event counter (the count rides ``records``)."""
@@ -206,12 +254,13 @@ class Metrics:
                 exemplar: Optional[Tuple[str, str]] = None) -> None:
         """Fold one latency observation into ``stage``'s histogram without
         touching its totals (for work timed inline rather than by
-        ``timed``). ``exemplar`` is accepted and not kept."""
+        ``timed``), its bucket tagged with ``exemplar`` = (trace_id,
+        span_id) when given."""
         with self._lock:
             hist = self._hists.get(stage)
             if hist is None:
                 hist = self._hists[stage] = Histogram()
-            hist.observe(seconds)
+            hist.observe(seconds, exemplar=exemplar)
 
     def quantiles(self, prefix: Optional[str] = None) -> Dict[str, Dict[str, float]]:
         """Per-stage latency quantiles (``Histogram.quantiles``); ``prefix``

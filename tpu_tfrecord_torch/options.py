@@ -3,16 +3,18 @@
 Copy of ``tpu_tfrecord/options.py`` for the options the port has:
 ``RecordType`` with the reference's exact spellings, and
 ``TFRecordOptions``, parsed and validated once by ``from_map``, the
-stall-defence, watchdog, pulse and autotune options included. The JAX
-package's cache, trace, telemetry-export and spool, data-service and
-elastic-fleet options are not ported yet: ``from_map`` raises on any of
-them, naming the option, rather than dropping it.
+stall-defence, watchdog, pulse, autotune, epoch-cache, trace and
+telemetry-export options included. The JAX package's telemetry spool and
+role, data-service and elastic-fleet options are not ported yet:
+``from_map`` raises on any of them, naming the option, rather than
+dropping it.
 """
 
 from __future__ import annotations
 
 import difflib
 import enum
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional
 
@@ -45,11 +47,6 @@ class RecordType(enum.Enum):
 # The JAX package's options that the port does not have yet, in both
 # spellings (snake_case, camelCase). Any of them raises in from_map.
 _NOT_PORTED = (
-    ("cache", "cache"),
-    ("cache_dir", "cacheDir"),
-    ("cache_max_bytes", "cacheMaxBytes"),
-    ("trace", "trace"),
-    ("telemetry_port", "telemetryPort"),
     ("telemetry_spool_dir", "telemetrySpoolDir"),
     ("spool_interval_s", "spoolIntervalS"),
     ("telemetry_role", "telemetryRole"),
@@ -116,6 +113,23 @@ class TFRecordOptions:
       p99s (``autotune.AutotuneController``); batches stay the same
     - autotune_interval_s: the controller's cadence when no
       ``pulse_interval_s`` is set (default 1.0 s)
+    - cache: ``off`` (default) or ``auto``: the columnar epoch cache
+      (``cache.py``). The first pass over a shard appends its decoded
+      chunks to a per-shard entry; later epochs, and later runs with the
+      same decode fingerprint, are served as mmap views with no frame
+      parse, CRC or protobuf decode. A corrupt or stale entry falls back
+      to the TFRecord decode and is rewritten. Engaged only under
+      ``on_corrupt="raise"``
+    - cache_dir: where the entries live (default: a per-user directory
+      under the system temp dir); a local path, since entries are mmapped
+    - cache_max_bytes: LRU budget of ``cache_dir`` (None = unbounded),
+      swept after each entry's commit (``cache.evictions``)
+    - trace: ``off`` (default) or ``on``: span tracing into the
+      process-global flight recorder (``telemetry.RECORDER``). Any dataset
+      or writer built with ``on`` enables it; ``off`` never disables it
+    - telemetry_port: serve the Prometheus text page (``/metrics``) on
+      127.0.0.1:PORT from a daemon thread (0 = an ephemeral port; None =
+      no endpoint)
     """
 
     record_type: RecordType = RecordType.EXAMPLE
@@ -138,6 +152,11 @@ class TFRecordOptions:
     pulse_interval_s: Optional[float] = None
     autotune: str = "off"
     autotune_interval_s: Optional[float] = None
+    cache: str = "off"
+    cache_dir: Optional[str] = None
+    cache_max_bytes: Optional[int] = None
+    trace: str = "off"
+    telemetry_port: Optional[int] = None
 
     _KNOWN_KEYS = (
         "recordType",
@@ -177,12 +196,22 @@ class TFRecordOptions:
         "autotune",
         "autotune_interval_s",
         "autotuneIntervalS",
+        "cache",
+        "cache_dir",
+        "cacheDir",
+        "cache_max_bytes",
+        "cacheMaxBytes",
+        "trace",
+        "telemetry_port",
+        "telemetryPort",
     )
 
     ON_CORRUPT_POLICIES = ("raise", "skip_record", "skip_shard")
     CORRUPT_FALLBACKS = ("raise", "skip_shard")
     ON_STALL_POLICIES = ("raise", "skip_shard")
     AUTOTUNE_MODES = ("off", "on")
+    CACHE_MODES = ("off", "auto")
+    TRACE_MODES = ("off", "on")
 
     @staticmethod
     def from_map(options: Optional[Mapping[str, Any]] = None, **kwargs: Any) -> "TFRecordOptions":
@@ -286,6 +315,29 @@ class TFRecordOptions:
             autotune_interval_s = float(autotune_interval_s)
             if autotune_interval_s <= 0:
                 raise ValueError("autotune_interval_s must be > 0 (or None)")
+        cache = str(merged.pop("cache", "off") or "off").strip().lower()
+        if cache not in TFRecordOptions.CACHE_MODES:
+            raise ValueError(
+                f"cache must be one of {TFRecordOptions.CACHE_MODES}, got {cache!r}"
+            )
+        cache_dir = merged.pop("cache_dir", merged.pop("cacheDir", None))
+        if cache_dir is not None:
+            cache_dir = os.fspath(cache_dir)
+        cache_max_bytes = merged.pop("cache_max_bytes", merged.pop("cacheMaxBytes", None))
+        if cache_max_bytes is not None:
+            cache_max_bytes = int(cache_max_bytes)
+            if cache_max_bytes < 1:
+                raise ValueError("cache_max_bytes must be >= 1 (or None)")
+        trace = str(merged.pop("trace", "off") or "off").strip().lower()
+        if trace not in TFRecordOptions.TRACE_MODES:
+            raise ValueError(
+                f"trace must be one of {TFRecordOptions.TRACE_MODES}, got {trace!r}"
+            )
+        telemetry_port = merged.pop("telemetry_port", merged.pop("telemetryPort", None))
+        if telemetry_port is not None:
+            telemetry_port = int(telemetry_port)
+            if not 0 <= telemetry_port <= 65535:
+                raise ValueError("telemetry_port must be in [0, 65535] (0 = ephemeral)")
         if merged:
             hints = []
             for key in merged:
@@ -316,6 +368,11 @@ class TFRecordOptions:
             pulse_interval_s=pulse_interval_s,
             autotune=autotune,
             autotune_interval_s=autotune_interval_s,
+            cache=cache,
+            cache_dir=cache_dir,
+            cache_max_bytes=cache_max_bytes,
+            trace=trace,
+            telemetry_port=telemetry_port,
         )
 
     def file_extension(self) -> str:

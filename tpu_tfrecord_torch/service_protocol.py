@@ -3,9 +3,9 @@
 The port's serving tier (``tpu_tfrecord_torch.serving``) speaks it; the
 frames are byte-identical to the JAX package's, so a client of either
 package talks to a replica of the other. The disaggregated data service
-that also speaks it is not ported yet. The two section primitives of the
-columnar epoch cache that the chunk bodies use (``column_buffers`` and
-``section_crc``) are copied here, since the cache is not ported either.
+that also speaks it is not ported yet. The chunk bodies use the section
+primitives of the columnar epoch cache (``cache.column_buffers`` and
+``cache.section_crc``).
 
 In the JAX package's words: everything that crosses a socket between a trainer consumer, a decode
 worker, and the dispatcher goes through this module, so the framing,
@@ -47,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from tpu_tfrecord_torch import wire
+from tpu_tfrecord_torch.cache import column_buffers, section_crc
 from tpu_tfrecord_torch.columnar import Column, ColumnarBatch
 
 #: bumped on any incompatible frame/message change; peers reject mismatches
@@ -200,30 +201,6 @@ def request(sock: socket.socket, addr: str, obj: Dict[str, Any]) -> Dict[str, An
 # ---------------------------------------------------------------------------
 # Chunk serialization — the cache container's section layout, over a socket
 # ---------------------------------------------------------------------------
-
-
-def section_crc(arr: np.ndarray) -> int:
-    """CRC32C of a contiguous array's bytes (the cache's section CRC)."""
-    return wire.crc32c(np.ascontiguousarray(arr).tobytes())
-
-
-def column_buffers(col: Column) -> List[Tuple[str, np.ndarray]]:
-    """The (role, contiguous array) sections a column populates, in a fixed
-    role order so rebuild is deterministic (the cache's section layout)."""
-    out: List[Tuple[str, np.ndarray]] = []
-    if col.values is not None:
-        out.append(("values", np.ascontiguousarray(col.values)))
-    if col.offsets is not None:
-        out.append(("offsets", np.ascontiguousarray(col.offsets)))
-    if col.inner_offsets is not None:
-        out.append(("inner_offsets", np.ascontiguousarray(col.inner_offsets)))
-    if col.blob is not None:
-        out.append(("blob", np.frombuffer(col.blob, dtype=np.uint8)))
-    if col.blob_offsets is not None:
-        out.append(("blob_offsets", np.ascontiguousarray(col.blob_offsets)))
-    if col.mask is not None:
-        out.append(("mask", np.ascontiguousarray(col.mask)))
-    return out
 
 
 def chunk_header(batch: ColumnarBatch, start: int, index: int) -> Tuple[Dict[str, Any], List[np.ndarray]]:

@@ -1,29 +1,38 @@
-"""Flight recorder (spans) and the bound-ness and training verdicts.
+"""Flight recorder (spans), the verdicts, the pulse and the exporters.
 
-Cut of ``tpu_tfrecord/telemetry.py`` to what the dataset's iterator and
-the trainer harness (``harness.py``) read:
+Copy of ``tpu_tfrecord/telemetry.py`` for one process:
 
 - the span recorder: ``SpanRecorder`` (a bounded, thread-safe ring of
   span and instant records), the process-global ``RECORDER``, ``span``,
-  ``instant``, ``record_span``, ``enable`` / ``disable`` and the
-  Chrome-trace export (``to_chrome_trace``, ``save_chrome_trace``);
+  ``instant``, ``record_span``, ``record_instant``, ``enable`` /
+  ``disable`` (``TFRecordOptions(trace="on")`` enables it; "off" never
+  disables it), the Chrome-trace export (``to_chrome_trace``,
+  ``save_chrome_trace``) and ``merge_chrome_traces``, which fuses several
+  processes' traces into one timeline with a named track each;
+- the trace context: ``TraceContext`` (a process's or a request's trace
+  and span ids, shipped over the wire as ``to_json`` and to a child
+  process as ``to_env``), ``current_context``, ``adopt``,
+  ``adopt_from_env`` and ``adopt_child_from_json``;
 - the producer/consumer verdict: ``OCCUPANCY_GAUGE``,
   ``boundness_verdict``, ``verdict_from_metrics`` and ``OccupancyEma``;
 - the training verdict: ``TRAIN_PHASES``, the ``train.`` and
   ``train.share.`` prefixes, the two thresholds and ``training_verdict``;
-- what the serving tier reads: ``TraceContext`` (a request's trace and
-  span ids, shipped over the wire as ``to_json``), ``current_context``
-  (the process's identity, adopted on ``RECORDER``), ``record_instant``
-  and ``serving_verdict``;
+  the serving verdict ``serving_verdict``;
 - the telemetry pulse: ``Pulse`` (one JSON line an interval: per-interval
   stage rates, counters, gauges, latency quantiles in milliseconds and
   the verdict, with observers such as the autotune controller merging
-  their fields in), ``quantiles_ms`` and ``is_latency_hist``.
+  their fields in), ``quantiles_ms`` and ``is_latency_hist``;
+- the Prometheus text page: ``prometheus_text`` (stage totals, gauges,
+  latency summaries and the histograms' exemplars) with
+  ``escape_label_value``, ``append_family`` and ``summary_family_lines``,
+  served by ``ensure_exporter`` (``TFRecordOptions(telemetry_port=...)``;
+  a stdlib ``http.server`` on 127.0.0.1, 0 = an ephemeral port) over
+  ``serve_text_endpoint``, with ``exporter_address`` and
+  ``shutdown_exporter``. ``Histogram`` lives in ``metrics.py`` and is
+  re-exported here.
 
-Left out: the exporters, the environment hand-off of a trace context and
-the trace merger (they wait for the port's fleet layer). The
-Chrome trace names its process by the adopted context (``role@host:pid``)
-or ``tfrecord:<pid>``.
+Left out: the cluster spool and the fleet's federated page (they wait for
+the port's fleet layer).
 """
 
 from __future__ import annotations
@@ -35,7 +44,41 @@ import socket
 import threading
 import time
 import uuid
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+from tpu_tfrecord_torch.metrics import Histogram
+
+__all__ = [
+    "Histogram",
+    "SpanRecorder",
+    "Pulse",
+    "RECORDER",
+    "TraceContext",
+    "current_context",
+    "adopt",
+    "adopt_from_env",
+    "adopt_child_from_json",
+    "span",
+    "instant",
+    "record_span",
+    "record_instant",
+    "enable",
+    "disable",
+    "boundness_verdict",
+    "verdict_from_metrics",
+    "OccupancyEma",
+    "quantiles_ms",
+    "merge_chrome_traces",
+    "atomic_write_bytes",
+    "escape_label_value",
+    "append_family",
+    "summary_family_lines",
+    "prometheus_text",
+    "ensure_exporter",
+    "serve_text_endpoint",
+    "exporter_address",
+    "shutdown_exporter",
+]
 
 
 def atomic_write_bytes(path: str, data: bytes) -> None:
@@ -57,6 +100,11 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
 # ---------------------------------------------------------------------------
 # Trace context
 # ---------------------------------------------------------------------------
+
+#: The environment variable that carries a serialized TraceContext from a
+#: parent process to its children (``TraceContext.to_env`` writes it,
+#: ``adopt_from_env`` reads it).
+TRACE_CONTEXT_ENV = "TFR_TRACE_CONTEXT"
 
 
 def _new_id() -> str:
@@ -100,6 +148,11 @@ class TraceContext:
         known = {f.name for f in dataclasses.fields(TraceContext)}
         return TraceContext(**{k: v for k, v in obj.items() if k in known})
 
+    def to_env(self) -> Dict[str, str]:
+        """{TFR_TRACE_CONTEXT: payload} to merge into a child process's
+        environment: the child's ``adopt_from_env`` joins this trace."""
+        return {TRACE_CONTEXT_ENV: json.dumps(self.to_json(), sort_keys=True)}
+
     def label(self) -> str:
         """The track label of a merged timeline: ``role@host:pid``."""
         return f"{self.role}@{self.host}:{self.pid}"
@@ -112,6 +165,50 @@ def current_context() -> TraceContext:
     if ctx is None:
         ctx = RECORDER.adopt(TraceContext.new())
     return ctx
+
+
+def adopt(ctx: TraceContext) -> TraceContext:
+    """Adopt ``ctx`` as this process's identity on the global recorder,
+    host and pid re-stamped to this process (ids propagate, identities
+    never do)."""
+    return RECORDER.adopt(ctx)
+
+
+def _adopt_child_of(obj: Any, role: Optional[str]) -> TraceContext:
+    """Adopt a context that joins the trace ``obj`` (a parsed TraceContext
+    JSON object) describes: the parent's trace id, the parent's span as
+    our parent, a span id of our own. A malformed payload raises."""
+    if not isinstance(obj, dict):
+        raise ValueError(f"not a JSON object: {obj!r}")
+    parent = TraceContext.from_json(obj)
+    return RECORDER.adopt(TraceContext(
+        trace_id=parent.trace_id, span_id=_new_id(), parent_span_id=parent.span_id,
+        role=role if role is not None else parent.role))
+
+
+def adopt_from_env(role: Optional[str] = None,
+                   environ: Optional[Dict[str, str]] = None) -> TraceContext:
+    """Join the trace a parent process shipped in ``TFR_TRACE_CONTEXT``;
+    without it, or with a malformed payload, adopt a fresh root context
+    (so a subprocess can call this unconditionally)."""
+    environ = os.environ if environ is None else environ
+    raw = environ.get(TRACE_CONTEXT_ENV)
+    if raw:
+        try:
+            return _adopt_child_of(json.loads(raw), role)
+        except (ValueError, TypeError, KeyError, AttributeError):
+            pass  # a malformed payload must not take the pipeline down
+    return RECORDER.adopt(TraceContext.new(role if role is not None else "main"))
+
+
+def adopt_child_from_json(obj: Any, role: Optional[str] = None) -> TraceContext:
+    """Join the trace of a coordinator that handed over its context in a
+    wire payload rather than a spawn environment; a malformed payload
+    adopts a fresh root and never raises."""
+    try:
+        return _adopt_child_of(obj, role)
+    except (ValueError, TypeError, KeyError, AttributeError):
+        return RECORDER.adopt(TraceContext.new(role if role is not None else "main"))
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +353,9 @@ class SpanRecorder:
         """The retained records as a Chrome trace-event JSON object (the
         format Perfetto and chrome://tracing load): complete ("X") events
         for spans, thread-scoped instants ("i"), led by process and thread
-        name ("M") records."""
+        name ("M") records. The adopted context rides the top-level
+        ``traceContext`` key, which ``merge_chrome_traces`` reads to tell
+        processes of different hosts apart."""
         ctx = self.context
         pid = ctx.pid if ctx is not None and ctx.pid else os.getpid()
         pname = ctx.label() if ctx is not None else f"tfrecord:{pid}"
@@ -286,7 +385,10 @@ class SpanRecorder:
             if attrs:
                 ev["args"] = attrs
             events.append(ev)
-        return {"traceEvents": events, "displayTimeUnit": "ms"}
+        out: Dict[str, Any] = {"traceEvents": events, "displayTimeUnit": "ms"}
+        if ctx is not None:
+            out["traceContext"] = ctx.to_json()
+        return out
 
     def save_chrome_trace(self, path: str) -> None:
         """Export atomically (tmp + rename)."""
@@ -338,6 +440,76 @@ def enable() -> SpanRecorder:
 
 def disable() -> None:
     RECORDER.enabled = False
+
+
+def merge_chrome_traces(out_path: str, in_paths: Iterable[str]) -> Dict[str, Any]:
+    """Fuse several processes' Chrome trace files into one timeline with a
+    named track a process, written atomically to ``out_path`` and
+    returned (the JAX merger, the same output for the same inputs).
+
+    A pid is unique only on one host: two files whose events share a pid
+    but whose ``traceContext`` names another host or root span get a fresh
+    pid, so their tracks never interleave. A pid with no ``process_name``
+    record gets one from its context's label, else the file's name. An
+    unreadable or malformed input raises (ValueError, OSError): a process
+    dropped in silence would make the timeline lie."""
+    files = []
+    for path in in_paths:
+        with open(path, "rb") as fh:
+            try:
+                obj = json.load(fh)
+            except ValueError as e:
+                raise ValueError(f"{path}: not valid JSON: {e}") from None
+        if not isinstance(obj, dict) or not isinstance(obj.get("traceEvents"), list):
+            raise ValueError(f"{path}: not a Chrome trace-event JSON object")
+        files.append((path, obj))
+    events: List[Dict[str, Any]] = []
+    contexts: List[Dict[str, Any]] = []
+    owner: Dict[int, tuple] = {}  # output pid -> the identity holding it
+    max_pid = 0
+    for _, obj in files:
+        for ev in obj["traceEvents"]:
+            if isinstance(ev.get("pid"), int):
+                max_pid = max(max_pid, ev["pid"])
+    for idx, (path, obj) in enumerate(files):
+        ctx = obj.get("traceContext")
+        if not isinstance(ctx, dict):
+            ctx = None
+        if ctx is not None:
+            contexts.append(ctx)
+        # same host and root span = same process; a file without a
+        # context is an identity of its own
+        ident_base = ((ctx.get("host"), ctx.get("pid"), ctx.get("span_id")) if ctx is not None
+                      else (os.path.basename(path), idx))
+        named = {ev.get("pid", 0) for ev in obj["traceEvents"]
+                 if ev.get("ph") == "M" and ev.get("name") == "process_name"}
+        remap: Dict[int, int] = {}
+        file_events: List[Dict[str, Any]] = []
+        for ev in obj["traceEvents"]:
+            pid = ev.get("pid", 0)
+            out_pid = remap.get(pid)
+            if out_pid is None:
+                ident = ident_base + (pid,)
+                out_pid = pid
+                if owner.get(out_pid, ident) != ident:
+                    max_pid += 1
+                    out_pid = max_pid
+                owner[out_pid] = ident
+                remap[pid] = out_pid
+                if pid not in named:
+                    label = (f"{ctx.get('role', 'proc')}@{ctx.get('host', '?')}:{pid}"
+                             if ctx is not None else os.path.basename(path))
+                    events.append({"name": "process_name", "ph": "M", "pid": out_pid,
+                                   "tid": 0, "args": {"name": label}})
+            if out_pid != pid:
+                ev = dict(ev, pid=out_pid)
+            file_events.append(ev)
+        events.extend(file_events)
+    merged: Dict[str, Any] = {"traceEvents": events, "displayTimeUnit": "ms"}
+    if contexts:
+        merged["traceContexts"] = contexts
+    atomic_write_bytes(out_path, json.dumps(merged).encode("utf-8"))
+    return merged
 
 
 # ---------------------------------------------------------------------------
@@ -606,3 +778,168 @@ def _log_pulse(payload: Dict[str, Any]) -> None:
     from tpu_tfrecord_torch.metrics import logger
 
     logger.info("tfrecord.pulse %s", json.dumps(payload, sort_keys=True))
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text endpoint (stdlib HTTP only)
+# ---------------------------------------------------------------------------
+
+
+def escape_label_value(v: Any) -> str:
+    """Prometheus label-value escaping of a backslash, a quote and a
+    newline."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def append_family(lines: List[str], fam: str, ftype: str, samples: List[str]) -> None:
+    """Append one metric family under its ``# TYPE`` line: the samples of
+    a family form one contiguous block (strict parsers reject a family
+    split in two); an empty family is left out."""
+    if samples:
+        lines.append(f"# TYPE {fam} {ftype}")
+        lines.extend(samples)
+
+
+def summary_family_lines(fam: str,
+                         labeled_quantiles: Iterable[Tuple[str, Dict[str, float]]]) -> List[str]:
+    """The samples of a p50/p90/p99 summary family from ``quantiles()``
+    entries: one ``fam{<labels>,quantile="q"} v`` line a quantile and the
+    ``fam_count{<labels>}`` line."""
+    samples: List[str] = []
+    for label, q in labeled_quantiles:
+        if not q:
+            continue
+        for key, quant in (("p50_s", "0.5"), ("p90_s", "0.9"), ("p99_s", "0.99")):
+            samples.append(f'{fam}{{{label},quantile="{quant}"}} {q[key]:.9f}')
+        samples.append(f'{fam}_count{{{label}}} {q["count"]}')
+    return samples
+
+
+def prometheus_text(metrics=None) -> str:
+    """The registry in the Prometheus text format, the JAX page byte for
+    byte: stage totals as counters, gauges, latency quantiles as a summary
+    family and each histogram's exemplars as a gauge family (value = the
+    exemplared observation in seconds, ``le`` its bucket's bound). Stage
+    and gauge names ride in label values, so the family names stay fixed."""
+    if metrics is None:
+        from tpu_tfrecord_torch.metrics import METRICS as metrics  # noqa: N813
+    totals = sorted(metrics.raw_totals().items())
+    lines: List[str] = []
+    append_family(lines, "tfrecord_stage_records_total", "counter",
+                  [f'tfrecord_stage_records_total{{stage="{n}"}} {r}'
+                   for n, (r, _b, _bt, _s) in totals])
+    append_family(lines, "tfrecord_stage_bytes_total", "counter",
+                  [f'tfrecord_stage_bytes_total{{stage="{n}"}} {b}'
+                   for n, (_r, b, _bt, _s) in totals if b])
+    append_family(lines, "tfrecord_stage_seconds_total", "counter",
+                  [f'tfrecord_stage_seconds_total{{stage="{n}"}} {s:.6f}'
+                   for n, (_r, _b, _bt, s) in totals if s])
+    append_family(lines, "tfrecord_gauge", "gauge",
+                  [f'tfrecord_gauge{{name="{name}"}} {value:.6g}'
+                   for name, value in sorted(metrics.gauges().items())])
+    append_family(lines, "tfrecord_latency_seconds", "summary",
+                  summary_family_lines("tfrecord_latency_seconds",
+                                       ((f'stage="{name}"', q)
+                                        for name, q in sorted(metrics.quantiles().items()))))
+    append_family(lines, "tfrecord_latency_exemplar_seconds", "gauge", [
+        "tfrecord_latency_exemplar_seconds{"
+        f'stage="{escape_label_value(name)}",'
+        f'le="{Histogram.bucket_le(int(idx)):.6g}",'
+        f'trace_id="{escape_label_value(t)}",'
+        f'span_id="{escape_label_value(sid)}"'
+        "} " + f"{v:.6g}"
+        for name, state in sorted(metrics.hist_states().items())
+        if is_latency_hist(name)
+        for idx, (t, sid, v) in sorted((state.get("exemplars") or {}).items(),
+                                        key=lambda kv: int(kv[0]))
+    ])
+    return "\n".join(lines) + "\n"
+
+
+_EXPORTERS: Dict[int, Any] = {}
+_EXPORTERS_LOCK = threading.Lock()
+
+
+def ensure_exporter(port: int, metrics=None):
+    """Start, or return the one already running, the Prometheus text
+    endpoint of ``metrics`` (the process registry by default) on
+    127.0.0.1:``port``: process-wide, one a requested port, on a daemon
+    thread. Port 0 binds an ephemeral port; ``exporter_address(0)`` tells
+    which. Serves ``/metrics`` and ``/``; anything else is a 404. A port
+    that cannot be bound logs a warning and returns None: telemetry never
+    takes the pipeline down."""
+    if metrics is None:
+        from tpu_tfrecord_torch.metrics import METRICS as metrics  # noqa: N813
+    reg = metrics
+    return serve_text_endpoint(port, lambda: prometheus_text(reg))
+
+
+def serve_text_endpoint(port: int, render: Callable[[], str], kind: str = "process"):
+    """The HTTP server under ``ensure_exporter``, keyed by the requested
+    port and parameterized on the page it renders. A requested port that
+    already serves another ``kind`` of page warns and returns None rather
+    than hand back a server that serves the wrong page."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from tpu_tfrecord_torch.metrics import logger
+
+    with _EXPORTERS_LOCK:
+        server = _EXPORTERS.get(port)
+        if server is not None:
+            served = getattr(server, "_tfr_kind", "process")
+            if served != kind:
+                logger.warning(
+                    "tfrecord.telemetry endpoint for requested port %d already serves the "
+                    "%r page; NOT replacing it with the requested %r page — use a different "
+                    "port", port, served, kind)
+                return None
+            return server
+
+        class _Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 - http.server API
+                if self.path.split("?", 1)[0] not in ("/metrics", "/"):
+                    self.send_response(404)
+                    self.end_headers()
+                    return
+                body = render().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args) -> None:  # telemetry, not access logs
+                return
+
+        try:
+            server = ThreadingHTTPServer(("127.0.0.1", port), _Handler)
+        except OSError as e:
+            logger.warning("tfrecord.telemetry prometheus endpoint on port %d unavailable "
+                           "(%s); continuing without it", port, e)
+            return None
+        server.daemon_threads = True
+        server._tfr_kind = kind
+        threading.Thread(target=server.serve_forever, daemon=True, name="tfr-prometheus").start()
+        _EXPORTERS[port] = server
+        host, bound = server.server_address[:2]
+        logger.info("tfrecord.telemetry prometheus endpoint on http://%s:%d/metrics", host, bound)
+        return server
+
+
+def exporter_address(port: int) -> Optional[Tuple[str, int]]:
+    """(host, bound port) of the exporter started for the REQUESTED
+    ``port`` (how a caller learns the port ``telemetry_port=0`` bound), or
+    None when none runs."""
+    with _EXPORTERS_LOCK:
+        server = _EXPORTERS.get(port)
+    return server.server_address[:2] if server is not None else None
+
+
+def shutdown_exporter(port: int) -> None:
+    """Stop the exporter started for the REQUESTED ``port`` (0 for an
+    ephemeral one)."""
+    with _EXPORTERS_LOCK:
+        server = _EXPORTERS.pop(port, None)
+    if server is not None:
+        server.shutdown()
+        server.server_close()

@@ -229,6 +229,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    batches and rewrites the entry. The entries are unmapped
    (``release_registry``) before the directory is removed.
 
+14. Multi-process ingest on phase 12's shards (``multiproc_path``): this
+   process scores all 4 shards with the bf16 DLRM through phase 12's
+   fixed-4 feed, then spawns 2 ranks on the one card over a gloo group
+   (``device.distributed``). Each rank adopts rank 0's trace id, infers the
+   schema across the group (``infer_schema_multihost``, checked with
+   ``assert_same_across_hosts``), reads its interleaved slot (shards 0, 2
+   or 1, 3) through dataset -> HostPrefetcher -> ``DeviceIterator(mesh=
+   create_mesh())`` and scores each batch, handed over as DTensors of
+   2 x 16,384 rows sharded on 'data', with the same DLRM built from the
+   same seed. It saves its position after 5 batches (``save_state``),
+   resumes a fresh dataset on its slot from it and refuses the other
+   rank's state; it writes (shard, row, logit) rows with
+   ``DatasetWriter(write_success=False, task_id=rank)`` and commits with
+   ``finalize_distributed_write``. Gates: both ranks exit 0 within
+   MULTI_TIMEOUT_S (killed after it); both schemas equal this process's
+   ``infer_schema_all_files``; every rank's logit bit-equal to this
+   process's for the same (shard, row), all 1,048,576 rows read back; one
+   ``_SUCCESS``, part files of both task ids; one trace id, rank 1's
+   parent span rank 0's; both resumes exact; 32 ``bf16_mma`` launches a
+   rank (its 32 batches), 0 ``f32_tiled``. Printed: each rank's rows/s
+   (whole and steady) and idle share, both ranks' rows/s together and the
+   card's idle share over their run (the union of their synchronized
+   forwards on the host's monotonic clock), the time of a process's first
+   DTensor (a warm-up before the run), and what gloo does with
+   collectives on CUDA tensors (``gloo_cuda_probe``, separate spawned
+   ranks: ``DTensor.full_tensor()`` there ends them, so the check of the
+   first global batch gathers a CPU copy).
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -3530,9 +3558,10 @@ def readpool_path(work: str, card: str) -> tuple:
     this machine's host, beside ``card`` (nvidia-smi's name and power
     limit): (a) the shards, (b) cold decode rates, (c) the guard's cost,
     (d) the stall drills, (e) autotuned serving at full width. Then phase
-    13 (``cache_path``) on the same shards, with its cache beside them.
-    Returns the kernel launches of phase 12's autotuned serving run and of
-    phase 13's warm cached epoch."""
+    13 (``cache_path``) on the same shards, with its cache beside them,
+    and phase 14 (``multiproc_path``). Returns the kernel launches of
+    phase 12's autotuned serving run, of phase 13's warm cached epoch and
+    of phase 14's ranks (summed)."""
     from tpu_tfrecord_torch.cache import release_registry
 
     t0 = time.perf_counter()
@@ -3551,12 +3580,13 @@ def readpool_path(work: str, card: str) -> tuple:
         print(f"readpool: phase 12 took {out['seconds']:.1f} s")
         print("readpool: " + json.dumps(out, default=str))
         cached = cache_path(dirs, files, warm, cache_dir, card)
+        multi = multiproc_path(dirs, root, card)
     finally:
         # the entries' maps are unpinned before the directory goes, or its
         # blocks stay allocated for the rest of the run
         release_registry(cache_dir)
         shutil.rmtree(root, ignore_errors=True)
-    return serving["launches"], cached["launches"]
+    return serving["launches"], cached["launches"], multi["launches"]
 
 
 # -- phase 13: the columnar epoch cache ----------------------------------------------
@@ -3741,6 +3771,421 @@ def cache_path(dirs, files, warm, cache_dir: str, card: str) -> dict:
     return out
 
 
+# -- phase 14: multi-process ingest over torch.distributed ----------------------------
+
+MULTI_RANKS = 2
+MULTI_WORKERS = 2          # decode workers a rank: phase 12's fixed 4 split between the ranks
+MULTI_CUT = 5              # batches a rank reads before it saves its position
+MULTI_TIMEOUT_S = 300      # for the ranks to finish, from their start
+# the module's sizes a rank takes from the parent (a spawned rank imports
+# this file afresh)
+MULTI_SIZES = ("BATCH", "VOCAB", "READPOOL_ROWS", "READPOOL_DEVICE")
+
+
+def free_port() -> int:
+    """A TCP port on localhost that was free a moment ago."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multiproc_rank(rank: int, port: int, dirs: list, work: str, sizes: dict) -> None:
+    """One rank of phase 14, in a spawned process: its result (or the
+    traceback that ended it) goes to ``work/rank<r>.json``."""
+    import faulthandler
+    import traceback
+
+    globals().update(sizes)
+    torch.set_num_threads(1)
+    path = os.path.join(work, f"rank{rank}.json")
+    with open(os.path.join(work, f"rank{rank}.fault"), "w") as fault:
+        faulthandler.enable(fault)  # a crash in native code leaves the stacks here
+        try:
+            out = _multiproc_rank(rank, port, dirs, work)
+        except BaseException:
+            with open(path, "w") as fh:
+                json.dump({"rank": rank, "error": traceback.format_exc()}, fh)
+            raise
+        finally:
+            faulthandler.disable()
+    with open(path, "w") as fh:
+        json.dump(out, fh)
+
+
+def _multiproc_rank(rank: int, port: int, dirs: list, work: str) -> dict:
+    """Phase 14 on one rank: join the group, infer the schema across it,
+    score this rank's slot of the shards through dataset -> HostPrefetcher
+    -> DeviceIterator(mesh) with the bf16 DLRM, resume the slot from a saved
+    position, and write (shard, row, logit) rows under the job commit."""
+    from tpu_tfrecord_torch import checkpoint
+    from tpu_tfrecord_torch import io as tio
+    from tpu_tfrecord_torch.columnar import Column, ColumnarBatch
+    from tpu_tfrecord_torch.device import distributed, mesh as meshes
+    from tpu_tfrecord_torch.device.ingest import DeviceIterator, HostPrefetcher, make_global_batch
+    from tpu_tfrecord_torch.entry import _drive, _host_batch, _read_plan
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+    from tpu_tfrecord_torch.io.writer import DatasetWriter
+    from tpu_tfrecord_torch.models.dlrm import init_params, make_synthetic_batch
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+    from tpu_tfrecord_torch.schema import FloatType, LongType, StructField, StructType
+    from torch.distributed.tensor import DTensor, Shard
+
+    t0 = time.perf_counter()
+    distributed.initialize(f"127.0.0.1:{port}", MULTI_RANKS, rank)
+    ctx = distributed.adopt_shared_trace_context("chip_rank")
+    t_infer = time.perf_counter()
+    schema = tio.reader(dirs).infer_schema_multihost(num_workers=2)
+    distributed.assert_same_across_hosts(schema.json().encode(), "schema")
+    t_infer = time.perf_counter() - t_infer
+    mesh = meshes.create_mesh(device_type=torch.device(READPOOL_DEVICE).type)
+    device = meshes.mesh_device(mesh)
+    cfg = criteo_cfg()
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(TRAIN_SEED), device)
+    # warm-up outside the timed run: the forward, and the process's first
+    # DTensor, which pays torch's one-time set-up (timed apart)
+    t_first = time.perf_counter()
+    warm = make_global_batch(make_synthetic_batch(cfg, BATCH, seed=1), mesh)
+    t_first = time.perf_counter() - t_first
+    model({k: v.to_local() for k, v in warm.items()})
+    read = criteo_read_kw()
+    paths, hash_buckets, pack, pad_to = _read_plan(dirs, cfg, read["pack"]["dense"],
+                                                   read["pack"]["cat"])
+
+    def dataset():
+        return TFRecordDataset(paths, BATCH, schema=read["schema"], recordType="Example",
+                               hash_buckets=hash_buckets, pack=pack, num_workers=MULTI_WORKERS,
+                               process_index=rank, process_count=MULTI_RANKS)
+
+    ds = dataset()
+    everyone = [sh.path for sh in tio.reader(paths).shards]
+    mine = [everyone.index(sh.path) for sh in ds.shards]
+    seen, first_labels = {}, []
+
+    def step(batch):
+        if not seen:
+            first_labels.append(batch["label"].to_local().cpu())
+            seen.update({k: dict(type=type(v).__name__, shape=list(v.shape),
+                                 local=list(v.to_local().shape),
+                                 placements=[str(p) for p in v.placements],
+                                 batch_dim_sharded=tuple(v.placements) == (Shard(0),))
+                         for k, v in batch.items()})
+        return model({k: v.to_local() for k, v in batch.items()})
+
+    times = ([], [], [], [])
+    distributed.barrier("score")  # both ranks start scoring together
+    reset_launch_counts()
+    t_start = time.perf_counter()  # the host's monotonic clock, one for both ranks
+    with ds.batches() as it, HostPrefetcher(map(lambda cb: _host_batch(cb, ds, pad_to, True),
+                                                it)) as pf, \
+            DeviceIterator(pf, mesh=mesh) as dev:
+        outs, wall, duty = _drive(dev, device, step, times)
+    launches = dict(dot_interaction.instance_launches)
+    # each synchronized forward as (start, end) on that clock
+    forwards = [(t_start + done - fwd, t_start + done) for fwd, done in zip(times[2], times[3])]
+    logits = torch.cat(outs).float().cpu().reshape(-1)
+    forward_s = sum(times[2])
+    # the first global batch gathered: gloo's all-gather of a DTensor on
+    # the card kills the process (``gloo_cuda_probe``), so the check
+    # gathers a CPU copy of its labels over a CPU mesh of the same group
+    cpu_mesh = meshes.create_mesh(device_type="cpu")
+    gathered = DTensor.from_local(first_labels[0], cpu_mesh, meshes.data_sharding(cpu_mesh),
+                                  run_check=False).full_tensor()
+    gather = dict(rows=int(gathered.numel()),
+                  own_rows_in_place=bool(torch.equal(
+                      gathered[rank * BATCH:(rank + 1) * BATCH], first_labels[0])))
+
+    # the slot's position after MULTI_CUT batches, saved and resumed
+    with dataset().batches() as it:
+        whole = [batch_digest(cb) for cb in it]
+    with dataset().batches() as it:
+        head = [batch_digest(cb) for _, cb in zip(range(MULTI_CUT), it)]
+        checkpoint.save_state(work, it)
+    distributed.barrier("states")
+    state = checkpoint.load_state(work)
+    with dataset().batches(state) as it:
+        tail = [batch_digest(cb) for cb in it]
+    other = checkpoint.load_state(work, 1 - rank)
+    try:
+        with dataset().batches(other) as it:
+            next(it)
+        other_refused = False
+    except ValueError as e:
+        other_refused = "fingerprint" in str(e)
+
+    # (shard, row, logit) rows of this rank, then the job commit
+    out_dir = os.path.join(work, "multiproc_out")
+    wschema = StructType([StructField("shard", LongType()), StructField("row", LongType()),
+                          StructField("logit", FloatType())])
+    t_write = time.perf_counter()
+    batches = []
+    for k, g in enumerate(mine):
+        lo = k * READPOOL_ROWS
+        cols = {"shard": np.full(READPOOL_ROWS, g, np.int64),
+                "row": np.arange(READPOOL_ROWS, dtype=np.int64),
+                "logit": logits[lo:lo + READPOOL_ROWS].numpy()}
+        batches.append(ColumnarBatch({n: Column(n, wschema[n].data_type, values=v)
+                                      for n, v in cols.items()}, READPOOL_ROWS))
+    DatasetWriter(out_dir, wschema, mode="append", write_success=False).write_batches(
+        batches, task_id=rank)
+    distributed.finalize_distributed_write(out_dir)
+    success_seen = os.path.exists(os.path.join(out_dir, "_SUCCESS"))
+    t_write = time.perf_counter() - t_write
+    return dict(rank=rank, trace=ctx.to_json(), schema=schema.json(), shards=mine,
+                launches=launches, batches=len(times[2]), rows=int(logits.numel()),
+                wall_s=wall, forward_s=forward_s, idle_share=1.0 - forward_s / wall,
+                duty_cycle=duty, rows_per_s=len(times[2]) * BATCH / wall,
+                steady=(len(times[3]) - 1) * BATCH / (times[3][-1] - times[3][0]),
+                first_dtensor_s=t_first, batch=seen, forwards=forwards,
+                span=(t_start, t_start + wall),
+                gather=gather, infer_s=t_infer, write_s=t_write,
+                resume=dict(state=state.to_json(), batches=len(whole),
+                            exact=head + tail == whole and len(head) == MULTI_CUT,
+                            other_refused=other_refused),
+                success_seen=success_seen, seconds=time.perf_counter() - t0)
+
+
+GLOO_OPS = ("all_reduce", "all_gather", "full_tensor")
+
+
+def gloo_probe_rank(rank: int, port: int, log_path: str) -> None:
+    """One rank of ``gloo_cuda_probe``, in a spawned process: each op on a
+    CUDA tensor over gloo, a JSON line before it and after it."""
+    from torch.distributed.tensor import DTensor
+
+    from tpu_tfrecord_torch.device import distributed, mesh as meshes
+
+    torch.set_num_threads(1)
+    distributed.initialize(f"127.0.0.1:{port}", MULTI_RANKS, rank)
+    mesh = meshes.create_mesh(device_type="cuda")
+    x = torch.full((4,), rank, dtype=torch.int32, device=meshes.mesh_device(mesh))
+    every = [r for r in range(MULTI_RANKS) for _ in range(4)]
+
+    def all_reduce():
+        y = x.clone()
+        torch.distributed.all_reduce(y)
+        return y.tolist() == [sum(range(MULTI_RANKS))] * 4
+
+    def all_gather():
+        out = [torch.empty_like(x) for _ in range(MULTI_RANKS)]
+        torch.distributed.all_gather(out, x)
+        return torch.cat(out).tolist() == every
+
+    def full_tensor():
+        dt = DTensor.from_local(x, mesh, meshes.data_sharding(mesh), run_check=False)
+        return dt.full_tensor().tolist() == every
+
+    ops = dict(all_reduce=all_reduce, all_gather=all_gather, full_tensor=full_tensor)
+    with open(log_path, "w", buffering=1) as log:
+        for name in GLOO_OPS:
+            log.write(json.dumps({"op": name}) + "\n")
+            log.write(json.dumps({"op": name, "right": ops[name]()}) + "\n")
+    distributed.barrier("probe")
+
+
+def gloo_cuda_probe(work: str) -> dict:
+    """What a gloo group does with collectives on CUDA tensors, from
+    MULTI_RANKS spawned ranks on this card: for each op of GLOO_OPS,
+    'right', 'wrong', or what ended the ranks in it (their exit codes).
+    A finding, not a gate: the port's path gathers nothing on the card."""
+    import multiprocessing
+
+    spawn = multiprocessing.get_context("spawn")
+    port = free_port()
+    logs = [os.path.join(work, f"probe{r}.jsonl") for r in range(MULTI_RANKS)]
+    procs = [spawn.Process(target=gloo_probe_rank, args=(r, port, logs[r]))
+             for r in range(MULTI_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 120
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    out = {}
+    for name in GLOO_OPS:
+        seen = []
+        for path in logs:
+            lines = [json.loads(ln) for ln in open(path)] if os.path.exists(path) else []
+            done = [ln["right"] for ln in lines if ln["op"] == name and "right" in ln]
+            started = any(ln["op"] == name for ln in lines)
+            seen.append("right" if done == [True] else "wrong" if done else
+                        f"ended the rank (exit codes {codes})" if started else "not reached")
+        out[name] = seen[0] if len(set(seen)) == 1 else seen
+    return out
+
+
+def multiproc_path(dirs, work: str, card: str) -> dict:
+    """Phase 14: phase 12's shards scored by MULTI_RANKS spawned ranks over
+    a gloo group on this one card, held against this process's own
+    single-process scoring of every shard, beside ``card``. Returns the
+    launches summed over the ranks."""
+    import multiprocessing
+
+    from tpu_tfrecord_torch import io as tio
+    from tpu_tfrecord_torch.entry import _read_plan, _score_dataset
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+    from tpu_tfrecord_torch.models.dlrm import init_params
+
+    t0 = time.perf_counter()
+    free_cuda()
+    work = os.path.join(work, "multiproc")
+    os.makedirs(work)
+    # (1) the reference: every shard, one process, phase 12's fixed-4 feed
+    cfg = criteo_cfg()
+    model = init_params(cfg, torch.Generator(device=READPOOL_DEVICE).manual_seed(TRAIN_SEED),
+                        READPOOL_DEVICE)
+    read = criteo_read_kw()
+    paths, hash_buckets, pack, pad_to = _read_plan(dirs, cfg, read["pack"]["dense"],
+                                                   read["pack"]["cat"])
+    ds = TFRecordDataset(paths, BATCH, schema=read["schema"], recordType="Example",
+                         hash_buckets=hash_buckets, pack=pack, num_workers=4)
+    ref = _score_dataset(ds, model, READPOOL_DEVICE, pad_to, log1p_dense=True)
+    ref_logits = ref.logits.float().cpu().reshape(-1).numpy()
+    ref_rate = ref.batches * BATCH / ref.wall_s
+    ref_idle = 1.0 - sum(ref.forward_s) / ref.wall_s
+    want_schema = tio.reader(dirs).infer_schema_all_files(num_workers=2).json()
+    del model, ref
+    free_cuda()
+    print(f"multiproc: single-process reference: {READPOOL_SHARDS} shards, "
+          f"{ref_logits.size} rows at {ref_rate:.1f} rows/s whole, idle share {ref_idle:.4f} "
+          f"({card})")
+
+    # (2) the ranks, spawned (this process has CUDA up: no fork)
+    spawn = multiprocessing.get_context("spawn")
+    port = free_port()
+    sizes = {k: globals()[k] for k in MULTI_SIZES}
+    procs = [spawn.Process(target=multiproc_rank, args=(r, port, list(dirs), work, sizes),
+                           name=f"chip-rank-{r}") for r in range(MULTI_RANKS)]
+    t_ranks = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MULTI_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p.name for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    t_ranks = time.perf_counter() - t_ranks
+    codes = [p.exitcode for p in procs]
+    results = []
+    for r in range(MULTI_RANKS):
+        path = os.path.join(work, f"rank{r}.json")
+        results.append(json.load(open(path)) if os.path.exists(path) else {"rank": r})
+    if hung or any(codes) or any("error" in res or "trace" not in res for res in results):
+        detail = []
+        for r, res in enumerate(results):
+            with open(os.path.join(work, f"rank{r}.fault")) as fh:
+                fault = fh.read()
+            detail.append(f"rank {r}: {res.get('error', 'no result')[-2000:]}\n{fault[-3000:]}")
+        raise SystemExit(f"multiproc: ranks hung {hung}, exit codes {codes}:\n"
+                         + "\n".join(detail))
+
+    # (3) what gloo does with collectives on CUDA tensors (a finding)
+    t_probe = time.perf_counter()
+    probe = gloo_cuda_probe(work)
+    t_probe = time.perf_counter() - t_probe
+    print(f"multiproc: gloo collectives on CUDA tensors, {MULTI_RANKS} ranks on this card: "
+          f"{probe} ({t_probe:.1f} s, {card})")
+
+    # (4) the gates
+    out_dir = os.path.join(work, "multiproc_out")
+    successes = [os.path.join(d, f) for d, _, fs in os.walk(out_dir) for f in fs
+                 if f == "_SUCCESS"]
+    parts = sorted(f for f in os.listdir(out_dir) if f.startswith("part-"))
+    tasks = sorted({int(f.split("-")[1]) for f in parts})
+    back = TFRecordDataset(out_dir, 1 << 16, drop_remainder=False, num_workers=4)
+    cols = {"shard": [], "row": [], "logit": []}
+    with back.batches() as it:
+        for cb in it:
+            for n in cols:
+                cols[n].append(np.asarray(cb[n].values))
+    shard, row, logit = (np.concatenate(cols[n]) for n in ("shard", "row", "logit"))
+    key = shard * READPOOL_ROWS + row
+    order = np.argsort(key, kind="stable")
+    complete = key.size == ref_logits.size and np.array_equal(key[order],
+                                                               np.arange(ref_logits.size))
+    equal = complete and np.array_equal(logit[order].view(np.uint32),
+                                        ref_logits.astype(np.float32).view(np.uint32))
+    r0, r1 = results[0], results[1]
+    per_rank = READPOOL_SHARDS * READPOOL_ROWS // BATCH // MULTI_RANKS
+    want_launches = {"bf16_mma": per_rank, "f32_tiled": 0}
+    trace_ok = (r0["trace"]["trace_id"] == r1["trace"]["trace_id"]
+                and r0["trace"]["parent_span_id"] is None
+                and r1["trace"]["parent_span_id"] == r0["trace"]["span_id"])
+    global_rows = MULTI_RANKS * BATCH
+    batch_ok = all(
+        res["batch"] and all(v["type"] == "DTensor" and v["shape"][0] == global_rows
+                             and v["local"][0] == BATCH and v["batch_dim_sharded"]
+                             for v in res["batch"].values())
+        for res in results)
+    gates = {
+        "schema": all(res["schema"] == want_schema for res in results),
+        "slots": [res["shards"] for res in results] == [list(range(r, READPOOL_SHARDS, MULTI_RANKS))
+                                                         for r in range(MULTI_RANKS)],
+        "logits_bit_equal": bool(equal),
+        "one_success": len(successes) == 1 and all(res["success_seen"] for res in results),
+        "task_ids": tasks == list(range(MULTI_RANKS)),
+        "rows_read_back": int(key.size) == READPOOL_SHARDS * READPOOL_ROWS,
+        "trace": trace_ok,
+        "resume": all(res["resume"]["exact"] and res["resume"]["other_refused"]
+                      for res in results),
+        "launches": all(res["launches"] == want_launches for res in results),
+        "global_batch": batch_ok and all(
+            res["gather"] == dict(rows=global_rows, own_rows_in_place=True) for res in results),
+    }
+    for res in results:
+        print(f"multiproc: rank {res['rank']}: shards {res['shards']}, {res['batches']} batches, "
+              f"{res['rows_per_s']:.1f} rows/s whole over {res['wall_s']:.3f} s of scoring, "
+              f"{res['steady']:.1f} steady (batches 2-{res['batches']}); the process's first "
+              f"DTensor took {res['first_dtensor_s']:.3f} s (before the run); device idle "
+              f"share at least {res['idle_share']:.4f} (1 - its synchronized forward time / "
+              f"wall); launches {res['launches']}; batch {res['batch']}; inference "
+              f"{res['infer_s']:.3f} s, write + commit {res['write_s']:.3f} s; resume "
+              f"{res['resume']}; first global batch's labels gathered (CPU copy): "
+              f"{res['gather']}; "
+              f"{res['seconds']:.1f} s in the rank ({card})")
+    out = dict(card=card, reference=dict(rows_per_s=ref_rate, idle_share=ref_idle),
+               ranks=[{k: res[k] for k in ("rank", "shards", "batches", "rows_per_s", "steady",
+                                            "first_dtensor_s", "wall_s",
+                                            "idle_share", "duty_cycle", "launches", "gather",
+                                            "infer_s", "write_s", "seconds")}
+                      for res in results],
+               ranks_s=t_ranks, parts=len(parts), gates=gates, gloo_cuda=probe,
+               launches={k: sum(res["launches"][k] for res in results) for k in want_launches})
+    # the card's idle share while the ranks scored: 1 - the union of both
+    # ranks' synchronized forwards over the span from the first start to
+    # the last end
+    lo = min(res["span"][0] for res in results)
+    hi = max(res["span"][1] for res in results)
+    busy, reach = 0.0, lo
+    for a, b in sorted(tuple(f) for res in results for f in res["forwards"]):
+        busy += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    out["card_idle_share"] = 1.0 - busy / (hi - lo)
+    out["together_rows_per_s"] = sum(res["batches"] for res in results) * BATCH / (hi - lo)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"multiproc: gates {gates}; {len(parts)} part files from tasks {tasks}, "
+          f"{len(successes)} _SUCCESS, {key.size} rows read back; ranks took {t_ranks:.1f} s "
+          f"from spawn to exit")
+    walls = ", ".join(f"rank {res['rank']} {res['wall_s']:.3f} s at "
+                      f"{res['rows_per_s'] / 1e6:.3f} M rows/s" for res in results)
+    print(f"multiproc: phase 14 took {out['seconds']:.1f} s; scoring {walls}; both ranks "
+          f"{out['together_rows_per_s'] / 1e6:.3f} M rows/s over {hi - lo:.3f} s, the card idle "
+          f"{out['card_idle_share']:.4f} of it (one process: "
+          f"{ref_rate / 1e6:.3f} M rows/s, idle {ref_idle:.4f}) ({card})")
+    print("multiproc: " + json.dumps(out, default=str))
+    if not all(gates.values()):
+        raise SystemExit(f"multiproc: gates failed: {gates}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3791,7 +4236,7 @@ def main() -> int:
         moe_path(data_dir, smi)
         moe_launches = dict(dot_interaction.instance_launches)
         free_cuda()
-        readpool_launches, cache_launches = readpool_path(data_dir, smi)
+        readpool_launches, cache_launches, multiproc_launches = readpool_path(data_dir, smi)
     phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches}
     for phase, counts in phase_launches.items():
         if any(counts.values()):
@@ -3821,6 +4266,7 @@ def main() -> int:
         moe_launches=moe_launches[k],
         readpool_launches=readpool_launches[k],
         cache_launches=cache_launches[k],
+        multiproc_launches=multiproc_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -40,7 +40,8 @@ def test_every_module_is_found():
                  "tpu_tfrecord_torch.models.pipeline", "tpu_tfrecord_torch.serve_lm",
                  "tpu_tfrecord_torch.faults", "tpu_tfrecord_torch.service_protocol",
                  "tpu_tfrecord_torch.stall", "tpu_tfrecord_torch.autotune",
-                 "tpu_tfrecord_torch.cache", "tpu_tfrecord_torch.vocabulary"):
+                 "tpu_tfrecord_torch.cache", "tpu_tfrecord_torch.vocabulary",
+                 "tpu_tfrecord_torch.device.distributed", "tpu_tfrecord_torch.device.mesh"):
         assert want in mods
 
 

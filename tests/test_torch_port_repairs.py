@@ -5,10 +5,10 @@
   exception, the same ledger and the same batches before it through the
   JAX ``TFRecordDataset`` and the port's, at 1 and 4 decode workers.
 - The JAX constructor's nine read knobs are the port's keyword arguments,
-  with the JAX defaults. Seven of them are ported and read like the JAX
-  dataset; ``process_index`` / ``process_count`` other than 0 / 1 raise
-  ``OptionNotPortedError`` naming the argument (not the options parser's
-  "Unknown option(s)" with a guess at another option).
+  with the JAX defaults, and each reads like the JAX dataset at a value
+  other than its default (the process slot at ``process_index=1`` of
+  ``process_count=2``), not through the options parser's "Unknown
+  option(s)" with a guess at another option.
 - ``train_lm``: ``--trace-out`` saves a Chrome trace with ``train.step``
   spans, ``--spool-interval`` raises ``OptionNotPortedError``, and the
   ``--mesh`` default comes from ``LM_MESH`` (else ``dp_sp``), as in the
@@ -105,9 +105,6 @@ UNPORTED = {
 }
 
 
-STILL_UNPORTED = ("process_count", "process_index")
-
-
 def token_batches(ds):
     with ds.batches() as it:
         return [[np.asarray(v).tolist() for v in cb["tokens"].values] for cb in it]
@@ -115,20 +112,21 @@ def token_batches(ds):
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_dataset_argument_raises_naming_itself(docs, name):
-    """The process slot still raises naming its argument; each of the seven
-    read knobs ported since is taken at a value other than its default and
-    gives the JAX dataset's batches at the same value."""
+    """Each of the nine arguments, all ported now, is taken at a value
+    other than its default and gives the JAX dataset's batches at the same
+    value; the process slot is read at index 1 of 2 (the second half of
+    the four shards, 4 batches)."""
     kw = dict(batch_size=8, recordType="SequenceExample")
-    if name in STILL_UNPORTED:
-        with pytest.raises(OptionNotPortedError, match=name) as e:
-            TDataset(docs, schema=tw_lm.make_schema(), **kw, **{name: UNPORTED[name]})
-        assert "did you mean" not in str(e.value) and "Unknown option" not in str(e.value)
-        return
-    jval = JRetryPolicy(max_retries=3) if name == "retry_policy" else UNPORTED[name]
-    want = token_batches(JDataset(docs, schema=jx_lm.make_schema(), **kw, **{name: jval}))
-    ds = TDataset(docs, schema=tw_lm.make_schema(), **kw, **{name: UNPORTED[name]})
+    given = {name: UNPORTED[name]}
+    if name == "process_index":
+        given["process_count"] = UNPORTED["process_count"]
+    jval = dict(given, retry_policy=JRetryPolicy(max_retries=3)) if name == "retry_policy" \
+        else given
+    want = token_batches(JDataset(docs, schema=jx_lm.make_schema(), **kw, **jval))
+    ds = TDataset(docs, schema=tw_lm.make_schema(), **kw, **given)
     assert getattr(ds, name) == UNPORTED[name]
-    assert token_batches(ds) == want and len(want) == 8
+    assert token_batches(ds) == want
+    assert len(want) == (4 if name.startswith("process_") else 8)
 
 
 def test_dataset_arguments_take_the_jax_defaults(docs):
@@ -138,9 +136,11 @@ def test_dataset_arguments_take_the_jax_defaults(docs):
     port_sig = inspect.signature(TDataset.__init__).parameters
     defaults = {k: jax_sig[k].default for k in UNPORTED}
     assert {k: port_sig[k].default for k in UNPORTED} == defaults
-    assert tds.UNPORTED_ARGS == {k: defaults[k] for k in STILL_UNPORTED}
     ds = TDataset(docs, batch_size=8, schema=tw_lm.make_schema(), recordType="SequenceExample",
                   **defaults)
+    jds = JDataset(docs, batch_size=8, schema=jx_lm.make_schema(), recordType="SequenceExample",
+                   **defaults)
+    assert ds.fingerprint() == jds.fingerprint()  # the slot 0 of 1 stamped alike
     with ds.batches() as it:
         assert sum(1 for _ in it) == 8
 

@@ -55,6 +55,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tpu_tfrecord_torch.device.distributed import process_slot
 from tpu_tfrecord_torch.io.dataset import CheckpointableIterator, IteratorState
 
 _FORMAT_VERSION = 1
@@ -65,20 +66,11 @@ _FORMAT_VERSION_WINDOWED = 2
 _READABLE_VERSIONS = (1, 2)
 
 
-def _process_slot() -> Tuple[int, int]:
-    """(index, count) of this process: ``torch.distributed``'s rank and
-    world size when a process group is up, else (0, 1)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def state_path(directory: str, process_index: Optional[int] = None) -> str:
     """Per-process state file ('_input_state.<pid>.json'). "_"-prefixed
     like _SUCCESS, so shard discovery never reads it as a shard."""
     if process_index is None:
-        process_index = _process_slot()[0]
+        process_index = process_slot()[0]
     return os.path.join(directory, f"_input_state.{process_index}.json")
 
 
@@ -495,7 +487,7 @@ class AsyncCheckpointer:
     ):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
-        index, count = _process_slot()
+        index, count = process_slot()
         self.process_index = int(index if process_index is None else process_index)
         self.process_count = int(count if process_count is None else process_count)
         self.keep = keep
@@ -579,9 +571,14 @@ class AsyncCheckpointer:
     def _commit(self, step: int, leaves, meta: bytes) -> None:
         gen = self._gen_dir(step)
         os.makedirs(gen, exist_ok=True)
+        # tmp orphans of an earlier life of this generation: this process's
+        # own only (its shard's, and the manifest's on process 0), since
+        # another process may be writing its shard's tmp twin right now
+        mine = [self._shard_name(self.process_index) + ".tmp."]
+        if self.process_index == 0:
+            mine.append(self.MANIFEST + ".tmp.")
         for name in os.listdir(gen):
-            # tmp orphans of an earlier life of this generation
-            if ".tmp." in name:
+            if name.startswith(tuple(mine)):
                 try:
                     os.remove(os.path.join(gen, name))
                 except OSError:

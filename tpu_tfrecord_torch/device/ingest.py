@@ -1,15 +1,19 @@
 """Columnar host batches -> dense numpy host batches -> tensors on the device.
 
-Port of ``tpu_tfrecord/tpu/ingest.py`` for one device. The host half
+Port of ``tpu_tfrecord/tpu/ingest.py``. The host half
 (``hash_bytes_column``, ``host_batch_from_columnar``) hashes through
 ``_native.hash_blob`` and pads ragged columns with the native fused pads
 (``_native.pad_ragged_dense`` / ``pad_ragged2_dense``), falling back to the
 numpy pads of ``columnar`` only for a dtype the native pads do not take.
-``make_device_batch`` takes the place of ``make_global_batch``: each array
-is copied into pinned host memory and sent with ``non_blocking=True`` on the
-current stream. A column cast to ``torch.bfloat16`` travels as a CPU bf16
-tensor (numpy has no bf16 dtype of its own), everything else as numpy.
-``TokenPacker`` packs ragged token documents into causal-LM batches.
+``make_device_batch`` copies each array into pinned host memory and sends
+it with ``non_blocking=True`` on the current stream. ``make_global_batch``
+does the same on this rank's device of a ``DeviceMesh`` and wraps each
+tensor as this rank's shard of a ``DTensor`` whose batch dim is sharded on
+the mesh's data axis: the global batch is P x the local rows, as
+``jax.make_array_from_process_local_data`` makes it. A column cast to
+``torch.bfloat16`` travels as a CPU bf16 tensor (numpy has no bf16 dtype
+of its own), everything else as numpy. ``TokenPacker`` packs ragged token
+documents into causal-LM batches.
 
 The feed: ``HostPrefetcher`` runs a host-batch iterator on a thread behind
 a bounded queue; ``DeviceIterator`` copies each host batch to the card on a
@@ -264,6 +268,41 @@ def host_batch_from_columnar(
         if group not in out:
             out[group] = np.stack([out.pop(n) for n in names], axis=1)
     return out
+
+
+def data_shardings(host_batch: Dict[str, HostArray], mesh, axis: str = "data") -> Dict[str, tuple]:
+    """Batch-dim-on-``axis`` placements for every array of a host batch
+    (``mesh.data_sharding``)."""
+    from tpu_tfrecord_torch.device.mesh import data_sharding
+
+    return {name: data_sharding(mesh, axis, arr.ndim) for name, arr in host_batch.items()}
+
+
+def _as_global(tensors: Dict[str, torch.Tensor], mesh, shardings: Dict[str, tuple]) -> dict:
+    """Each rank-local tensor as this rank's shard of a global ``DTensor``;
+    no collective runs (``run_check=False``), so every rank must hold the
+    same number of rows."""
+    from torch.distributed.tensor import DTensor
+
+    return {name: DTensor.from_local(t, mesh, shardings[name], run_check=False)
+            for name, t in tensors.items()}
+
+
+def make_global_batch(
+    host_batch: Dict[str, HostArray], mesh, axis: str = "data",
+    shardings: Optional[Dict[str, tuple]] = None,
+) -> dict:
+    """Per-process host batch -> {name: ``DTensor``} on ``mesh``, the batch
+    dim sharded on ``axis``: this rank's rows are copied to its device
+    (``make_device_batch``) and become its shard, so across P processes the
+    global batch dim is P x the local rows. Every process must pass the
+    same number of rows (``drop_remainder=True`` keeps a batch's rows
+    equal; processes with more shards also run more batches)."""
+    from tpu_tfrecord_torch.device.mesh import mesh_device
+
+    if shardings is None:
+        shardings = data_shardings(host_batch, mesh, axis)
+    return _as_global(make_device_batch(host_batch, mesh_device(mesh)), mesh, shardings)
 
 
 def make_device_batch(
@@ -638,9 +677,10 @@ class DeviceIterator:
     """Host batches -> tensors on one device, the copy of batch N+1 issued
     while the consumer computes on batch N.
 
-    The one-card counterpart of the JAX ``DeviceIterator``: ``device``
-    takes the place of ``mesh`` and ``axis``; the JAX shardings
-    (``data_shardings``, ``make_global_batch``) have no one-card meaning.
+    Without a ``mesh`` it feeds ``device``. With a ``mesh`` (the JAX
+    ``DeviceIterator``'s), the tensors go to this rank's device of the
+    mesh and each batch is handed over as ``make_global_batch`` gives it:
+    ``DTensor``s built on the tensors already copied, with no second copy.
 
     On a CUDA device each host array is copied into a ``StagingRing`` slot
     (``depth + 1`` slots) and from there with ``non_blocking=True`` on a
@@ -670,8 +710,16 @@ class DeviceIterator:
         device="cuda",
         transfer_thread: bool = False,
         depth: int = 2,
+        mesh=None,
+        axis: str = "data",
     ):
         self._it = iter(host_batches)
+        self._mesh = mesh
+        self._axis = axis
+        if mesh is not None:
+            from tpu_tfrecord_torch.device.mesh import mesh_device
+
+            device = mesh_device(mesh)
         self.device = torch.device(device)
         self._pending: Optional[_Staged] = None
         self._pf: Optional[HostPrefetcher] = None
@@ -719,7 +767,9 @@ class DeviceIterator:
             consumer.wait_event(event)
             for t in tensors.values():
                 t.record_stream(consumer)
-        return tensors
+        if self._mesh is None:
+            return tensors
+        return _as_global(tensors, self._mesh, data_shardings(tensors, self._mesh, self._axis))
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self

@@ -92,9 +92,14 @@ with the JAX constructor's read knobs and its decode pool:
   ``on_corrupt="raise"``. ``trace="on"`` enables the flight recorder and
   ``telemetry_port`` starts the Prometheus endpoint.
 
-Left out against the JAX dataset: more than one process (the process slot
-is 0 of 1: ``process_index`` / ``process_count`` other than 0 / 1 raise
-``OptionNotPortedError``), remote paths, the data service and the
+- ``process_index`` / ``process_count``: this process reads the shards
+  ``i`` of the global order with ``i % process_count == process_index``
+  (``paths.interleave``, as ``device.mesh.assign_shards``); shuffles,
+  positions and the cache work on that slice, and the fingerprint stamps
+  the slot, so a state resumes only on the slot that saved it. Processes
+  whose slices hold different row counts run different numbers of batches.
+
+Left out against the JAX dataset: remote paths, the data service and the
 telemetry spool (their options raise in ``TFRecordOptions``).
 """
 
@@ -125,7 +130,7 @@ from tpu_tfrecord_torch.columnar import (
     slice_batch,
     take_rows,
 )
-from tpu_tfrecord_torch.io.paths import cast_partition_value
+from tpu_tfrecord_torch.io.paths import cast_partition_value, interleave
 from tpu_tfrecord_torch.io.reader import (
     CorruptQuotaError,
     DatasetReader,
@@ -135,7 +140,7 @@ from tpu_tfrecord_torch.io.reader import (
     scan_spans_stream,
 )
 from tpu_tfrecord_torch.metrics import METRICS, log_salvage_event, logger, timed
-from tpu_tfrecord_torch.options import OptionNotPortedError, TFRecordOptions
+from tpu_tfrecord_torch.options import TFRecordOptions
 from tpu_tfrecord_torch.retry import RetryPolicy
 from tpu_tfrecord_torch.schema import StructType, numpy_dtype
 from tpu_tfrecord_torch.stall import StallError, StallGuard, WatchdogError, guard_from_options
@@ -150,13 +155,6 @@ MAX_RECORD_BYTES = 1 << 30  # a declared record length past this is corrupt
 READAHEAD_BYTES = 64 << 20  # the JAX default readahead window
 SHARD_QUEUE_CHUNKS = 2  # decoded chunks a worker may hold ahead of the producer
 BACKPRESSURE = "read.backpressure_waits"  # batch puts that found the queue full
-# the JAX constructor's arguments the port does not have yet, at the JAX
-# defaults: a call that spells out a default is taken, another value
-# raises OptionNotPortedError naming the argument
-UNPORTED_ARGS = {
-    "process_index": 0,
-    "process_count": 1,
-}
 
 # the raw open of the mmap route, resolved at call time so that
 # faults.install_chaos can route it through a fault plan
@@ -246,16 +244,6 @@ class IteratorState:
         return IteratorState(**{k: v for k, v in obj.items() if k in known})
 
 
-def _refuse_unported_args(**given) -> None:
-    for name, value in given.items():
-        default = UNPORTED_ARGS[name]
-        if value is not default and value != default:
-            raise OptionNotPortedError(
-                f"TFRecordDataset({name}={value!r}): not ported yet; the port reads with the "
-                f"JAX default {name}={default!r}"
-            )
-
-
 class TFRecordDataset:
     """Plan a streaming read: ``TFRecordDataset(paths, batch_size,
     schema=None, recordType="Example", hash_buckets=None, pack=None,
@@ -272,9 +260,8 @@ class TFRecordDataset:
     the JAX dataset; ``options`` takes the place of ``schema`` and
     ``recordType``. The read knobs take the JAX constructor's defaults and
     meanings (see the module docstring); an explicit ``retry_policy`` wins
-    over ``read_retries``. ``process_index`` and ``process_count`` are
-    taken at 0 and 1 only (``UNPORTED_ARGS``); another value raises
-    ``OptionNotPortedError``."""
+    over ``read_retries``. ``process_index`` and ``process_count`` pick
+    this process's interleaved slice of the shards."""
 
     def __init__(
         self,
@@ -304,7 +291,6 @@ class TFRecordDataset:
         readahead_bytes: int = READAHEAD_BYTES,
         **option_kwargs,
     ):
-        _refuse_unported_args(process_index=process_index, process_count=process_count)
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if num_epochs is not None and num_epochs < 1:
@@ -350,7 +336,9 @@ class TFRecordDataset:
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder
         self.num_epochs = num_epochs
-        self.shards = self._reader.shards
+        self.process_index = process_index
+        self.process_count = process_count
+        self.shards = interleave(self._reader.shards, process_index, process_count)
         full = self._reader.schema()
         part_cols = set(self._reader.partition_schema.names)
         wanted = full if columns is None else full.select(columns)
@@ -891,15 +879,15 @@ class TFRecordDataset:
 
     def fingerprint(self) -> str:
         """Digest of what a resume position depends on, as the JAX dataset
-        computes it: the shard list (paths and sizes), the process slot (0
-        of 1), the shuffle settings, the record type, and with
+        computes it: the global shard list (paths and sizes), the process
+        slot, the shuffle settings, the record type, and with
         ``shuffle_window`` the window and the batch size (``window_emitted``
         counts batches)."""
         if self._fingerprint is None:
             ident = {
                 "shards": [(sh.path, sh.size) for sh in self._reader.shards],
-                "process_index": 0,
-                "process_count": 1,
+                "process_index": self.process_index,
+                "process_count": self.process_count,
                 "shuffle": self.shuffle,
                 "seed": self.seed,
                 "record_type": self.options.record_type.value,

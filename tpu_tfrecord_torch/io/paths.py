@@ -1,8 +1,7 @@
 """Shard discovery and Hive-style partition-directory layout.
 
 Copy of ``tpu_tfrecord/io/paths.py`` over the port's local filesystem
-(``tpu_tfrecord_torch.fs``); ``interleave`` and ``interleave_owner`` (the
-multi-process shard split) are not ported yet.
+(``tpu_tfrecord_torch.fs``).
 
 Covers what the reference delegates to Hadoop/Spark path machinery: glob
 expansion (README.md: "can accept standard Hadoop globbing expressions"),
@@ -198,6 +197,25 @@ def discover_shards(paths) -> List[Shard]:
                     pvals.append(parsed)
             shards.append(Shard(fpath, fsize, tuple(pvals)))
     return shards
+
+
+def interleave(items: Sequence, slot: int, count: int) -> List:
+    """The one owner of the interleaved assignment: slot ``s`` of ``count``
+    takes items ``i`` with ``i % count == s``. The per-process shard split
+    (``device.mesh.assign_shards``) and the dataset's process slot both go
+    through it, so they cannot disagree about who owns what."""
+    if count < 1:
+        raise ValueError(f"count must be >= 1, got {count}")
+    if not 0 <= slot < count:
+        raise ValueError(f"slot must be in [0, {count}), got {slot}")
+    return [it for i, it in enumerate(items) if i % count == slot]
+
+
+def interleave_owner(index: int, count: int) -> int:
+    """The inverse view of ``interleave``: which slot owns item ``index``."""
+    if count < 1:
+        raise ValueError(f"count must be >= 1, got {count}")
+    return index % count
 
 
 def partition_columns_of(shards: Sequence[Shard]) -> List[str]:

@@ -3,9 +3,7 @@
 Copy of ``tpu_tfrecord/io/reader.py`` over the port's local filesystem and
 native library. The span streams take the opener of the dataset
 (``open_fn``: its stall guard's, when one is set) and a readahead hint
-(``make_hint``). Left out: the row reader's stall guard and
-``infer_schema_multihost``, which waits for the port's multi-process
-layer.
+(``make_hint``). Left out: the row reader's stall guard.
 
 The reference's read path (SURVEY.md §3.1):
 DefaultSource.buildReader + TFRecordFileReader. One ShardReader per file
@@ -665,6 +663,36 @@ class DatasetReader:
         """Inference over EVERY shard with the distributed merge algebra —
         the standalone TensorFlowInferSchema entry (SURVEY.md §3.3)."""
         return type_map_to_schema(self.local_type_map(num_workers=num_workers))
+
+    def infer_schema_multihost(self, num_workers: int = 1) -> StructType:
+        """Inference across the process group, the reference's RDD
+        ``aggregate`` end to end (TensorFlowInferSchema.scala:40-43): each
+        process folds the seqOp over its interleaved slice of the shards
+        (``device.mesh.assign_shards``, the read path's split), then the
+        partial maps are allgathered and merged, so every process returns
+        the same schema. One process: the local fold. A local failure
+        (a corrupt shard, types that clash inside the slice) is not raised
+        before the collective, where it would leave the peers blocked: it
+        rides the gather and every process raises
+        ``DistributedInferenceError``."""
+        from tpu_tfrecord_torch.device.distributed import merge_schema_across_hosts
+        from tpu_tfrecord_torch.device.mesh import assign_shards
+
+        mine = assign_shards(self.shards)
+        local: Dict[str, Any] = {}
+        err: Optional[str] = None
+        exc: Optional[BaseException] = None
+        try:
+            local = self.local_type_map(mine, num_workers=num_workers)
+        except Exception as e:  # noqa: BLE001 - encoded into the collective, raised below
+            err = f"{type(e).__name__}: {e}"
+            exc = e
+        try:
+            return merge_schema_across_hosts(local, local_error=err)
+        except Exception as merged:
+            if exc is not None:
+                raise merged from exc  # keep the local traceback too
+            raise
 
     # -- execution ----------------------------------------------------------
 

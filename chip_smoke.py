@@ -257,6 +257,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ranks: ``DTensor.full_tensor()`` there ends them, so the check of the
    first global batch gathers a CPU copy).
 
+15. Remote filesystems on phase 12's shards (``remote_path``): the port's
+   ``httpfs.serve_directory`` serves them from a spawned process on
+   127.0.0.1 (loopback: the rates are what the client and the decoder
+   cost, not what a remote store gives; the server's per-request delay is
+   the only model of a round trip). (1) Bare sequential reads of one shard
+   through ``fs.PrefetchReader`` (8 MiB blocks) at 1 and 4 block fetches in
+   flight, at a delay of 0 and 20 ms a request: MB/s. (2) Discovery over ``http://``
+   lists the shards with their local sizes and ``infer_schema_all_files``
+   equals the local one; the bf16 DLRM scores the 64 batches through phase
+   12's fixed-4 feed over ``http://``: logits bit-equal to phase 12's local
+   run for every row, 64 ``bf16_mma`` and 0 ``f32_tiled`` launches in its
+   window (``remote_launches``), rows/s whole and steady, MB/s, the idle
+   share, the ``remote.*`` / ``read.retries`` counters. (3) A decode-only
+   read under a seeded server-side ``FaultPlan`` (a reset mid-body, a
+   truncated body, a 503 with Retry-After 0.05 s, a trickle; one block
+   request each) with ``read_retries=4``, twice: batches equal the clean
+   read's, ``remote.fetch_retries`` at least the failing faults fired, the
+   same ledger both times; then a shifted ``Content-Range`` with no retries
+   raises ``BadContentRangeError`` before any row. (4) A populate pass over
+   ``http://`` into a local ``cache_dir`` (4 misses, 4 entries), then the
+   bf16 DLRM from a new dataset on the cache: 4 hits, no file GET at the
+   server, logits bit-equal, 64 ``bf16_mma`` launches. The entries are
+   unmapped before the directory is removed.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -3527,6 +3551,7 @@ def readpool_serving(dirs, warm, card: str) -> dict:
     print(f"readpool: logits of the three runs bit-equal: {same}")
     if not same:
         raise SystemExit("readpool: the autotuned run's logits differ from a fixed pool's")
+    local_logits = logits["fixed 4"].float().cpu()  # phase 15's reference
     del model, logits
     # a state taken under autotune, after a resize, resumes on a fixed pool
     ds = TFRecordDataset(dirs, BATCH, num_workers=1, autotune="on",
@@ -3550,7 +3575,7 @@ def readpool_serving(dirs, warm, card: str) -> dict:
     if not ok:
         raise SystemExit("readpool: the resumed batches differ")
     out["launches"] = out["autotune"]["launches"]
-    return out
+    return out, local_logits
 
 
 def readpool_path(work: str, card: str) -> tuple:
@@ -3559,9 +3584,10 @@ def readpool_path(work: str, card: str) -> tuple:
     limit): (a) the shards, (b) cold decode rates, (c) the guard's cost,
     (d) the stall drills, (e) autotuned serving at full width. Then phase
     13 (``cache_path``) on the same shards, with its cache beside them,
-    and phase 14 (``multiproc_path``). Returns the kernel launches of
-    phase 12's autotuned serving run, of phase 13's warm cached epoch and
-    of phase 14's ranks (summed)."""
+    phase 14 (``multiproc_path``) and phase 15 (``remote_path``). Returns
+    the kernel launches of phase 12's autotuned serving run, of phase 13's
+    warm cached epoch, of phase 14's ranks (summed) and of phase 15's
+    scoring over HTTP."""
     from tpu_tfrecord_torch.cache import release_registry
 
     t0 = time.perf_counter()
@@ -3574,19 +3600,20 @@ def readpool_path(work: str, card: str) -> tuple:
         rates["pool_depth"] = pool_depth_probe(dirs, warm)
         overhead = guard_overhead(dirs)
         drills = stall_drills(dirs, warm)
-        serving = readpool_serving(dirs, warm, card)
+        serving, local_logits = readpool_serving(dirs, warm, card)
         out = dict(card=card, dir=root, mount=mnt, fstype=fstype, cold=rates, guard=overhead,
                    drills=drills, serving=serving, seconds=time.perf_counter() - t0)
         print(f"readpool: phase 12 took {out['seconds']:.1f} s")
         print("readpool: " + json.dumps(out, default=str))
         cached = cache_path(dirs, files, warm, cache_dir, card)
         multi = multiproc_path(dirs, root, card)
+        remote = remote_path(dirs, files, root, warm, local_logits, card)
     finally:
         # the entries' maps are unpinned before the directory goes, or its
         # blocks stay allocated for the rest of the run
         release_registry(cache_dir)
         shutil.rmtree(root, ignore_errors=True)
-    return serving["launches"], cached["launches"], multi["launches"]
+    return serving["launches"], cached["launches"], multi["launches"], remote["launches"]
 
 
 # -- phase 13: the columnar epoch cache ----------------------------------------------
@@ -4186,6 +4213,361 @@ def multiproc_path(dirs, work: str, card: str) -> dict:
     return out
 
 
+
+# -- phase 15: remote filesystems --------------------------------------------------------
+
+REMOTE_LATENCY_S = 0.020   # the server's delay of each request in the bare-read probe
+REMOTE_DEPTHS = (1, 4)     # PrefetchReader fetches in flight in the bare-read probe
+REMOTE_WORKERS = 4         # the scoring runs' pool: phase 12's fixed 4
+REMOTE_RETRIES = 4         # read_retries of the faulted read
+REMOTE_TIMEOUT_S = 120     # for the server process to start or answer
+REMOTE_BLOCK = 8 << 20     # the JAX default TFR_REMOTE_BLOCK_BYTES, which the rules key on
+
+
+def range_server_main(root: str, conn) -> None:
+    """Phase 15's Range server (``httpfs.serve_directory`` over ``root``),
+    in a spawned process so that its sends do not take the GIL from the
+    decode pool: it sends its URL, then answers (op, arg) requests from
+    ``conn`` until "stop"."""
+    from tpu_tfrecord_torch import httpfs
+    from tpu_tfrecord_torch.faults import FaultPlan
+
+    torch.set_num_threads(1)
+    srv = httpfs.serve_directory(root)
+    plan = None
+    conn.send(srv.url)
+    try:
+        while True:
+            op, arg = conn.recv()
+            if op == "stop":
+                break
+            if op == "plan":
+                if plan is not None:
+                    plan.release()
+                plan = FaultPlan.from_json(arg) if arg is not None else None
+                srv.set_plan(plan)
+                conn.send(None)
+            elif op == "latency":
+                srv.set_latency(arg)
+                conn.send(None)
+            elif op == "ledger":
+                conn.send(plan.ledger_json() if plan is not None else "")
+            elif op == "counts":
+                conn.send(dict(requests=srv.request_count, gets=srv.get_count,
+                               file_gets=srv.file_get_count))
+    finally:
+        if plan is not None:
+            plan.release()
+        srv.close()
+
+
+class RangeServerProcess:
+    """The parent's handle on ``range_server_main``: ``url_for``,
+    ``set_plan`` (a ``FaultPlan``, run in the server), ``set_latency``,
+    ``ledger``, ``counts``; ``close`` stops the process (killed after
+    10 s)."""
+
+    def __init__(self, root: str):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=range_server_main, args=(root, child),
+                                 name="chip-range-server", daemon=True)
+        self._proc.start()
+        child.close()
+        self.url = self._answer("start")
+
+    def _answer(self, what: str):
+        if not self._conn.poll(REMOTE_TIMEOUT_S):
+            raise SystemExit(f"remote: the server process did not answer ({what}) within "
+                             f"{REMOTE_TIMEOUT_S} s; alive: {self._proc.is_alive()}")
+        return self._conn.recv()
+
+    def _call(self, op: str, arg=None):
+        self._conn.send((op, arg))
+        return self._answer(op)
+
+    def url_for(self, rel: str) -> str:
+        return f"{self.url}/{rel}"
+
+    def set_plan(self, plan) -> None:
+        self._call("plan", None if plan is None else plan.to_json())
+
+    def set_latency(self, seconds: float) -> None:
+        self._call("latency", seconds)
+
+    def ledger(self) -> str:
+        return self._call("ledger")
+
+    def counts(self) -> dict:
+        return self._call("counts")
+
+    def close(self) -> None:
+        if self._proc.is_alive():
+            try:
+                self._conn.send(("stop", None))
+            except OSError:
+                pass
+            self._proc.join(10)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join()
+        self._conn.close()
+
+
+def bare_read_mbps(url: str, depth: int) -> tuple:
+    """(MB/s, bytes) of one sequential read of ``url`` through a
+    ``fs.PrefetchReader`` of REMOTE_BLOCK blocks at ``depth`` fetches in
+    flight, 8 MB at a time, with no decode."""
+    from tpu_tfrecord_torch import fs
+
+    fsys = fs.filesystem_for(url)
+    buf = bytearray(8 << 20)
+    nb = 0
+    t0 = time.perf_counter()
+    with fs.PrefetchReader(fsys, url, fsys.size(url), REMOTE_BLOCK, depth) as fh:
+        while True:
+            k = fh.readinto(buf)
+            if not k:
+                break
+            nb += k
+    return nb / (time.perf_counter() - t0) / 1e6, nb
+
+
+REMOTE_COUNTERS = ("remote.fetch_retries", "remote.bad_range", "read.retries")
+
+
+def remote_counters() -> dict:
+    from tpu_tfrecord_torch.metrics import METRICS
+
+    return {n: METRICS.counter(n) for n in REMOTE_COUNTERS}
+
+
+def remote_serve(urls, model, label: str, nbytes: int, card: str, **kw) -> tuple:
+    """One bf16 serving run of the shards at ``urls`` through phase 12's
+    fixed-4 feed (dataset -> HostPrefetcher -> DeviceIterator -> the DLRM):
+    (ScoreResult, rates, launches)."""
+    from tpu_tfrecord_torch.entry import _read_plan, _score_dataset
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+    from tpu_tfrecord_torch.metrics import METRICS
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    read = criteo_read_kw()
+    paths, hash_buckets, pack, pad_to = _read_plan(urls, model.cfg, read["pack"]["dense"],
+                                                   read["pack"]["cat"])
+    METRICS.reset()
+    ds = TFRecordDataset(paths, BATCH, schema=read["schema"], recordType="Example",
+                         hash_buckets=hash_buckets, pack=pack, num_workers=REMOTE_WORKERS, **kw)
+    reset_launch_counts()
+    res = _score_dataset(ds, model, READPOOL_DEVICE, pad_to, log1p_dense=True)
+    launches = dict(dot_interaction.instance_launches)
+    whole = res.batches * BATCH / res.wall_s
+    idle = 1.0 - sum(res.forward_s) / res.wall_s
+    stats = dict(whole=whole, steady=steady_rate(res), mbps=nbytes / res.wall_s / 1e6,
+                 idle_share=idle, duty_cycle=res.duty_cycle, wall_s=res.wall_s,
+                 counters=remote_counters(), launches=launches)
+    print(f"remote: serving bf16, {label}, {REMOTE_WORKERS} workers: {res.batches} batches, "
+          f"{whole:.1f} rows/s whole, {stats['steady']:.1f} steady (batches 2-{res.batches}), "
+          f"{stats['mbps']:.1f} MB/s of shards; device idle share at least {idle:.4f} "
+          f"(1 - synchronized forward time / wall); counters {stats['counters']}; kernel "
+          f"launches {launches} ({card})")
+    return res, stats
+
+
+def remote_fault_plan(names: list):
+    """The faulted read's plan: one reset and one truncation mid-body (an
+    eighth and three eighths into the block), one 503 with Retry-After
+    0.05 s and one trickle, each on one block request (``<url path>@<block
+    start>``) of its own shard. Block starts of 3 x REMOTE_BLOCK and up: a
+    key must not be a prefix of a later block's."""
+    from tpu_tfrecord_torch.faults import FaultPlan, FaultRule
+
+    key = [f"/shard{s:02d}/{n}" for s, n in enumerate(names)]
+    return FaultPlan([
+        FaultRule(op="http", kind="reset", path=f"{key[0]}@{3 * REMOTE_BLOCK}",
+                  cap_bytes=REMOTE_BLOCK // 8, times=1),
+        FaultRule(op="http", kind="truncated_body", path=f"{key[1]}@{4 * REMOTE_BLOCK}",
+                  cap_bytes=REMOTE_BLOCK * 3 // 8, times=1),
+        FaultRule(op="http", kind="http_error", path=f"{key[2]}@0", status=503,
+                  retry_after_s=0.05, times=1),
+        FaultRule(op="http", kind="trickle", path=f"{key[3]}@{5 * REMOTE_BLOCK}",
+                  cap_bytes=64 << 10, stall_ms=2, times=1),
+    ], seed=15)
+
+
+def remote_path(dirs, files, root: str, warm, local_logits, card: str) -> dict:
+    """Phase 15: phase 12's shards read over HTTP from the port's Range
+    server in a spawned process, beside ``card``: (1) bare read rates, (2)
+    discovery, inference and the bf16 DLRM scoring the shards over the
+    link, its logits bit-equal to phase 12's local run (``local_logits``),
+    (3) a faulted decode-only read, replayed, and a shifted Content-Range
+    that must raise, (4) the shards through the epoch cache. Returns the
+    kernel launches of (2)'s scoring run."""
+    from tpu_tfrecord_torch import cache as cache_mod
+    from tpu_tfrecord_torch import fs
+    from tpu_tfrecord_torch import io as tio
+    from tpu_tfrecord_torch.device.ingest import make_device_batch
+    from tpu_tfrecord_torch.faults import FaultPlan, FaultRule
+    from tpu_tfrecord_torch.httpfs import BadContentRangeError
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+    from tpu_tfrecord_torch.metrics import METRICS
+    from tpu_tfrecord_torch.models.dlrm import init_params, make_synthetic_batch
+
+    t0 = time.perf_counter()
+    free_cuda()
+    names = [os.path.basename(f) for f in files]
+    nbytes = sum(os.path.getsize(f) for f in files)
+    n_batches = READPOOL_SHARDS * READPOOL_ROWS // BATCH
+    want_launches = {"bf16_mma": n_batches, "f32_tiled": 0}
+    cache_dir = os.path.join(root, "remote_cache")
+    t_start = time.perf_counter()
+    srv = RangeServerProcess(root)
+    out = dict(card=card, server_start_s=time.perf_counter() - t_start)
+    gates = {}
+    try:
+        urls = [srv.url_for(f"shard{s:02d}") for s in range(READPOOL_SHARDS)]
+        print(f"remote: Range server (httpfs.serve_directory) in a spawned process at {srv.url}, "
+              f"up in {out['server_start_s']:.2f} s; loopback TCP, so the rates below are what "
+              f"the client and the decoder cost, not a remote store's")
+
+        # (1) bare sequential reads of one shard, no decode
+        bare = {}
+        for latency in (0.0, REMOTE_LATENCY_S):
+            srv.set_latency(latency)
+            for depth in REMOTE_DEPTHS:
+                mbps, got = bare_read_mbps(srv.url_for(f"shard00/{names[0]}"), depth)
+                if got != os.path.getsize(files[0]):
+                    raise SystemExit(f"remote: the bare read got {got} bytes of {files[0]}")
+                bare[f"latency {latency * 1e3:.0f} ms, depth {depth}"] = mbps
+        srv.set_latency(0.0)
+        print(f"remote: bare sequential read of one {os.path.getsize(files[0])}-byte shard "
+              f"({REMOTE_BLOCK >> 20} MiB blocks), MB/s by server delay a request and fetches "
+              f"in flight: { {k: round(v, 1) for k, v in bare.items()} }")
+        out["bare_mbps"] = bare
+
+        # (2) discovery, inference, and the bf16 DLRM over the link
+        t_disc = time.perf_counter()
+        remote_shards = tio.discover_shards(urls)
+        local_shards = tio.discover_shards(dirs)
+        gates["discovery"] = (
+            [(s.path.rsplit("/", 1)[-1], s.size) for s in remote_shards]
+            == [(os.path.basename(s.path), s.size) for s in local_shards])
+        t_disc = time.perf_counter() - t_disc
+        t_inf = time.perf_counter()
+        remote_schema = tio.reader(urls).infer_schema_all_files(num_workers=2).json()
+        t_inf = time.perf_counter() - t_inf
+        gates["schema"] = remote_schema == tio.reader(dirs).infer_schema_all_files(
+            num_workers=2).json()
+        print(f"remote: discovery over http:// {t_disc:.3f} s, sizes equal the local shards': "
+              f"{gates['discovery']}; infer_schema_all_files over http:// {t_inf:.3f} s "
+              f"({nbytes / t_inf / 1e6:.1f} MB/s), equal to the local inference: "
+              f"{gates['schema']}")
+        cfg = criteo_cfg()
+        model = init_params(cfg, torch.Generator(device=READPOOL_DEVICE).manual_seed(TRAIN_SEED),
+                            READPOOL_DEVICE)
+        model(make_device_batch(make_synthetic_batch(cfg, BATCH, seed=1), READPOOL_DEVICE))
+        gets0 = srv.counts()
+        res, clean = remote_serve(urls, model, "clean read over http://", nbytes, card)
+        gets1 = srv.counts()
+        launches = clean["launches"]
+        logits = res.logits.float().cpu()
+        gates["logits_bit_equal"] = (logits.shape == local_logits.shape
+                                     and torch.equal(logits, local_logits))
+        gates["launches"] = launches == want_launches and res.batches == n_batches
+        clean["server"] = {k: gets1[k] - gets0[k] for k in gets1}
+        print(f"remote: the clean read's logits bit-equal to phase 12's local run, every one of "
+              f"{logits.numel()} rows: {gates['logits_bit_equal']}; requests the server saw "
+              f"{clean['server']}")
+        out["clean"] = clean
+        del res
+
+        # (3) the faulted decode-only read, twice, then a lying server
+        if fs._remote_prefetch_params() != (REMOTE_BLOCK, 4):
+            raise SystemExit(f"remote: the faulted read needs the default blocks, got "
+                             f"{fs._remote_prefetch_params()}")
+        plan = remote_fault_plan(names)
+        faulted = []
+        for run in range(2):
+            srv.set_plan(plan)
+            METRICS.reset()
+            digests, rows, wall, cpu, _ = readpool_pass(urls, read_retries=REMOTE_RETRIES)
+            ledger = sorted(srv.ledger().splitlines())
+            srv.set_plan(None)
+            c = remote_counters()
+            kinds = sorted(json.loads(line)["kind"] for line in ledger)
+            failing = sum(k != "trickle" for k in kinds)
+            faulted.append(dict(equal=digests == warm, rows_per_s=rows / wall, wall_s=wall,
+                                cpu_s=cpu, counters=c, ledger=ledger, kinds=kinds))
+            print(f"remote: faulted decode-only read {run + 1} (read_retries={REMOTE_RETRIES}, "
+                  f"{READPOOL_COLD_WORKERS} workers): {rows / wall:.1f} rows/s, {wall:.3f} s; "
+                  f"batches equal the clean read's: {digests == warm}; fired {kinds}; counters "
+                  f"{c}")
+            gates[f"faulted_{run + 1}"] = (digests == warm and kinds == sorted(
+                ["reset", "truncated_body", "http_error", "trickle"])
+                and c["remote.fetch_retries"] >= failing)
+        gates["ledger_replays"] = faulted[0]["ledger"] == faulted[1]["ledger"]
+        print(f"remote: the replayed plan's ledger equals the first run's: "
+              f"{gates['ledger_replays']}")
+        out["faulted"] = [{k: v for k, v in f.items() if k != "ledger"} for f in faulted]
+        srv.set_plan(FaultPlan([FaultRule(op="http", kind="bad_content_range",
+                                          path=f"/shard00/{names[0]}@0", shift_bytes=32,
+                                          times=None)]))
+        METRICS.reset()
+        seen, raised = 0, None
+        try:
+            ds = TFRecordDataset(urls, BATCH, num_workers=READPOOL_COLD_WORKERS,
+                                 **criteo_read_kw())
+            with ds.batches() as it:
+                for cb in it:
+                    seen += cb.num_rows
+        except OSError as e:
+            raised = e
+        srv.set_plan(None)
+        gates["bad_content_range"] = isinstance(raised, BadContentRangeError) and seen == 0
+        print(f"remote: a shifted Content-Range with no retries raised "
+              f"{type(raised).__name__}: {raised}; rows yielded before it: {seen}; "
+              f"remote.bad_range {METRICS.counter('remote.bad_range')}")
+
+        # (4) the shards over the link into the epoch cache, then a warm epoch
+        METRICS.reset()
+        digests, rows, wall, cpu, _ = readpool_pass(urls, cache="auto", cache_dir=cache_dir)
+        populate = dict(equal=digests == warm, rows_per_s=rows / wall, wall_s=wall,
+                        misses=METRICS.counter("cache.misses"),
+                        entries=len([n for n in os.listdir(cache_dir)
+                                     if n.endswith(cache_mod.ENTRY_SUFFIX)]))
+        gets0 = srv.counts()
+        res, warm_stats = remote_serve(urls, model, "warm epoch from the cache", nbytes, card,
+                                       cache="auto", cache_dir=cache_dir)
+        gets1 = srv.counts()
+        hits = METRICS.counter("cache.hits")
+        warm_stats["server"] = {k: gets1[k] - gets0[k] for k in gets1}
+        gates["cache"] = (populate["equal"] and populate["misses"] == READPOOL_SHARDS
+                          and populate["entries"] == READPOOL_SHARDS and hits == READPOOL_SHARDS
+                          and warm_stats["server"]["file_gets"] == 0
+                          and torch.equal(res.logits.float().cpu(), local_logits)
+                          and warm_stats["launches"] == want_launches)
+        print(f"remote: populate over http:// ({READPOOL_COLD_WORKERS} workers): "
+              f"{populate['rows_per_s']:.1f} rows/s, {populate['misses']} misses, "
+              f"{populate['entries']} entries, batches equal: {populate['equal']}; the warm "
+              f"epoch: {hits} hits, requests the server saw {warm_stats['server']} (no file GET "
+              f"is the gate), logits bit-equal: "
+              f"{torch.equal(res.logits.float().cpu(), local_logits)}")
+        out.update(populate=populate, warm=warm_stats)
+        del model, res
+    finally:
+        srv.close()
+        cache_mod.release_registry(cache_dir)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    free_cuda()
+    out.update(gates=gates, launches=launches, seconds=time.perf_counter() - t0)
+    print(f"remote: gates {gates}; phase 15 took {out['seconds']:.1f} s ({card})")
+    print("remote: " + json.dumps(out, default=str))
+    if not all(gates.values()):
+        raise SystemExit(f"remote: gates failed: {gates}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4236,7 +4618,8 @@ def main() -> int:
         moe_path(data_dir, smi)
         moe_launches = dict(dot_interaction.instance_launches)
         free_cuda()
-        readpool_launches, cache_launches, multiproc_launches = readpool_path(data_dir, smi)
+        readpool_launches, cache_launches, multiproc_launches, remote_launches = readpool_path(
+            data_dir, smi)
     phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches}
     for phase, counts in phase_launches.items():
         if any(counts.values()):
@@ -4267,6 +4650,7 @@ def main() -> int:
         readpool_launches=readpool_launches[k],
         cache_launches=cache_launches[k],
         multiproc_launches=multiproc_launches[k],
+        remote_launches=remote_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

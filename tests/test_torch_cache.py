@@ -522,9 +522,24 @@ class TestRegistry:
             TFRecordDataset(data_dir, batch_size=8, schema=SCHEMA, cache="auto",
                             cache_dir="memory://nope/cache")
 
-    def test_remote_shard_raises_as_the_filesystem_does(self):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tcache.source_stat("memory://bucket/part-00000.tfrecord")
+    def test_remote_shard_raises_as_the_filesystem_does(self, monkeypatch):
+        """A remote shard's identity comes from its filesystem's ``info``:
+        a missing object (or a store that cannot be asked) stamps 0, as in
+        the JAX cache; a filesystem that cannot be built raises."""
+        from tpu_tfrecord import cache as jcache
+
+        pytest.importorskip("fsspec")
+        url = "memory://bucket-cache-test/part-00000.tfrecord"
+        assert tcache.source_stat(url) == jcache.source_stat(url) == \
+            {"path": url, "size": 0, "mtime_ns": 0}
+        assert tcache.source_stat(url, 77) == jcache.source_stat(url, 77)
+
+        def refuse(path):
+            raise ImportError(f"no filesystem for {path}")
+
+        monkeypatch.setattr(tcache._fs, "filesystem_for", refuse)
+        with pytest.raises(ImportError, match="no filesystem"):
+            tcache.source_stat(url)
 
     def test_registry_skips_reverification_across_datasets(self, data_dir, cache_dir,
                                                            monkeypatch):

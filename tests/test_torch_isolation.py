@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``tpu_tfrecord_torch``
 and ``chip_smoke.py`` loads neither jax nor the JAX package, and no source
-file of the port imports them."""
+file of the port imports them; the optional fsspec loads only when a
+non-HTTP URL is opened."""
 
 import ast
 import json
@@ -41,7 +42,8 @@ def test_every_module_is_found():
                  "tpu_tfrecord_torch.faults", "tpu_tfrecord_torch.service_protocol",
                  "tpu_tfrecord_torch.stall", "tpu_tfrecord_torch.autotune",
                  "tpu_tfrecord_torch.cache", "tpu_tfrecord_torch.vocabulary",
-                 "tpu_tfrecord_torch.device.distributed", "tpu_tfrecord_torch.device.mesh"):
+                 "tpu_tfrecord_torch.device.distributed", "tpu_tfrecord_torch.device.mesh",
+                 "tpu_tfrecord_torch.httpfs", "tpu_tfrecord_torch.fs"):
         assert want in mods
 
 
@@ -60,6 +62,36 @@ def test_imports_load_no_jax():
                           cwd=REPO, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_imports_load_no_fsspec_until_a_url_needs_it():
+    """fsspec is optional: importing every module of the port (``httpfs``
+    and ``fs`` included) and using an ``http://`` filesystem loads none of
+    it; the first non-HTTP URL does."""
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"for m in {port_modules()!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from tpu_tfrecord_torch import fs, httpfs\n"
+        "assert isinstance(fs.filesystem_for('http://127.0.0.1:1/x'), httpfs.HttpFS)\n"
+        "before = sorted(m for m in sys.modules if m.split('.')[0] == 'fsspec')\n"
+        "try:\n"
+        "    fs.filesystem_for('memory://x')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "after = 'fsspec' in sys.modules\n"
+        "print(json.dumps([before, after]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    before, after = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert before == []
+    import importlib.util
+
+    assert after == (importlib.util.find_spec("fsspec") is not None)
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: os.path.relpath(p, REPO))

@@ -1,6 +1,8 @@
 """Columnar epoch cache: decode a shard once, mmap every epoch after.
 
-Port of ``tpu_tfrecord/cache.py`` on the local filesystem. A decoded
+Port of ``tpu_tfrecord/cache.py``. The cache directory is local (a URL
+there raises); a source shard may be a URL, so a remote shard's link is
+paid once and later epochs read the local entry. A decoded
 ``ColumnarBatch`` (dense values, offsets, blob buffers) is already a flat
 layout, so a cached epoch is served as numpy views over one mmap of the
 entry file: no frame parsing, no record CRC, no protobuf decode.
@@ -113,11 +115,30 @@ def entry_filename(shard_path: str, fingerprint: str) -> str:
 
 
 def source_stat(shard_path: str, size_hint: Optional[int] = None) -> Dict[str, Any]:
-    """The source identity an entry is keyed on: (path, size, mtime_ns) of
-    a local shard. A URL raises as ``fs.filesystem_for`` does: remote
-    filesystems are not ported."""
+    """The source identity an entry is keyed on: (path, size, mtime_ns).
+    A local shard's come from ``os.stat``; a URL's from its filesystem's
+    ``info`` (size, and the first of mtime / LastModified / last_modified
+    / created / ETag as the stamp, an opaque tag hashed into it), so a
+    remote rewrite of the same size still invalidates. A store that gives
+    no stamp, or cannot be asked, leaves it 0: size-only invalidation."""
     if _fs.has_scheme(shard_path):
-        _fs.filesystem_for(shard_path)  # raises NotImplementedError
+        size = int(size_hint) if size_hint else 0
+        stamp = 0
+        try:
+            info = _fs.filesystem_for(shard_path).info(shard_path)
+            if not size:
+                size = int(info.get("size") or 0)
+            raw = (info.get("mtime") or info.get("LastModified") or info.get("last_modified")
+                   or info.get("created") or info.get("ETag") or info.get("etag") or 0)
+            if hasattr(raw, "timestamp"):  # datetime
+                raw = raw.timestamp()
+            if isinstance(raw, (int, float)):
+                stamp = int(raw * 1e9) if raw else 0
+            elif raw:  # an opaque version tag (ETag)
+                stamp = int(hashlib.sha256(str(raw).encode()).hexdigest()[:15], 16)
+        except (AttributeError, OSError, KeyError, TypeError, ValueError):
+            pass
+        return {"path": shard_path, "size": size, "mtime_ns": stamp}
     st = os.stat(shard_path)
     return {"path": _norm_path(shard_path), "size": int(st.st_size),
             "mtime_ns": int(st.st_mtime_ns)}
@@ -771,9 +792,16 @@ def inspect_entry(path: str) -> Dict[str, Any]:
                    "rows": entry.rows, "chunks": entry.num_chunks, "crc_verified": True})
     src_path = src.get("path")
     if src_path and _fs.has_scheme(src_path):
-        # a remote source (an entry of the JAX package): the port has no
-        # remote filesystem to ask, so the check is reported unavailable
-        report["source_check"] = "unavailable"
+        # a remote source: the runtime's freshness probe; a store that
+        # cannot be reached is reported unverified, not missing or stale
+        try:
+            if not _fs.filesystem_for(src_path).exists(src_path):
+                report["status"] = "source_missing"
+                return report
+            if not _source_matches(footer, source_stat(src_path)):
+                report["status"] = "stale"
+        except Exception:  # any backend failure: disclosed as unavailable
+            report["source_check"] = "unavailable"
         return report
     if src_path:
         try:

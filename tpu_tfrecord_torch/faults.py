@@ -7,11 +7,12 @@ file drives either package and fires the same ledger for the same calls.
 and ``fs.local_open`` (the record read and write paths),
 ``io.dataset._open_local`` (the dataset's mmap route for local
 uncompressed shards), the socket seam of ``service_protocol`` (connect /
-recv) and the serving tier's seam (``_SERVE_CHAOS``, read by
-``tpu_tfrecord_torch.serving``). The JAX package's other seams (the remote
-``httpfs`` client, the data-service journal) belong to modules the port
-does not have yet; their rules still parse and ledger when a caller
-applies them.
+recv), the HTTP client's connect seam (``httpfs._CHAOS_PLAN``) and the
+serving tier's seam (``_SERVE_CHAOS``, read by
+``tpu_tfrecord_torch.serving``). The JAX package's data-service journal
+seam belongs to a module the port does not have yet; its rules still
+parse and ledger when a caller applies them. The ``http`` kinds fire at
+the server side of a socket, in ``httpfs.FaultingRangeServer``.
 
 The pipeline is held against faults that raise, and the stall-defence
 layer against faults that merely hang. Both need a way to *reproduce* a
@@ -75,7 +76,7 @@ FAULT_KINDS = (
     "netsplit",  # connect/recv permanently refused: the standby-partition
     # scenario, ledgered distinctly from an ordinary permanent_error
     # HTTP-request kinds (op="http"), executed by the fault-injecting
-    # Range server (tpu_tfrecord.httpfs.serve_directory) — faults that
+    # Range server (httpfs.serve_directory) — faults that
     # fire at the REAL socket level, not inside a wrapped file object:
     "reset",  # RST the connection mid-body (SO_LINGER 0 + close)
     "truncated_body",  # full Content-Length declared, fewer bytes sent
@@ -104,7 +105,7 @@ FAULT_KINDS = (
 #: ``disconnect`` closes the socket mid-frame — the short-frame scenario
 #: the protocol must convert into a loud ProtocolError, never into
 #: truncated data. ``http`` is the request seam of the real-network
-#: remote tier (tpu_tfrecord.httpfs): the path a rule matches is
+#: remote tier (httpfs): the path a rule matches is
 #: ``<url path>@<range start>`` — keyed per byte offset so retries of the
 #: same block get deterministic ordinals even with concurrent fetches —
 #: and the HTTP-specific kinds above fire on the server's side of a real
@@ -582,9 +583,12 @@ def install_chaos(plan: FaultPlan):
     ``wire.open_compressed`` uses for plain paths) and
     ``io.dataset._open_local`` (the mmap route's seam) open through the
     plan, the socket seams of ``service_protocol`` consult it for ``connect`` /
-    ``recv`` rules, and the serving tier for ``serve`` rules. Restores
+    ``recv`` rules, the HTTP client (``httpfs``) at every connection
+    establishment for ``connect`` rules (a refused connection as the
+    client sees it), and the serving tier for ``serve`` rules. Restores
     everything on exit and releases any in-flight default-sleep stalls."""
     from tpu_tfrecord_torch import fs as _fs
+    from tpu_tfrecord_torch import httpfs as _httpfs
     from tpu_tfrecord_torch import service_protocol as _sp
     from tpu_tfrecord_torch.io import dataset as _dataset
 
@@ -592,6 +596,7 @@ def install_chaos(plan: FaultPlan):
     orig_local_open = _fs.local_open
     orig_open_local = _dataset._open_local
     orig_chaos_plan = _sp._CHAOS_PLAN
+    orig_http_plan = _httpfs._CHAOS_PLAN
     global _SERVE_CHAOS
     orig_serve_plan = _SERVE_CHAOS
 
@@ -608,6 +613,7 @@ def install_chaos(plan: FaultPlan):
     _fs.local_open = chaos_local_open
     _dataset._open_local = chaos_local_open
     _sp._CHAOS_PLAN = plan
+    _httpfs._CHAOS_PLAN = plan
     _SERVE_CHAOS = plan
     try:
         yield plan
@@ -616,5 +622,6 @@ def install_chaos(plan: FaultPlan):
         _fs.local_open = orig_local_open
         _dataset._open_local = orig_open_local
         _sp._CHAOS_PLAN = orig_chaos_plan
+        _httpfs._CHAOS_PLAN = orig_http_plan
         _SERVE_CHAOS = orig_serve_plan
         plan.release()

@@ -99,8 +99,12 @@ with the JAX constructor's read knobs and its decode pool:
   the slot, so a state resumes only on the slot that saved it. Processes
   whose slices hold different row counts run different numbers of batches.
 
-Left out against the JAX dataset: remote paths, the data service and the
-telemetry spool (their options raise in ``TFRecordOptions``).
+- a URL source (``http://`` through ``httpfs``, any other scheme through
+  fsspec) takes the stream route: block-prefetched under the dataset's
+  ``retry_policy`` (``fs.open_for_read``), no mmap and no readahead hint.
+
+Left out against the JAX dataset: the data service and the telemetry
+spool (their options raise in ``TFRecordOptions``).
 """
 
 from __future__ import annotations
@@ -121,7 +125,7 @@ from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from tpu_tfrecord_torch import _native, autotune, telemetry, wire
+from tpu_tfrecord_torch import _native, autotune, fs as _fs, telemetry, wire
 from tpu_tfrecord_torch.columnar import (
     Column,
     ColumnarBatch,
@@ -333,6 +337,9 @@ class TFRecordDataset:
         self._stall_guard = guard_from_options(self.options)
         if self._stall_guard is None and self.options.autotune == "on":
             self._stall_guard = StallGuard()
+        if self._stall_guard is not None:
+            # remote block fetches resume under the shard-level budget
+            self._stall_guard.retry_policy = self.retry_policy
         self.batch_size = batch_size
         self.drop_remainder = drop_remainder
         self.num_epochs = num_epochs
@@ -548,16 +555,24 @@ class TFRecordDataset:
                 METRICS.count("read.retries")
                 telemetry.instant("read.retry", attempt=attempt)
 
-    def _guarded_open_fn(self) -> Optional[Callable[[str, Optional[str]], Any]]:
+    def _guarded_open_fn(self) -> Callable[[str, Optional[str]], Any]:
         """The (path, codec) opener of the span streams: the stall guard's
-        when one is set, else None (``wire.open_compressed``)."""
-        return self._stall_guard.open_compressed if self._stall_guard is not None else None
+        when one is set, else ``wire.open_compressed``, which hands a URL's
+        read ``retry_policy``, so its block fetches resume under the same
+        budget as the shard-level retries."""
+        if self._stall_guard is not None:
+            return self._stall_guard.open_compressed
+        pol = self.retry_policy
+        return lambda path, codec: wire.open_compressed(path, "rb", codec, retry_policy=pol)
 
     def _readahead_for(self, path: str):
         """The ``make_hint`` of a span stream: the readahead hinter over
-        the opened handle, at the window of the moment."""
+        the opened handle, at the window of the moment; none for a URL
+        (no page cache to advise)."""
 
         def make_hint(fh):
+            if _fs.has_scheme(path):
+                return None
             try:
                 return _make_readahead(fh, os.path.getsize(path), self.readahead_bytes)
             except OSError:
@@ -682,13 +697,13 @@ class TFRecordDataset:
 
     def _decode_shard_fused(self, epoch: int, cursor: int, index: int, skip: int):
         """The native routes: a local uncompressed shard with ``use_mmap``
-        takes the mmap route; any other shard is read into the thread's
-        scratch buffer and scanned + decoded there, one native call per
-        chunk (the stream route). A partial frame at the buffer's end moves
-        to its front before the next read."""
+        takes the mmap route; any other shard (a URL among them) is read
+        into the thread's scratch buffer and scanned + decoded there, one
+        native call per chunk (the stream route). A partial frame at the
+        buffer's end moves to its front before the next read."""
         path = self.shards[index].path
         codec = wire.codec_from_path(path)
-        if self.use_mmap and codec is None:
+        if self.use_mmap and codec is None and not _fs.has_scheme(path):
             yield from self._decode_shard_mmap(epoch, cursor, index, skip)
             return
         chunk_records = max(self.batch_size, MIN_CHUNK_RECORDS)

@@ -1,7 +1,7 @@
 """Shard discovery and Hive-style partition-directory layout.
 
-Copy of ``tpu_tfrecord/io/paths.py`` over the port's local filesystem
-(``tpu_tfrecord_torch.fs``).
+Copy of ``tpu_tfrecord/io/paths.py`` over the port's filesystems
+(``tpu_tfrecord_torch.fs``: local paths, ``http(s)://`` and fsspec URLs).
 
 Covers what the reference delegates to Hadoop/Spark path machinery: glob
 expansion (README.md: "can accept standard Hadoop globbing expressions"),
@@ -150,8 +150,9 @@ def is_data_file(name: str) -> bool:
 
 def expand_paths(paths) -> List[str]:
     """Expand files/dirs/globs into a flat list of concrete roots (the
-    reference gets this from Hadoop's FileSystem.globStatus). A URL
-    raises: remote filesystems are not ported yet."""
+    reference gets this from Hadoop's FileSystem.globStatus). A URL goes
+    through its filesystem (``fs.filesystem_for``); ``http(s)://`` has no
+    glob and raises on one."""
     from tpu_tfrecord_torch import fs as _fs
 
     if isinstance(paths, (str, os.PathLike)):

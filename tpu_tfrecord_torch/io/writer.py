@@ -1,7 +1,8 @@
 """Dataset writer: save modes, Hive-style partitionBy, atomic commit.
 
-Copy of ``tpu_tfrecord/io/writer.py`` over the port's local filesystem,
-native encoder and metrics. With ``trace="on"`` the pipeline records the
+Copy of ``tpu_tfrecord/io/writer.py`` over the port's filesystems (local,
+and fsspec URLs; ``http(s)://`` is read-only), native encoder and
+metrics. With ``trace="on"`` the pipeline records the
 JAX spans ``write.encode``, ``write.compress``, ``write.io`` (``rows``) and
 ``write.commit`` (``job``, ``shards``) on the flight recorder, beside the
 ``tracing.trace`` profiler regions; ``telemetry_port`` starts the
@@ -139,7 +140,9 @@ class DatasetWriter:
             raise ValueError(f"Unknown save mode {mode!r}; one of {SAVE_MODES}")
         self.output_path = os.fspath(output_path)
         # The filesystem seam (the reference's Hadoop FileSystem): local
-        # paths use the standard library; a URL raises (not ported yet).
+        # paths use the standard library, URLs fsspec (``http(s)://`` is
+        # read-only and raises). On object stores without atomic rename
+        # the commit is copy+delete (see the ``fs`` docstring).
         self.fs = _fs.filesystem_for(self.output_path)
         self.options = options or TFRecordOptions()
         self.mode = mode

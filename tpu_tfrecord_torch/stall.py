@@ -1,8 +1,9 @@
 """Stall defence: per-op deadlines, hedged reads and the stall exceptions.
 
-Copy of ``tpu_tfrecord/stall.py`` for local paths. A hung ``read()`` or a
-wedged decode worker raises nothing, so the retry and ``on_corrupt``
-machinery never sees it. This module turns stalls into faults that raise:
+Copy of ``tpu_tfrecord/stall.py``, for local paths and URLs. A hung
+``read()`` or a wedged decode worker raises nothing, so the retry and
+``on_corrupt`` machinery never sees it. This module turns stalls into
+faults that raise:
 
 - ``StallError`` (an OSError) is what every stall detection raises, so it
   flows through the dataset's transient-retry net (``_retrying`` catches
@@ -408,12 +409,17 @@ class StallGuard:
         hedge_after: Optional[float] = None,
         metrics: Metrics = METRICS,
         io_chunk: int = 4 << 20,
+        retry_policy=None,
     ):
         self.read_deadline = read_deadline
         self.open_deadline = open_deadline
         self.hedge_after = hedge_after
         self.metrics = metrics
         self.io_chunk = io_chunk
+        # handed to the remote block prefetcher, so its fetches resume
+        # under the budget of the dataset's shard-level retries (the
+        # dataset sets it from its retry_policy)
+        self.retry_policy = retry_policy
         # the process-wide pool: shard churn reuses worker threads instead
         # of creating one per open, and discarding this guard strands no
         # idle threads
@@ -477,17 +483,23 @@ class StallGuard:
         """The guarded twin of ``wire.open_compressed(path, 'rb', codec)``:
         the raw open under the open deadline, raw reads under the read
         deadline (and the hedge), the codec wrapper on top, so the
-        deadline model covers every codec alike. Opens go through
-        ``fs.local_open``, the seam ``faults.install_chaos`` patches; a
-        path with a URL scheme raises (``fs.filesystem_for``)."""
+        deadline model covers every codec alike. A plain path opens through
+        ``fs.local_open``, the seam ``faults.install_chaos`` patches; a URL
+        through ``fs.open_for_read`` under ``retry_policy``, and the hedge
+        reopens it with a plain ``open`` of its filesystem."""
         from tpu_tfrecord_torch import fs as _fs
         from tpu_tfrecord_torch import wire
 
-        _fs.filesystem_for(path)  # a URL raises here
-        raw = self.call_open(lambda: _fs.local_open(path, "rb"), path)
+        if _fs.has_scheme(path):
+            fsys = _fs.filesystem_for(path)
+            first = lambda: _fs.open_for_read(fsys, path, retry_policy=self.retry_policy)  # noqa: E731
+            plain = lambda: fsys.open(path, "rb")  # noqa: E731
+        else:
+            first = plain = lambda: _fs.local_open(path, "rb")  # noqa: E731
+        raw = self.call_open(first, path)
 
         def reopen(pos: int) -> BinaryIO:
-            fh = _fs.local_open(path, "rb")
+            fh = plain()
             _fs.seek_to(fh, pos)
             return fh
 

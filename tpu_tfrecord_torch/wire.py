@@ -1,9 +1,10 @@
 """TFRecord wire format: record framing with masked CRC32C checksums.
 
-Copy of ``tpu_tfrecord/wire.py`` for local files, with every codec of the
-JAX package: gzip, deflate, zstd (through the optional ``zstandard``
-module, imported when first needed), snappy and lz4 (Hadoop block
-framing, ``hadoop_codecs``) and bzip2. Frame layout per record::
+Copy of ``tpu_tfrecord/wire.py``, for local paths and URLs (through
+``fs``), with every codec of the JAX package: gzip, deflate, zstd
+(through the optional ``zstandard`` module, imported when first needed),
+snappy and lz4 (Hadoop block framing, ``hadoop_codecs``) and bzip2. Frame
+layout per record::
 
     uint64  length        (little-endian)
     uint32  masked_crc32c(length bytes)
@@ -249,15 +250,26 @@ def codec_from_path(path: str) -> Optional[str]:
     return None
 
 
-def open_compressed(path: str, mode: str, codec: Optional[str]) -> BinaryIO:
-    """Open a (possibly compressed) local record stream: the raw file
-    through ``fs.local_open``, wrapped in the codec. A path with a URL
-    scheme raises (remote filesystems are not ported yet)."""
+def open_compressed(
+    path: str, mode: str, codec: Optional[str], retry_policy=None
+) -> BinaryIO:
+    """Open a (possibly compressed) record stream, wrapped in the codec. A
+    plain path opens through ``fs.local_open`` (the seam
+    ``faults.install_chaos`` patches); a URL through its filesystem
+    (``fs.filesystem_for``), a read through ``fs.open_for_read``, whose
+    block fetches resume at the exact byte under ``retry_policy``."""
     codec = normalize_codec(codec)
     from tpu_tfrecord_torch import fs as _fs
 
-    _fs.filesystem_for(path)  # a URL raises here
-    return wrap_codec(path, mode, codec, _fs.local_open(path, mode))
+    if _fs.has_scheme(path):
+        fsys = _fs.filesystem_for(path)
+        if mode in ("rb", "r"):
+            raw = _fs.open_for_read(fsys, path, retry_policy=retry_policy)
+        else:
+            raw = fsys.open(path, mode)
+    else:
+        raw = _fs.local_open(path, mode)
+    return wrap_codec(path, mode, codec, raw)
 
 
 def wrap_codec(

@@ -281,6 +281,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    server, logits bit-equal, 64 ``bf16_mma`` launches. The entries are
    unmapped before the directory is removed.
 
+16. The fleet flight recorder and the SLO engine on phase 12's shards
+   (``fleet_path``), with the spool dir on the same mount; three processes
+   spool into it at once, each under its own trace id. (1) This process
+   scores the 64 batches with the bf16 DLRM through phase 12's fixed-4 feed
+   with ``telemetry_spool_dir``, ``spool_interval_s=0.2`` and
+   ``telemetry_role="scorer"``: logits bit-equal to phase 12's local run,
+   64 ``bf16_mma`` and 0 ``f32_tiled`` launches in its window
+   (``fleet_launches``), rows/s whole beside phase 12's fixed-4 rate. (2)
+   ``python -m tpu_tfrecord_torch.serving --device cuda --spool-dir D``
+   (phase 10 (e)'s model) answers 4 requests equal to the reference, then
+   SIGTERM: exit 0 within 60 s, a ``final: true`` last line. (3) ``python
+   -m tpu_tfrecord_torch.train_lm --device cuda --spool D --spool-interval
+   0.2`` for 32 steps (a synchronous save a step), SIGKILLed after its
+   step-12 line once its spool counts a step. (4) ``fleet.TelemetryAggregator(D)`` past 2 x 0.2 s: 3
+   processes with roles {scorer, serving, trainer}, the scorer and the
+   replica alive through ``final``, the trainer dead; every counter the sum
+   of the three files' newest lines, every merged histogram
+   ``Histogram.from_states`` of the three states bucket for bucket,
+   ``serve.requests`` 4, the trainer's phase shares summing to 1, the
+   scorer's trace id selecting 1 process; the federated page served once
+   on port 0 with every role. (5) ``slo.engine_from_spool`` with
+   ``availability:0.999`` and ``latency:0.95:250`` over the default windows
+   scaled to the run: the availability objective's bad / total is the
+   aggregate's sheds and misses over those plus the requests. Then the
+   scoring again without the spool and with it, back to back, for the
+   spool's cost on a quiet host.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -3584,10 +3611,11 @@ def readpool_path(work: str, card: str) -> tuple:
     limit): (a) the shards, (b) cold decode rates, (c) the guard's cost,
     (d) the stall drills, (e) autotuned serving at full width. Then phase
     13 (``cache_path``) on the same shards, with its cache beside them,
-    phase 14 (``multiproc_path``) and phase 15 (``remote_path``). Returns
-    the kernel launches of phase 12's autotuned serving run, of phase 13's
-    warm cached epoch, of phase 14's ranks (summed) and of phase 15's
-    scoring over HTTP."""
+    phase 14 (``multiproc_path``), phase 15 (``remote_path``) and phase 16
+    (``fleet_path``). Returns the kernel launches of phase 12's autotuned
+    serving run, of phase 13's warm cached epoch, of phase 14's ranks
+    (summed), of phase 15's scoring over HTTP and of phase 16's spooling
+    scorer."""
     from tpu_tfrecord_torch.cache import release_registry
 
     t0 = time.perf_counter()
@@ -3608,12 +3636,14 @@ def readpool_path(work: str, card: str) -> tuple:
         cached = cache_path(dirs, files, warm, cache_dir, card)
         multi = multiproc_path(dirs, root, card)
         remote = remote_path(dirs, files, root, warm, local_logits, card)
+        fleet_out = fleet_path(dirs, work, root, local_logits, serving["fixed 4"]["whole"], card)
     finally:
         # the entries' maps are unpinned before the directory goes, or its
         # blocks stay allocated for the rest of the run
         release_registry(cache_dir)
         shutil.rmtree(root, ignore_errors=True)
-    return serving["launches"], cached["launches"], multi["launches"], remote["launches"]
+    return (serving["launches"], cached["launches"], multi["launches"], remote["launches"],
+            fleet_out["launches"])
 
 
 # -- phase 13: the columnar epoch cache ----------------------------------------------
@@ -4344,10 +4374,11 @@ def remote_counters() -> dict:
     return {n: METRICS.counter(n) for n in REMOTE_COUNTERS}
 
 
-def remote_serve(urls, model, label: str, nbytes: int, card: str, **kw) -> tuple:
+def remote_serve(urls, model, label: str, nbytes: int, card: str, tag: str = "remote",
+                 **kw) -> tuple:
     """One bf16 serving run of the shards at ``urls`` through phase 12's
-    fixed-4 feed (dataset -> HostPrefetcher -> DeviceIterator -> the DLRM):
-    (ScoreResult, rates, launches)."""
+    fixed-4 feed (dataset -> HostPrefetcher -> DeviceIterator -> the DLRM),
+    its line printed under ``tag``: (ScoreResult, rates)."""
     from tpu_tfrecord_torch.entry import _read_plan, _score_dataset
     from tpu_tfrecord_torch.io.dataset import TFRecordDataset
     from tpu_tfrecord_torch.metrics import METRICS
@@ -4367,7 +4398,7 @@ def remote_serve(urls, model, label: str, nbytes: int, card: str, **kw) -> tuple
     stats = dict(whole=whole, steady=steady_rate(res), mbps=nbytes / res.wall_s / 1e6,
                  idle_share=idle, duty_cycle=res.duty_cycle, wall_s=res.wall_s,
                  counters=remote_counters(), launches=launches)
-    print(f"remote: serving bf16, {label}, {REMOTE_WORKERS} workers: {res.batches} batches, "
+    print(f"{tag}: serving bf16, {label}, {REMOTE_WORKERS} workers: {res.batches} batches, "
           f"{whole:.1f} rows/s whole, {stats['steady']:.1f} steady (batches 2-{res.batches}), "
           f"{stats['mbps']:.1f} MB/s of shards; device idle share at least {idle:.4f} "
           f"(1 - synchronized forward time / wall); counters {stats['counters']}; kernel "
@@ -4567,6 +4598,291 @@ def remote_path(dirs, files, root: str, warm, local_logits, card: str) -> dict:
         raise SystemExit(f"remote: gates failed: {gates}")
     return out
 
+# -- phase 16: the fleet flight recorder and the SLO engine ---------------------------------
+
+FLEET_INTERVAL_S = 0.2     # every spool's cadence: the trainer's staleness bar is 0.4 s
+FLEET_REQUESTS = 4         # requests sent to the spooling replica
+FLEET_TRAIN_STEPS = 32
+FLEET_KILL_AT = 12         # the trainer's last step before SIGKILL
+FLEET_TIMEOUT_S = 120      # for a spawned process to start, answer or reach a step
+
+
+def fleet_trainer(spool_dir: str, work: str, killed: dict) -> None:
+    """Phase 16 (3), on a thread: ``train_lm`` at phase 9's width for
+    FLEET_TRAIN_STEPS steps, spooling into ``spool_dir``; after its
+    FLEET_KILL_AT ``lm_step`` line, once its spool's newest line counts a
+    step, SIGKILL. A synchronous save after every step (≈ 1.2 step times
+    each) spreads steps 2-15 over more than one spool interval, so a
+    counted step lands before step 16, where the harness's first window
+    would publish its rounded share gauges. Fills ``killed`` (rc, kill
+    time, pid, the steps the spool counted, the seconds from spawn to the
+    kill)."""
+    import signal
+
+    from tpu_tfrecord_torch import fleet
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "tpu_tfrecord_torch.train_lm", "--device", READPOOL_DEVICE,
+           "--spool", spool_dir, "--spool-interval", str(FLEET_INTERVAL_S),
+           "--steps", str(FLEET_TRAIN_STEPS), "--save-every", "1", "--ckpt-mode", "sync",
+           "--data-dir", os.path.join(work, "lm_data"),
+           "--ckpt-dir", os.path.join(work, "fleet_lm_ckpt"),
+           "--digest-out", os.path.join(work, "fleet_lm.jsonl")]
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "fleet_trainer.err"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+                                stdout=subprocess.PIPE, stderr=err, text=True)
+        timer = threading.Timer(FLEET_TIMEOUT_S, proc.kill)  # a hung run ends the read
+        timer.start()
+        try:
+            for line in proc.stdout:
+                if (line.startswith("lm_step ")
+                        and json.loads(line.split(" ", 1)[1])["step"] == FLEET_KILL_AT):
+                    counted = 0
+                    while proc.poll() is None and time.perf_counter() - t0 < FLEET_TIMEOUT_S:
+                        names = [n for n in os.listdir(spool_dir)
+                                 if n.endswith(f"-{proc.pid}{fleet.SPOOL_SUFFIX}")]
+                        snap = (fleet.read_spool(os.path.join(spool_dir, names[0]))
+                                if names else None)
+                        counted = snap.counters.get("train.steps", 0) if snap else 0
+                        if counted:
+                            break
+                        time.sleep(0.002)
+                    proc.send_signal(signal.SIGKILL)
+                    killed.update(at=time.time(), counted=counted,
+                                  kill_s=time.perf_counter() - t0)
+                    break
+        finally:
+            timer.cancel()
+            if proc.poll() is None and "at" not in killed:
+                proc.kill()
+            killed.update(rc=proc.wait(timeout=60), pid=proc.pid)
+            proc.stdout.close()
+
+
+def fleet_replica(spool_dir: str) -> tuple:
+    """Phase 16 (2): ``python -m tpu_tfrecord_torch.serving --device
+    <SERVE_DEVICE> --spool-dir spool_dir`` (phase 10 (e)'s synthetic LM)
+    up to its ready line: (process, ready JSON, seconds to ready)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "tpu_tfrecord_torch.serving", "--device",
+                             SERVE_DEVICE, "--spool-dir", spool_dir], cwd=repo,
+                            env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    ready = {}
+    reader = threading.Thread(target=lambda: ready.update(json.loads(proc.stdout.readline() or "{}")))
+    reader.start()
+    reader.join(timeout=FLEET_TIMEOUT_S)
+    return proc, ready, time.perf_counter() - t0
+
+
+def fleet_reference(windows_) -> list:
+    """Phase 10 (e)'s reference tokens of ``windows_`` on the card, under
+    deterministic algorithms as the replica runs."""
+    import argparse
+
+    from tpu_tfrecord_torch import serving
+
+    syn = argparse.Namespace(vocab=96, d_model=32, heads=2, layers=4, max_len=16, mb=4,
+                             virtual=1, seed=0)
+    params, cfg = serving._build_synthetic(syn)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        return serving.sequential_reference(params, cfg, 2, [(w, 4) for w in windows_], 4,
+                                            device=SERVE_DEVICE)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def fleet_path(dirs, work: str, root: str, local_logits, fixed4_whole: float, card: str) -> dict:
+    """Phase 16: the fleet flight recorder and the SLO engine, beside
+    ``card``: a scorer (this process), a serving replica and a trainer
+    spool into one dir under ``root`` at once; the aggregate and the SLO
+    evaluation of that dir are held to the files. ``local_logits`` and
+    ``fixed4_whole`` are phase 12's fixed-4 logits and rows/s. Returns the
+    numbers, the kernel launches of (1)'s scoring window among them."""
+    import signal
+    import urllib.request
+
+    from tpu_tfrecord_torch import fleet, serving, slo, telemetry, train_lm
+    from tpu_tfrecord_torch.device.ingest import make_device_batch
+    from tpu_tfrecord_torch.metrics import METRICS, Histogram
+    from tpu_tfrecord_torch.models.dlrm import init_params, make_synthetic_batch
+
+    t0 = time.perf_counter()
+    free_cuda()
+    spool_dir = os.path.join(root, "spool")
+    n_batches = READPOOL_SHARDS * READPOOL_ROWS // BATCH
+    nbytes = sum(os.path.getsize(os.path.join(d, n)) for d in dirs for n in os.listdir(d)
+                 if n.endswith(".tfrecord"))
+    gates, out = {}, dict(card=card, spool_dir=spool_dir)
+    train_lm.generate(os.path.join(work, "lm_data"))  # phase 9's documents, when absent
+    cfg = criteo_cfg()
+    model = init_params(cfg, torch.Generator(device=READPOOL_DEVICE).manual_seed(TRAIN_SEED),
+                        READPOOL_DEVICE)
+    model(make_device_batch(make_synthetic_batch(cfg, BATCH, seed=1), READPOOL_DEVICE))
+    os.makedirs(spool_dir)
+    killed: dict = {}
+    trainer = threading.Thread(target=fleet_trainer, args=(spool_dir, work, killed),
+                               name="fleet-trainer")
+    trainer.start()
+    replica, ready, ready_s = fleet_replica(spool_dir)
+    rc = None
+    try:
+        # (1) this process scores the shards while the other two spool
+        spool_kw = dict(telemetry_spool_dir=spool_dir, spool_interval_s=FLEET_INTERVAL_S,
+                        telemetry_role="scorer")
+        res, scored = remote_serve(dirs, model, "spooling as the scorer", nbytes, card,
+                                   tag="fleet", **spool_kw)
+        launches = scored["launches"]
+        scorer_ctx = telemetry.current_context()
+        logits = res.logits.float().cpu()
+        gates["logits_bit_equal"] = logits.shape == local_logits.shape and torch.equal(
+            logits, local_logits)
+        gates["launches"] = (launches == {"bf16_mma": n_batches, "f32_tiled": 0}
+                             and res.batches == n_batches)
+        print(f"fleet: the scorer's logits bit-equal to phase 12's local run, every one of "
+              f"{logits.numel()} rows: {gates['logits_bit_equal']}; {scored['whole']:.1f} rows/s "
+              f"whole spooling beside {fixed4_whole:.1f} in phase 12's fixed-4 run of this "
+              f"process (the other two processes starting meanwhile)")
+        del res
+
+        # (2) the replica answers, then drains on SIGTERM
+        if "addr" not in ready:
+            raise SystemExit(f"fleet: the replica printed no ready line: {replica.poll()}")
+        rng = np.random.default_rng(3)
+        ws = [rng.integers(0, 96, size=16).astype(np.int32) for _ in range(FLEET_REQUESTS)]
+        cl = serving.ServeClient([ready["addr"]], timeout_s=60.0)
+        try:
+            got = [cl.generate(w, 4) for w in ws]
+        finally:
+            cl.close()
+        trainer.join(timeout=FLEET_TIMEOUT_S)
+        t1 = time.perf_counter()
+        replica.send_signal(signal.SIGTERM)
+        rc = replica.wait(timeout=60)
+        exit_s = time.perf_counter() - t1
+    finally:
+        if replica.poll() is None:
+            replica.kill()
+            replica.wait(timeout=30)
+        err = replica.stderr.read()
+        replica.stdout.close()
+        replica.stderr.close()
+        trainer.join(timeout=FLEET_TIMEOUT_S)
+    want = fleet_reference(ws)
+    (replica_file,) = [n for n in os.listdir(spool_dir)
+                       if n.endswith(f"-{ready['pid']}{fleet.SPOOL_SUFFIX}")]
+    last = fleet.read_spool(os.path.join(spool_dir, replica_file))
+    gates["replica"] = got == want and rc == 0 and exit_s <= 60 and bool(last and last.final)
+    print(f"fleet: python -m tpu_tfrecord_torch.serving --device {SERVE_DEVICE} --spool-dir: "
+          f"ready in {ready_s:.1f} s; {FLEET_REQUESTS} requests equal to the reference: "
+          f"{got == want}; SIGTERM -> exit {rc} in {exit_s:.2f} s (limit 60 s); its spool's last "
+          f"line final: {bool(last and last.final)}")
+    if rc != 0:
+        print(f"fleet: replica stderr: {err[-3000:]}")
+    gates["trainer_killed"] = killed.get("rc") == -signal.SIGKILL and "at" in killed
+    print(f"fleet: python -m tpu_tfrecord_torch.train_lm --device {READPOOL_DEVICE} --spool: "
+          f"SIGKILLed after its step-{FLEET_KILL_AT} line, {killed.get('kill_s', float('nan')):.1f}"
+          f" s after its spawn, its spool then counting {killed.get('counted')} steps; rc "
+          f"{killed.get('rc')}")
+
+    # (4) the aggregate, past the trainer's staleness bar
+    time.sleep(max(0.0, killed.get("at", time.time()) + 2.5 * FLEET_INTERVAL_S - time.time()))
+    agg = fleet.TelemetryAggregator(spool_dir)
+    snap = agg.aggregate()
+    files = sorted(os.path.join(spool_dir, n) for n in os.listdir(spool_dir)
+                   if n.endswith(fleet.SPOOL_SUFFIX))
+    newest = [fleet.read_spool(f) for f in files]
+    by_role = {p.role: p for p in snap.processes}
+    gates["processes"] = len(snap.processes) == 3 and set(by_role) == {"scorer", "serving",
+                                                                       "trainer"}
+    gates["liveness"] = (sorted(p.role for p in snap.alive) == ["scorer", "serving"]
+                         and all(p.final for p in snap.alive)
+                         and [p.role for p in snap.dead] == ["trainer"])
+    names = {n for s_ in newest for n in s_.counters}
+    gates["counters"] = snap.counters == {n: sum(s_.counters.get(n, 0) for s_ in newest)
+                                          for n in names}
+    gates["hists"] = all(
+        h.counts == Histogram.from_states([s_.hists[n] for s_ in newest if n in s_.hists]).counts
+        for n, h in snap.hists.items()) and set(snap.hists) == {n for s_ in newest
+                                                                for n in s_.hists}
+    gates["serve_requests"] = snap.counters.get("serve.requests") == FLEET_REQUESTS
+    shares = fleet.train_phase_shares(by_role["trainer"]) if "trainer" in by_role else None
+    gates["train_shares"] = shares is not None and abs(sum(shares.values()) - 1.0) <= 1e-6
+    scoped = fleet.TelemetryAggregator(spool_dir, trace_id=scorer_ctx.trace_id).processes()
+    gates["trace_filter"] = [p.role for p in scoped] == ["scorer"]
+    lat = snap.quantiles().get("serve.latency", {})
+    trace_ids = sorted({p.trace_id for p in snap.processes if p.trace_id})
+    print(f"fleet: aggregate of {len(snap.processes)} processes, roles "
+          f"{sorted(by_role)}; alive {sorted(p.role for p in snap.alive)} (final: "
+          f"{[p.final for p in snap.alive]}), dead {[p.role for p in snap.dead]}; verdict "
+          f"{snap.verdict}, occupancy {snap.occupancy}; serve.latency merged p50 "
+          f"{lat.get('p50_s', float('nan')) * 1e3:.3f} ms, p99 "
+          f"{lat.get('p99_s', float('nan')) * 1e3:.3f} ms over {lat.get('count')} requests; "
+          f"serve.requests {snap.counters.get('serve.requests')}; the trainer's phase shares "
+          f"{shares}; trace ids {trace_ids} (one a process: no CLI adopts an env context); "
+          f"the scorer's trace id selects {[p.role for p in scoped]}")
+    server = agg.serve(0)
+    try:
+        host, port = telemetry.exporter_address(0)
+        with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=10) as resp:
+            page = resp.read().decode()
+    finally:
+        telemetry.shutdown_exporter(0)
+    gates["federated_page"] = server is not None and all(
+        f'role="{r}"' in page for r in ("scorer", "serving", "trainer"))
+    print(f"fleet: the federated page on port {port}: {len(page)} bytes, "
+          f"{page.count(chr(10))} lines, every role labeled: {gates['federated_page']}")
+
+    # (5) the SLO engine over the spool, its windows scaled to the run
+    span_s = time.time() - min(p.created or p.heartbeat for p in snap.processes)
+    windows = [w.scaled(span_s / slo.DEFAULT_WINDOWS[0].long_s) for w in slo.DEFAULT_WINDOWS]
+    objectives = [slo.Objective.parse("availability:0.999"),
+                  slo.Objective.parse("latency:0.95:250")]
+    report = slo.engine_from_spool(spool_dir, objectives, windows).evaluate()
+    avail = report["objectives"][0]
+    bad = snap.counters.get("serve.rejected", 0) + snap.counters.get("serve.deadline_expired", 0)
+    gates["slo_availability"] = (avail["bad"], avail["total"]) == (
+        bad, bad + snap.counters.get("serve.requests", 0))
+    for entry in report["objectives"]:
+        burns = {w["name"]: (round(w["long_burn"], 4), round(w["short_burn"], 4), w["alerting"])
+                 for w in entry["windows"]}
+        print(f"fleet: SLO {entry['objective']}: bad {entry['bad']} of {entry['total']}, budget "
+              f"remaining {entry['budget_remaining']:.4f}, burns (long, short, alerting) by "
+              f"window {burns}, verdict {entry['verdict']}")
+    print(f"fleet: SLO verdict {report['verdict']} over windows scaled to the run's {span_s:.2f}"
+          f" s ({[(w.name, round(w.long_s, 3), round(w.short_s, 3)) for w in windows]})")
+
+    # the spool's cost on a quiet host: the scoring without it and with it
+    quiet = {}
+    for name, kw in (("no spool", {}), ("spool", dict(
+            spool_kw, telemetry_spool_dir=os.path.join(root, "spool_quiet")))):
+        res, stats = remote_serve(dirs, model, f"quiet, {name}", nbytes, card, tag="fleet", **kw)
+        quiet[name] = stats["whole"]
+        gates[f"quiet_{name}"] = torch.equal(res.logits.float().cpu(), local_logits)
+        del res
+    cost = 1.0 - quiet["spool"] / quiet["no spool"]
+    print(f"fleet: the spool's cost at {FLEET_INTERVAL_S} s on a quiet host: "
+          f"{quiet['spool']:.1f} rows/s spooling against {quiet['no spool']:.1f} without "
+          f"({cost:+.4f} of the rate; one run each, back to back)")
+    del model
+    free_cuda()
+    METRICS.reset()
+    out.update(gates=gates, launches=launches, scored_whole=scored["whole"],
+               fixed4_whole=fixed4_whole, idle_share=scored["idle_share"], ready_s=ready_s,
+               exit_s=exit_s, kill_s=killed.get("kill_s"), verdict=snap.verdict,
+               occupancy=snap.occupancy, serve_latency=lat, train_shares=shares,
+               trace_ids=trace_ids, slo=report["verdict"], quiet=quiet, spool_cost=cost,
+               seconds=time.perf_counter() - t0)
+    print(f"fleet: gates {gates}; phase 16 took {out['seconds']:.1f} s ({card})")
+    print("fleet: " + json.dumps(out, default=str))
+    if not all(gates.values()):
+        raise SystemExit(f"fleet: gates failed: {gates}")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4618,8 +4934,8 @@ def main() -> int:
         moe_path(data_dir, smi)
         moe_launches = dict(dot_interaction.instance_launches)
         free_cuda()
-        readpool_launches, cache_launches, multiproc_launches, remote_launches = readpool_path(
-            data_dir, smi)
+        (readpool_launches, cache_launches, multiproc_launches, remote_launches,
+         fleet_launches) = readpool_path(data_dir, smi)
     phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches}
     for phase, counts in phase_launches.items():
         if any(counts.values()):
@@ -4651,6 +4967,7 @@ def main() -> int:
         cache_launches=cache_launches[k],
         multiproc_launches=multiproc_launches[k],
         remote_launches=remote_launches[k],
+        fleet_launches=fleet_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

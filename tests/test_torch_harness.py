@@ -15,6 +15,8 @@ telemetry against the JAX harness (``examples/_harness.py``) on the CPU.
   for bit, for the sparse and the dense step.
 - ``python -m tpu_tfrecord_torch.train_dlrm --device cpu`` runs steps end
   to end and resumes.
+- ``trainer_spool`` spools under the ``trainer`` role from
+  ``TFR_TRAIN_SPOOL_DIR`` and its release lands the ``final`` snapshot.
 """
 
 import functools
@@ -47,7 +49,6 @@ from tpu_tfrecord_torch.device.ingest import (  # noqa: E402
 from tpu_tfrecord_torch.io.dataset import TFRecordDataset as TDataset  # noqa: E402
 from tpu_tfrecord_torch.metrics import METRICS, Metrics  # noqa: E402
 from tpu_tfrecord_torch.models import dlrm as tdlrm  # noqa: E402
-from tpu_tfrecord_torch.options import OptionNotPortedError  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "examples"))
@@ -267,13 +268,32 @@ def test_chrome_trace_export(tmp_path):
     assert events[0]["name"] == "process_name"
 
 
-def test_trainer_spool_not_ported(monkeypatch):
+def test_trainer_spool_not_ported(monkeypatch, tmp_path):
+    """The trainer spool, once refused, is the JAX harness's: None without
+    a dir; with ``TFR_TRAIN_SPOOL_DIR`` / ``TFR_TRAIN_SPOOL_INTERVAL_S`` a
+    spool under the ``trainer`` role whose release lands a ``final: true``
+    line, as ``examples/_harness.trainer_spool`` gives."""
+    from tpu_tfrecord_torch import fleet
+
     monkeypatch.delenv("TFR_TRAIN_SPOOL_DIR", raising=False)
     assert harness.trainer_spool() is None
     harness.release_trainer_spool(None)
-    monkeypatch.setenv("TFR_TRAIN_SPOOL_DIR", "/nonexistent-spool")
-    with pytest.raises(OptionNotPortedError):
-        harness.trainer_spool()
+    spool_dir = str(tmp_path / "spool")
+    monkeypatch.setenv("TFR_TRAIN_SPOOL_DIR", spool_dir)
+    monkeypatch.setenv("TFR_TRAIN_SPOOL_INTERVAL_S", "30")
+    try:
+        spool = harness.trainer_spool()
+        assert spool.interval_s == 30.0 and spool.context.role == "trainer"
+        assert harness.trainer_spool(spool_dir) is spool  # one spool per dir
+        harness.release_trainer_spool(spool)
+        assert os.listdir(spool_dir) == [] and not spool._stop.is_set()
+        harness.release_trainer_spool(spool)
+        snap = fleet.read_spool(spool.path)
+        assert snap.final and snap.role == "trainer" and snap.interval_s == 30.0
+        assert os.listdir(spool_dir) == [os.path.basename(spool.path)]
+        assert not fleet._SPOOLS
+    finally:
+        telemetry.RECORDER.context = None
 
 
 # -- run_train_loop on a small DLRM -----------------------------------------------------

@@ -43,8 +43,37 @@ def test_every_module_is_found():
                  "tpu_tfrecord_torch.stall", "tpu_tfrecord_torch.autotune",
                  "tpu_tfrecord_torch.cache", "tpu_tfrecord_torch.vocabulary",
                  "tpu_tfrecord_torch.device.distributed", "tpu_tfrecord_torch.device.mesh",
-                 "tpu_tfrecord_torch.httpfs", "tpu_tfrecord_torch.fs"):
+                 "tpu_tfrecord_torch.httpfs", "tpu_tfrecord_torch.fs",
+                 "tpu_tfrecord_torch.fleet", "tpu_tfrecord_torch.slo"):
         assert want in mods
+
+
+@pytest.mark.parametrize("name", ["fleet", "slo"])
+def test_fleet_and_slo_import_only_the_port(name):
+    """``fleet.py`` and ``slo.py`` import the stdlib, torch, numpy and the
+    port, and loading them alone loads no jax and nothing of the JAX
+    package."""
+    tree = ast.parse(open(os.path.join(PKG, f"{name}.py")).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "tpu_tfrecord_torch"}
+    assert roots <= allowed, roots - allowed
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"importlib.import_module('tpu_tfrecord_torch.{name}')\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                        ('jax', 'jaxlib', 'tpu_tfrecord'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_imports_load_no_jax():

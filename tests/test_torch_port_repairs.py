@@ -1,4 +1,4 @@
-"""Three faults of the port against the JAX package, repaired:
+"""Faults of the port against the JAX package, repaired:
 
 - The chaos plan reaches the dataset's mmap route: ``install_chaos``
   patches ``io.dataset._open_local``, so one ``FaultPlan`` gives the same
@@ -10,9 +10,14 @@
   ``process_count=2``), not through the options parser's "Unknown
   option(s)" with a guess at another option.
 - ``train_lm``: ``--trace-out`` saves a Chrome trace with ``train.step``
-  spans, ``--spool-interval`` raises ``OptionNotPortedError``, and the
-  ``--mesh`` default comes from ``LM_MESH`` (else ``dp_sp``), as in the
-  JAX example.
+  spans, ``--spool`` / ``--spool-interval`` spool the trainer's telemetry,
+  and the ``--mesh`` default comes from ``LM_MESH`` (else ``dp_sp``), as
+  in the JAX example.
+- ``io.reader.salvage_spans_stream`` takes the JAX ``codec`` argument
+  ("auto" = from the extension), so an extensionless gzip, snappy or zstd
+  shard salvages the same records and events in both packages.
+- The checkpointers' ``save`` / ``restore`` take the JAX keyword names
+  ``state_pytree`` / ``template_pytree``.
 """
 
 import json
@@ -30,7 +35,6 @@ from tpu_tfrecord.retry import RetryPolicy as JRetryPolicy
 from tpu_tfrecord_torch import faults as tfaults, telemetry, train_lm as tw_lm
 from tpu_tfrecord_torch.io import dataset as tds
 from tpu_tfrecord_torch.io.dataset import TFRecordDataset as TDataset
-from tpu_tfrecord_torch.options import OptionNotPortedError
 from tpu_tfrecord_torch.retry import RetryPolicy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -168,13 +172,34 @@ def test_trace_out_saves_train_step_spans(tmp_path, capsys):
     assert [e["args"]["step"] for e in steps] == [1, 2, 3]
 
 
-def test_spool_interval_refused(tmp_path):
-    with pytest.raises(OptionNotPortedError, match="spool-interval"):
-        tw_lm.main(["--device", "cpu", "--spool-interval", "0.5", "--data-dir",
-                    str(tmp_path / "data")])
-    with pytest.raises(OptionNotPortedError, match="spool"):
-        tw_lm.main(["--device", "cpu", "--spool", str(tmp_path / "spool"), "--spool-interval",
-                    "0.5", "--data-dir", str(tmp_path / "data")])
+def test_spool_interval_refused(tmp_path, capsys):
+    """``--spool`` / ``--spool-interval``, once refused, spool as the JAX
+    example does: one file under the ``trainer`` role whose last line is
+    the ``final: true`` snapshot of the finished run, with its steps and
+    its phase stages."""
+    from tpu_tfrecord_torch import fleet
+    from tpu_tfrecord_torch.metrics import METRICS
+
+    data = str(tmp_path / "data")
+    tw_lm.generate(data, shards=2, docs=64)
+    spool_dir = str(tmp_path / "spool")
+    steps_before = METRICS.counter("train.steps")
+    try:
+        out = run_main(["--mesh", "dp", "--steps", "2", "--epochs", "1", "--data-dir", data,
+                        "--ckpt-dir", str(tmp_path / "ck"), "--spool", spool_dir,
+                        "--spool-interval", "0.05"], capsys)
+    finally:
+        ctx = telemetry.RECORDER.context
+        telemetry.RECORDER.context = None
+    assert any(ln.startswith("done: 2 steps") for ln in out)
+    (name,) = os.listdir(spool_dir)
+    snap = fleet.read_spool(os.path.join(spool_dir, name))
+    assert snap.final and snap.role == "trainer" and snap.interval_s == 0.05
+    assert snap.pid == os.getpid() and snap.trace_id == ctx.trace_id
+    assert snap.counters["train.steps"] - steps_before == 2
+    assert {"train.data_wait", "train.compute"} <= set(snap.stages)
+    assert fleet.train_phase_shares(snap) is not None
+    assert not fleet._SPOOLS
 
 
 @pytest.mark.parametrize("env,mode", [(None, "dp_sp"), ("dp_fsdp", "dp_fsdp"), ("dp", None)])
@@ -193,3 +218,81 @@ def test_lm_mesh_sets_the_default(tmp_path, capsys, monkeypatch, env, mode):
         assert out[0] == f"mesh: {{'data': 1}} mode={mode} (one device: trains as dp with 2 layers)"
         assert out[1] == "fresh start"
     assert any(ln.startswith("done: 1 steps") for ln in out)
+
+
+# -- salvage_spans_stream's codec ------------------------------------------------------
+
+
+@pytest.mark.parametrize("codec", ["gzip", "snappy", "zstd"])
+def test_salvage_spans_stream_takes_a_codec(tmp_path, codec):
+    """An extensionless compressed shard with one bad data CRC: with the
+    codec named, both packages salvage the same records around it and
+    report the same event; "auto" (the default) still reads the codec
+    from an extension."""
+    import importlib
+
+    from tpu_tfrecord import wire as jwire
+
+    # the packages' ``io.reader`` names a function; the modules by path
+    jreader = importlib.import_module("tpu_tfrecord.io.reader")
+    treader = importlib.import_module("tpu_tfrecord_torch.io.reader")
+
+    if codec == "zstd":
+        pytest.importorskip("zstandard")
+    rng = np.random.default_rng(9)
+    recs = [rng.integers(0, 256, size=int(rng.integers(1, 400)), dtype=np.uint8).tobytes()
+            for _ in range(40)]
+    frames = [jwire.encode_record(r) for r in recs]
+    bad = bytearray(frames[17])
+    bad[-1] ^= 0xFF  # the data CRC
+    frames[17] = bytes(bad)
+    stream = b"".join(frames)
+    plain = str(tmp_path / "shard")
+    named = str(tmp_path / ("shard" + jwire.codec_extension(codec)))
+    for path in (plain, named):
+        with jwire.open_compressed(path, "wb", codec) as fh:
+            fh.write(stream)
+
+    def salvage(fn, path, **kw):
+        events, out = [], []
+        for buf, offs, lens in fn(path, events.append, slab_bytes=4096, **kw):
+            out += [bytes(buf[o:o + n]) for o, n in zip(offs.tolist(), lens.tolist())]
+        return out, events
+
+    want = (recs[:17] + recs[18:], [{"kind": "data_crc"}])
+    for path, kw in ((plain, {"codec": codec}), (named, {})):
+        mine = salvage(treader.salvage_spans_stream, path, **kw)
+        assert mine == salvage(jreader.salvage_spans_stream, path, **kw)
+        assert mine[0] == want[0]
+        assert [e["kind"] for e in mine[1]] == ["data_crc"]
+
+
+# -- the checkpointers' keyword names ----------------------------------------------------
+
+
+def test_checkpointers_take_the_jax_keywords(tmp_path):
+    """``AsyncCheckpointer`` and ``TrainCheckpointer`` are called with the
+    same keywords in both packages, and restore the same tree."""
+    from tpu_tfrecord import checkpoint as jck
+    from tpu_tfrecord.io.dataset import IteratorState as JState
+    from tpu_tfrecord_torch import checkpoint as tck
+    from tpu_tfrecord_torch.io.dataset import IteratorState as TState
+
+    tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3), "b": np.ones(3, np.int32)}
+    template = {"w": np.zeros((2, 3), np.float32), "b": np.zeros(3, np.int32)}
+    for mod, state_cls, sub in ((jck, JState, "jax"), (tck, TState, "port")):
+        ack = mod.AsyncCheckpointer(str(tmp_path / sub / "async"), sync=True)
+        ack.save(step=3, state_pytree=tree, payload={"k": 1})
+        ack.wait()
+        step, got, payload = ack.restore(template_pytree=template)
+        ack.close()
+        assert step == 3 and payload == {"k": 1}
+        np.testing.assert_array_equal(got["w"], tree["w"])
+        np.testing.assert_array_equal(got["b"], tree["b"])
+        tck_ = mod.TrainCheckpointer(str(tmp_path / sub / "train"), async_save=False)
+        tck_.save(step=5, state_pytree=tree, state_or_iterator=state_cls(epoch=1))
+        tck_.wait()
+        step, got, state = tck_.restore(template_pytree=template)
+        tck_.close()
+        assert step == 5 and state.epoch == 1
+        np.testing.assert_array_equal(got["w"], tree["w"])

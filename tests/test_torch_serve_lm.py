@@ -5,7 +5,7 @@ SIGKILL): the restore must return the complete generation, bit for bit;
 the timed pass prints its ``serve_lm OK:`` line with the streamed logits
 bitwise equal to the batch path and within 1e-5 of the JAX ``LMStream``'s;
 ``--serve`` runs a replica that answers with the sequential reference's
-tokens and exits 0 on SIGTERM."""
+tokens and exits 0 on SIGTERM, and with ``--spool-dir`` it spools."""
 
 import json
 import os
@@ -24,7 +24,6 @@ from tpu_tfrecord.models import lm as jlm
 from tpu_tfrecord.tpu import create_mesh
 from tpu_tfrecord_torch import serve_lm, serving
 from tpu_tfrecord_torch.checkpoint import tree_flatten
-from tpu_tfrecord_torch.options import OptionNotPortedError
 
 torch.set_num_threads(1)
 
@@ -157,6 +156,41 @@ def test_replica_mode_serves_and_drains(ckpt):
         proc.stderr.close()
 
 
-def test_spool_refused(ckpt):
-    with pytest.raises(OptionNotPortedError, match="spool"):
-        serve_lm.main(["--device", "cpu", "--ckpt-dir", ckpt, "--serve", "--spool-dir", "/x"])
+def test_spool_refused(ckpt, tmp_path):
+    """``--serve --spool-dir``, once refused, spools the replica under
+    ``--role``; SIGTERM's drain lands the ``final: true`` snapshot with the
+    request it served."""
+    from tpu_tfrecord_torch import fleet
+
+    spool_dir = str(tmp_path / "spool")
+    cmd = [sys.executable, "-m", "tpu_tfrecord_torch.serve_lm", "--serve", "--device", "cpu",
+           "--ckpt-dir", ckpt, "--pipe", "1", "--virtual", "2", "--mb", "4",
+           "--spool-dir", spool_dir, "--role", "lm-replica"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        ready = {}
+        reader = threading.Thread(target=lambda: ready.update(json.loads(proc.stdout.readline())))
+        reader.start()
+        reader.join(timeout=120)
+        assert "addr" in ready, proc.stderr.read() if proc.poll() is not None else "no ready line"
+        w = np.random.default_rng(1).integers(0, 256, size=64).astype(np.int32)
+        c = serving.ServeClient([ready["addr"]], timeout_s=60.0)
+        try:
+            assert len(c.generate(w, n_new=2)) == 2
+        finally:
+            c.close()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+        (name,) = os.listdir(spool_dir)
+        snap = fleet.read_spool(os.path.join(spool_dir, name))
+        assert snap.final and snap.role == "lm-replica" and snap.pid == proc.pid
+        assert snap.interval_s == 0.2 and snap.counters["serve.requests"] == 1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()

@@ -3,8 +3,9 @@ on the CPU: N concurrent clients against the sequential reference, a
 client that disconnects mid-generation, the "overloaded" reply with its
 Retry-After hint, status, version skew, drain; the ``op="serve"`` chaos
 rules (``slow_client``, ``client_disconnect``, ``burst``); a JAX
-``ServeClient`` served by the port's replica; and ``python -m
-tpu_tfrecord_torch.serving --device cpu`` drained by SIGTERM.
+``ServeClient`` served by the port's replica; ``python -m
+tpu_tfrecord_torch.serving --device cpu`` drained by SIGTERM; and the
+replica's fleet spool (``run_server(spool_dir=)``, ``--spool-dir``).
 
 Every socket binds port 0, every wait has its own timeout, and every
 thread is joined in a ``finally``."""
@@ -310,15 +311,64 @@ def test_replica_subprocess_drains_on_sigterm(tmp_path):
         proc.stderr.close()
 
 
-def test_spool_refused(params):
-    from tpu_tfrecord_torch.options import OptionNotPortedError
-    from tpu_tfrecord_torch.serving import main, run_server
+def test_spool_refused(params, tmp_path):
+    """``run_server(spool_dir=)`` and ``--spool-dir``, once refused, spool
+    the replica as the JAX ``run_server`` does: role ``serving`` at 0.2 s,
+    and a drain (the drain request in-process, SIGTERM for the CLI)
+    lands the ``final: true`` snapshot with the requests it served."""
+    from tpu_tfrecord_torch import fleet, telemetry
+    from tpu_tfrecord_torch.serving import run_server
 
-    srv, _ = new_server(params, start=False)
+    spool_dir = str(tmp_path / "spool")
+    srv, _ = new_server(params)
+    done = {}
+    runner = threading.Thread(target=lambda: done.update(rc=run_server(
+        srv, spool_dir=spool_dir, role="replica0", install_signals=False)))
     try:
-        with pytest.raises(OptionNotPortedError, match="spool"):
-            run_server(srv, spool_dir="/nonexistent", install_signals=False)
-        with pytest.raises(OptionNotPortedError, match="spool"):
-            main(["--device", "cpu", "--spool-dir", "/nonexistent"])
+        runner.start()
+        wait_until(lambda: fleet._SPOOLS, "the spool never started")
+        (spool,) = [sp_ for sp_, _ in fleet._SPOOLS.values()]
+        assert spool.interval_s == 0.2 and spool.context.role == "replica0"
+        ws = windows(1, seed=21)
+        assert generate(srv.addr, ws[0], 2) == reference(params, [(ws[0], 2)])[0]
+        srv.drain()
+        runner.join(timeout=JOIN_S)
+        assert done == {"rc": 0}
+        snap = fleet.read_spool(spool.path)
+        assert snap.final and snap.role == "replica0" and not fleet._SPOOLS
     finally:
         srv.stop()
+        runner.join(timeout=JOIN_S)
+        telemetry.RECORDER.context = None
+
+    cli_dir = str(tmp_path / "cli-spool")
+    args = ["--device", "cpu", "--seed", "3", "--stages", "2", "--mb", str(MB), "--layers", "4",
+            "--d-model", "32", "--heads", "2", "--vocab", "96", "--max-len", "16",
+            "--spool-dir", cli_dir]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-m", "tpu_tfrecord_torch.serving", *args], cwd=REPO,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ready = {}
+        reader = threading.Thread(target=lambda: ready.update(json.loads(proc.stdout.readline())))
+        reader.start()
+        reader.join(timeout=120)
+        assert "addr" in ready, proc.stderr.read() if proc.poll() is not None else "no ready line"
+        ws = windows(2, seed=22)
+        got = run_clients(lambda i: generate(ready["addr"], ws[i], 2), 2)
+        p3 = lm.init_params(CFG, torch.Generator().manual_seed(3), "cpu")
+        assert [got[i] for i in range(2)] == reference(p3, [(w, 2) for w in ws])
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+        (name,) = os.listdir(cli_dir)
+        snap = fleet.read_spool(os.path.join(cli_dir, name))
+        assert snap.final and snap.role == "serving" and snap.pid == proc.pid
+        assert snap.counters["serve.requests"] == 2
+        assert snap.hists["serve.latency"]["count"] == 2
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()

@@ -394,7 +394,8 @@ def test_option_spellings_like_jax(mapping):
 
 
 # the JAX options the port lacked before its stall, pulse, autotune, cache,
-# trace and telemetry-export options were ported, in both spellings
+# trace, telemetry-export and fleet-spool options were ported, in both
+# spellings
 OPTIONS_ONCE_NOT_PORTED = (
     ("read_deadline_ms", "readDeadlineMs"),
     ("open_deadline_ms", "openDeadlineMs"),
@@ -427,6 +428,7 @@ PORTED_VALUES = {
     "on_stall": " Skip_Shard", "watchdog_timeout_ms": "500", "pulse_interval_s": "0.5",
     "autotune": "ON", "autotune_interval_s": 0.25, "cache": " Auto", "cache_dir": "/tmp/c",
     "cache_max_bytes": "1024", "trace": "ON", "telemetry_port": "9100",
+    "telemetry_spool_dir": "/tmp/spool", "spool_interval_s": "2", "telemetry_role": "reader",
 }
 
 

@@ -547,12 +547,12 @@ class AsyncCheckpointer:
             event.record(torch.cuda.current_stream())
             event.synchronize()
 
-    def save(self, step: int, state_tree, payload: Optional[dict] = None) -> None:
-        """Snapshot ``state_tree`` + ``payload`` for ``step`` and hand the
+    def save(self, step: int, state_pytree, payload: Optional[dict] = None) -> None:
+        """Snapshot ``state_pytree`` + ``payload`` for ``step`` and hand the
         commit to the background thread (inline when ``sync``)."""
         self._worker.reserve()  # the buffers are reused: previous commit first
         t0 = time.perf_counter()
-        leaves, _ = tree_flatten_with_path(state_tree)
+        leaves, _ = tree_flatten_with_path(state_pytree)
         self._snapshot(leaves)
         meta = json.dumps({"step": int(step), "payload": payload or {}}).encode("utf-8")
         _chaos_point("snapshot")
@@ -659,7 +659,7 @@ class AsyncCheckpointer:
         steps = self._complete_generations()
         return steps[-1] if steps else None
 
-    def restore(self, template_tree):
+    def restore(self, template_pytree):
         """(step, tree, payload) from the newest complete generation, or
         (None, template, None) when there is none. The tree has the
         template's structure; a leaf is a numpy array, or a CPU tensor over
@@ -678,11 +678,11 @@ class AsyncCheckpointer:
                     file=sys.stderr,
                 )
                 continue
-            template, treedef = tree_flatten(template_tree)
+            template, treedef = tree_flatten(template_pytree)
             leaves = [torch.from_numpy(a) if isinstance(t, torch.Tensor) else a
                       for a, t in zip(leaves, template)]
             return meta["step"], tree_unflatten(treedef, leaves), meta.get("payload") or {}
-        return None, template_tree, None
+        return None, template_pytree, None
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -797,11 +797,11 @@ class TrainCheckpointer:
         self.directory = self._ckpt.directory
         self.metrics = self._ckpt.metrics
 
-    def save(self, step: int, state_tree, state_or_iterator) -> None:
+    def save(self, step: int, state_pytree, state_or_iterator) -> None:
         """Snapshot the tree and the input position for ``step``; the
         commit follows in the background (``wait``/``close`` drain)."""
         payload = _make_payload(_extract_state(state_or_iterator), step)
-        self._ckpt.save(step, state_tree, payload)
+        self._ckpt.save(step, state_pytree, payload)
 
     def wait(self) -> None:
         self._ckpt.wait()
@@ -809,12 +809,12 @@ class TrainCheckpointer:
     def latest_step(self) -> Optional[int]:
         return self._ckpt.latest_step()
 
-    def restore(self, template_tree):
+    def restore(self, template_pytree):
         """(step, tree, IteratorState) of the newest complete generation,
         or (None, template, None) when there is none."""
-        step, tree, payload = self._ckpt.restore(template_tree)
+        step, tree, payload = self._ckpt.restore(template_pytree)
         if step is None:
-            return None, template_tree, None
+            return None, template_pytree, None
         _check_version(payload, f"in checkpoint step {step}")
         return step, tree, IteratorState.from_json(payload["state"])
 

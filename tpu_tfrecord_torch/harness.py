@@ -18,10 +18,12 @@ on the current stream right after that step was dispatched, never through a
 device-wide synchronize. On the CPU the step has finished when it
 returns.
 
-Not ported: the trainer's telemetry spool (``trainer_spool`` raises
-``OptionNotPortedError`` when ``TFR_TRAIN_SPOOL_DIR`` or a directory is
-given, and does nothing otherwise), and the mesh helpers ``report_mesh``
-and ``report_fsdp_param_bytes``.
+``trainer_spool`` / ``release_trainer_spool`` hold the process's fleet
+spool (``fleet.py``) under the ``trainer`` role, from a directory or
+``TFR_TRAIN_SPOOL_DIR``, so the fleet aggregator sees the step phases.
+
+Not ported: the mesh helpers ``report_mesh`` and
+``report_fsdp_param_bytes``.
 """
 
 from __future__ import annotations
@@ -34,9 +36,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_tfrecord_torch import checkpoint, telemetry
+from tpu_tfrecord_torch import checkpoint, fleet, telemetry
 from tpu_tfrecord_torch.metrics import METRICS
-from tpu_tfrecord_torch.options import OptionNotPortedError
 from tpu_tfrecord_torch.tracing import DutyCycle, trace
 
 
@@ -232,21 +233,25 @@ def fold_model_diagnostics(diag, metrics=None) -> Dict[str, float]:
 
 
 def trainer_spool(spool_dir: Optional[str] = None, interval_s=None):
-    """The JAX trainer's telemetry spool needs the fleet layer, which the
-    port does not have: with a directory (or ``TFR_TRAIN_SPOOL_DIR``) this
-    raises ``OptionNotPortedError``; without one it returns None, as the
-    JAX harness does."""
+    """Acquire this process's telemetry spool under the ``trainer`` role
+    (None when no dir is configured). Falls back to the
+    ``TFR_TRAIN_SPOOL_DIR`` env var (and ``TFR_TRAIN_SPOOL_INTERVAL_S``)
+    so the trainers without a spool flag spool too; pair with
+    ``release_trainer_spool`` so a clean exit lands the ``final: true``
+    goodbye snapshot (the aggregator then never flags the trainer dead)."""
     spool_dir = spool_dir or os.environ.get("TFR_TRAIN_SPOOL_DIR")
     if not spool_dir:
         return None
-    raise OptionNotPortedError(
-        f"trainer spool {spool_dir!r}: the port has no telemetry fleet layer yet"
-    )
+    if interval_s is None:
+        env = os.environ.get("TFR_TRAIN_SPOOL_INTERVAL_S")
+        interval_s = float(env) if env else None
+    return fleet.acquire_spool(spool_dir, role="trainer", interval_s=interval_s)
 
 
 def release_trainer_spool(spool) -> None:
-    """Release a ``trainer_spool`` handle: a no-op, since the port's
-    ``trainer_spool`` gives none."""
+    """Release a ``trainer_spool`` handle (no-op for None)."""
+    if spool is not None:
+        fleet.release_spool(spool.spool_dir)
 
 
 def _step_event(loss) -> Optional[torch.cuda.Event]:

@@ -103,8 +103,14 @@ with the JAX constructor's read knobs and its decode pool:
   fsspec) takes the stream route: block-prefetched under the dataset's
   ``retry_policy`` (``fs.open_for_read``), no mmap and no readahead hint.
 
-Left out against the JAX dataset: the data service and the telemetry
-spool (their options raise in ``TFRecordOptions``).
+- ``telemetry_spool_dir``: the iterator holds the process's fleet spool
+  (``fleet.acquire_spool``, refcounted per directory) while it is live,
+  stamped with ``telemetry_role`` at ``spool_interval_s``; its end, its
+  failure, ``close()`` or its collection releases it once, and the last
+  release lands the ``final`` snapshot.
+
+Left out against the JAX dataset: the data service (its options raise in
+``TFRecordOptions``).
 """
 
 from __future__ import annotations
@@ -125,7 +131,7 @@ from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from tpu_tfrecord_torch import _native, autotune, fs as _fs, telemetry, wire
+from tpu_tfrecord_torch import _native, autotune, fleet, fs as _fs, telemetry, wire
 from tpu_tfrecord_torch.columnar import (
     Column,
     ColumnarBatch,
@@ -1315,8 +1321,10 @@ class CheckpointableIterator:
     ``PipelineControl`` over its decode pool, prefetch queue, readahead
     window and stall guard (``_control``) and an ``AutotuneController``
     (``autotune``) that observes the pulse (at ``autotune_interval_s``
-    when no pulse interval is set). The end of the iteration, its failure
-    or ``close()`` stops the pulse, with one last line."""
+    when no pulse interval is set). With ``telemetry_spool_dir`` it holds
+    the process's fleet spool. The end of the iteration, its failure or
+    ``close()`` stops the pulse, with one last line, and releases the
+    spool."""
 
     def __init__(self, ds: TFRecordDataset, state: IteratorState):
         self._ds = ds
@@ -1334,6 +1342,21 @@ class CheckpointableIterator:
             if pulse_interval is None:
                 pulse_interval = ds.options.autotune_interval_s or autotune.DEFAULT_INTERVAL_S
             self.autotune = autotune.AutotuneController(self._control, interval_s=pulse_interval)
+        # The fleet spool: a URL passes through untouched to the spool's
+        # refusal (abspath would turn "gs://b/s" into a private local dir);
+        # a local dir is made absolute once, so acquire and release agree
+        # on the registry key across a chdir.
+        spool_dir = ds.options.telemetry_spool_dir
+        if spool_dir is not None and not _fs.has_scheme(spool_dir):
+            spool_dir = os.path.abspath(spool_dir)
+        self._spool_dir = spool_dir
+        if spool_dir is not None:
+            # role None keeps the process's adopted trace-context role
+            fleet.acquire_spool(spool_dir, role=ds.options.telemetry_role,
+                                interval_s=ds.options.spool_interval_s)
+            # releases an abandoned iterator's reference; _stop_pulse calls
+            # it on a clean end (a finalizer runs once, so never twice)
+            self._spool_finalizer = weakref.finalize(self, fleet.release_spool, spool_dir)
         self._pulse: Optional[telemetry.Pulse] = None
         if pulse_interval is not None:
             self._pulse = telemetry.Pulse(pulse_interval)
@@ -1389,12 +1412,19 @@ class CheckpointableIterator:
         return replace(self._consumed_state, fingerprint=self._ds.fingerprint())
 
     def _stop_pulse(self) -> None:
-        """Stop the pulse (one last line for the tail interval); once."""
+        """Stop the pulse (one last line for the tail interval) and release
+        the fleet spool (its final snapshot when this was the last
+        reference); once."""
         pulse, self._pulse = self._pulse, None
         if pulse is not None:
             try:
                 pulse.stop()
-            except Exception:  # telemetry teardown never fails the close
+            except Exception:  # graftlint: swallow(telemetry teardown must not fail iterator close)
+                pass
+        if self._spool_dir is not None:
+            try:
+                self._spool_finalizer()  # once-only: safe vs the GC path
+            except Exception:  # graftlint: swallow(telemetry teardown must not fail iterator close)
                 pass
 
     def close(self) -> None:

@@ -47,13 +47,16 @@ def _open_plain(path: str, codec: Optional[str]):
     return wire.open_compressed(path, "rb", codec)
 
 
-def _timed_open(path: str, open_fn: Optional[Callable[[str, Optional[str]], Any]] = None):
-    """Open a shard (its codec from its extension) through ``open_fn(path,
-    codec)`` (``wire.open_compressed`` by default) under the ``read.open``
-    latency histogram, a ``tfr:open`` profiler region and an ``open``
-    span."""
+def _timed_open(path: str, open_fn: Optional[Callable[[str, Optional[str]], Any]] = None,
+                codec: Optional[str] = "auto"):
+    """Open a shard through ``open_fn(path, codec)``
+    (``wire.open_compressed`` by default) under the ``read.open`` latency
+    histogram, a ``tfr:open`` profiler region and an ``open`` span.
+    ``codec="auto"`` takes the codec from the extension."""
+    if codec == "auto":
+        codec = wire.codec_from_path(path)
     with timed("read.open", METRICS), trace("tfr:open"), telemetry.span("open", shard=path):
-        return (open_fn or _open_plain)(path, wire.codec_from_path(path))
+        return (open_fn or _open_plain)(path, codec)
 
 
 def _timed_read(fh, want: int, path: str) -> bytes:
@@ -137,6 +140,7 @@ def salvage_spans_stream(
     on_event: Callable[[Dict[str, Any]], None],
     slab_bytes: int = 32 << 20,
     max_record_bytes: int = 1 << 30,
+    codec: str = "auto",
     open_fn: Optional[Callable[[str, Optional[str]], Any]] = None,
 ) -> Iterator[tuple]:
     """Corruption-tolerant twin of ``scan_spans_stream``: yields
@@ -155,10 +159,11 @@ def salvage_spans_stream(
 
     Memory stays bounded exactly like the strict scanner: complete frames
     are yielded per slab and only a sub-frame tail (or the 11-byte resync
-    window) carries between reads.
+    window) carries between reads. ``codec="auto"`` takes the codec from
+    the extension; an extensionless shard names it.
     """
     H, F = wire.HEADER_BYTES, wire.FOOTER_BYTES
-    with _timed_open(path, open_fn) as fh:
+    with _timed_open(path, open_fn, codec) as fh:
         buf = b""
         file_off = 0  # decoded-stream offset of buf[0]
         bad_at: Optional[int] = None  # absolute start of current corrupt region

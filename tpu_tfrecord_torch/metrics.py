@@ -10,7 +10,8 @@ telemetry pulse reads: ``raw_totals``, ``gauges`` and ``hist_states``),
 ``Histogram`` is a copy of ``tpu_tfrecord/telemetry.py::Histogram``,
 exemplars included: ``add`` and ``observe`` take ``exemplar=(trace_id,
 span_id)`` and tag the observation's bucket with it, as the JAX registry
-does (``telemetry`` re-exports the name). Counters are updated at slab or
+does (``telemetry`` re-exports the name); ``state`` / ``merge_state`` /
+``from_states`` carry it across processes bucket-exactly. Counters are updated at slab or
 shard granularity, never per record, and every access takes the
 registry's lock. Every name is registered in ``vocabulary.py``.
 
@@ -39,7 +40,9 @@ gauges ``serve.queue_depth`` and ``serve.in_flight``; the epoch cache the
 counters ``cache.hits``, ``cache.misses``, ``cache.bytes_written``,
 ``cache.evictions``, ``cache.corrupt_fallbacks`` and
 ``cache.populate_errors`` and the stages ``cache.open``, ``cache.serve``
-and ``cache.commit``.
+and ``cache.commit``; the fleet spool ``fleet.spool_writes`` and
+``fleet.spool_errors``; the SLO engine the gauges
+``slo.<kind>.budget_remaining`` and ``slo.<kind>.<window>_burn``.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ import math
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 logger = logging.getLogger("tpu_tfrecord_torch")
 
@@ -159,6 +162,54 @@ class Histogram:
             state["exemplars"] = {str(i): [t, s, v]
                                   for i, (t, s, v) in sorted(self.exemplars.items())}
         return state
+
+    def merge_state(self, state: Dict[str, Any]) -> None:
+        """Fold one ``state()`` snapshot in, bucket for bucket (the layout
+        is fixed, so the merge is exact). A foreign layout or an index out
+        of range raises ValueError, a non-mapping TypeError: a bad state is
+        refused, never blended. Exemplars merge last-wins per bucket."""
+        if not isinstance(state, dict):
+            raise TypeError(f"histogram state must be a mapping, got {type(state).__name__}")
+        layout = state.get("layout")
+        if layout is not None and list(layout) != [self._MIN, self._LOG2_GROWTH, self._NBUCKETS]:
+            raise ValueError(
+                f"histogram bucket layout mismatch: {layout} vs "
+                f"{[self._MIN, self._LOG2_GROWTH, self._NBUCKETS]}"
+            )
+        buckets = state.get("buckets") or {}
+        if not isinstance(buckets, dict):
+            raise TypeError(f"histogram buckets must be a mapping, got {type(buckets).__name__}")
+        for idx, c in buckets.items():
+            i = int(idx)
+            if not 0 <= i < self._NBUCKETS:
+                # a negative index would silently wrap into the tail bucket
+                raise ValueError(f"histogram bucket index out of range: {i}")
+            self.counts[i] += int(c)
+        self.count += int(state.get("count", 0))
+        self.total += float(state.get("total", 0.0))
+        smin = state.get("min")
+        if smin is not None and smin < self.min:
+            self.min = smin
+        smax = state.get("max")
+        if smax is not None and smax > self.max:
+            self.max = smax
+        exemplars = state.get("exemplars") or {}
+        if not isinstance(exemplars, dict):
+            raise TypeError(f"histogram exemplars must be a mapping, got {type(exemplars).__name__}")
+        for idx, ex in exemplars.items():
+            i = int(idx)
+            if not 0 <= i < self._NBUCKETS:
+                raise ValueError(f"exemplar bucket index out of range: {i}")
+            trace_id, span_id, value = ex
+            self.exemplars[i] = (str(trace_id), str(span_id), float(value))
+
+    @classmethod
+    def from_states(cls, states: Iterable[Dict[str, Any]]) -> "Histogram":
+        """One histogram holding every state of ``states``, merged."""
+        hist = cls()
+        for st in states:
+            hist.merge_state(st)
+        return hist
 
     def quantiles(self) -> Dict[str, float]:
         """p50/p90/p99 (seconds), count and mean; empty when no data."""
@@ -315,6 +366,9 @@ class Metrics:
             self._stages.clear()
             self._gauges.clear()
             self._hists.clear()
+            # the fleet spool's wall-window epoch (fleet.TelemetrySpool
+            # stamps it on this registry) describes the totals just cleared
+            self.__dict__.pop("_spool_epoch", None)
 
 
 # Process-global default registry.

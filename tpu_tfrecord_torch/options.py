@@ -3,11 +3,10 @@
 Copy of ``tpu_tfrecord/options.py`` for the options the port has:
 ``RecordType`` with the reference's exact spellings, and
 ``TFRecordOptions``, parsed and validated once by ``from_map``, the
-stall-defence, watchdog, pulse, autotune, epoch-cache, trace and
-telemetry-export options included. The JAX package's telemetry spool and
-role, data-service and elastic-fleet options are not ported yet:
-``from_map`` raises on any of them, naming the option, rather than
-dropping it.
+stall-defence, watchdog, pulse, autotune, epoch-cache, trace,
+telemetry-export and fleet-spool options included. The JAX package's
+data-service and elastic-fleet options are not ported yet: ``from_map``
+raises on any of them, naming the option, rather than dropping it.
 """
 
 from __future__ import annotations
@@ -47,9 +46,6 @@ class RecordType(enum.Enum):
 # The JAX package's options that the port does not have yet, in both
 # spellings (snake_case, camelCase). Any of them raises in from_map.
 _NOT_PORTED = (
-    ("telemetry_spool_dir", "telemetrySpoolDir"),
-    ("spool_interval_s", "spoolIntervalS"),
-    ("telemetry_role", "telemetryRole"),
     ("service", "service"),
     ("service_lease_ttl_s", "serviceLeaseTtlS"),
     ("service_deadline_ms", "serviceDeadlineMs"),
@@ -130,6 +126,16 @@ class TFRecordOptions:
     - telemetry_port: serve the Prometheus text page (``/metrics``) on
       127.0.0.1:PORT from a daemon thread (0 = an ephemeral port; None =
       no endpoint)
+    - telemetry_spool_dir: the fleet telemetry spool (``fleet.py``): the
+      process snapshots its counters, stage totals, gauges and histogram
+      buckets, with a heartbeat, into one atomically rewritten JSONL file
+      under this local directory; ``fleet.TelemetryAggregator`` merges
+      every process's file (None = no spool)
+    - spool_interval_s: the spool's snapshot cadence (default 1.0 s); the
+      aggregator's staleness bar is twice it
+    - telemetry_role: the role stamped on spool snapshots and trace tracks
+      (``"reader"``, ``"trainer"``, ...); None keeps the process's current
+      trace-context role
     """
 
     record_type: RecordType = RecordType.EXAMPLE
@@ -157,6 +163,9 @@ class TFRecordOptions:
     cache_max_bytes: Optional[int] = None
     trace: str = "off"
     telemetry_port: Optional[int] = None
+    telemetry_spool_dir: Optional[str] = None
+    spool_interval_s: Optional[float] = None
+    telemetry_role: Optional[str] = None
 
     _KNOWN_KEYS = (
         "recordType",
@@ -204,6 +213,12 @@ class TFRecordOptions:
         "trace",
         "telemetry_port",
         "telemetryPort",
+        "telemetry_spool_dir",
+        "telemetrySpoolDir",
+        "spool_interval_s",
+        "spoolIntervalS",
+        "telemetry_role",
+        "telemetryRole",
     )
 
     ON_CORRUPT_POLICIES = ("raise", "skip_record", "skip_shard")
@@ -338,6 +353,19 @@ class TFRecordOptions:
             telemetry_port = int(telemetry_port)
             if not 0 <= telemetry_port <= 65535:
                 raise ValueError("telemetry_port must be in [0, 65535] (0 = ephemeral)")
+        telemetry_spool_dir = merged.pop("telemetry_spool_dir", merged.pop("telemetrySpoolDir", None))
+        if telemetry_spool_dir is not None:
+            telemetry_spool_dir = os.fspath(telemetry_spool_dir)
+        spool_interval_s = merged.pop("spool_interval_s", merged.pop("spoolIntervalS", None))
+        if spool_interval_s is not None:
+            spool_interval_s = float(spool_interval_s)
+            if spool_interval_s <= 0:
+                raise ValueError("spool_interval_s must be > 0 (or None)")
+        telemetry_role = merged.pop("telemetry_role", merged.pop("telemetryRole", None))
+        if telemetry_role is not None:
+            telemetry_role = str(telemetry_role)
+            if not telemetry_role:
+                raise ValueError("telemetry_role must be non-empty (or None)")
         if merged:
             hints = []
             for key in merged:
@@ -373,6 +401,9 @@ class TFRecordOptions:
             cache_max_bytes=cache_max_bytes,
             trace=trace,
             telemetry_port=telemetry_port,
+            telemetry_spool_dir=telemetry_spool_dir,
+            spool_interval_s=spool_interval_s,
+            telemetry_role=telemetry_role,
         )
 
     def file_extension(self) -> str:

@@ -24,8 +24,8 @@ With ``--serve`` it runs a serving replica over the same checkpoint
 (``serving.ServingEngine`` behind a ``serving.ServeServer``): continuous
 batching of concurrent socket clients with admission control, deadlines
 and a graceful drain on SIGTERM/SIGINT (exit 0). The ready line (addr, pid
-JSON) goes to stdout. ``--spool-dir`` (the fleet telemetry spool) is not
-ported and is refused.
+JSON) goes to stdout. ``--spool-dir DIR`` spools the replica's telemetry
+into DIR under ``--role``; the drain lands its ``final: true`` snapshot.
 
 The model is the JAX example's: vocab 256, d_model 64, 4 heads,
 ``N_LAYERS`` = 4, L = 64 (the JAX example's ``n_micro`` = 32 / mb is the
@@ -170,10 +170,11 @@ def main(argv=None) -> None:
                     help="--serve: deadline of requests that carry none")
     ap.add_argument("--slo-p99-ms", type=float, default=250.0,
                     help="--serve: p99 target of the status verdict")
-    ap.add_argument("--spool-dir", default=None, help="--serve: not ported (refused)")
-    ap.add_argument("--role", default="serving", help="--serve: the spool's role")
+    ap.add_argument("--spool-dir", default=None,
+                    help="--serve: telemetry spool dir (read with fleet.TelemetryAggregator)")
+    ap.add_argument("--role", default="serving",
+                    help="--serve: telemetry role stamped on the spool")
     args = ap.parse_args(argv)
-    serving._refuse_spool(args.spool_dir)
     serving._deterministic(args.device)
 
     cfg = make_config(args.virtual)
@@ -192,7 +193,8 @@ def main(argv=None) -> None:
                                      slo_p99_ms=args.slo_p99_ms)
         engine = serving.ServingEngine(params, cfg, args.pipe, policy=policy, device=args.device)
         server = serving.ServeServer(engine, host=args.host, port=args.port).start()
-        sys.exit(serving.run_server(server, role=args.role, ready_fh=sys.stdout))
+        sys.exit(serving.run_server(server, spool_dir=args.spool_dir, role=args.role,
+                                    ready_fh=sys.stdout))
 
     line, _ = one_shot(params, cfg, args.pipe, args.mb, args.requests, args.device, step)
     print("serve_lm OK:", json.dumps(line), flush=True)

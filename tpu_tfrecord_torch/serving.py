@@ -37,10 +37,12 @@ count of the one-device schedule): one JSON ready line (addr, pid) on
 stdout, then it serves until a drain request or SIGTERM/SIGINT, finishes
 every admitted request and exits 0.
 
-Not ported: the telemetry spool (``run_server(spool_dir=...)``,
-``--spool-dir``; the JAX package's ``fleet.acquire_spool``) and the
-autoscaler (the JAX package's ``elastic.ServingScaler``). Both raise
-``OptionNotPortedError``.
+``run_server(spool_dir=...)`` / ``--spool-dir`` spool the replica's
+telemetry (``fleet.acquire_spool`` under ``role``, every 0.2 s); a drain,
+SIGTERM included, lands the spool's ``final: true`` snapshot.
+
+Not ported: the autoscaler (the JAX package's ``elastic.ServingScaler``),
+which raises ``OptionNotPortedError``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ import numpy as np
 import torch
 
 from tpu_tfrecord_torch import faults as _faults
+from tpu_tfrecord_torch import fleet as _fleet
 from tpu_tfrecord_torch import retry as _retry
 from tpu_tfrecord_torch import service_protocol as sp
 from tpu_tfrecord_torch import telemetry as _telemetry
@@ -1086,14 +1089,6 @@ class ServingScaler:
         )
 
 
-def _refuse_spool(spool_dir: Optional[str]) -> None:
-    if spool_dir:
-        raise OptionNotPortedError(
-            "serving spool_dir / --spool-dir: the fleet telemetry spool "
-            "(fleet.acquire_spool) is not ported yet"
-        )
-
-
 def run_server(
     server: ServeServer,
     spool_dir: Optional[str] = None,
@@ -1108,13 +1103,14 @@ def run_server(
     request takes the same exit path. ``trace_out`` turns the flight
     recorder on for the process lifetime and saves the replica's Chrome
     trace (per-request ``serve.request`` timelines) there on exit.
-    ``spool_dir`` (the fleet telemetry spool) raises
-    ``OptionNotPortedError``; ``role`` names the spool's role in the JAX
-    package and is kept for its signature."""
-    _refuse_spool(spool_dir)
+    ``spool_dir`` lands the replica's telemetry on the fleet spool under
+    ``role``; the drain's exit path writes its ``final: true`` snapshot."""
     if trace_out:
         _telemetry.current_context()  # adopt an identity for the track label
         _telemetry.enable()
+    spool = None
+    if spool_dir:
+        spool = _fleet.acquire_spool(spool_dir, role=role, interval_s=0.2)
     stop = threading.Event()
 
     if install_signals:
@@ -1143,6 +1139,8 @@ def run_server(
         # writer threads a beat to flush final replies before teardown
         server.stop()
     finally:
+        if spool is not None:
+            _fleet.release_spool(spool_dir)
         if trace_out:
             try:
                 _telemetry.RECORDER.save_chrome_trace(trace_out)
@@ -1206,7 +1204,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    "trace here on exit (merge-trace fuses it with client "
                    "traces)")
     args = p.parse_args(argv)
-    _refuse_spool(args.spool_dir)
     _deterministic(args.device)
 
     params, cfg = _build_synthetic(args)

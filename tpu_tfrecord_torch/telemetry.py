@@ -31,8 +31,8 @@ Copy of ``tpu_tfrecord/telemetry.py`` for one process:
   ``shutdown_exporter``. ``Histogram`` lives in ``metrics.py`` and is
   re-exported here.
 
-Left out: the cluster spool and the fleet's federated page (they wait for
-the port's fleet layer).
+The cluster spool, its aggregator and the fleet's federated page are in
+``fleet.py``.
 """
 
 from __future__ import annotations
@@ -139,6 +139,9 @@ class TraceContext:
         parent; host and pid are left for the child to stamp."""
         return TraceContext(trace_id=self.trace_id, span_id=_new_id(),
                             parent_span_id=self.span_id, role=role, host="", pid=0)
+
+    def with_role(self, role: str) -> "TraceContext":
+        return dataclasses.replace(self, role=role)
 
     def to_json(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)

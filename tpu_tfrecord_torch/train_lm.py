@@ -35,9 +35,10 @@ and saves its Chrome trace (``train.step`` spans) there at the end.
 ``dp_sp``; on the one card the port trains on, every kind trains as ``dp``
 with 2 layers, as the JAX example's ``pick_mesh`` does on one device,
 ``--virtual 2`` needs ``--mesh dp_pp`` there too, and ``--moe`` is refused
-with ``--mesh dp_pp`` as in JAX. Not ported: ``--spool`` and
-``--spool-interval`` (the trainer's telemetry spool), which raise
-``OptionNotPortedError``. Runs on ``cuda`` unless ``--device cpu``.
+with ``--mesh dp_pp`` as in JAX. ``--spool DIR`` (``--spool-interval
+S``) spools the trainer's telemetry under the ``trainer`` role into DIR
+for ``fleet.TelemetryAggregator``; a clean exit lands the ``final``
+snapshot. Runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from tpu_tfrecord_torch.io.dataset import IteratorState, TFRecordDataset
 from tpu_tfrecord_torch.io.writer import DatasetWriter
 from tpu_tfrecord_torch.metrics import METRICS
 from tpu_tfrecord_torch.models import lm, optim
-from tpu_tfrecord_torch.options import OptionNotPortedError, TFRecordOptions
+from tpu_tfrecord_torch.options import TFRecordOptions
 from tpu_tfrecord_torch.schema import ArrayType, LongType, StructField, StructType
 
 VOCAB = 256
@@ -183,12 +184,6 @@ def refuse_unported(ap: argparse.ArgumentParser, args) -> None:
         ap.error("--virtual > 1 needs --mesh dp_pp")
     if args.moe and args.mesh == "dp_pp":
         ap.error("--moe is not supported with --mesh dp_pp")
-    if args.spool_interval is not None:
-        raise OptionNotPortedError(
-            "--spool-interval: the trainer's telemetry spool needs the fleet layer, "
-            "which the port does not have yet"
-        )
-    harness.trainer_spool(args.spool)  # raises for a directory
 
 
 def main(argv=None) -> None:
@@ -207,8 +202,10 @@ def main(argv=None) -> None:
                     help="append one {'step','digest','loss'} JSON line per step")
     ap.add_argument("--data-dir", default=os.path.join(EXAMPLE_ROOT, "data"))
     ap.add_argument("--ckpt-dir", default=os.path.join(EXAMPLE_ROOT, "ckpt"))
-    ap.add_argument("--spool", default=None, metavar="SPOOL_DIR")
-    ap.add_argument("--spool-interval", type=float, default=None, metavar="SECONDS")
+    ap.add_argument("--spool", default=None, metavar="SPOOL_DIR",
+                    help="spool this trainer's telemetry (role=trainer) into SPOOL_DIR")
+    ap.add_argument("--spool-interval", type=float, default=None, metavar="SECONDS",
+                    help="spool snapshot cadence")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="turn the flight recorder on and save its Chrome trace here")
     ap.add_argument("--diagnostics", action="store_true",
@@ -284,6 +281,7 @@ def main(argv=None) -> None:
 
     if args.trace_out:
         telemetry.enable()
+    spool = harness.trainer_spool(args.spool, args.spool_interval)
     phases = harness.StepPhases()
     t0 = time.perf_counter()
     try:
@@ -316,6 +314,8 @@ def main(argv=None) -> None:
         if digest_fh is not None:
             digest_fh.close()
         ck.close()
+        # a clean exit lands the spool's `final: true` goodbye snapshot
+        harness.release_trainer_spool(spool)
 
 
 if __name__ == "__main__":

@@ -128,7 +128,7 @@ def main(argv=None) -> None:
     def step(state, gb):
         return state, long_doc.train_step(params, opt, gb, cfg)
 
-    spool = harness.trainer_spool()  # raises when TFR_TRAIN_SPOOL_DIR asks for one
+    spool = harness.trainer_spool()
     phases = harness.StepPhases()
     t0 = time.perf_counter()
     it, _resume = harness.resume_or_fresh(ds, args.ckpt_dir)

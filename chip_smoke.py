@@ -308,6 +308,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    scoring again without the spool and with it, back to back, for the
    spool's cost on a quiet host.
 
+17. Pipelined LM training and the data service. (a) ``pipe_path``: the
+   4-layer LM of ``train_lm --mesh dp_pp`` (vocab 256, d_model 64, 4
+   heads, L = 64, B = 32, f32, weights from seed 0) takes one
+   ``train_step`` through the one-card schedule (2 stages, 8 microbatches,
+   V = 1 and V = 2) and the same step without it: losses and every
+   gradient within 1e-4, the bubble exactly 1/9 and 1/17. Each step's host
+   ms, device ms, kernels and idle share beside the step without the
+   schedule and phase 9's LM step. Then ``python -m
+   tpu_tfrecord_torch.train_lm --mesh dp_pp --virtual 2 --diagnostics``
+   for 16 steps in a subprocess: its batches are this process's stream,
+   its losses those of the same steps here without the schedule (within
+   1e-4), its gauges 1/17; ``dot_interaction`` launches 0 times
+   (``pipe_launches``). (b) ``service_path`` on phase 12's shards: a
+   ``python -m tpu_tfrecord_torch.service dispatcher --journal`` and two
+   workers, subprocesses with ``CUDA_VISIBLE_DEVICES=`` that join a trace
+   context minted here, serve phase 12's fixed-4 feed with
+   ``service=<addr>``: logits bit-equal to phase 12's local run for all
+   1,048,576 rows, 64 ``bf16_mma`` and 0 ``f32_tiled`` launches
+   (``service_launches``), no fallback; rows/s beside phase 12's fixed-4
+   rate and the card's idle share. Then the chaos drill: after the
+   consumer's first chunk the worker that holds the lease is SIGKILLed,
+   then the dispatcher, which restarts on its port from its journal; the
+   epoch finishes bit-equal, 1,048,576 rows, no fallback, at least one
+   lease reassignment, the surviving worker alive and the minted trace id
+   in ``fetch_status``.
+
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
 a CUDA device the script exits non-zero and prints no result.
@@ -2299,33 +2325,36 @@ def longdoc_twin(work: str, data_dir: str) -> dict:
     return dict(losses=losses, phases=phases[0], steps_per_s_whole=done_rate(lines) / tw.BATCH)
 
 
-def step_rate(label, step, tokens_per_step: int) -> dict:
-    """Steps/s of ``step`` run back to back (host clock, synchronized), the
-    device ms per step of its kernels (torch.profiler over a few steps) and
-    the card's idle share (1 - device ms / wall ms per step)."""
+def step_rate(label, step, tokens_per_step: int, steps: int = 0, profile_steps: int = 0) -> dict:
+    """Steps/s of ``step`` run back to back (host clock, synchronized;
+    ``steps``, default ``RATE_STEPS``), the device ms per step of its
+    kernels (torch.profiler over ``profile_steps``, default
+    ``PROFILE_STEPS``) and the card's idle share (1 - device ms / wall ms
+    per step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    steps, profile_steps = steps or RATE_STEPS, profile_steps or PROFILE_STEPS
     for _ in range(5):
         step()
     seq_sync()
     t0 = time.perf_counter()
-    for _ in range(RATE_STEPS):
+    for _ in range(steps):
         step()
     seq_sync()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / RATE_STEPS
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
+        for _ in range(profile_steps):
             step()
         seq_sync()
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / PROFILE_STEPS
-    per_step = len(kernels) / PROFILE_STEPS
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / profile_steps
+    per_step = len(kernels) / profile_steps
     idle = 1 - dev_ms / wall_ms if dev_ms > 0 else float("nan")
     print(f"seq: {label}: {1e3 / wall_ms:.1f} steps/s eager ({wall_ms:.3f} ms a step, host clock, "
-          f"{RATE_STEPS} steps back to back; {tokens_per_step * 1e3 / wall_ms:.1f} tokens/s); device "
-          f"{dev_ms:.4f} ms a step in {per_step:.0f} kernels (torch.profiler, {PROFILE_STEPS} steps"
+          f"{steps} steps back to back; {tokens_per_step * 1e3 / wall_ms:.1f} tokens/s); device "
+          f"{dev_ms:.4f} ms a step in {per_step:.0f} kernels (torch.profiler, {profile_steps} steps"
           f"{'' if dev_ms > 0 else ': no device time recorded, not measured'}); idle share {idle:.4f}")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=8))
     return dict(steps_per_s=1e3 / wall_ms, step_ms=wall_ms, device_ms=dev_ms,
@@ -3605,17 +3634,19 @@ def readpool_serving(dirs, warm, card: str) -> dict:
     return out, local_logits
 
 
-def readpool_path(work: str, card: str) -> tuple:
+def readpool_path(work: str, card: str, pipe_s: float = 0.0) -> tuple:
     """Phase 12: the decode pool's read knobs, stall defence and autotune on
     this machine's host, beside ``card`` (nvidia-smi's name and power
     limit): (a) the shards, (b) cold decode rates, (c) the guard's cost,
     (d) the stall drills, (e) autotuned serving at full width. Then phase
     13 (``cache_path``) on the same shards, with its cache beside them,
     phase 14 (``multiproc_path``), phase 15 (``remote_path``) and phase 16
-    (``fleet_path``). Returns the kernel launches of phase 12's autotuned
-    serving run, of phase 13's warm cached epoch, of phase 14's ranks
-    (summed), of phase 15's scoring over HTTP and of phase 16's spooling
-    scorer."""
+    (``fleet_path``) and phase 17's data service (``service_path``).
+    Returns the kernel launches of phase 12's autotuned serving run, of
+    phase 13's warm cached epoch, of phase 14's ranks (summed), of phase
+    15's scoring over HTTP, of phase 16's spooling scorer and of phase 17's
+    scoring through the service. ``pipe_s`` is phase 17 (a)'s time, for
+    the phase's total."""
     from tpu_tfrecord_torch.cache import release_registry
 
     t0 = time.perf_counter()
@@ -3637,13 +3668,16 @@ def readpool_path(work: str, card: str) -> tuple:
         multi = multiproc_path(dirs, root, card)
         remote = remote_path(dirs, files, root, warm, local_logits, card)
         fleet_out = fleet_path(dirs, work, root, local_logits, serving["fixed 4"]["whole"], card)
+        served = service_path(dirs, root, local_logits, serving["fixed 4"]["whole"], card)
+        print(f"phase 17 took {pipe_s + served['seconds']:.1f} s: (a) {pipe_s:.1f} s, "
+              f"(b) {served['seconds']:.1f} s")
     finally:
         # the entries' maps are unpinned before the directory goes, or its
         # blocks stay allocated for the rest of the run
         release_registry(cache_dir)
         shutil.rmtree(root, ignore_errors=True)
     return (serving["launches"], cached["launches"], multi["launches"], remote["launches"],
-            fleet_out["launches"])
+            fleet_out["launches"], served["launches"])
 
 
 # -- phase 13: the columnar epoch cache ----------------------------------------------
@@ -4398,7 +4432,8 @@ def remote_serve(urls, model, label: str, nbytes: int, card: str, tag: str = "re
     stats = dict(whole=whole, steady=steady_rate(res), mbps=nbytes / res.wall_s / 1e6,
                  idle_share=idle, duty_cycle=res.duty_cycle, wall_s=res.wall_s,
                  counters=remote_counters(), launches=launches)
-    print(f"{tag}: serving bf16, {label}, {REMOTE_WORKERS} workers: {res.batches} batches, "
+    pool = "the service's workers" if kw.get("service") else f"{REMOTE_WORKERS} workers"
+    print(f"{tag}: serving bf16, {label}, {pool}: {res.batches} batches, "
           f"{whole:.1f} rows/s whole, {stats['steady']:.1f} steady (batches 2-{res.batches}), "
           f"{stats['mbps']:.1f} MB/s of shards; device idle share at least {idle:.4f} "
           f"(1 - synchronized forward time / wall); counters {stats['counters']}; kernel "
@@ -4884,6 +4919,315 @@ def fleet_path(dirs, work: str, root: str, local_logits, fixed4_whole: float, ca
     return out
 
 
+# -- phase 17: pipelined LM training, and the data service ---------------------------
+
+PIPE_VIRTUAL = (1, 2)      # chunks a stage of the 2-stage schedule, 8 microbatches
+PIPE_TOL = 1e-4            # phase 9's LM tolerance: losses and every gradient
+PIPE_TWIN_STEPS = 16
+PIPE_RATE_STEPS = 10       # a pipelined step is ≈ 0.1 s of host time
+PIPE_PROFILE_STEPS = 1     # ≈ 4,000 kernels a step
+SERVICE_WORKERS = 2
+SERVICE_DEADLINE_MS = 5_000
+SERVICE_TIMEOUT_S = 120    # for a service process to print its ready line
+
+
+def pipe_step_grads(params, cfg, toks, **axes):
+    """One ``lm.train_step`` (Adam) of a copy of ``params``: (loss, the
+    gradients it stepped with, the step's diagnostics or {})."""
+    from tpu_tfrecord_torch import train_lm
+    from tpu_tfrecord_torch.checkpoint import tree_flatten
+    from tpu_tfrecord_torch.models import lm, optim
+
+    p = tree_to(params, SEQ_DEVICE)
+    opt = optim.adam(p, train_lm.LR)
+    if axes:
+        loss, diag = lm.train_step(p, opt, toks, cfg, diagnostics=True, **axes)
+    else:
+        loss, diag = lm.train_step(p, opt, toks, cfg), {}
+    return float(loss), [t.grad.detach().clone() for t in tree_flatten(p)[0]], diag
+
+
+def pipe_path(work: str, card: str, lm9: dict) -> dict:
+    """Phase 17 (a): the LM trained through the one-card pipeline schedule
+    (``train_lm --mesh dp_pp``: 4 layers in 2 stages, 8 microbatches), on
+    ``card``. ``lm9`` is phase 9's LM step (``step_rate``). Returns the
+    numbers."""
+    from tpu_tfrecord_torch import train_lm
+    from tpu_tfrecord_torch.device.ingest import TokenPacker
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+    from tpu_tfrecord_torch.models import lm, optim
+
+    t0 = time.perf_counter()
+    gates, out = {}, dict(card=card)
+    shape, axes, n_layers = train_lm.pick_mesh("dp_pp")
+    pipe_kw = dict(axes, mesh=shape)
+    n_stages = shape["pipe"]
+    # (1) one step through the schedule against the same step without it
+    rates = {}
+    for v in PIPE_VIRTUAL:
+        cfg = train_lm.make_config(n_layers, 0, axes, v)
+        params = lm.init_params(cfg, torch.Generator(device=SEQ_DEVICE).manual_seed(0), SEQ_DEVICE)
+        toks = torch.from_numpy(lm.make_synthetic_tokens(cfg, train_lm.BATCH, seed=0)).to(SEQ_DEVICE)
+        lp, gp, diag = pipe_step_grads(params, cfg, toks, **pipe_kw)
+        ld, gd, _ = pipe_step_grads(params, cfg, toks)
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(gp, gd))
+        want = (n_stages - 1) / (v * cfg.n_micro + n_stages - 1)
+        gates[f"v{v}_loss"] = abs(lp - ld) <= PIPE_TOL * max(1.0, abs(ld))
+        gates[f"v{v}_grads"] = all(torch.allclose(a, b, rtol=PIPE_TOL, atol=PIPE_TOL)
+                                   for a, b in zip(gp, gd))
+        gates[f"v{v}_bubble"] = diag["bubble_fraction"] == want
+        out[f"v{v}"] = dict(loss=lp, dense_loss=ld, loss_err=abs(lp - ld), grad_err=grad_err,
+                            diag=diag)
+        print(f"pipe: one train step, {n_layers} layers in {n_stages} stages, V={v}, "
+              f"M={cfg.n_micro}, B={train_lm.BATCH} L={train_lm.SEQ_LEN} d=64 f32: loss {lp!r} "
+              f"against {ld!r} without the schedule (|diff| {abs(lp - ld):.3e}), every gradient "
+              f"within {grad_err:.3e}; bubble {diag['bubble_fraction']!r} "
+              f"(analytic (S-1)/(V*M+S-1) = {want!r}), ticks {diag['useful_ticks']:.0f} useful "
+              f"of {diag['total_ticks']:.0f}")
+        opt = optim.adam(params, train_lm.LR)
+        rates[f"pipe_v{v}"] = step_rate(
+            f"pipelined LM train step, {n_layers} layers in {n_stages} stages, V={v}, "
+            f"M={cfg.n_micro}", lambda: lm.train_step(params, opt, toks, cfg, **pipe_kw),
+            train_lm.BATCH * train_lm.SEQ_LEN, PIPE_RATE_STEPS, PIPE_PROFILE_STEPS)
+    rates["dense_4"] = step_rate(
+        f"the same {n_layers}-layer LM train step without the schedule",
+        lambda: lm.train_step(params, opt, toks, cfg), train_lm.BATCH * train_lm.SEQ_LEN)
+    rates["phase9_lm"] = lm9
+    print("pipe: step host ms / device ms / kernels / idle share: " + "; ".join(
+        f"{k} {r['step_ms']:.3f} / {r['device_ms']:.4f} / {r['kernels_per_step']:.0f} / "
+        f"{r['idle_share']:.4f}" for k, r in rates.items()) + f" ({card})")
+    del params, opt
+    free_cuda()
+
+    # (2) the train_lm twin through the schedule, against this process
+    # without it over the same batches
+    lm_data = os.path.join(work, "lm_data")
+    train_lm.generate(lm_data)  # phase 9's documents, when absent
+    ck = os.path.join(work, "pipe_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    rc, lines, err = run_twin("tpu_tfrecord_torch.train_lm", [
+        "--mesh", "dp_pp", "--virtual", "2", "--diagnostics", "--steps", str(PIPE_TWIN_STEPS),
+        "--save-every", "8", "--data-dir", lm_data, "--ckpt-dir", ck,
+        "--digest-out", os.path.join(work, "pipe_digests.jsonl")], work, "pipe_twin.log")
+    if rc != 0:
+        raise SystemExit(f"pipe: the dp_pp twin exited {rc}: {err[-2000:]}")
+    twin = lm_steps(lines)
+    diag_line = [ln for _, ln in lines if ln.startswith("model diagnostics:")]
+    gauges = json.loads(diag_line[-1].split(":", 1)[1]) if diag_line else {}
+    ds = TFRecordDataset(lm_data, batch_size=train_lm.READ_BATCH, schema=train_lm.make_schema(),
+                         num_epochs=4, recordType="SequenceExample", shuffle=True, seed=0)
+    snaps: dict = {}
+    batches, digests = [], []
+    with ds.batches(None) as it:
+        for n, b in enumerate(train_lm.packed_stream(
+                it, TokenPacker(train_lm.BATCH, train_lm.SEQ_LEN), snaps)):
+            if n == PIPE_TWIN_STEPS:
+                break
+            batches.append(b["tokens"])
+            digests.append(snaps[n]["digest"])
+    cfg = train_lm.make_config(n_layers, 0, axes, 2)
+    params = lm.init_params(cfg, torch.Generator(device=SEQ_DEVICE).manual_seed(0), SEQ_DEVICE)
+    opt = optim.adam(params, train_lm.LR)
+    dense = [float(lm.train_step(params, opt, torch.as_tensor(b).to(SEQ_DEVICE), cfg))
+             for b in batches]
+    steps = list(range(1, PIPE_TWIN_STEPS + 1))
+    gates["twin_steps"] = sorted(twin) == steps
+    gates["twin_batches"] = gates["twin_steps"] and all(
+        twin[s]["digest"] == digests[s - 1] for s in steps)
+    errs = [abs(float(twin[s]["loss"]) - dense[s - 1]) / max(1.0, abs(dense[s - 1]))
+            for s in steps if s in twin]
+    gates["twin_losses"] = gates["twin_steps"] and max(errs) <= PIPE_TOL
+    gates["twin_gauges"] = gauges == {"pipeline.bubble_fraction": 1 / 17,
+                                      "pipeline.bubble_fraction_v": 1 / 17}
+    print(f"pipe: train_lm --mesh dp_pp --virtual 2 --diagnostics, {PIPE_TWIN_STEPS} steps in a "
+          f"subprocess: batches equal this process's stream {gates['twin_batches']}, losses "
+          f"within {max(errs):.3e} (relative) of the same steps without the schedule here "
+          f"(first {dense[0]!r}, last {dense[-1]!r}); gauges {gauges}")
+    del params, opt
+    free_cuda()
+    out.update(gates=gates, rates=rates, twin_loss_err=max(errs), twin_gauges=gauges,
+               seconds=time.perf_counter() - t0)
+    print(f"pipe: gates {gates}; phase 17 (a) took {out['seconds']:.1f} s ({card})")
+    print("pipe: " + json.dumps(out, default=str))
+    if not all(gates.values()):
+        raise SystemExit(f"pipe: gates failed: {gates}")
+    return out
+
+
+def service_spawn(args: list, env: dict, log: str):
+    """``python -m tpu_tfrecord_torch.service *args`` in a subprocess, its
+    stderr in ``log``."""
+    with open(log, "w") as fh:
+        return subprocess.Popen([sys.executable, "-m", "tpu_tfrecord_torch.service", *args],
+                                cwd=env["PYTHONPATH"], env=env, stdout=subprocess.PIPE,
+                                stderr=fh, text=True)
+
+
+def service_ready(proc, args: list, log: str) -> dict:
+    """The ready line of a process ``service_spawn`` started."""
+    timer = threading.Timer(SERVICE_TIMEOUT_S, proc.kill)  # a silent start ends the read
+    timer.start()
+    try:
+        line = proc.stdout.readline()
+    finally:
+        timer.cancel()
+    if not line:
+        with open(log) as err:
+            raise SystemExit(f"service: {args[0]} printed no ready line "
+                             f"(rc {proc.poll()}): {err.read()[-2000:]}")
+    return json.loads(line)
+
+
+def service_path(dirs, root: str, local_logits, fixed4_whole: float, card: str) -> dict:
+    """Phase 17 (b): the data service feeding the bf16 DLRM on phase 12's
+    shards, beside ``card``: a dispatcher with its journal and two decode
+    workers, each a subprocess that never opens the card, serve phase 12's
+    fixed-4 feed; then the chaos drill (a worker SIGKILLed after the
+    consumer's first chunk from it, the dispatcher SIGKILLed and restarted
+    on its port from its journal). ``local_logits`` and ``fixed4_whole``
+    are phase 12's fixed-4 logits and rows/s. Returns the numbers, the
+    kernel launches of the first scoring among them."""
+    import signal
+
+    from tpu_tfrecord_torch import service, telemetry
+    from tpu_tfrecord_torch.device.ingest import make_device_batch
+    from tpu_tfrecord_torch.metrics import METRICS
+    from tpu_tfrecord_torch.models.dlrm import init_params, make_synthetic_batch
+
+    t0 = time.perf_counter()
+    free_cuda()
+    n_batches = READPOOL_SHARDS * READPOOL_ROWS // BATCH
+    nbytes = sum(os.path.getsize(os.path.join(d, n)) for d in dirs for n in os.listdir(d)
+                 if n.endswith(".tfrecord"))
+    journal = os.path.join(root, "service.journal")
+    ctx = telemetry.TraceContext.new(role="smoke")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+               CUDA_VISIBLE_DEVICES="", **ctx.to_env())
+    gates, out = {}, dict(card=card, workers=SERVICE_WORKERS)
+    procs = {}
+    port = str(free_port())
+    addr = f"127.0.0.1:{port}"
+    disp_args = ["dispatcher", "--journal", journal, "--port", port]
+    try:
+        # all three start at once: the workers' beat loops retry until the
+        # dispatcher listens
+        logs = {"dispatcher": os.path.join(root, "dispatcher.log")}
+        procs["dispatcher"] = service_spawn(disp_args, env, logs["dispatcher"])
+        for i in range(SERVICE_WORKERS):
+            logs[f"worker{i}"] = os.path.join(root, f"worker{i}.log")
+            procs[f"worker{i}"] = service_spawn(["worker", "--dispatcher", addr], env,
+                                                logs[f"worker{i}"])
+        ready = {name: service_ready(proc, [name], logs[name]) for name, proc in procs.items()}
+        if ready["dispatcher"]["addr"] != addr:
+            raise SystemExit(f"service: the dispatcher listens on {ready['dispatcher']['addr']}")
+        pid_of = {ready[n]["worker_id"]: procs[n] for n in procs if n != "dispatcher"}
+        deadline = time.monotonic() + SERVICE_TIMEOUT_S
+        while service.fetch_status(addr)["alive"] < SERVICE_WORKERS:
+            if time.monotonic() > deadline:
+                raise SystemExit(f"service: workers never registered: {service.fetch_status(addr)}")
+            time.sleep(0.05)
+        out["start_s"] = time.perf_counter() - t0
+        cfg = criteo_cfg()
+        model = init_params(cfg, torch.Generator(device=READPOOL_DEVICE).manual_seed(TRAIN_SEED),
+                            READPOOL_DEVICE)
+        model(make_device_batch(make_synthetic_batch(cfg, BATCH, seed=1), READPOOL_DEVICE))
+        svc = dict(service=addr, service_deadline_ms=SERVICE_DEADLINE_MS)
+
+        # (1) the 64 batches through the service
+        res, stats = remote_serve(dirs, model, f"through the data service, {SERVICE_WORKERS} "
+                                  "worker processes", nbytes, card, tag="service", **svc)
+        launches = stats["launches"]
+        logits = res.logits.float().cpu()
+        gates["logits_bit_equal"] = logits.shape == local_logits.shape and torch.equal(
+            logits, local_logits)
+        gates["rows"] = res.batches * BATCH == READPOOL_SHARDS * READPOOL_ROWS
+        gates["launches"] = launches == {"bf16_mma": n_batches, "f32_tiled": 0}
+        gates["no_fallback"] = METRICS.counter("service.fallbacks") == 0
+        out.update(whole=stats["whole"], steady=stats["steady"], idle_share=stats["idle_share"],
+                   fixed4_whole=fixed4_whole, chunks=METRICS.counter("service.chunks_recv"),
+                   launches=launches)
+        print(f"service: logits bit-equal to phase 12's local fixed-4 run, every one of "
+              f"{logits.numel()} rows: {gates['logits_bit_equal']}; {stats['whole']:.1f} rows/s "
+              f"whole through the service beside {fixed4_whole:.1f} in phase 12's fixed-4 run "
+              f"({stats['whole'] / fixed4_whole:.4f} of it); device idle share at least "
+              f"{stats['idle_share']:.4f}; {out['chunks']} chunks, "
+              f"{METRICS.counter('service.fallbacks')} fallbacks")
+        del res, logits
+
+        # (2) the chaos drill: kill the worker the first chunk came from,
+        # then the dispatcher, and restart it on its port from its journal
+        drill: dict = {}
+        METRICS.reset()
+
+        def chaos():
+            try:
+                while METRICS.counter("service.chunks_recv") < 1:
+                    time.sleep(0.002)
+                held = [w["worker_id"] for w in service.fetch_status(addr)["workers"]
+                        if w["leases"]]
+                victim = held[0] if held else next(iter(pid_of))
+                drill["victim"] = victim
+                drill["chunks_before_kill"] = METRICS.counter("service.chunks_recv")
+                pid_of[victim].send_signal(signal.SIGKILL)
+                pid_of[victim].wait()
+                procs["dispatcher"].send_signal(signal.SIGKILL)
+                procs["dispatcher"].wait()
+                t_kill = time.perf_counter()
+                log2 = os.path.join(root, "dispatcher2.log")
+                procs["dispatcher"] = service_spawn(disp_args, env, log2)
+                again = service_ready(procs["dispatcher"], disp_args, log2)
+                drill["restart_s"] = time.perf_counter() - t_kill
+                drill["addr"] = again["addr"]
+            except (Exception, SystemExit) as e:  # reported by the gates below
+                drill["error"] = repr(e)
+
+        chaos_thread = threading.Thread(target=chaos, name="service-chaos")
+        chaos_thread.start()
+        try:
+            res, dstats = remote_serve(dirs, model, "chaos drill: a worker and the dispatcher "
+                                       "killed mid-epoch", nbytes, card, tag="service", **svc)
+        finally:
+            chaos_thread.join(timeout=SERVICE_TIMEOUT_S)
+        st = service.fetch_status(addr)
+        survivors = [w for w in st["workers"] if w["worker_id"] != drill.get("victim")]
+        gates["drill_ran"] = "error" not in drill and drill.get("addr") == addr
+        gates["drill_logits"] = torch.equal(res.logits.float().cpu(), local_logits)
+        gates["drill_rows"] = res.batches * BATCH == READPOOL_SHARDS * READPOOL_ROWS
+        gates["drill_no_fallback"] = METRICS.counter("service.fallbacks") == 0
+        gates["drill_reassigned"] = st["lease_reassignments"] >= 1
+        gates["survivor_alive"] = len(survivors) == SERVICE_WORKERS - 1 and all(
+            w["alive"] for w in survivors)
+        gates["one_trace"] = st["trace_id"] == ctx.trace_id
+        drill.update(whole=dstats["whole"], reconnects=METRICS.counter("service.reconnects"),
+                     dropped=METRICS.counter("service.redelivered_dropped"),
+                     reassignments=st["lease_reassignments"], trace_id=st["trace_id"],
+                     workers=[(w["worker_id"], w["alive"], w["shards_done"])
+                              for w in st["workers"]])
+        print(f"service: chaos drill: {drill}; the epoch bit-equal {gates['drill_logits']}, "
+              f"{res.batches * BATCH} rows, {METRICS.counter('service.fallbacks')} fallbacks")
+        del res, model
+        free_cuda()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+    METRICS.reset()
+    out.update(gates=gates, drill=drill, trace_id=ctx.trace_id,
+               seconds=time.perf_counter() - t0)
+    print(f"service: gates {gates}; phase 17 (b) took {out['seconds']:.1f} s ({card})")
+    print("service: " + json.dumps(out, default=str))
+    if not all(gates.values()):
+        raise SystemExit(f"service: gates failed: {gates}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4923,7 +5267,7 @@ def main() -> int:
         from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
 
         reset_launch_counts()
-        seq_path(data_dir, smi)
+        seq = seq_path(data_dir, smi)
         seq_launches = dict(dot_interaction.instance_launches)
         free_cuda()
         reset_launch_counts()
@@ -4934,9 +5278,14 @@ def main() -> int:
         moe_path(data_dir, smi)
         moe_launches = dict(dot_interaction.instance_launches)
         free_cuda()
+        reset_launch_counts()
+        pipe = pipe_path(data_dir, smi, seq["rates"]["lm"])
+        pipe_launches = dict(dot_interaction.instance_launches)
+        free_cuda()
         (readpool_launches, cache_launches, multiproc_launches, remote_launches,
-         fleet_launches) = readpool_path(data_dir, smi)
-    phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches}
+         fleet_launches, service_launches) = readpool_path(data_dir, smi, pipe["seconds"])
+    phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches,
+                      "pipe": pipe_launches}
     for phase, counts in phase_launches.items():
         if any(counts.values()):
             raise SystemExit(f"dot_interaction launched in the {phase} phase: {counts}")
@@ -4968,6 +5317,8 @@ def main() -> int:
         multiproc_launches=multiproc_launches[k],
         remote_launches=remote_launches[k],
         fleet_launches=fleet_launches[k],
+        service_launches=service_launches[k],
+        pipe_launches=pipe_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -44,15 +44,16 @@ def test_every_module_is_found():
                  "tpu_tfrecord_torch.cache", "tpu_tfrecord_torch.vocabulary",
                  "tpu_tfrecord_torch.device.distributed", "tpu_tfrecord_torch.device.mesh",
                  "tpu_tfrecord_torch.httpfs", "tpu_tfrecord_torch.fs",
-                 "tpu_tfrecord_torch.fleet", "tpu_tfrecord_torch.slo"):
+                 "tpu_tfrecord_torch.fleet", "tpu_tfrecord_torch.slo",
+                 "tpu_tfrecord_torch.service"):
         assert want in mods
 
 
-@pytest.mark.parametrize("name", ["fleet", "slo"])
+@pytest.mark.parametrize("name", ["fleet", "slo", "service"])
 def test_fleet_and_slo_import_only_the_port(name):
-    """``fleet.py`` and ``slo.py`` import the stdlib, torch, numpy and the
-    port, and loading them alone loads no jax and nothing of the JAX
-    package."""
+    """``fleet.py``, ``slo.py`` and the data service's ``service.py``
+    import the stdlib, torch, numpy and the port, and loading them alone
+    loads no jax and nothing of the JAX package."""
     tree = ast.parse(open(os.path.join(PKG, f"{name}.py")).read())
     roots = set()
     for node in ast.walk(tree):

@@ -394,8 +394,8 @@ def test_option_spellings_like_jax(mapping):
 
 
 # the JAX options the port lacked before its stall, pulse, autotune, cache,
-# trace, telemetry-export and fleet-spool options were ported, in both
-# spellings
+# trace, telemetry-export, fleet-spool and data-service options were
+# ported, in both spellings
 OPTIONS_ONCE_NOT_PORTED = (
     ("read_deadline_ms", "readDeadlineMs"),
     ("open_deadline_ms", "openDeadlineMs"),
@@ -429,6 +429,8 @@ PORTED_VALUES = {
     "autotune": "ON", "autotune_interval_s": 0.25, "cache": " Auto", "cache_dir": "/tmp/c",
     "cache_max_bytes": "1024", "trace": "ON", "telemetry_port": "9100",
     "telemetry_spool_dir": "/tmp/spool", "spool_interval_s": "2", "telemetry_role": "reader",
+    "service": "h:1", "service_lease_ttl_s": "3", "service_deadline_ms": 100,
+    "service_fallback_ms": "250",
 }
 
 

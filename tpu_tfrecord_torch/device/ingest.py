@@ -20,6 +20,9 @@ a bounded queue; ``DeviceIterator`` copies each host batch to the card on a
 side stream out of a reused pinned ``StagingRing``, a batch ahead of the
 consumer (or on a transfer thread), and hands the tensors over ordered
 behind their copy on the consumer's stream.
+
+Not ported: ``batch_spec`` (the abstract shapes of a global batch for a
+sharded step); it raises ``OptionNotPortedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 from tpu_tfrecord_torch import _native, wire
 from tpu_tfrecord_torch.columnar import Column, ColumnarBatch, pad_ragged, pad_ragged2
 from tpu_tfrecord_torch.metrics import METRICS
+from tpu_tfrecord_torch.options import refuse_mesh
 from tpu_tfrecord_torch.schema import ArrayType, BinaryType, DataType, StringType, StructType
 
 # a host batch's array: numpy, or a CPU tensor for a dtype numpy lacks (bf16)
@@ -268,6 +272,12 @@ def host_batch_from_columnar(
         if group not in out:
             out[group] = np.stack([out.pop(n) for n in names], axis=1)
     return out
+
+
+def batch_spec(schema: Optional[StructType] = None, batch_size: Optional[int] = None,
+               pad_to=None, hash_buckets=None, include_lengths: bool = True, cast=None):
+    """Not ported: the global batch's abstract shapes for a sharded step."""
+    refuse_mesh("ingest.batch_spec")
 
 
 def data_shardings(host_batch: Dict[str, HostArray], mesh, axis: str = "data") -> Dict[str, tuple]:

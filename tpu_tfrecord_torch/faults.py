@@ -9,9 +9,9 @@ and ``fs.local_open`` (the record read and write paths),
 uncompressed shards), the socket seam of ``service_protocol`` (connect /
 recv), the HTTP client's connect seam (``httpfs._CHAOS_PLAN``) and the
 serving tier's seam (``_SERVE_CHAOS``, read by
-``tpu_tfrecord_torch.serving``). The JAX package's data-service journal
-seam belongs to a module the port does not have yet; its rules still
-parse and ledger when a caller applies them. The ``http`` kinds fire at
+``tpu_tfrecord_torch.serving``) and the data service's journal seam
+(``service._JOURNAL_CHAOS``: every dispatcher-journal append or
+compaction runs ``apply_journal``). The ``http`` kinds fire at
 the server side of a socket, in ``httpfs.FaultingRangeServer``.
 
 The pipeline is held against faults that raise, and the stall-defence
@@ -583,12 +583,14 @@ def install_chaos(plan: FaultPlan):
     ``wire.open_compressed`` uses for plain paths) and
     ``io.dataset._open_local`` (the mmap route's seam) open through the
     plan, the socket seams of ``service_protocol`` consult it for ``connect`` /
-    ``recv`` rules, the HTTP client (``httpfs``) at every connection
+    ``recv`` rules, the dispatcher's journal writes for ``journal`` rules,
+    the HTTP client (``httpfs``) at every connection
     establishment for ``connect`` rules (a refused connection as the
     client sees it), and the serving tier for ``serve`` rules. Restores
     everything on exit and releases any in-flight default-sleep stalls."""
     from tpu_tfrecord_torch import fs as _fs
     from tpu_tfrecord_torch import httpfs as _httpfs
+    from tpu_tfrecord_torch import service as _service
     from tpu_tfrecord_torch import service_protocol as _sp
     from tpu_tfrecord_torch.io import dataset as _dataset
 
@@ -597,6 +599,7 @@ def install_chaos(plan: FaultPlan):
     orig_open_local = _dataset._open_local
     orig_chaos_plan = _sp._CHAOS_PLAN
     orig_http_plan = _httpfs._CHAOS_PLAN
+    orig_journal_plan = _service._JOURNAL_CHAOS
     global _SERVE_CHAOS
     orig_serve_plan = _SERVE_CHAOS
 
@@ -614,6 +617,7 @@ def install_chaos(plan: FaultPlan):
     _dataset._open_local = chaos_local_open
     _sp._CHAOS_PLAN = plan
     _httpfs._CHAOS_PLAN = plan
+    _service._JOURNAL_CHAOS = plan
     _SERVE_CHAOS = plan
     try:
         yield plan
@@ -623,5 +627,6 @@ def install_chaos(plan: FaultPlan):
         _dataset._open_local = orig_open_local
         _sp._CHAOS_PLAN = orig_chaos_plan
         _httpfs._CHAOS_PLAN = orig_http_plan
+        _service._JOURNAL_CHAOS = orig_journal_plan
         _SERVE_CHAOS = orig_serve_plan
         plan.release()

@@ -209,7 +209,10 @@ def fold_model_diagnostics(diag, metrics=None) -> Dict[str, float]:
     if not diag:
         return out
     names = sorted(diag)
-    tensors = [torch.as_tensor(diag[k]).detach().reshape(-1).float() for k in names]
+    # float64 keeps a host float (the pipeline's bubble) exact and an f32
+    # tensor's value unchanged
+    tensors = [torch.as_tensor(diag[k], dtype=torch.float64).detach().reshape(-1)
+               for k in names]
     flat = torch.cat([t.to(tensors[0].device) for t in tensors]).cpu().numpy()
     host, at = {}, 0
     for name, t in zip(names, tensors):

@@ -109,8 +109,10 @@ with the JAX constructor's read knobs and its decode pool:
   failure, ``close()`` or its collection releases it once, and the last
   release lands the ``final`` snapshot.
 
-Left out against the JAX dataset: the data service (its options raise in
-``TFRecordOptions``).
+- ``service`` (``tpu_tfrecord_torch.service``): the chunks are fetched
+  from a data service's decode workers instead of decoded here, exactly
+  once, with a local read of the shard when the service stays
+  unreachable past ``service_fallback_ms``; autotune is off under it.
 """
 
 from __future__ import annotations
@@ -330,6 +332,12 @@ class TFRecordDataset:
         elif schema is not None or recordType != "Example" or option_kwargs:
             raise ValueError("pass either options= or schema/recordType/keyword options")
         self._reader = DatasetReader(paths, options=options)
+        # the source spec as given (before discovery), for the data
+        # service's job spec: workers discover the same shard list from it
+        # and prove agreement with the shard-list digest
+        self.source_paths = [
+            os.fspath(p) for p in (paths if isinstance(paths, (list, tuple)) else [paths])
+        ]
         self.options = self._reader.options
         # the flight recorder is process-global: "on" enables it, "off"
         # leaves it alone (another live dataset may be tracing)
@@ -435,13 +443,36 @@ class TFRecordDataset:
         """(chunk, epoch, cursor, start) for the decoded chunks of every
         epoch from ``state`` on, in task order: from the decode pool when
         ``num_workers`` > 1 or a ``control`` (autotune) resizes the pool,
-        which ``stop`` (or closing this generator) stops and joins."""
+        which ``stop`` (or closing this generator) stops and joins. With
+        ``options.service`` the chunks are fetched from the data service's
+        decode workers instead (``_service_chunks``): the same tuples and
+        positions, so ``num_workers`` and the pool do not apply."""
         state = state or IteratorState()
+        if self.options.service is not None:
+            yield from self._service_chunks(state, stop or threading.Event())
+            return
         if self.num_workers > 1 or control is not None:
             yield from _parallel_chunks(self, stop or threading.Event(), state, control)
             return
         for task in self._shard_tasks(state):
             yield from self._decode_shard(*task)
+
+    def _service_chunks(self, state: IteratorState, stop: threading.Event):
+        """The service-backed chunk source (``tpu_tfrecord_torch.service``):
+        each shard's chunks stream from a leased decode worker, exactly
+        once across worker and dispatcher deaths, and from
+        ``_decode_shard`` when the service stays unreachable, so resume
+        states move between service-backed and local iterators."""
+        from tpu_tfrecord_torch import service as _service
+
+        client = _service.ServiceClient(self)
+        try:
+            for epoch, cursor, index, skip in self._shard_tasks(state):
+                if stop.is_set():
+                    return
+                yield from client.shard_chunks(epoch, cursor, index, skip, stop)
+        finally:
+            client.close()
 
     # -- one shard: stall and corruption policies ------------------------------
 
@@ -1336,7 +1367,14 @@ class CheckpointableIterator:
         self._control: Optional[autotune.PipelineControl] = None
         self.autotune: Optional[autotune.AutotuneController] = None
         pulse_interval = ds.options.pulse_interval_s
-        if ds.options.autotune == "on":
+        if ds.options.autotune == "on" and ds.options.service is not None:
+            logger.warning(
+                "autotune disabled: this iterator is service-backed "
+                "(options.service=%r) — decode parallelism lives in the "
+                "worker fleet, not in a local pool the controller could "
+                "resize", ds.options.service,
+            )
+        elif ds.options.autotune == "on":
             self._control = autotune.PipelineControl(
                 workers=ds.num_workers, queue=self._queue, dataset=ds, guard=ds._stall_guard)
             if pulse_interval is None:

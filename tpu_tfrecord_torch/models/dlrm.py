@@ -27,6 +27,9 @@ tree back in place.
 Batch layout is that of ``device.ingest.host_batch_from_columnar`` for a
 Criteo-like schema: 'dense' [B, num_dense], 'cat' [B, F] hashed ids (int32
 or int64), 'label' [B], optionally 'frames' [B, L, D_in] + 'frames_len' [B].
+
+Not ported: ``param_shardings`` and ``batch_shardings`` (placement over a
+device mesh); they raise ``OptionNotPortedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from torch import nn
 
 from tpu_tfrecord_torch.models.interaction import dot_interaction
 from tpu_tfrecord_torch.models.optim import init_adam_state
+from tpu_tfrecord_torch.options import refuse_mesh
 
 
 @dataclass(frozen=True)
@@ -393,3 +397,13 @@ def make_synthetic_batch(
             1, cfg.seq_len + 1, size=(batch_size,)
         ).astype(np.int32)
     return batch
+
+
+def param_shardings(mesh=None, params=None, model_axis: str = "model"):
+    """Not ported: the tables' and the MLPs' placement on a 'model' axis."""
+    refuse_mesh("dlrm.param_shardings")
+
+
+def batch_shardings(mesh=None, batch=None, data_axis: str = "data", seq_axis: Optional[str] = None):
+    """Not ported: the batch's placement on the 'data' (and 'seq') axes."""
+    refuse_mesh("dlrm.batch_shardings")

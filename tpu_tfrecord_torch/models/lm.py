@@ -34,16 +34,32 @@ runs ``n_layers / (S·V)`` decoder blocks (``_make_stage_fn``), and the
 embedding and head run per microbatch around the stream. As in JAX it
 refuses the MoE FFN.
 
-Not ported: every mesh axis of ``forward`` (``mesh``, ``data_axis``,
-``seq_axis``, ``pipe_axis``, ``fsdp_axis``, ``expert_axis``: ring
-attention, pipelined training, FSDP, expert parallelism) and
-``SpecLayout`` / ``param_shardings``. Each raises ``OptionNotPortedError``.
+The pipe mode trains through the same schedule on one card: with
+``pipe_axis`` and a ``mesh`` that maps axis names to sizes (what
+``train_lm.pick_mesh`` returns, e.g. ``{"pipe": 2, "data": 1}``), the
+blocks are stacked into S stages (``_stage_stack``, ``cfg.n_virtual``
+chunks each), the embedded batch is split into ``cfg.n_micro`` (default
+2·S) microbatches and run through ``models.pipeline.pipeline_apply``,
+where the pipe axis is a tensor dimension; autograd runs through the
+schedule. ``diagnostics=True`` returns the schedule's measured bubble
+(``bubble_fraction``, ``useful_ticks``, ``total_ticks`` and, with V > 1,
+``virtual_stages``). The JAX refusals stand, with the JAX exception
+types: pipe with seq, with the MoE FFN or with ``segments``, a batch
+that ``n_micro`` does not divide, a layer count that S·V does not divide.
+
+Not ported: every other mesh mode of ``forward`` (``seq_axis``,
+``fsdp_axis``, ``expert_axis``, a ``data`` axis wider than 1, a torch
+``DeviceMesh``: ring attention, FSDP, expert parallelism, stages on
+several cards), ``SpecLayout``, ``param_specs``,
+``param_shardings`` and ``batch_shardings``. Each raises
+``OptionNotPortedError``. ``cfg.zigzag`` (the ring schedule a seq axis
+would select) exists with the JAX default.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +69,7 @@ from tpu_tfrecord_torch.models import moe as _moe
 from tpu_tfrecord_torch.models import pipeline as _pipeline
 from tpu_tfrecord_torch.models.attention import attention_reference
 from tpu_tfrecord_torch.models.long_doc import _dense, _gelu, _rms_norm
-from tpu_tfrecord_torch.options import OptionNotPortedError
+from tpu_tfrecord_torch.options import OptionNotPortedError, refuse_mesh
 
 
 @dataclass(frozen=True)
@@ -65,24 +81,62 @@ class LMConfig:
     mlp_mult: int = 4
     max_len: int = 64        # L: the model reads L tokens, predicts L
     dtype: torch.dtype = torch.float32
+    # the ring schedule a 'seq' axis selects (zigzag or contiguous); the seq
+    # axis is not ported, so it only rides along
+    zigzag: bool = True
     # > 0 swaps every block's dense FFN for the top-k MoE (models.moe)
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
+    # microbatches of the pipe mode (must divide the batch); None = 2 x the
+    # pipe axis's size
+    n_micro: Optional[int] = None
     # interleaved virtual stages of the pipeline schedule: stage s owns the
     # V round-robin layer chunks s, s+S, ...; n_layers must divide by S·V
     n_virtual: int = 1
 
 
-def _refuse(cfg: LMConfig, **axes) -> None:
-    given = sorted(k for k, v in axes.items() if v is not None)
-    if given:
-        raise OptionNotPortedError(
-            f"lm: {', '.join(given)} not ported: the mesh modes (ring attention, "
-            "the pipeline, FSDP, expert parallelism) need torch.distributed across "
-            "cards, which the port does not have yet"
+def _pipe_stages(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis,
+                 fsdp_axis, segments) -> Optional[int]:
+    """S, the stage count of the one-card pipe mode, or None for the dense
+    loop. The JAX package's refusals of the pipe mode first (its exception
+    types), then every mesh mode the port lacks."""
+    if pipe_axis is not None and seq_axis is not None:
+        raise ValueError(
+            "pipe_axis and seq_axis are mutually exclusive: inside a "
+            "pipeline stage the sequence is not sharded"
         )
+    if pipe_axis is not None and cfg.moe_experts > 0:
+        raise ValueError("moe_experts > 0 is not supported in the pipeline mode")
+    if pipe_axis is not None and segments is not None:
+        raise ValueError(
+            "segments are not supported in the pipeline mode: the stage "
+            "stream carries activations only (pack with the default "
+            "slice mode, or drop pipe_axis)"
+        )
+    given = {"seq_axis": seq_axis, "expert_axis": expert_axis, "fsdp_axis": fsdp_axis}
+    # one card: the mesh is a mapping of axis sizes; a torch DeviceMesh
+    # places stages on several cards
+    sizes = dict(mesh) if isinstance(mesh, Mapping) else None
+    if pipe_axis is None:
+        given.update(mesh=mesh, data_axis=data_axis)
+    elif sizes is None or pipe_axis not in sizes:
+        given["pipe_axis"] = pipe_axis
+    else:
+        if data_axis is not None and sizes.get(data_axis, 1) != 1:
+            given["data_axis"] = data_axis
+        if any(n > 1 for a, n in sizes.items() if a not in (pipe_axis, data_axis)):
+            given["mesh"] = mesh
+    refused = sorted(k for k, v in given.items() if v is not None)
+    if refused:
+        raise OptionNotPortedError(
+            f"lm: {', '.join(refused)} not ported: on one card the port runs the pipe "
+            "mode only (pipe_axis with mesh={pipe_axis: S}, a data axis of size 1); "
+            "ring attention, FSDP, expert parallelism and stages on several cards need "
+            "torch.distributed across cards (ROADMAP.md, Queue A item 8)"
+        )
+    return sizes[pipe_axis] if pipe_axis is not None else None
 
 
 def _block_dims(cfg: LMConfig) -> Dict[str, Tuple[int, int]]:
@@ -206,46 +260,64 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=No
     """tokens [B, L+1] int -> (logits [B, L, V] float32, aux), or with
     ``diagnostics`` (logits, aux, diag): the model reads tokens[:, :-1];
     ``aux`` is the MoE load-balance loss summed over the layers (0.0 on the
-    dense FFN); ``diag`` the MoE counts summed over the layers and the
-    fractions averaged (``{}`` on the dense FFN). ``segments`` [B, L+1]
-    (the packer's bin modes) masks attention across documents and restarts
-    positions per document. The mesh arguments are the JAX signature's:
-    not ported, they raise."""
-    _refuse(cfg, mesh=mesh, data_axis=data_axis, seq_axis=seq_axis, pipe_axis=pipe_axis,
-            expert_axis=expert_axis, fsdp_axis=fsdp_axis)
+    dense FFN and in the pipe mode); ``diag`` the MoE counts summed over
+    the layers and the fractions averaged, or the pipe mode's measured
+    bubble (``{}`` on the dense FFN). ``segments`` [B, L+1] (the packer's
+    bin modes) masks attention across documents and restarts positions
+    per document. ``pipe_axis`` with ``mesh={pipe_axis: S}`` runs the
+    blocks through the pipeline schedule (module docstring); the other
+    mesh modes raise."""
+    n_stages = _pipe_stages(cfg, mesh, data_axis, seq_axis, pipe_axis, expert_axis,
+                            fsdp_axis, segments)
     x = _embed_tokens(params, tokens, cfg, segments=segments)
-    segs_in = segments[:, :-1] if segments is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    diags = []
-    for i in range(cfg.n_layers):
-        x, aux, diag = _block(_layer(params["blocks"], i), x, cfg, segments=segs_in,
-                              diagnostics=diagnostics)
-        if aux is not None:
-            aux_total = aux_total + aux
-        if diag is not None:
-            diags.append(diag)
+    out: Dict[str, Any] = {}
+    if n_stages is not None:
+        b = tokens.shape[0]
+        stage_params = _stage_stack(params["blocks"], cfg, n_stages)
+        m = cfg.n_micro or 2 * n_stages
+        if b % m:
+            raise ValueError(f"batch {b} not divisible by n_micro {m}")
+        xs = x.reshape((m, b // m) + tuple(x.shape[1:]))         # [M, mb, L, D]
+        res = _pipeline.pipeline_apply(_make_stage_fn(cfg), stage_params, xs,
+                                       n_virtual=cfg.n_virtual, diagnostics=diagnostics)
+        xs, out = res if diagnostics else (res, {})
+        x = xs.reshape((b,) + tuple(xs.shape[2:]))
+    else:
+        segs_in = segments[:, :-1] if segments is not None else None
+        diags = []
+        for i in range(cfg.n_layers):
+            x, aux, diag = _block(_layer(params["blocks"], i), x, cfg, segments=segs_in,
+                                  diagnostics=diagnostics)
+            if aux is not None:
+                aux_total = aux_total + aux
+            if diag is not None:
+                diags.append(diag)
+        if diags:
+            # every layer routes the whole stream: counts sum, fractions average
+            n = len(diags)
+            out = {
+                "expert_tokens": sum(d["expert_tokens"] for d in diags),
+                "expert_kept": sum(d["expert_kept"] for d in diags),
+                "dropped_fraction": sum(d["dropped_fraction"] for d in diags) / n,
+                "gate_entropy": sum(d["gate_entropy"] for d in diags) / n,
+            }
     logits = _head_logits(params, x, cfg)
     if not diagnostics:
         return logits, aux_total
-    out: Dict[str, torch.Tensor] = {}
-    if diags:
-        # every layer routes the whole stream: counts sum, fractions average
-        n = len(diags)
-        out = {
-            "expert_tokens": sum(d["expert_tokens"] for d in diags),
-            "expert_kept": sum(d["expert_kept"] for d in diags),
-            "dropped_fraction": sum(d["dropped_fraction"] for d in diags) / n,
-            "gate_entropy": sum(d["gate_entropy"] for d in diags) / n,
-        }
     return logits, aux_total, out
 
 
-def loss_fn(params, tokens, cfg: LMConfig, segments=None, diagnostics: bool = False, **axes):
+def loss_fn(params, tokens, cfg: LMConfig, mesh=None, data_axis=None, seq_axis=None,
+            pipe_axis=None, expert_axis=None, fsdp_axis=None, segments=None,
+            diagnostics: bool = False):
     """Mean next-token cross-entropy plus ``moe_aux_weight`` times the MoE
     aux loss. Without ``segments`` every position scores; with them a
     position scores only when its input token and its target share a
-    nonzero segment. With ``diagnostics`` returns (loss, diag)."""
-    out = forward(params, tokens, cfg, segments=segments, diagnostics=diagnostics, **axes)
+    nonzero segment. With ``diagnostics`` returns (loss, diag). The mesh
+    arguments are ``forward``'s."""
+    out = forward(params, tokens, cfg, mesh, data_axis, seq_axis, pipe_axis, expert_axis,
+                  fsdp_axis, segments=segments, diagnostics=diagnostics)
     logits, aux = out[0], out[1]
     targets = tokens[:, 1:].long()
     logp = F.log_softmax(logits, dim=-1)
@@ -260,14 +332,16 @@ def loss_fn(params, tokens, cfg: LMConfig, segments=None, diagnostics: bool = Fa
     return (loss, out[2]) if diagnostics else loss
 
 
-def train_step(params, opt: torch.optim.Optimizer, tokens, cfg: LMConfig, segments=None,
-               diagnostics: bool = False, **axes):
+def train_step(params, opt: torch.optim.Optimizer, tokens, cfg: LMConfig, mesh=None,
+               data_axis=None, seq_axis=None, pipe_axis=None, expert_axis=None,
+               fsdp_axis=None, segments=None, diagnostics: bool = False):
     """One optimizer step over ``params`` in place (``opt`` from
     ``models.optim.adam(params, lr)``). Returns the loss (0-dim, on the
     parameters' device) before the update; with ``diagnostics``
     (loss, diag), the diag of ``forward``."""
     opt.zero_grad(set_to_none=True)
-    out = loss_fn(params, tokens, cfg, segments=segments, diagnostics=diagnostics, **axes)
+    out = loss_fn(params, tokens, cfg, mesh, data_axis, seq_axis, pipe_axis, expert_axis,
+                  fsdp_axis, segments=segments, diagnostics=diagnostics)
     loss = out[0] if diagnostics else out
     loss.backward()
     opt.step()
@@ -426,9 +500,30 @@ class LMStream:
         return [self._head(out[i]) for i in range(len(batches))]
 
 
-def param_shardings(*args, **kwargs):
+@dataclass(frozen=True)
+class SpecLayout:
+    """Not ported: the JAX spec table of the mesh placements (FSDP, stage
+    slicing, expert sharding). Constructing it raises."""
+
+    fsdp_axis: Optional[str] = None
+    pipe_axis: Optional[str] = None
+    expert_axis: Optional[str] = None
+
+    def __post_init__(self):
+        refuse_mesh("lm.SpecLayout")
+
+
+def param_specs(params=None, layout: Optional[SpecLayout] = None) -> Dict[str, Any]:
+    """Not ported: the parameter tree's partition specs."""
+    refuse_mesh("lm.param_specs")
+
+
+def param_shardings(mesh=None, params=None, pipe_axis: Optional[str] = None,
+                    expert_axis: Optional[str] = None, fsdp_axis: Optional[str] = None):
     """Not ported: parameter placement over a mesh."""
-    raise OptionNotPortedError(
-        "lm.param_shardings: mesh placement needs torch.distributed across cards, "
-        "which the port does not have yet"
-    )
+    refuse_mesh("lm.param_shardings")
+
+
+def batch_shardings(mesh=None, data_axis: str = "data"):
+    """Not ported: the token batch's placement on the data axis."""
+    refuse_mesh("lm.batch_shardings")

@@ -26,8 +26,11 @@ adds times ``moe_aux_weight``. ``cfg.remat`` recomputes each block in the
 backward (``torch.utils.checkpoint``). ``train_step`` is one Adam step
 (``models.optim.adam``, ``optax.adam(1e-3)``'s update).
 
-Not ported: a mesh (sequence-parallel ring or Ulysses attention); it
-raises ``OptionNotPortedError``.
+Not ported: a mesh (sequence-parallel ring or Ulysses attention), and
+``param_shardings`` / ``batch_shardings``; each raises
+``OptionNotPortedError``. ``cfg.sp_attention`` (the flavour a mesh would
+select) exists with the JAX default and validation, so a JAX config
+constructs.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpu_tfrecord_torch.models import moe as _moe
 from tpu_tfrecord_torch.models.attention import attention_reference
-from tpu_tfrecord_torch.options import OptionNotPortedError
+from tpu_tfrecord_torch.options import OptionNotPortedError, refuse_mesh
 
 
 @dataclass(frozen=True)
@@ -56,6 +59,9 @@ class LongDocConfig:
     n_classes: int = 2
     max_len: int = 128       # padded sequence length
     dtype: torch.dtype = torch.bfloat16
+    # the sequence-parallel attention a mesh selects ('ring' or 'ulysses');
+    # a mesh is not ported, so it only validates
+    sp_attention: str = "ring"
     remat: bool = False      # recompute each block in the backward
     # > 0 swaps every block's dense FFN for the Switch MoE (models.moe,
     # top 1, d_ff = mlp_mult * d_model per expert); the aux losses join
@@ -92,6 +98,10 @@ def init_params(cfg: LongDocConfig, generator: Optional[torch.Generator] = None,
     if cfg.d_model % cfg.n_heads:
         raise ValueError(
             f"n_heads ({cfg.n_heads}) must divide d_model ({cfg.d_model}) evenly"
+        )
+    if cfg.sp_attention not in ("ring", "ulysses"):
+        raise ValueError(
+            f"sp_attention must be 'ring' or 'ulysses', got {cfg.sp_attention!r}"
         )
     hkv = cfg.n_kv_heads or cfg.n_heads
     if hkv <= 0 or cfg.n_heads % hkv:
@@ -229,3 +239,13 @@ def make_synthetic_batch(cfg: LongDocConfig, batch_size: int, seed: int = 0):
     mean0 = (frames[:, :, 0] * mask).sum(axis=1) / np.maximum(mask.sum(axis=1), 1)
     label = (mean0 > 0).astype(np.int32) % cfg.n_classes
     return {"frames": frames, "frames_len": lengths, "label": label}
+
+
+def batch_shardings(mesh=None, batch=None, data_axis: str = "data", seq_axis: Optional[str] = "seq"):
+    """Not ported: 'frames' on the (data, seq) axes of a mesh."""
+    refuse_mesh("long_doc.batch_shardings")
+
+
+def param_shardings(mesh=None, params=None):
+    """Not ported: the parameters replicated over a mesh."""
+    refuse_mesh("long_doc.param_shardings")

@@ -1,5 +1,4 @@
-"""Pipeline schedule on one device: port of ``tpu_tfrecord/models/pipeline.py``,
-forward only.
+"""Pipeline schedule on one device: port of ``tpu_tfrecord/models/pipeline.py``.
 
 The JAX package runs S stages over a mesh axis: each device holds one
 stage's weights, activations hop device s -> s+1 by ``ppermute`` every
@@ -23,19 +22,21 @@ bitwise, on the card as on the CPU. S = 1 is the one-card deployment;
 S > 1 runs the same schedule on one device (placing stages on several
 cards needs ``torch.distributed``, which the port does not have yet).
 
-``pipeline_reference`` is the sequential oracle. Left out because they
-have no meaning without a mesh: ``microbatch_sharding``, ``pipe_axis``,
+``pipeline_reference`` is the sequential oracle. The schedule is plain
+torch ops, so autograd runs through it: the LM's pipe mode trains through
+``pipeline_apply`` (``models.lm``). ``pipeline_apply(diagnostics=True)``
+also returns the bubble the schedule paid, counted tick by tick with the
+JAX occupancy predicate, as host numbers. Left out because they have no
+meaning without a mesh: ``microbatch_sharding``, ``pipe_axis``,
 ``batch_spec`` and ``param_spec`` (the feed and out rings exist only to
 move microbatches between devices), ``PipelineStream.step_spec`` and the
-HLO contracts. Left out as options of the training path, which is not
-ported: ``pipeline_apply(diagnostics=True)`` (the measured bubble) and
-the backward through the schedule.
+HLO contracts.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -127,8 +128,34 @@ def _tick(stage_fn: StageFn, chunks, t: int, act: torch.Tensor, x: torch.Tensor,
     return out.roll(1, 0), outs[-1]
 
 
+def _m_of(u: int, n_stages: int, n_virtual: int) -> int:
+    """The microbatch of a lane's local step u = r·V·S + v·S + i (m = r·S +
+    i); negative for a step before the lane's first."""
+    if n_virtual == 1:
+        return u
+    vs = n_stages * n_virtual
+    return (u // vs) * n_stages + max(u, 0) % n_stages
+
+
+def _bubble(n_micro: int, n_stages: int, n_virtual: int, t_end: int) -> Dict[str, float]:
+    """The JAX schedule's occupancy count over ``t_end`` ticks: a lane's
+    tick is useful when its local step u = t - s is a real microbatch's
+    (u >= 0 and m(u) < n_micro). Every lane counts the same, so lane 0
+    stands for all. Host numbers: reading them costs the step nothing."""
+    useful = sum(1 for u in range(t_end) if _m_of(u, n_stages, n_virtual) < n_micro)
+    diag = {
+        "bubble_fraction": (t_end - useful) / t_end,
+        "useful_ticks": float(useful),
+        "total_ticks": float(t_end),
+    }
+    if n_virtual > 1:
+        diag["virtual_stages"] = float(n_virtual)
+    return diag
+
+
 def pipeline_apply(stage_fn: StageFn, stage_params: Any, xs: torch.Tensor,
-                   n_virtual: int = 1) -> torch.Tensor:
+                   n_virtual: int = 1, diagnostics: bool = False
+                   ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, float]]]:
     """Run M microbatches through the S·V virtual stages on the pipeline
     schedule. stage_params: leaves stacked [S, ...] (or [S, V, ...] with
     ``n_virtual`` = V > 1); every stage maps [mb, ...] -> [mb, ...].
@@ -139,7 +166,12 @@ def pipeline_apply(stage_fn: StageFn, stage_params: Any, xs: torch.Tensor,
     The loop runs through the birth tick of the last microbatch's last
     chunk: inj(M-1) + S·V - 1. Microbatch m enters at inj(m); a tick whose
     lane-0 slot is not an injection (the gap ticks between rounds when
-    V > 1, the drain) feeds zeros, whose outputs nothing collects."""
+    V > 1, the drain) feeds zeros, whose outputs nothing collects.
+
+    ``diagnostics`` returns (out, diag): ``bubble_fraction`` (idle lane
+    ticks over all, (S-1)/(M+S-1) for V = 1 and (S-1)/(V·M+S-1)
+    interleaved), ``useful_ticks``, ``total_ticks`` and, with V > 1,
+    ``virtual_stages``, as Python floats."""
     if n_virtual < 1:
         raise ValueError(f"n_virtual must be >= 1, got {n_virtual}")
     n_stages = _stage_count(stage_params, n_virtual)
@@ -164,7 +196,10 @@ def pipeline_apply(stage_fn: StageFn, stage_params: Any, xs: torch.Tensor,
             m = (u_o // vs) * n_stages + u_o % n_stages
             if m < n_micro:
                 outs[m] = out
-    return torch.stack(outs)
+    out = torch.stack(outs)
+    if not diagnostics:
+        return out
+    return out, _bubble(n_micro, n_stages, n_virtual, t_end)
 
 
 class PipelineStream:

@@ -4,9 +4,9 @@ Copy of ``tpu_tfrecord/options.py`` for the options the port has:
 ``RecordType`` with the reference's exact spellings, and
 ``TFRecordOptions``, parsed and validated once by ``from_map``, the
 stall-defence, watchdog, pulse, autotune, epoch-cache, trace,
-telemetry-export and fleet-spool options included. The JAX package's
-data-service and elastic-fleet options are not ported yet: ``from_map``
-raises on any of them, naming the option, rather than dropping it.
+telemetry-export, fleet-spool and data-service options included. The JAX
+package's elastic-fleet options are not ported yet: ``from_map`` raises on
+any of them, naming the option, rather than dropping it.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import difflib
 import enum
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, Mapping, Optional
 
 from tpu_tfrecord_torch import wire
@@ -46,10 +46,6 @@ class RecordType(enum.Enum):
 # The JAX package's options that the port does not have yet, in both
 # spellings (snake_case, camelCase). Any of them raises in from_map.
 _NOT_PORTED = (
-    ("service", "service"),
-    ("service_lease_ttl_s", "serviceLeaseTtlS"),
-    ("service_deadline_ms", "serviceDeadlineMs"),
-    ("service_fallback_ms", "serviceFallbackMs"),
     ("elastic_min_workers", "elasticMinWorkers"),
     ("elastic_max_workers", "elasticMaxWorkers"),
     ("elastic_interval_s", "elasticIntervalS"),
@@ -59,6 +55,15 @@ _NOT_PORTED_KEYS = {k: snake for snake, camel in _NOT_PORTED for k in (snake, ca
 
 class OptionNotPortedError(NotImplementedError):
     """An option of the JAX package that the port does not have yet."""
+
+
+def refuse_mesh(name: str) -> None:
+    """Raise for a mesh-placement entry point of the JAX package: placing
+    tensors over several cards waits for the distributed model axes."""
+    raise OptionNotPortedError(
+        f"{name}: placement over a device mesh needs torch.distributed across "
+        "cards, which the port does not have yet (ROADMAP.md, Queue A item 8)"
+    )
 
 
 @dataclass(frozen=True)
@@ -136,6 +141,22 @@ class TFRecordOptions:
     - telemetry_role: the role stamped on spool snapshots and trace tracks
       (``"reader"``, ``"trainer"``, ...); None keeps the process's current
       trace-context role
+    - service: the data service (``tpu_tfrecord_torch.service``): the
+      dispatcher's ``"host:port"``, or a partition-map spec (``"h:p1|h:p2,
+      h:p3"``, ``"@map.json"``), makes the dataset's iterators fetch
+      decoded chunks from leased decode workers instead of decoding
+      locally; batches, positions and shuffles are those of a local read.
+      None (default) = decode locally
+    - service_lease_ttl_s: the dispatcher's lease TTL (default 10 s): a
+      worker whose heartbeat is older loses its leases. Consumers age
+      their suspect lists with it until a route reply carries the
+      dispatcher's own TTL
+    - service_deadline_ms: the consumer's per-socket-op deadline (default
+      5000 ms): a worker or dispatcher silent this long is dead for this
+      attempt, and the shard re-routes from the acked offset
+    - service_fallback_ms: how long a shard may make no progress through
+      the service before the consumer reads it locally (default 30000 ms,
+      ``service.fallbacks``); None = never fall back
     """
 
     record_type: RecordType = RecordType.EXAMPLE
@@ -166,6 +187,10 @@ class TFRecordOptions:
     telemetry_spool_dir: Optional[str] = None
     spool_interval_s: Optional[float] = None
     telemetry_role: Optional[str] = None
+    service: Optional[str] = None
+    service_lease_ttl_s: float = 10.0
+    service_deadline_ms: float = 5000.0
+    service_fallback_ms: Optional[float] = 30000.0
 
     _KNOWN_KEYS = (
         "recordType",
@@ -219,6 +244,13 @@ class TFRecordOptions:
         "spoolIntervalS",
         "telemetry_role",
         "telemetryRole",
+        "service",
+        "service_lease_ttl_s",
+        "serviceLeaseTtlS",
+        "service_deadline_ms",
+        "serviceDeadlineMs",
+        "service_fallback_ms",
+        "serviceFallbackMs",
     )
 
     ON_CORRUPT_POLICIES = ("raise", "skip_record", "skip_shard")
@@ -366,6 +398,31 @@ class TFRecordOptions:
             telemetry_role = str(telemetry_role)
             if not telemetry_role:
                 raise ValueError("telemetry_role must be non-empty (or None)")
+        service = merged.pop("service", None)
+        if service is not None:
+            service = str(service)
+            from tpu_tfrecord_torch.service import PartitionMap
+
+            # loud on anything that is neither a host:port nor a
+            # partition-map spec ("h:p1|h:p2,h:p3" / "@map.json")
+            PartitionMap.parse(service)
+        service_lease_ttl_s = float(
+            merged.pop("service_lease_ttl_s", merged.pop("serviceLeaseTtlS", 10.0))
+        )
+        if service_lease_ttl_s <= 0:
+            raise ValueError("service_lease_ttl_s must be > 0")
+        service_deadline_ms = float(
+            merged.pop("service_deadline_ms", merged.pop("serviceDeadlineMs", 5000.0))
+        )
+        if service_deadline_ms <= 0:
+            raise ValueError("service_deadline_ms must be > 0")
+        service_fallback_ms = merged.pop(
+            "service_fallback_ms", merged.pop("serviceFallbackMs", 30000.0)
+        )
+        if service_fallback_ms is not None:
+            service_fallback_ms = float(service_fallback_ms)
+            if service_fallback_ms < 0:
+                raise ValueError("service_fallback_ms must be >= 0 (or None)")
         if merged:
             hints = []
             for key in merged:
@@ -404,7 +461,14 @@ class TFRecordOptions:
             telemetry_spool_dir=telemetry_spool_dir,
             spool_interval_s=spool_interval_s,
             telemetry_role=telemetry_role,
+            service=service,
+            service_lease_ttl_s=service_lease_ttl_s,
+            service_deadline_ms=service_deadline_ms,
+            service_fallback_ms=service_fallback_ms,
         )
+
+    def with_schema(self, schema: StructType) -> "TFRecordOptions":
+        return replace(self, schema=schema)
 
     def file_extension(self) -> str:
         """'.tfrecord' + codec suffix (ref DefaultSource.scala:112-114)."""

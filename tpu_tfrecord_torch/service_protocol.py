@@ -1,9 +1,9 @@
 """Wire protocol of the socket tiers: copy of ``tpu_tfrecord/service_protocol.py``.
 
-The port's serving tier (``tpu_tfrecord_torch.serving``) speaks it; the
-frames are byte-identical to the JAX package's, so a client of either
-package talks to a replica of the other. The disaggregated data service
-that also speaks it is not ported yet. The chunk bodies use the section
+The port's serving tier (``tpu_tfrecord_torch.serving``) and data service
+(``tpu_tfrecord_torch.service``) speak it; the frames are byte-identical
+to the JAX package's, so a client of either package talks to a replica,
+dispatcher or decode worker of the other. The chunk bodies use the section
 primitives of the columnar epoch cache (``cache.column_buffers`` and
 ``cache.section_crc``).
 

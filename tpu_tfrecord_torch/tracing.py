@@ -4,7 +4,10 @@ duty cycle.
 Port of ``tpu_tfrecord/tracing.py``:
 
 - ``trace(name)``: a host region on the profiler's timeline
-  (``torch.profiler.record_function``), beside the device's kernels;
+  (``torch.profiler.record_function``), beside the device's kernels. In a
+  process that has not imported torch (a data-service worker or
+  dispatcher) no profiler can be running, and it is a no-op: the read path
+  does not pull torch in;
 - ``start_trace(logdir)`` / ``stop_trace()``: one ``torch.profiler``
   session over the CPU (and CUDA, where there is a card) whose trace is
   written into ``logdir`` when it stops;
@@ -17,22 +20,27 @@ Port of ``tpu_tfrecord/tracing.py``:
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
-from typing import Optional
+from typing import Any, Optional
 
-import torch
-
-_SESSION: Optional[torch.profiler.profile] = None
+_SESSION: Optional[Any] = None  # the running torch.profiler.profile
 
 
 def trace(name: str):
-    """Annotate a host region on the profiler's timeline."""
+    """Annotate a host region on the profiler's timeline (a no-op where
+    torch was never imported)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return contextlib.nullcontext()
     return torch.profiler.record_function(name)
 
 
 def start_trace(logdir: str) -> None:
     """Start a profiler session; ``stop_trace`` writes its trace into
     ``logdir``. One session at a time."""
+    import torch
+
     global _SESSION
     if _SESSION is not None:
         raise RuntimeError("a trace is already running")

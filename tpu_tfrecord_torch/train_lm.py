@@ -32,10 +32,18 @@ On the card the step runs with ``torch.use_deterministic_algorithms``
 an uninterrupted run's. ``--trace-out FILE`` turns the flight recorder on
 and saves its Chrome trace (``train.step`` spans) there at the end.
 ``--mesh`` takes the JAX example's five kinds, its default ``LM_MESH`` or
-``dp_sp``; on the one card the port trains on, every kind trains as ``dp``
-with 2 layers, as the JAX example's ``pick_mesh`` does on one device,
-``--virtual 2`` needs ``--mesh dp_pp`` there too, and ``--moe`` is refused
-with ``--mesh dp_pp`` as in JAX. ``--spool DIR`` (``--spool-interval
+``dp_sp``. ``dp_pp`` trains what the JAX example trains on two devices:
+4 layers in 2 pipeline stages (``{"pipe": 2, "data": 1}``), 8
+microbatches a step, ``--virtual 2`` interleaving 2 chunks a stage; on the
+one card the pipe axis is a tensor dimension (``models.pipeline``), and
+``--diagnostics`` folds the measured bubble into the
+``pipeline.bubble_fraction`` gauge (``pipeline.bubble_fraction_v`` too
+with ``--virtual 2``). The other kinds train as ``dp`` with 2 layers, as
+the JAX example's ``pick_mesh`` does on one device (their sp and fsdp
+axes are not ported). ``--virtual 2`` needs ``--mesh dp_pp`` and
+``--moe`` is refused with ``--mesh dp_pp``, as in JAX. The checkpoint is
+layout-free (the [n_layers, ...] stack), so a dp_pp run resumes from its
+own generations. ``--spool DIR`` (``--spool-interval
 S``) spools the trainer's telemetry under the ``trainer`` role into DIR
 for ``fleet.TelemetryAggregator``; a clean exit lands the ``final``
 snapshot. Runs on ``cuda`` unless ``--device cpu``.
@@ -75,21 +83,33 @@ def make_schema() -> StructType:
 
 
 MESH_KINDS = ("dp", "dp_sp", "dp_pp", "dp_fsdp", "dp_fsdp_pp")
-MOE_GAUGES = ("moe.expert_imbalance", "moe.dropped_fraction", "moe.gate_entropy")
+DIAG_GAUGES = ("moe.expert_imbalance", "moe.dropped_fraction", "moe.gate_entropy",
+               "pipeline.bubble_fraction", "pipeline.bubble_fraction_v")
+PIPE_MICRO = 8  # microbatches a step in the pipe mode, the JAX example's
 
 
-def make_config(n_layers: int = 2, moe_experts: int = 0) -> lm.LMConfig:
+def make_config(n_layers: int = 2, moe_experts: int = 0, axes=None,
+                virtual: int = 1) -> lm.LMConfig:
+    """The twin's model; with a ``pipe_axis`` in ``axes`` the JAX example's
+    pipe-mode config (``n_micro`` 8, ``virtual`` chunks a stage)."""
+    pipe = "pipe_axis" in (axes or {})
     return lm.LMConfig(vocab_size=VOCAB, d_model=64, n_heads=4, n_layers=n_layers,
-                       max_len=SEQ_LEN, moe_experts=moe_experts)
+                       max_len=SEQ_LEN, moe_experts=moe_experts,
+                       n_micro=PIPE_MICRO if pipe else None,
+                       n_virtual=virtual if pipe else 1)
 
 
 def pick_mesh(kind: str, virtual: int = 1):
-    """(mesh shape, cfg axes, n_layers) of ``--mesh kind`` on one card: the
-    JAX example's ``pick_mesh`` with one device, where every kind degrades
-    to ``dp`` with 2 layers (its sp, fsdp and pp meshes need an even device
-    count, and ``virtual`` only shapes the dp_pp mesh)."""
+    """(mesh shape, cfg axes, n_layers) of ``--mesh kind`` on one card:
+    ``dp_pp`` is the JAX example's ``pick_mesh`` on two devices (2 stages of
+    4 layers, a data axis of 1, for either ``virtual``), the pipe axis
+    running as a tensor dimension of the one card; every other kind
+    degrades to ``dp`` with 2 layers, as the JAX example does on one
+    device (its sp and fsdp axes are not ported)."""
     if kind not in MESH_KINDS:
         raise ValueError(f"--mesh {kind!r}: one of {MESH_KINDS}")
+    if kind == "dp_pp":
+        return {"pipe": 2, "data": 1}, {"data_axis": "data", "pipe_axis": "pipe"}, 4
     return {"data": 1}, {"data_axis": "data"}, 2
 
 
@@ -138,6 +158,10 @@ class LMCheckpoint:
     def load(self, template):
         """(step, state, payload) or (None, template, None)."""
         return self._ck.restore(template)
+
+    def latest_step(self):
+        """The newest complete generation's step, or None."""
+        return self._ck.latest_step()
 
     def clear(self) -> None:
         """Drop every generation (the epoch budget is spent)."""
@@ -223,10 +247,15 @@ def main(argv=None) -> None:
         torch.use_deterministic_algorithms(True)
         print("deterministic algorithms: on")
     generate(args.data_dir)
-    mesh, _axes, n_layers = pick_mesh(args.mesh, args.virtual)
-    if args.mesh != "dp":
+    mesh, axes, n_layers = pick_mesh(args.mesh, args.virtual)
+    cfg = make_config(n_layers, args.moe, axes, args.virtual)
+    # the pipe mode runs the schedule on the one card; every other kind is dp
+    pipe_kw = dict(axes, mesh=mesh) if "pipe_axis" in axes else {}
+    if pipe_kw:
+        print(f"mesh: {mesh} mode={args.mesh} (one device: {n_layers} layers in "
+              f"{mesh['pipe']} stages, n_micro {cfg.n_micro}, virtual {cfg.n_virtual})")
+    elif args.mesh != "dp":
         print(f"mesh: {mesh} mode={args.mesh} (one device: trains as dp with {n_layers} layers)")
-    cfg = make_config(n_layers, args.moe)
     params = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     opt = optim.adam(params, LR)
     os.makedirs(args.ckpt_dir, exist_ok=True)
@@ -254,8 +283,9 @@ def main(argv=None) -> None:
 
     def step_fn(state, gb):
         if not args.diagnostics:
-            return state, lm.train_step(params, opt, gb["tokens"], cfg)
-        loss, last_diag["diag"] = lm.train_step(params, opt, gb["tokens"], cfg, diagnostics=True)
+            return state, lm.train_step(params, opt, gb["tokens"], cfg, **pipe_kw)
+        loss, last_diag["diag"] = lm.train_step(params, opt, gb["tokens"], cfg,
+                                                diagnostics=True, **pipe_kw)
         return state, loss
 
     def save(rel_step, _it, _state):
@@ -307,7 +337,7 @@ def main(argv=None) -> None:
         harness.finish(None, start_step + steps, BATCH, t0, duty, clear_state=False,
                        stages=True, phases=phases)
         if args.diagnostics:
-            gauges = {k: METRICS.gauge_value(k) for k in MOE_GAUGES}
+            gauges = {k: METRICS.gauge_value(k) for k in DIAG_GAUGES}
             print("model diagnostics:", json.dumps({k: v for k, v in gauges.items()
                                                     if v is not None}))
     finally:

@@ -251,11 +251,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    rank (its 32 batches), 0 ``f32_tiled``. Printed: each rank's rows/s
    (whole and steady) and idle share, both ranks' rows/s together and the
    card's idle share over their run (the union of their synchronized
-   forwards on the host's monotonic clock), the time of a process's first
-   DTensor (a warm-up before the run), and what gloo does with
-   collectives on CUDA tensors (``gloo_cuda_probe``, separate spawned
-   ranks: ``DTensor.full_tensor()`` there ends them, so the check of the
-   first global batch gathers a CPU copy).
+   forwards on the host's monotonic clock) and the time of a process's
+   first DTensor (a warm-up before the run). The check of the first global
+   batch gathers a CPU copy: ``DTensor.full_tensor()`` over gloo on CUDA
+   tensors ends both ranks (a finding of earlier runs, no longer
+   re-measured).
 
 15. Remote filesystems on phase 12's shards (``remote_path``): the port's
    ``httpfs.serve_directory`` serves them from a spawned process on
@@ -333,6 +333,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    epoch finishes bit-equal, 1,048,576 rows, no fallback, at least one
    lease reassignment, the surviving worker alive and the minted trace id
    in ``fetch_status``.
+
+18. The data service's warm standby and elastic scaling (``elastic_path``)
+   on phase 12's shards, every service process a subprocess off the card
+   (``CUDA_VISIBLE_DEVICES=``), the consumer phase 12's fixed-4 bf16 DLRM
+   feed in this process. (a) ``ha_failover``: a primary ``dispatcher
+   --journal J``, its standby ``dispatcher --standby-of <primary>
+   --journal J --ping-interval 0.25 --takeover-misses 3`` and two workers
+   registered through ``primary|standby``; the primary is SIGKILLed after
+   the consumer's first chunk. Gates: logits bit-equal to phase 12's local
+   run for all 1,048,576 rows, 64 ``bf16_mma`` and 0 ``f32_tiled``
+   launches (``ha_launches``), no fallback, the standby's status
+   ``failed_over``, generation 1, role ``dispatcher``, 4 shards done.
+   Printed: the promotion and the first granted route after the kill,
+   rows/s beside phase 17's rate through the service, the idle share. (b)
+   ``elastic_resize``: one dispatcher and a ``FleetScaler`` here over it
+   (``DispatcherHandle``, ``subprocess_spawner``, policy 1..3, hysteresis
+   1, no cooldown, its verdicts scripted through ``aggregator=``): one
+   worker at the start, grown to 3 before batch 4, one drained before
+   batch 20 and a second drained and SIGKILLed before batch 36. Gates:
+   logits bit-equal, 64 launches (``elastic_launches``), no fallback, two
+   producer_bound scale-ups, the drained worker's goodbye, the killed one
+   stale in ``draining``. The consumer spools as ``trainer``: what a real
+   ``fleet.TelemetryAggregator`` reads of that spool is printed, a
+   finding. (c) ``serving_scale``: a ``ServingScaler`` here over
+   ``ServingReplicaSpawner`` replicas on the card (phase 10 (e)'s LM,
+   ``--mb 2 --max-queue 4 --slo-p99-ms 50``), policy 1..2, hysteresis 2: its
+   first tick, on a thread while (a) and (b) run, spawns the floor; 8
+   clients make it queue_bound until it spawns the second, then idle
+   ticks drain one, which exits 0. Gates:
+   every request's tokens equal to ``sequential_reference`` of the seeded
+   model on this card, 1 drain and no replica lost. Printed: each
+   replica's ready time and the requests/s.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Without
@@ -3641,12 +3673,13 @@ def readpool_path(work: str, card: str, pipe_s: float = 0.0) -> tuple:
     (d) the stall drills, (e) autotuned serving at full width. Then phase
     13 (``cache_path``) on the same shards, with its cache beside them,
     phase 14 (``multiproc_path``), phase 15 (``remote_path``) and phase 16
-    (``fleet_path``) and phase 17's data service (``service_path``).
-    Returns the kernel launches of phase 12's autotuned serving run, of
-    phase 13's warm cached epoch, of phase 14's ranks (summed), of phase
-    15's scoring over HTTP, of phase 16's spooling scorer and of phase 17's
-    scoring through the service. ``pipe_s`` is phase 17 (a)'s time, for
-    the phase's total."""
+    (``fleet_path``), phase 17's data service (``service_path``) and phase
+    18's standby and scalers (``elastic_path``). Returns the kernel launches
+    of phase 12's autotuned serving run, of phase 13's warm cached epoch,
+    of phase 14's ranks (summed), of phase 15's scoring over HTTP, of phase
+    16's spooling scorer, of phase 17's scoring through the service and of
+    phase 18's scoring through the failover and through the resize.
+    ``pipe_s`` is phase 17 (a)'s time, for the phase's total."""
     from tpu_tfrecord_torch.cache import release_registry
 
     t0 = time.perf_counter()
@@ -3671,13 +3704,15 @@ def readpool_path(work: str, card: str, pipe_s: float = 0.0) -> tuple:
         served = service_path(dirs, root, local_logits, serving["fixed 4"]["whole"], card)
         print(f"phase 17 took {pipe_s + served['seconds']:.1f} s: (a) {pipe_s:.1f} s, "
               f"(b) {served['seconds']:.1f} s")
+        scaled = elastic_path(dirs, root, local_logits, served["whole"], card)
     finally:
         # the entries' maps are unpinned before the directory goes, or its
         # blocks stay allocated for the rest of the run
         release_registry(cache_dir)
         shutil.rmtree(root, ignore_errors=True)
     return (serving["launches"], cached["launches"], multi["launches"], remote["launches"],
-            fleet_out["launches"], served["launches"])
+            fleet_out["launches"], served["launches"], scaled["launches"],
+            scaled["resize_launches"])
 
 
 # -- phase 13: the columnar epoch cache ----------------------------------------------
@@ -3978,7 +4013,7 @@ def _multiproc_rank(rank: int, port: int, dirs: list, work: str) -> dict:
     logits = torch.cat(outs).float().cpu().reshape(-1)
     forward_s = sum(times[2])
     # the first global batch gathered: gloo's all-gather of a DTensor on
-    # the card kills the process (``gloo_cuda_probe``), so the check
+    # the card kills the process (a probe of earlier runs), so the check
     # gathers a CPU copy of its labels over a CPU mesh of the same group
     cpu_mesh = meshes.create_mesh(device_type="cpu")
     gathered = DTensor.from_local(first_labels[0], cpu_mesh, meshes.data_sharding(cpu_mesh),
@@ -4035,79 +4070,6 @@ def _multiproc_rank(rank: int, port: int, dirs: list, work: str) -> dict:
                             exact=head + tail == whole and len(head) == MULTI_CUT,
                             other_refused=other_refused),
                 success_seen=success_seen, seconds=time.perf_counter() - t0)
-
-
-GLOO_OPS = ("all_reduce", "all_gather", "full_tensor")
-
-
-def gloo_probe_rank(rank: int, port: int, log_path: str) -> None:
-    """One rank of ``gloo_cuda_probe``, in a spawned process: each op on a
-    CUDA tensor over gloo, a JSON line before it and after it."""
-    from torch.distributed.tensor import DTensor
-
-    from tpu_tfrecord_torch.device import distributed, mesh as meshes
-
-    torch.set_num_threads(1)
-    distributed.initialize(f"127.0.0.1:{port}", MULTI_RANKS, rank)
-    mesh = meshes.create_mesh(device_type="cuda")
-    x = torch.full((4,), rank, dtype=torch.int32, device=meshes.mesh_device(mesh))
-    every = [r for r in range(MULTI_RANKS) for _ in range(4)]
-
-    def all_reduce():
-        y = x.clone()
-        torch.distributed.all_reduce(y)
-        return y.tolist() == [sum(range(MULTI_RANKS))] * 4
-
-    def all_gather():
-        out = [torch.empty_like(x) for _ in range(MULTI_RANKS)]
-        torch.distributed.all_gather(out, x)
-        return torch.cat(out).tolist() == every
-
-    def full_tensor():
-        dt = DTensor.from_local(x, mesh, meshes.data_sharding(mesh), run_check=False)
-        return dt.full_tensor().tolist() == every
-
-    ops = dict(all_reduce=all_reduce, all_gather=all_gather, full_tensor=full_tensor)
-    with open(log_path, "w", buffering=1) as log:
-        for name in GLOO_OPS:
-            log.write(json.dumps({"op": name}) + "\n")
-            log.write(json.dumps({"op": name, "right": ops[name]()}) + "\n")
-    distributed.barrier("probe")
-
-
-def gloo_cuda_probe(work: str) -> dict:
-    """What a gloo group does with collectives on CUDA tensors, from
-    MULTI_RANKS spawned ranks on this card: for each op of GLOO_OPS,
-    'right', 'wrong', or what ended the ranks in it (their exit codes).
-    A finding, not a gate: the port's path gathers nothing on the card."""
-    import multiprocessing
-
-    spawn = multiprocessing.get_context("spawn")
-    port = free_port()
-    logs = [os.path.join(work, f"probe{r}.jsonl") for r in range(MULTI_RANKS)]
-    procs = [spawn.Process(target=gloo_probe_rank, args=(r, port, logs[r]))
-             for r in range(MULTI_RANKS)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + 120
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    codes = [p.exitcode for p in procs]
-    out = {}
-    for name in GLOO_OPS:
-        seen = []
-        for path in logs:
-            lines = [json.loads(ln) for ln in open(path)] if os.path.exists(path) else []
-            done = [ln["right"] for ln in lines if ln["op"] == name and "right" in ln]
-            started = any(ln["op"] == name for ln in lines)
-            seen.append("right" if done == [True] else "wrong" if done else
-                        f"ended the rank (exit codes {codes})" if started else "not reached")
-        out[name] = seen[0] if len(set(seen)) == 1 else seen
-    return out
 
 
 def multiproc_path(dirs, work: str, card: str) -> dict:
@@ -4178,14 +4140,7 @@ def multiproc_path(dirs, work: str, card: str) -> dict:
         raise SystemExit(f"multiproc: ranks hung {hung}, exit codes {codes}:\n"
                          + "\n".join(detail))
 
-    # (3) what gloo does with collectives on CUDA tensors (a finding)
-    t_probe = time.perf_counter()
-    probe = gloo_cuda_probe(work)
-    t_probe = time.perf_counter() - t_probe
-    print(f"multiproc: gloo collectives on CUDA tensors, {MULTI_RANKS} ranks on this card: "
-          f"{probe} ({t_probe:.1f} s, {card})")
-
-    # (4) the gates
+    # (3) the gates
     out_dir = os.path.join(work, "multiproc_out")
     successes = [os.path.join(d, f) for d, _, fs in os.walk(out_dir) for f in fs
                  if f == "_SUCCESS"]
@@ -4248,7 +4203,7 @@ def multiproc_path(dirs, work: str, card: str) -> dict:
                                             "idle_share", "duty_cycle", "launches", "gather",
                                             "infer_s", "write_s", "seconds")}
                       for res in results],
-               ranks_s=t_ranks, parts=len(parts), gates=gates, gloo_cuda=probe,
+               ranks_s=t_ranks, parts=len(parts), gates=gates,
                launches={k: sum(res["launches"][k] for res in results) for k in want_launches})
     # the card's idle share while the ranks scored: 1 - the union of both
     # ranks' synchronized forwards over the span from the first start to
@@ -4712,9 +4667,10 @@ def fleet_replica(spool_dir: str) -> tuple:
     return proc, ready, time.perf_counter() - t0
 
 
-def fleet_reference(windows_) -> list:
-    """Phase 10 (e)'s reference tokens of ``windows_`` on the card, under
-    deterministic algorithms as the replica runs."""
+def fleet_reference(windows_, n_new: int = 4, mb: int = 4) -> list:
+    """Phase 10 (e)'s reference tokens of ``windows_`` (``n_new`` new tokens
+    each, microbatches of ``mb``) on the card, under deterministic
+    algorithms as the replica runs."""
     import argparse
 
     from tpu_tfrecord_torch import serving
@@ -4725,7 +4681,7 @@ def fleet_reference(windows_) -> list:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
     try:
-        return serving.sequential_reference(params, cfg, 2, [(w, 4) for w in windows_], 4,
+        return serving.sequential_reference(params, cfg, 2, [(w, n_new) for w in windows_], mb,
                                             device=SERVE_DEVICE)
     finally:
         torch.use_deterministic_algorithms(False)
@@ -5054,6 +5010,38 @@ def pipe_path(work: str, card: str, lm9: dict) -> dict:
     return out
 
 
+def wait_status(addr: str, ok, what: str, timeout: float = SERVICE_TIMEOUT_S) -> dict:
+    """Poll ``fetch_status(addr)`` until ``ok(status)``; fail after
+    ``timeout`` seconds."""
+    from tpu_tfrecord_torch import service
+
+    deadline = time.monotonic() + timeout
+    while True:
+        st = service.fetch_status(addr)
+        if ok(st):
+            return st
+        if time.monotonic() > deadline:
+            raise SystemExit(f"service: {what} never happened: {st}")
+        time.sleep(0.01)
+
+
+def reap(procs) -> None:
+    """Terminate the processes ``service_spawn`` started, kill any still
+    alive after 30 s, and close their pipes."""
+    procs = list(procs)
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+    for proc in procs:
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        if proc.stdout is not None:
+            proc.stdout.close()
+
+
 def service_spawn(args: list, env: dict, log: str):
     """``python -m tpu_tfrecord_torch.service *args`` in a subprocess, its
     stderr in ``log``."""
@@ -5121,11 +5109,7 @@ def service_path(dirs, root: str, local_logits, fixed4_whole: float, card: str) 
         if ready["dispatcher"]["addr"] != addr:
             raise SystemExit(f"service: the dispatcher listens on {ready['dispatcher']['addr']}")
         pid_of = {ready[n]["worker_id"]: procs[n] for n in procs if n != "dispatcher"}
-        deadline = time.monotonic() + SERVICE_TIMEOUT_S
-        while service.fetch_status(addr)["alive"] < SERVICE_WORKERS:
-            if time.monotonic() > deadline:
-                raise SystemExit(f"service: workers never registered: {service.fetch_status(addr)}")
-            time.sleep(0.05)
+        wait_status(addr, lambda st: st["alive"] >= SERVICE_WORKERS, "the workers' registration")
         out["start_s"] = time.perf_counter() - t0
         cfg = criteo_cfg()
         model = init_params(cfg, torch.Generator(device=READPOOL_DEVICE).manual_seed(TRAIN_SEED),
@@ -5208,16 +5192,7 @@ def service_path(dirs, root: str, local_logits, fixed4_whole: float, card: str) 
         del res, model
         free_cuda()
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.terminate()
-        for proc in procs.values():
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-            proc.stdout.close()
+        reap(procs.values())
     METRICS.reset()
     out.update(gates=gates, drill=drill, trace_id=ctx.trace_id,
                seconds=time.perf_counter() - t0)
@@ -5225,6 +5200,443 @@ def service_path(dirs, root: str, local_logits, fixed4_whole: float, card: str) 
     print("service: " + json.dumps(out, default=str))
     if not all(gates.values()):
         raise SystemExit(f"service: gates failed: {gates}")
+    return out
+
+
+# -- phase 18: the data service's warm standby and elastic scaling ------------------
+
+HA_PING_S = 0.25           # the standby's ping and journal-tail cadence
+HA_MISSES = 3              # failed pings before the standby promotes
+ELASTIC_TTL_S = 2.0        # (b)'s lease TTL: a SIGKILLed worker goes stale within it
+ELASTIC_MOVES = {4: "grow", 20: "drain", 36: "kill"}  # batch index -> the scaler's move
+ELASTIC_SPOOL_S = 0.2
+SCALE_CLIENTS = 8
+SCALE_WINDOWS = 16         # distinct windows the clients cycle through
+SCALE_NEW = 16             # new tokens a request, as phase 10's replica runs
+# the replicas' microbatch, admission bound and SLO (phase 10's model
+# otherwise): 2 stages x 2 rows keep 4 requests in flight, so 8 clients
+# leave 4 waiting, past half of a queue of 4, and a 16-token request at
+# phase 10's 6-9 ms ticks misses 50 ms: the load reads queue_bound
+SCALE_MB = 2
+SCALE_REPLICA_ARGS = ("--mb", str(SCALE_MB), "--max-queue", "4", "--slo-p99-ms", "50")
+SCALE_TICK_S = 0.25
+SCALE_TIMEOUT_S = 120
+
+
+class ScriptedVerdict:
+    """(b)'s verdict source for the fleet scaler (its ``aggregator=``
+    seam): one running consumer whose cluster verdict the script sets."""
+
+    def __init__(self, verdict: str):
+        self.verdict = verdict
+
+    def aggregate(self, roles=None):
+        from tpu_tfrecord_torch import fleet, telemetry
+
+        proc = fleet.ProcessSnapshot(path="scripted", host="smoke", pid=os.getpid(),
+                                     role="trainer", trace_id=None, heartbeat=time.time(),
+                                     interval_s=1.0, seq=1,
+                                     gauges={telemetry.OCCUPANCY_GAUGE: 0.5})
+        return fleet.FleetSnapshot(processes=[proc], alive=[proc], dead=[], counters={},
+                                   stages={}, hists={}, verdict=self.verdict, occupancy=0.5)
+
+
+class HookedModel:
+    """The DLRM with ``hook(i)`` called before it scores batch ``i``: the
+    scaler's moves land at fixed points of the epoch, and the seconds spent
+    in the hook are kept apart from the scoring."""
+
+    def __init__(self, model, hook):
+        self.model, self.hook, self.cfg = model, hook, model.cfg
+        self.calls, self.hook_s = 0, 0.0
+
+    def __call__(self, batch):
+        t = time.perf_counter()
+        self.hook(self.calls)
+        self.hook_s += time.perf_counter() - t
+        self.calls += 1
+        return self.model(batch)
+
+
+def ha_failover(dirs, root: str, model, local_logits, nbytes: int, env: dict,
+                card: str) -> tuple:
+    """Phase 18 (a): a primary dispatcher with its journal, its warm standby
+    on the same journal and two workers registered with both
+    (``primary|standby``), all subprocesses off the card; the bf16 DLRM
+    scores phase 12's shards through ``service=primary|standby`` and the
+    primary is SIGKILLed after the consumer's first chunk. Returns (gates,
+    numbers)."""
+    import signal
+
+    from tpu_tfrecord_torch import service
+    from tpu_tfrecord_torch.metrics import METRICS
+
+    journal = os.path.join(root, "ha.journal")
+    logs = {n: os.path.join(root, f"ha_{n}.log") for n in ("primary", "standby", "w0", "w1")}
+    procs: dict = {}
+    gates, out, drill = {}, {}, {}
+    routes = []
+    rpc = service.ServiceClient._dispatcher_rpc
+
+    def timed_rpc(client, msg):
+        reply = rpc(client, msg)
+        if msg.get("op") == "route" and reply.get("ok"):
+            routes.append(time.perf_counter())
+        return reply
+
+    try:
+        t0 = time.perf_counter()
+        args = ["dispatcher", "--journal", journal]
+        procs["primary"] = service_spawn(args, env, logs["primary"])
+        primary = service_ready(procs["primary"], args, logs["primary"])["addr"]
+        args = ["dispatcher", "--journal", journal, "--standby-of", primary,
+                "--ping-interval", str(HA_PING_S), "--takeover-misses", str(HA_MISSES)]
+        procs["standby"] = service_spawn(args, env, logs["standby"])
+        ready = service_ready(procs["standby"], args, logs["standby"])
+        standby = ready["addr"]
+        gates["standby_ready"] = ready["role"] == "standby" and ready["standby_of"] == primary
+        spec = f"{primary}|{standby}"
+        for name in ("w0", "w1"):
+            procs[name] = service_spawn(["worker", "--dispatcher", spec], env, logs[name])
+        for name in ("w0", "w1"):
+            service_ready(procs[name], [name], logs[name])
+        wait_status(primary, lambda st: st["alive"] == SERVICE_WORKERS, "registration")
+        wait_status(standby, lambda st: len(st["workers"]) == SERVICE_WORKERS, "the journal tail")
+        out["start_s"] = time.perf_counter() - t0
+
+        def chaos():
+            try:
+                while METRICS.counter("service.chunks_recv") < 1:
+                    time.sleep(0.002)
+                procs["primary"].send_signal(signal.SIGKILL)
+                drill["t_kill"] = time.perf_counter()
+                drill["rc"] = procs["primary"].wait()
+                drill["chunks_before_kill"] = METRICS.counter("service.chunks_recv")
+                wait_status(standby, lambda st: st["accepting"], "promotion", timeout=30)
+                drill["promote_s"] = time.perf_counter() - drill["t_kill"]
+            except (Exception, SystemExit) as e:  # reported by the gates below
+                drill["error"] = repr(e)
+
+        chaos_thread = threading.Thread(target=chaos, name="ha-chaos")
+        service.ServiceClient._dispatcher_rpc = timed_rpc
+        METRICS.reset()
+        chaos_thread.start()
+        try:
+            res, stats = remote_serve(dirs, model, "the primary SIGKILLed after the first chunk",
+                                      nbytes, card, tag="elastic",
+                                      service=spec, service_deadline_ms=SERVICE_DEADLINE_MS)
+        finally:
+            service.ServiceClient._dispatcher_rpc = rpc
+            chaos_thread.join(timeout=SERVICE_TIMEOUT_S)
+        t_kill = drill.get("t_kill")
+        after = [t for t in routes if t_kill is not None and t > t_kill]
+        st = service.fetch_status(standby)
+        tenants = list(st["tenants"].values())
+        gates["ha_killed"] = "error" not in drill and drill.get("rc") == -signal.SIGKILL
+        gates["ha_logits"] = torch.equal(res.logits.float().cpu(), local_logits)
+        gates["ha_rows"] = res.batches * BATCH == READPOOL_SHARDS * READPOOL_ROWS
+        gates["ha_launches"] = stats["launches"] == {"bf16_mma": res.batches, "f32_tiled": 0}
+        gates["ha_no_fallback"] = METRICS.counter("service.fallbacks") == 0
+        gates["ha_promoted"] = (st["failed_over"] is True and st["generation"] == 1
+                                and st["role"] == "dispatcher")
+        gates["ha_shards_once"] = st["shards_done"] == READPOOL_SHARDS
+        gates["ha_routed_after"] = bool(after)
+        out.update(whole=stats["whole"], steady=stats["steady"], idle_share=stats["idle_share"],
+                   launches=stats["launches"], promote_s=drill.get("promote_s"),
+                   takeover_s=after[0] - t_kill if after else None,
+                   chunks_before_kill=drill.get("chunks_before_kill"),
+                   reconnects=METRICS.counter("service.reconnects"),
+                   redelivered_dropped=METRICS.counter("service.redelivered_dropped"),
+                   completions=[t["completions"] for t in tenants],
+                   lease_reassignments=st["lease_reassignments"], generation=st["generation"])
+        print(f"elastic: (a) failover: logits bit-equal {gates['ha_logits']}, {res.batches} "
+              f"batches, {stats['whole']:.1f} rows/s whole; the primary SIGKILLed after "
+              f"{out['chunks_before_kill']} chunks; the standby promoted "
+              f"{out['promote_s']} s after the kill (ping {HA_PING_S} s x {HA_MISSES} misses), "
+              f"its first granted route {out['takeover_s']} s after it; standby status: role "
+              f"{st['role']}, generation {st['generation']}, failed_over {st['failed_over']}, "
+              f"{st['shards_done']} shards done, {out['completions']} completions; "
+              f"{out['reconnects']} reconnects, {METRICS.counter('service.fallbacks')} "
+              f"fallbacks ({card})")
+        del res
+    finally:
+        reap(procs.values())
+    return gates, out
+
+
+def elastic_resize(dirs, root: str, model, local_logits, nbytes: int, env: dict,
+                   card: str) -> tuple:
+    """Phase 18 (b): a dispatcher subprocess and a ``FleetScaler`` here over
+    it (a ``DispatcherHandle``), spawning workers with
+    ``elastic.subprocess_spawner``; its verdicts are scripted through the
+    ``aggregator=`` seam. One worker serves from the start; at batch 4 the
+    fleet grows to 3, at 20 one worker drains, at 36 a second drains and is
+    SIGKILLed. The consumer spools as a trainer, and what a real
+    ``TelemetryAggregator`` reads of that spool is printed. Returns (gates,
+    numbers)."""
+    import signal
+
+    from tpu_tfrecord_torch import elastic, fleet, service, telemetry
+    from tpu_tfrecord_torch.metrics import METRICS
+
+    spool = os.path.join(root, "elastic_spool")
+    log = os.path.join(root, "elastic_dispatcher.log")
+    args = ["dispatcher", "--lease-ttl-s", str(ELASTIC_TTL_S)]
+    disp = service_spawn(args, env, log)
+    spawner = None
+    verdict = ScriptedVerdict("balanced")
+    gates, out, moves = {}, {}, {}
+
+    def alive(n):
+        return lambda st: st["alive"] >= n
+
+    def hook(i):
+        move = ELASTIC_MOVES.get(i)
+        if move == "grow":
+            verdict.verdict = "producer_bound"
+            for n in (2, 3):
+                moves.setdefault("grow", []).append(scaler.step())
+                wait_status(addr, alive(n), f"registration of worker {n}")
+        elif move in ("drain", "kill"):
+            verdict.verdict = "consumer_bound"
+            decision = scaler.step()
+            moves[move] = decision
+            if move == "kill" and decision:
+                pid = next(w["pid"] for w in service.fetch_status(addr)["workers"]
+                           if w["worker_id"] == decision["victim"])
+                os.kill(pid, signal.SIGKILL)
+
+    try:
+        t0 = time.perf_counter()
+        addr = service_ready(disp, args, log)["addr"]
+        spawner = elastic.subprocess_spawner(addr, ("--drain-grace", "0.2"), env=env)
+        scaler = elastic.FleetScaler(
+            elastic.DispatcherHandle(addr), spawner, aggregator=verdict,
+            policy=elastic.ScalerPolicy(min_workers=1, max_workers=3, hysteresis=1,
+                                        cooldown_s=0.0))
+        moves["floor"] = scaler.step()
+        wait_status(addr, alive(1), "registration of worker 1")
+        out["start_s"] = time.perf_counter() - t0
+        hooked = HookedModel(model, hook)
+        METRICS.reset()
+        res, stats = remote_serve(dirs, hooked, "the fleet grown 1 -> 3, one worker drained, "
+                                  "a draining one SIGKILLed", nbytes, card, tag="elastic",
+                                  service=addr, service_deadline_ms=SERVICE_DEADLINE_MS,
+                                  telemetry_spool_dir=spool, spool_interval_s=ELASTIC_SPOOL_S,
+                                  telemetry_role="trainer")
+        fallbacks = METRICS.counter("service.fallbacks")
+        drained = (moves.get("drain") or {}).get("victim")
+        killed = (moves.get("kill") or {}).get("victim")
+        st = wait_status(addr, lambda st: drained not in [w["worker_id"] for w in st["workers"]],
+                         "the drained worker's goodbye", timeout=30)
+        st = wait_status(addr, lambda st: st["lease_reassignments"] >= 1 or any(
+            w["worker_id"] == killed and not w["alive"] for w in st["workers"]),
+            "the killed worker's expiry", timeout=30)
+        snap = fleet.TelemetryAggregator(spool).aggregate(roles=["trainer"])
+        grow = moves.get("grow") or []
+        gates["el_logits"] = torch.equal(res.logits.float().cpu(), local_logits)
+        gates["el_rows"] = res.batches * BATCH == READPOOL_SHARDS * READPOOL_ROWS
+        gates["el_launches"] = stats["launches"] == {"bf16_mma": res.batches, "f32_tiled": 0}
+        gates["el_no_fallback"] = fallbacks == 0
+        ups = [d for d in scaler.log if d["action"] == "scale_up"]
+        gates["el_grown"] = len(grow) == 2 and all(
+            d and d["action"] == "scale_up" and d["reason"] == "producer_bound" for d in grow)
+        gates["el_drained"] = bool(drained) and drained != killed and drained not in st["draining"]
+        gates["el_killed"] = bool(killed) and killed in st["draining"]
+        # the holds ran inside the scored step: they are the card's idle
+        # time, not its forward time
+        scoring_s = stats["wall_s"] - hooked.hook_s
+        idle = 1.0 - (sum(res.forward_s) - hooked.hook_s) / stats["wall_s"]
+        out.update(whole=stats["whole"], idle_share=idle,
+                   launches=stats["launches"], hook_s=hooked.hook_s,
+                   whole_without_moves=res.batches * BATCH / scoring_s,
+                   scale_ups=len(ups),
+                   scale_downs=len([d for d in scaler.log if d["action"] == "scale_down"]),
+                   drained=drained, killed=killed,
+                   lease_reassignments=st["lease_reassignments"],
+                   reconnects=METRICS.counter("service.reconnects"),
+                   aggregator=dict(verdict=snap.verdict, occupancy=snap.occupancy,
+                                   processes=len(snap.processes), alive=len(snap.alive),
+                                   final=[p.final for p in snap.processes]))
+        print(f"elastic: (b) resize: logits bit-equal {gates['el_logits']}, {res.batches} "
+              f"batches, {stats['whole']:.1f} rows/s whole ({out['whole_without_moves']:.1f} "
+              f"without the {hooked.hook_s:.2f} s the scaler's moves held the loop); the card "
+              f"idle {idle:.4f} of the wall (the holds counted idle, not forward); scale-ups "
+              f"{out['scale_ups']}, scale-downs {out['scale_downs']}; {drained} drained and "
+              f"said goodbye, {killed} SIGKILLed while draining; {st['lease_reassignments']} "
+              f"lease reassignments, {fallbacks} fallbacks; the real aggregator over the "
+              f"consumer's spool: {out['aggregator']} ({card})")
+        del res
+    finally:
+        if spawner is not None:
+            spawner.reap()
+        reap([disp])
+        telemetry.RECORDER.context = None  # the trainer role stays with the spool it named
+    return gates, out
+
+
+def serving_scale_floor() -> dict:
+    """Phase 18 (c), its first tick: a ``ServingScaler`` here over
+    ``elastic.ServingReplicaSpawner`` replicas on the card (phase 10's
+    synthetic LM, ``SCALE_REPLICA_ARGS``), policy 1..2, hysteresis 2,
+    ticked once on a thread, which spawns the floor while (a) and (b) run.
+    Returns what ``serving_scale`` goes on with."""
+    from tpu_tfrecord_torch import elastic
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    spawner = elastic.ServingReplicaSpawner(("--device", SERVE_DEVICE, *SCALE_REPLICA_ARGS),
+                                            env=dict(os.environ, PYTHONPATH=repo))
+    run = dict(spawner=spawner, spawned=[], ready_s=[], t0=time.perf_counter())
+
+    def spawn():
+        t = time.perf_counter()
+        addr = spawner()
+        run["ready_s"].append(time.perf_counter() - t)
+        run["spawned"].append(addr)
+        return addr
+
+    run["scaler"] = elastic.ServingScaler(spawn, policy=elastic.ScalerPolicy(
+        min_workers=1, max_workers=2, hysteresis=2, cooldown_s=0.0))
+    run["floor_thread"] = threading.Thread(
+        target=lambda: run.setdefault("floor", run["scaler"].step()), name="scale-floor")
+    run["floor_thread"].start()
+    return run
+
+
+def serving_scale(run: dict, card: str) -> tuple:
+    """Phase 18 (c) after its first tick (``serving_scale_floor``): 8
+    clients at once make the verdict queue_bound until the scaler spawns a
+    second replica; without them the idle ticks drain one, which exits 0.
+    Returns (gates, numbers)."""
+    from tpu_tfrecord_torch import serving
+    from tpu_tfrecord_torch.metrics import METRICS
+
+    spawner, scaler, spawned, ready_s = (run[k] for k in ("spawner", "scaler", "spawned",
+                                                           "ready_s"))
+    gates, out = {}, {}
+    rng = np.random.default_rng(18)
+    ws = [rng.integers(0, 96, size=16).astype(np.int32) for _ in range(SCALE_WINDOWS)]
+    answers: list = []
+    stop = threading.Event()
+
+    def client(i, addr):
+        cl = serving.ServeClient([addr], timeout_s=60.0)
+        try:
+            k = i
+            while not stop.is_set():
+                answers.append((k % SCALE_WINDOWS, cl.generate(ws[k % SCALE_WINDOWS], SCALE_NEW)))
+                k += SCALE_CLIENTS
+        except Exception as e:  # noqa: BLE001 - reported by the gates below
+            answers.append((None, repr(e)))
+        finally:
+            cl.close()
+
+    def tick_until(action: str, what: str) -> tuple:
+        deadline = time.monotonic() + SCALE_TIMEOUT_S
+        ticks = []
+        while time.monotonic() < deadline:
+            decision = scaler.step()
+            ticks.append(scaler.status()["verdict"])
+            if decision and decision["action"] == action:
+                return decision, ticks
+            time.sleep(SCALE_TICK_S)
+        raise SystemExit(f"elastic: (c) {what} never happened; verdicts {ticks}")
+
+    try:
+        t0 = time.perf_counter()
+        run["floor_thread"].join(timeout=SCALE_TIMEOUT_S)
+        floor = run.get("floor")
+        if not floor or floor["reason"] != "below_min":
+            raise SystemExit(f"elastic: (c) the first tick did not spawn the floor: {floor}")
+        want = fleet_reference(ws, SCALE_NEW, SCALE_MB)
+        METRICS.reset()  # (a) and (b) reset it too: count (c)'s drains from here
+        threads = [threading.Thread(target=client, args=(i, spawned[0]), name=f"scale-client{i}")
+                   for i in range(SCALE_CLIENTS)]
+        t_load = time.perf_counter()
+        for t in threads:
+            t.start()
+        try:
+            grew, load_ticks = tick_until("scale_up", "the queue_bound scale-up")
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=SCALE_TIMEOUT_S)
+        load_s = time.perf_counter() - t_load
+        shrank, idle_ticks = tick_until("scale_down", "the idle drain")
+        victim = spawner.procs[spawned.index(shrank["victim"])]
+        rc = victim.wait(timeout=60)
+        scaler.step()  # the drained replica's goodbye: its status no longer answers
+        bad = [a for a in answers if a[0] is None or a[1] != want[a[0]]]
+        gates["sc_answers"] = bool(answers) and not bad
+        gates["sc_grew"] = grew["reason"] == "queue_bound" and len(spawned) == 2
+        gates["sc_drained"] = (shrank["reason"] == "idle" and rc == 0
+                               and METRICS.counter("elastic.drains") == 1
+                               and METRICS.counter("elastic.replicas_lost") == 0
+                               and scaler.replicas == [a for a in spawned if a != shrank["victim"]])
+        out.update(ready_s=ready_s, requests=len(answers), load_s=load_s,
+                   requests_per_s=len(answers) / load_s, load_verdicts=load_ticks,
+                   idle_verdicts=idle_ticks, victim_rc=rc, wrong=bad[:3],
+                   drains=METRICS.counter("elastic.drains"),
+                   replicas_lost=METRICS.counter("elastic.replicas_lost"),
+                   seconds=time.perf_counter() - t0,
+                   floor_s=t0 - run["t0"])
+        print(f"elastic: (c) replicas: ready in {', '.join(f'{s:.1f}' for s in ready_s)} s "
+              f"(the first beside (a) and (b)); "
+              f"{len(answers)} requests of {SCALE_NEW} tokens from {SCALE_CLIENTS} clients in "
+              f"{load_s:.1f} s ({out['requests_per_s']:.1f} requests/s, the second replica's "
+              f"start inside it), every one equal to the reference: {gates['sc_answers']}; "
+              f"verdicts under load {load_ticks}, then {idle_ticks}; the drained replica exited "
+              f"{rc}; drains {out['drains']}, replicas lost {out['replicas_lost']} ({card})")
+    finally:
+        stop.set()
+        run["floor_thread"].join(timeout=SCALE_TIMEOUT_S)
+        spawner.reap()
+    return gates, out
+
+
+def elastic_path(dirs, root: str, local_logits, service_whole: float, card: str) -> dict:
+    """Phase 18: the data service's warm standby and elastic scaling, and
+    the serving tier's replica scaler, beside ``card``. ``local_logits``
+    are phase 12's fixed-4 logits; ``service_whole`` is phase 17's rows/s
+    through the service. Returns the numbers, the kernel launches of (a)'s
+    and (b)'s scoring windows among them."""
+    from tpu_tfrecord_torch import telemetry
+    from tpu_tfrecord_torch.device.ingest import make_device_batch
+    from tpu_tfrecord_torch.models.dlrm import init_params, make_synthetic_batch
+
+    t0 = time.perf_counter()
+    free_cuda()
+    nbytes = sum(os.path.getsize(os.path.join(d, n)) for d in dirs for n in os.listdir(d)
+                 if n.endswith(".tfrecord"))
+    ctx = telemetry.TraceContext.new(role="smoke")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+               CUDA_VISIBLE_DEVICES="", **ctx.to_env())
+    cfg = criteo_cfg()
+    model = init_params(cfg, torch.Generator(device=READPOOL_DEVICE).manual_seed(TRAIN_SEED),
+                        READPOOL_DEVICE)
+    model(make_device_batch(make_synthetic_batch(cfg, BATCH, seed=1), READPOOL_DEVICE))
+    replicas = serving_scale_floor()  # a replica's 14-24 s start overlaps (a) and (b)
+    try:
+        gates_a, ha = ha_failover(dirs, root, model, local_logits, nbytes, env, card)
+        gates_b, resize = elastic_resize(dirs, root, model, local_logits, nbytes, env, card)
+    except BaseException:
+        replicas["floor_thread"].join(timeout=SCALE_TIMEOUT_S)
+        replicas["spawner"].reap()
+        raise
+    del model
+    free_cuda()
+    gates_c, scale = serving_scale(replicas, card)
+    gates = {**gates_a, **gates_b, **gates_c}
+    out = dict(card=card, failover=ha, resize=resize, serving=scale, gates=gates,
+               service_whole=service_whole, seconds=time.perf_counter() - t0,
+               launches=ha["launches"], resize_launches=resize["launches"])
+    print(f"elastic: through the failover {ha['whole']:.1f} rows/s, through the resize "
+          f"{resize['whole']:.1f}, beside phase 17's {service_whole:.1f} through the service; "
+          f"the card idle {ha['idle_share']:.4f} / {resize['idle_share']:.4f} of the wall")
+    print(f"elastic: gates {gates}; phase 18 took {out['seconds']:.1f} s ({card})")
+    print("elastic: " + json.dumps(out, default=str))
+    if not all(gates.values()):
+        raise SystemExit(f"elastic: gates failed: {gates}")
     return out
 
 
@@ -5283,7 +5695,8 @@ def main() -> int:
         pipe_launches = dict(dot_interaction.instance_launches)
         free_cuda()
         (readpool_launches, cache_launches, multiproc_launches, remote_launches,
-         fleet_launches, service_launches) = readpool_path(data_dir, smi, pipe["seconds"])
+         fleet_launches, service_launches, ha_launches,
+         elastic_launches) = readpool_path(data_dir, smi, pipe["seconds"])
     phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches,
                       "pipe": pipe_launches}
     for phase, counts in phase_launches.items():
@@ -5319,6 +5732,8 @@ def main() -> int:
         fleet_launches=fleet_launches[k],
         service_launches=service_launches[k],
         pipe_launches=pipe_launches[k],
+        ha_launches=ha_launches[k],
+        elastic_launches=elastic_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -45,15 +45,17 @@ def test_every_module_is_found():
                  "tpu_tfrecord_torch.device.distributed", "tpu_tfrecord_torch.device.mesh",
                  "tpu_tfrecord_torch.httpfs", "tpu_tfrecord_torch.fs",
                  "tpu_tfrecord_torch.fleet", "tpu_tfrecord_torch.slo",
-                 "tpu_tfrecord_torch.service"):
+                 "tpu_tfrecord_torch.service", "tpu_tfrecord_torch.elastic"):
         assert want in mods
 
 
-@pytest.mark.parametrize("name", ["fleet", "slo", "service"])
+@pytest.mark.parametrize("name", ["fleet", "slo", "service", "elastic"])
 def test_fleet_and_slo_import_only_the_port(name):
-    """``fleet.py``, ``slo.py`` and the data service's ``service.py``
-    import the stdlib, torch, numpy and the port, and loading them alone
-    loads no jax and nothing of the JAX package."""
+    """``fleet.py``, ``slo.py``, the data service's ``service.py`` and its
+    scalers' ``elastic.py`` import the stdlib, torch, numpy and the port,
+    and loading them alone loads no jax and nothing of the JAX package;
+    ``service`` and ``elastic`` load no torch either, so a dispatcher that
+    hosts a scaler starts without it."""
     tree = ast.parse(open(os.path.join(PKG, f"{name}.py")).read())
     roots = set()
     for node in ast.walk(tree):
@@ -68,13 +70,16 @@ def test_fleet_and_slo_import_only_the_port(name):
         f"sys.path.insert(0, {REPO!r})\n"
         f"importlib.import_module('tpu_tfrecord_torch.{name}')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "                        ('jax', 'jaxlib', 'tpu_tfrecord'))))\n"
+        "                        ('jax', 'jaxlib', 'tpu_tfrecord', 'torch'))))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    if name not in ("service", "elastic"):
+        loaded = [m for m in loaded if m.split(".")[0] != "torch"]
+    assert loaded == []
 
 
 def test_imports_load_no_jax():

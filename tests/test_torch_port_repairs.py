@@ -18,6 +18,15 @@
   shard salvages the same records and events in both packages.
 - The checkpointers' ``save`` / ``restore`` take the JAX keyword names
   ``state_pytree`` / ``template_pytree``.
+- ``TFRecordDataset`` takes the JAX positional order (``paths,
+  batch_size, options, columns, drop_remainder, num_epochs, ...``), so a
+  positional ``TFRecordOptions`` configures the read instead of being
+  taken for a schema; the port's own ``schema``, ``recordType`` and
+  ``decoder`` are keyword-only.
+- ``CheckpointableIterator``'s first parameter is named ``dataset``, as in
+  the JAX package.
+- ``TFRecordOptions``' fields come in the JAX order, so the same
+  positional construction sets the same options in both packages.
 """
 
 import json
@@ -296,3 +305,65 @@ def test_checkpointers_take_the_jax_keywords(tmp_path):
         tck_.close()
         assert step == 5 and state.epoch == 1
         np.testing.assert_array_equal(got["w"], tree["w"])
+
+
+# -- the dataset's positional order and the iterator's keyword ------------------------
+
+
+def test_dataset_takes_options_positionally(docs):
+    """``TFRecordDataset(paths, batch_size, options, columns,
+    drop_remainder, num_epochs)`` given positionally reads the same token
+    batches in both packages."""
+    from tpu_tfrecord.options import TFRecordOptions as JOptions
+    from tpu_tfrecord_torch.options import TFRecordOptions as TOptions
+
+    jopts = JOptions.from_map(schema=jx_lm.make_schema(), recordType="SequenceExample")
+    topts = TOptions.from_map(schema=tw_lm.make_schema(), recordType="SequenceExample")
+    want = token_batches(JDataset(docs, 8, jopts, None, False, 2))
+    ds = TDataset(docs, 8, topts, None, False, 2)
+    assert ds.options is topts and ds.num_epochs == 2 and ds.drop_remainder is False
+    assert token_batches(ds) == want
+    assert len(want) == 16
+
+
+def test_checkpointable_iterator_takes_dataset_keyword(docs):
+    """``CheckpointableIterator(dataset=..., state=...)`` resumes from a
+    mid-epoch state to the same batches in both packages."""
+    from tpu_tfrecord.io.dataset import CheckpointableIterator as JIterator
+    from tpu_tfrecord_torch.io.dataset import CheckpointableIterator as TIterator
+
+    out = []
+    for cls, it_cls, schema in ((JDataset, JIterator, jx_lm.make_schema()),
+                                (TDataset, TIterator, tw_lm.make_schema())):
+        ds = cls(docs, batch_size=8, schema=schema, recordType="SequenceExample")
+        with ds.batches() as it:
+            for _ in range(3):
+                next(it)
+            state = it.state()
+        it = it_cls(dataset=ds, state=state)
+        try:
+            out.append([[np.asarray(v).tolist() for v in cb["tokens"].values] for cb in it])
+        finally:
+            it.close()
+    assert out[0] == out[1]
+    assert len(out[1]) == 5
+
+
+def test_options_fields_take_the_jax_order():
+    """The JAX field order, values given positionally: the port's options
+    hold the same value under every name."""
+    import dataclasses
+
+    from tpu_tfrecord.options import TFRecordOptions as JOptions
+    from tpu_tfrecord_torch.options import RecordType, TFRecordOptions as TOptions
+
+    names = [f.name for f in dataclasses.fields(JOptions)]
+    assert [f.name for f in dataclasses.fields(TOptions)] == names
+    j = JOptions.from_map(cache="auto", trace="on", pulse_interval_s=0.5, telemetry_port=0,
+                          autotune="on", autotune_interval_s=0.25, telemetry_role="reader",
+                          service="h:1", elastic_min_workers=2, elastic_interval_s=3)
+    args = [getattr(j, n) for n in names]
+    args[names.index("record_type")] = RecordType(j.record_type.value)
+    t = TOptions(*args)
+    assert {n: getattr(t, n) for n in names if n != "record_type"} == \
+        {n: getattr(j, n) for n in names if n != "record_type"}

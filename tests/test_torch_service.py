@@ -13,8 +13,12 @@ journal). Then ``TestPartitionMap`` and ``TestPartitionedRouting`` of
 ``tests/test_service_ha.py``, and the cross-package cases: equal job
 specs and digests, mixed fleets (a JAX dispatcher leasing port workers to
 a port consumer, a port dispatcher leasing a JAX worker to a JAX
-consumer) whose rows equal a local read, and every refusal of the warm
-standby (ROADMAP 7c) and of draining and elastic scaling (7d).
+consumer) whose rows equal a local read. Last, the warm standby's
+``not_primary`` reply and promotion, ``drain`` in process and on the
+wire, the dispatcher CLI's standby and elastic flags against the JAX
+CLI's, and the ``elastic_*`` options against the JAX parser (the
+standby's and the scaler's own suites are ``test_torch_service_ha.py``
+and ``test_torch_elastic.py``).
 
 The subprocess cases wait on events and on the processes' own lines,
 never on a fixed wall-clock budget for a worker's death.
@@ -57,7 +61,7 @@ from tpu_tfrecord_torch.io.dataset import TFRecordDataset  # noqa: E402
 from tpu_tfrecord_torch.io.paths import interleave, interleave_owner  # noqa: E402
 from tpu_tfrecord_torch.io.writer import DatasetWriter  # noqa: E402
 from tpu_tfrecord_torch.metrics import METRICS  # noqa: E402
-from tpu_tfrecord_torch.options import OptionNotPortedError, TFRecordOptions  # noqa: E402
+from tpu_tfrecord_torch.options import TFRecordOptions  # noqa: E402
 from tpu_tfrecord_torch.schema import (  # noqa: E402
     ArrayType,
     LongType,
@@ -1389,81 +1393,200 @@ def test_python_route_jax_consumer_is_a_spec_mismatch(data_dir):
 
 
 # ---------------------------------------------------------------------------
-# Refusals: the warm standby (7c), draining and elastic scaling (7d)
+# The warm standby (7c), draining and elastic scaling (7d), ported
 # ---------------------------------------------------------------------------
 
 
 def test_standby_and_promote_refused(tmp_path):
+    """A standby refuses lease ops with ``not_primary`` naming its
+    primary, as the JAX standby does, until ``promote()`` makes it the
+    acting primary at generation 1; a standby needs a journal."""
     j = str(tmp_path / "j.json")
-    with pytest.raises(OptionNotPortedError, match="7c"):
-        service.ServiceDispatcher(journal=j, standby_of="127.0.0.1:1")
-    d = service.ServiceDispatcher(journal=j)
-    try:
-        with pytest.raises(OptionNotPortedError, match="7c"):
+    with pytest.raises(ValueError, match="journal"):
+        service.ServiceDispatcher(standby_of="127.0.0.1:1")
+    with pytest.raises(ValueError, match="journal"):
+        jservice.ServiceDispatcher(standby_of="127.0.0.1:1")
+    replies = []
+    for mod, sub in ((service, "port"), (jservice, "jax")):
+        d = mod.ServiceDispatcher(journal=f"{j}.{sub}", standby_of="127.0.0.1:1",
+                                  lease_ttl_s=5.0, takeover_addr=False)
+        try:
+            replies.append(d._handle({"op": "route", "path": "s0", "shard_index": 0}))
+            st = d.status()
+            assert st["standby_of"] == "127.0.0.1:1" and st["failed_over"] is False
+            assert st["role"] == "standby" and st["accepting"] is False
             d.promote()
-        st = d.status()
-        assert st["standby_of"] is None and st["failed_over"] is False
-    finally:
-        d.stop()
+            st = d.status()
+            assert st["role"] == "dispatcher" and st["failed_over"] is True
+            assert st["generation"] == 1 and st["standby_of"] is None
+        finally:
+            d.stop()
+    assert replies[0] == replies[1] == {"error": "not_primary", "role": "standby",
+                                        "demoted": False, "primary": "127.0.0.1:1"}
+    assert METRICS.counter("service.not_primary_rejects") == 1
+    assert METRICS.counter("service.failovers") == 1
 
 
-def test_drain_refused_in_process_and_on_the_wire():
+def test_drain_refused_in_process_and_on_the_wire(tmp_path):
+    """``drain`` is refused for an unknown or already-draining worker (in
+    process and over the wire) and by a standby (``not_primary``); the
+    acting primary drains a known worker and hands its lease back."""
     d = service.ServiceDispatcher(lease_ttl_s=5.0).start()
-    try:
-        d._handle({"op": "register_worker", "worker_id": "w0", "addr": "h:0", "pid": 0})
-        with pytest.raises(OptionNotPortedError, match="7d"):
-            d.drain("w0")
-        s = sp.connect(d.addr, timeout=5.0)
+    b = service.ServiceDispatcher(journal=str(tmp_path / "j.json"), standby_of=d.addr,
+                                  lease_ttl_s=5.0, ping_interval_s=30.0,
+                                  takeover_addr=False).start()
+
+    def wire(addr, wid):
+        s = sp.connect(addr, timeout=5.0)
         try:
             s.settimeout(5.0)
-            reply = sp.request(s, d.addr, {"op": "drain", "proto": service.PROTO_VERSION,
-                                           "worker_id": "w0"})
+            return sp.request(s, addr, {"op": "drain", "proto": service.PROTO_VERSION,
+                                        "worker_id": wid})
         finally:
             s.close()
-        assert "7d" in reply["error"]
-        assert d.status()["draining"] == []
+
+    try:
+        d._handle({"op": "register_worker", "worker_id": "w0", "addr": "h:0", "pid": 0})
+        route = {"op": "route", "job": "j", "path": "s0", "shard_index": 0, "exclude": []}
+        assert d._handle(route)["worker_id"] == "w0"
+        assert d.drain("ghost") is False
+        assert wire(d.addr, "ghost") == {"ok": True, "drained": False}
+        assert wire(b.addr, "w0")["error"] == "not_primary"
+        assert wire(d.addr, "w0") == {"ok": True, "drained": True}
+        assert d.drain("w0") is False  # already draining
+        st = d.status()
+        assert st["draining"] == ["w0"] and st["active_leases"] == 0
+        assert st["lease_reassignments"] == 0
+        assert METRICS.counter("elastic.drained_leases") == 1
     finally:
+        b.stop()
         d.stop()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--standby-of", "127.0.0.1:1"], "7c"),
-    (["--takeover-misses", "2"], "7c"),
-    (["--ping-interval", "0.5"], "7c"),
-    (["--no-addr-takeover"], "7c"),
-    (["--elastic"], "7d"),
-    (["--scaler-spool", "/tmp/s"], "7d"),
-    (["--min-workers", "2"], "7d"),
-    (["--max-workers", "4"], "7d"),
-    (["--scale-interval", "1"], "7d"),
-    (["--hysteresis", "3"], "7d"),
-    (["--cooldown", "1"], "7d"),
-    (["--scaler-roles", "trainer"], "7d"),
-    (["--worker-arg=--cache"], "7d"),
-    (["--partition-map", "127.0.0.1:1"], "7d"),
+class _Recorder:
+    """Stands in for a class or factory the dispatcher CLI builds: records
+    its arguments and plays the object's part."""
+
+    def __init__(self, log, name):
+        self.log, self.name = log, name
+
+    def __call__(self, *args, **kw):
+        self.log[self.name] = (args, kw)
+        return self
+
+    def start(self):
+        return self
+
+    stop = reap = start
+    addr, partition_index, generation = "127.0.0.1:1", 0, 0
+    _stop = None
+
+
+def cli_capture(mod, argv, monkeypatch, capsys):
+    """What ``mod.main(["dispatcher", *argv])`` hands to the dispatcher,
+    the scaler and the spawner, and its ready line; or its exit code and
+    error when the parser refuses."""
+    import dataclasses
+    import importlib
+
+    elastic_mod = importlib.import_module(mod.__name__.replace("service", "elastic"))
+    log = {}
+    monkeypatch.setattr(mod, "ServiceDispatcher", _Recorder(log, "dispatcher"))
+    monkeypatch.setattr(mod, "_run_forever", lambda stop: None)
+    monkeypatch.setattr(mod.telemetry, "adopt_from_env", lambda **kw: None)
+    monkeypatch.setattr(elastic_mod, "FleetScaler", _Recorder(log, "scaler"))
+    monkeypatch.setattr(elastic_mod, "subprocess_spawner", _Recorder(log, "spawner"))
+    try:
+        mod.main(["dispatcher", *argv])
+    except SystemExit as e:
+        err = capsys.readouterr().err.splitlines()[-1]
+        return {"exit": e.code, "error": err.split(": error: ", 1)[1]}
+    out = {"ready": json.loads(capsys.readouterr().out.splitlines()[-1])}
+    out["ready"].pop("pid")
+    for name, (args, kw) in log.items():
+        kw = dict(kw)
+        if "policy" in kw:
+            kw["policy"] = dataclasses.asdict(kw["policy"])
+        if name == "scaler":  # the targets: this dispatcher, or handles
+            targets = args[0] if isinstance(args[0], list) else [args[0]]
+            args = ([getattr(t, "addrs", "local") for t in targets],)
+        out[name] = (args, kw)
+    return out
+
+
+ELASTIC = ["--elastic", "--scaler-spool", "/tmp/s"]
+
+
+@pytest.mark.parametrize("flags,reaches", [
+    (["--standby-of", "127.0.0.1:1", "--journal", "/tmp/j"], "dispatcher"),
+    (["--takeover-misses", "2"], "dispatcher"),
+    (["--ping-interval", "0.5"], "dispatcher"),
+    (["--no-addr-takeover"], "dispatcher"),
+    (["--elastic"], "refused"),
+    (["--scaler-spool", "/tmp/s", "--elastic"], "scaler"),
+    (["--min-workers", "2", *ELASTIC], "scaler"),
+    (["--max-workers", "4", *ELASTIC], "scaler"),
+    (["--scale-interval", "0.5", *ELASTIC], "scaler"),
+    (["--hysteresis", "3", *ELASTIC], "scaler"),
+    (["--cooldown", "1", *ELASTIC], "scaler"),
+    (["--scaler-roles", "trainer, eval", *ELASTIC], "scaler"),
+    (["--worker-arg=--cache", "--worker-arg=auto", *ELASTIC], "spawner"),
+    (["--partition-map", "127.0.0.1:1|127.0.0.1:2,127.0.0.1:3", *ELASTIC], "spawner"),
 ])
-def test_cli_refuses_later_slices_flags(flags, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        service.main(["dispatcher", *flags])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flags[0].split("=")[0] in err and f"item {item}" in err
+def test_cli_refuses_later_slices_flags(flags, reaches, monkeypatch, capsys):
+    """Each of the JAX CLI's standby and elastic flags is accepted and
+    reaches the dispatcher, the scaler or the spawner as the JAX CLI hands
+    it on (``--elastic`` without a spool is refused as JAX refuses it)."""
+    mine = cli_capture(service, flags, monkeypatch, capsys)
+    want = cli_capture(jservice, flags, monkeypatch, capsys)
+    assert mine == want
+    if reaches == "refused":
+        assert mine["exit"] == 2 and "--scaler-spool" in mine["error"]
+        return
+    assert reaches in mine
+    given = dict(zip(flags[::2], flags[1::2])) if flags[0] != "--no-addr-takeover" else {}
+    if flags[0] == "--standby-of":
+        assert mine["ready"]["role"] == "standby"
+        assert mine["ready"]["standby_of"] == given["--standby-of"]
+    if reaches == "scaler":
+        assert mine["ready"]["elastic"] is True
+        assert mine["scaler"][1]["spool_dir"] == "/tmp/s"
+    if flags[0] == "--partition-map":  # partition 0 here, partition 1 by handle
+        assert mine["scaler"][0] == (["local", ["127.0.0.1:3"]],)
+        assert mine["spawner"][0][0] == flags[1]
 
 
 def test_elastic_options_still_refused():
-    for key in ("elastic_min_workers", "elasticMaxWorkers", "elastic_interval_s"):
-        with pytest.raises(OptionNotPortedError):
-            TFRecordOptions.from_map({key: 2})
+    """The three ``elastic_*`` options parse in both spellings to the JAX
+    parser's values and defaults, and the JAX validation refuses the same
+    bad values."""
+    from tpu_tfrecord.options import TFRecordOptions as JOptions
+
+    keys = ("elastic_min_workers", "elastic_max_workers", "elastic_interval_s")
+    for given in ({"elastic_min_workers": 2, "elastic_max_workers": 6, "elastic_interval_s": 0.5},
+                  {"elasticMinWorkers": "3", "elasticMaxWorkers": "3", "elasticIntervalS": "2"},
+                  {}):
+        t, j = TFRecordOptions.from_map(given), JOptions.from_map(given)
+        assert [getattr(t, k) for k in keys] == [getattr(j, k) for k in keys]
+    assert [getattr(TFRecordOptions(), k) for k in keys] == [1, None, None]
+    for bad in ({"elastic_min_workers": 0}, {"elastic_min_workers": 4, "elastic_max_workers": 2},
+                {"elasticIntervalS": 0}):
+        with pytest.raises(ValueError) as mine:
+            TFRecordOptions.from_map(bad)
+        with pytest.raises(ValueError) as theirs:
+            JOptions.from_map(bad)
+        assert str(mine.value) == str(theirs.value)
 
 
 def test_service_processes_never_import_torch(tmp_path):
-    """A dispatcher with its journal, a worker with its epoch cache and a
-    consumer's read through them, in a fresh process: torch is never
-    imported, so service processes start without paying for it."""
+    """A dispatcher with its journal hosting a fleet scaler, its warm
+    standby, a worker with its epoch cache and a consumer's read through
+    them, in a fresh process: torch is never imported, so service
+    processes start without paying for it."""
     code = f"""
 import sys
 sys.path.insert(0, {REPO!r})
-from tpu_tfrecord_torch import service
+from tpu_tfrecord_torch import elastic, service
 from tpu_tfrecord_torch.io.dataset import TFRecordDataset
 from tpu_tfrecord_torch.io.writer import DatasetWriter
 from tpu_tfrecord_torch.options import TFRecordOptions
@@ -1479,7 +1602,14 @@ assert w.wait_registered(10)
 ds = TFRecordDataset(d, batch_size=8, schema=schema, service=disp.addr, hash_buckets={{"s": 16}})
 with ds.batches() as it:
     rows = sum(b.num_rows for b in it)
-w.stop(); disp.stop()
+standby = service.ServiceDispatcher(journal=d + ".journal", standby_of=disp.addr,
+                                    lease_ttl_s=5.0, takeover_addr=False).start()
+scaler = elastic.FleetScaler([disp, elastic.DispatcherHandle(standby.addr + "|" + disp.addr)],
+                             lambda: None, spool_dir=d + ".spool")
+assert scaler.step() is None and disp.scaler_status["workers"] == 1
+standby.promote()
+assert standby.status()["generation"] == 1
+w.stop(); standby.stop(); disp.stop()
 print(rows, sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "tpu_tfrecord")))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -7,9 +7,10 @@ durable delta line a mutation), the v1 upgrade, compaction, replay of the
 newest consistent prefix under every truncation shape (the ``torn_write``
 fault kind included), the inode fence, and demotion after consecutive
 journal failures. The zombie of the fencing case is a port primary whose
-journal a promoted JAX standby replaced (the port's standby is ROADMAP
-7c). Then the cross-package replay: each package's dispatcher restarts
-from the other's v1 and v2 journals with the same books.
+journal a promoted JAX standby replaced (the port's own standby and the
+mixed-package failovers are in ``test_torch_service_ha.py``). Then the
+cross-package replay: each package's dispatcher restarts from the
+other's v1 and v2 journals with the same books.
 """
 
 import json
@@ -419,8 +420,7 @@ def test_v1_journal_replays_and_upgrades_alike(tmp_path, first, second):
 
 def test_jax_drain_and_goodbye_records_fold_in_the_port(tmp_path):
     """A JAX journal may carry ``drain`` and ``goodbye`` records (its
-    elastic scale-down); the port folds them as JAX does, though it cannot
-    drain itself yet."""
+    elastic scale-down); the port folds them as JAX does."""
     j = str(tmp_path / "j.json")
     d = jservice.ServiceDispatcher(journal=j, lease_ttl_s=5.0)
     try:

@@ -22,10 +22,8 @@ from tpu_tfrecord_torch.serving import (
     ServePolicy,
     ServeRejected,
     ServingEngine,
-    ServingScaler,
     sequential_reference,
 )
-from tpu_tfrecord_torch.options import OptionNotPortedError
 
 torch.set_num_threads(1)
 
@@ -96,8 +94,27 @@ class TestServePolicy:
         assert jtelemetry.serving_verdict(p99, depth, 250.0, max_queue=16) == want
 
     def test_scaler_not_ported(self):
-        with pytest.raises(OptionNotPortedError, match="ServingScaler"):
-            ServingScaler()
+        """The replica autoscaler is ported: ``elastic.ServingScaler``
+        constructs, and its first tick over an empty fleet spawns the
+        floor, as the JAX one does."""
+        from tpu_tfrecord import elastic as jelastic
+        from tpu_tfrecord_torch import elastic, serving
+
+        assert not hasattr(serving, "ServingScaler")  # it lives in elastic, as in JAX
+        decisions = []
+        for mod in (elastic, jelastic):
+            spawned = []
+            s = mod.ServingScaler(
+                lambda: spawned.append(f"h:{len(spawned)}") or spawned[-1],
+                policy=mod.ScalerPolicy(min_workers=1, max_workers=2),
+                status_fn=lambda addr: {"queue_depth": 0, "completed": 0},
+                drain_fn=lambda addr: {"ok": True})
+            decisions.append(s.step())
+            assert s.replicas == spawned == ["h:0"]
+            assert s.step() is None  # at the floor, no verdict streak yet
+        assert decisions[0] == decisions[1] == {
+            "tick": 1, "action": "scale_up", "reason": "below_min",
+            "replicas": 0, "target": 1, "addr": "h:0"}
 
 
 class TestAdmission:

@@ -24,6 +24,7 @@ import os
 import signal
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -158,9 +159,19 @@ def test_lm_checkpoint_interchanges_both_ways(tmp_path):
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5, atol=1e-5)
 
 
-def run_twin(args, kill_after=None):
+def committed(args, step):
+    """Is generation ``step`` complete in the twin's ``--ckpt-dir``? Its
+    manifest is written last."""
+    ckpt_dir = args[args.index("--ckpt-dir") + 1]
+    return os.path.exists(os.path.join(ckpt_dir, f"gen-{step:08d}", "MANIFEST.json"))
+
+
+def run_twin(args, kill_after=None, deadline_s=120.0):
     """The LM twin in a subprocess on the CPU; with ``kill_after`` it is
-    killed with SIGKILL once that step's lm_step line is out."""
+    killed with SIGKILL once that step's lm_step line is out and the save
+    before it is committed (the save is asynchronous: on a loaded machine
+    its commit may land after later steps' lines; waited for at most
+    ``deadline_s``)."""
     cmd = [sys.executable, "-m", "tpu_tfrecord_torch.train_lm", "--device", "cpu", *args]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     # one thread: torch's threaded CPU reductions may round a loss's last
@@ -174,6 +185,11 @@ def run_twin(args, kill_after=None):
             lines.append(line.rstrip())
             if kill_after is not None and line.startswith("lm_step ") and \
                     json.loads(line.split(" ", 1)[1])["step"] == kill_after:
+                every = int(args[args.index("--save-every") + 1])
+                deadline = time.monotonic() + deadline_s
+                while not committed(args, kill_after // every * every) and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.002)
                 proc.send_signal(signal.SIGKILL)
                 break
         proc.wait(timeout=300)

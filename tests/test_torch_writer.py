@@ -31,8 +31,6 @@ from tpu_tfrecord_torch.io import writer as twriter  # noqa: E402
 from tpu_tfrecord_torch.io.writer import DatasetWriter as TWriter, sweep_orphan_jobs  # noqa: E402
 from tpu_tfrecord_torch.metrics import METRICS  # noqa: E402
 from tpu_tfrecord_torch.options import (  # noqa: E402
-    _NOT_PORTED,
-    OptionNotPortedError,
     RecordType as TRT,
     TFRecordOptions as TOptions,
 )
@@ -394,8 +392,8 @@ def test_option_spellings_like_jax(mapping):
 
 
 # the JAX options the port lacked before its stall, pulse, autotune, cache,
-# trace, telemetry-export, fleet-spool and data-service options were
-# ported, in both spellings
+# trace, telemetry-export, fleet-spool, data-service and elastic-fleet
+# options were ported, in both spellings
 OPTIONS_ONCE_NOT_PORTED = (
     ("read_deadline_ms", "readDeadlineMs"),
     ("open_deadline_ms", "openDeadlineMs"),
@@ -430,21 +428,18 @@ PORTED_VALUES = {
     "cache_max_bytes": "1024", "trace": "ON", "telemetry_port": "9100",
     "telemetry_spool_dir": "/tmp/spool", "spool_interval_s": "2", "telemetry_role": "reader",
     "service": "h:1", "service_lease_ttl_s": "3", "service_deadline_ms": 100,
-    "service_fallback_ms": "250",
+    "service_fallback_ms": "250", "elastic_min_workers": "2", "elastic_max_workers": 6,
+    "elastic_interval_s": "0.5",
 }
 
 
 @pytest.mark.parametrize("key", [k for pair in OPTIONS_ONCE_NOT_PORTED
                                  for k in dict.fromkeys(pair)])
 def test_options_not_ported_raise_and_name_themselves(key):
-    """An option still missing raises naming its snake_case spelling; one
-    ported since parses in either spelling to the JAX package's value."""
+    """Every option once missing is ported now: it parses in either
+    spelling to the JAX package's value."""
     snake = next(s for s, c in OPTIONS_ONCE_NOT_PORTED if key in (s, c))
-    assert (snake in PORTED_VALUES) != any(snake == s for s, _ in _NOT_PORTED)
-    if snake not in PORTED_VALUES:
-        with pytest.raises(OptionNotPortedError, match=snake):
-            TOptions.from_map({key: "x"})
-        return
+    assert snake in PORTED_VALUES
     value = PORTED_VALUES[snake]
     t, j = TOptions.from_map({key: value}), JOptions.from_map({key: value})
     assert getattr(t, snake) == getattr(j, snake) != getattr(TOptions(), snake)

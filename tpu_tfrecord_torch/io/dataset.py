@@ -258,12 +258,14 @@ class IteratorState:
 
 class TFRecordDataset:
     """Plan a streaming read: ``TFRecordDataset(paths, batch_size,
-    schema=None, recordType="Example", hash_buckets=None, pack=None,
-    drop_remainder=True, num_epochs=1, decoder="native", shuffle=False,
-    shuffle_window=0, seed=0, num_workers=1, columns=None, options=None,
-    prefetch=2, read_retries=0, retry_policy=None, slab_bytes=256 MiB,
-    max_record_bytes=1 GiB, use_mmap=True, readahead_bytes=64 MiB,
-    **option_kwargs)``. Without a schema, it is inferred from the first
+    options=None, columns=None, drop_remainder=True, num_epochs=1,
+    process_index=0, process_count=1, prefetch=2, num_workers=1,
+    shuffle=False, shuffle_window=0, seed=0, read_retries=0,
+    retry_policy=None, hash_buckets=None, pack=None, slab_bytes=256 MiB,
+    max_record_bytes=1 GiB, use_mmap=True, readahead_bytes=64 MiB, *,
+    schema=None, recordType="Example", decoder="native",
+    **option_kwargs)``: the JAX constructor's positional order, with the
+    port's own parameters keyword-only. Without a schema, it is inferred from the first
     non-empty shard. ``num_epochs=None`` repeats the shards without end.
     ``num_workers`` shards decode at a time (values below 1 count as 1).
     ``options`` (a ``TFRecordOptions``) or the keyword options
@@ -279,28 +281,29 @@ class TFRecordDataset:
         self,
         paths,
         batch_size: int,
-        schema: Optional[StructType] = None,
-        recordType="Example",
-        hash_buckets: Optional[Dict[str, int]] = None,
-        pack: Optional[Dict[str, List[str]]] = None,
+        options: Optional[TFRecordOptions] = None,
+        columns: Optional[List[str]] = None,
         drop_remainder: bool = True,
         num_epochs: Optional[int] = 1,
-        decoder: str = "native",
-        shuffle: bool = False,
-        shuffle_window: int = 0,
-        seed: int = 0,
-        num_workers: int = 1,
-        columns: Optional[List[str]] = None,
-        options: Optional[TFRecordOptions] = None,
         process_index: int = 0,
         process_count: int = 1,
         prefetch: int = PREFETCH,
+        num_workers: int = 1,
+        shuffle: bool = False,
+        shuffle_window: int = 0,
+        seed: int = 0,
         read_retries: int = 0,
         retry_policy: Optional[RetryPolicy] = None,
+        hash_buckets: Optional[Dict[str, int]] = None,
+        pack: Optional[Dict[str, List[str]]] = None,
         slab_bytes: int = SLAB_BYTES,
         max_record_bytes: int = MAX_RECORD_BYTES,
         use_mmap: bool = True,
         readahead_bytes: int = READAHEAD_BYTES,
+        *,
+        schema: Optional[StructType] = None,
+        recordType="Example",
+        decoder: str = "native",
         **option_kwargs,
     ):
         if batch_size < 1:
@@ -1357,8 +1360,8 @@ class CheckpointableIterator:
     ``close()`` stops the pulse, with one last line, and releases the
     spool."""
 
-    def __init__(self, ds: TFRecordDataset, state: IteratorState):
-        self._ds = ds
+    def __init__(self, dataset: TFRecordDataset, state: IteratorState):
+        ds = self._ds = dataset
         self._consumed_state = state
         self._queue: queue.Queue = _ResizableQueue(maxsize=max(1, ds.prefetch))
         self._stop = threading.Event()

@@ -43,16 +43,6 @@ class RecordType(enum.Enum):
         )
 
 
-# The JAX package's options that the port does not have yet, in both
-# spellings (snake_case, camelCase). Any of them raises in from_map.
-_NOT_PORTED = (
-    ("elastic_min_workers", "elasticMinWorkers"),
-    ("elastic_max_workers", "elasticMaxWorkers"),
-    ("elastic_interval_s", "elasticIntervalS"),
-)
-_NOT_PORTED_KEYS = {k: snake for snake, camel in _NOT_PORTED for k in (snake, camel)}
-
-
 class OptionNotPortedError(NotImplementedError):
     """An option of the JAX package that the port does not have yet."""
 
@@ -157,6 +147,14 @@ class TFRecordOptions:
     - service_fallback_ms: how long a shard may make no progress through
       the service before the consumer reads it locally (default 30000 ms,
       ``service.fallbacks``); None = never fall back
+    - elastic_min_workers / elastic_max_workers / elastic_interval_s: the
+      elastic decode fleet's floor, ceiling and decision cadence
+      (``elastic.FleetScaler``). The dispatcher side reads them (``python
+      -m tpu_tfrecord_torch.service dispatcher --elastic`` takes its flag
+      defaults from them); they live here so the fleet's vocabulary is
+      validated in one place. ``elastic_max_workers`` None defers to the
+      scaler's policy default, ``elastic_interval_s`` None to its 1 s
+      cadence
     """
 
     record_type: RecordType = RecordType.EXAMPLE
@@ -176,21 +174,24 @@ class TFRecordOptions:
     hedge_after_ms: Optional[float] = None
     on_stall: str = "raise"
     watchdog_timeout_ms: Optional[float] = None
-    pulse_interval_s: Optional[float] = None
-    autotune: str = "off"
-    autotune_interval_s: Optional[float] = None
     cache: str = "off"
     cache_dir: Optional[str] = None
     cache_max_bytes: Optional[int] = None
     trace: str = "off"
+    pulse_interval_s: Optional[float] = None
     telemetry_port: Optional[int] = None
     telemetry_spool_dir: Optional[str] = None
     spool_interval_s: Optional[float] = None
     telemetry_role: Optional[str] = None
+    autotune: str = "off"
+    autotune_interval_s: Optional[float] = None
     service: Optional[str] = None
     service_lease_ttl_s: float = 10.0
     service_deadline_ms: float = 5000.0
     service_fallback_ms: Optional[float] = 30000.0
+    elastic_min_workers: int = 1
+    elastic_max_workers: Optional[int] = None
+    elastic_interval_s: Optional[float] = None
 
     _KNOWN_KEYS = (
         "recordType",
@@ -251,6 +252,12 @@ class TFRecordOptions:
         "serviceDeadlineMs",
         "service_fallback_ms",
         "serviceFallbackMs",
+        "elastic_min_workers",
+        "elasticMinWorkers",
+        "elastic_max_workers",
+        "elasticMaxWorkers",
+        "elastic_interval_s",
+        "elasticIntervalS",
     )
 
     ON_CORRUPT_POLICIES = ("raise", "skip_record", "skip_shard")
@@ -264,18 +271,10 @@ class TFRecordOptions:
     def from_map(options: Optional[Mapping[str, Any]] = None, **kwargs: Any) -> "TFRecordOptions":
         """Build from a string-keyed map and/or keywords, accepting the
         reference's spellings (``recordType``) as well as snake_case.
-        Unknown keys raise with a did-you-mean hint, and an option of the
-        JAX package the port does not have yet raises
-        ``OptionNotPortedError``: a typo or a missing feature must fail
+        Unknown keys raise with a did-you-mean hint: a typo must fail
         loudly, never change behaviour silently."""
         merged: Dict[str, Any] = dict(options or {})
         merged.update(kwargs)
-        not_ported = sorted({_NOT_PORTED_KEYS[k] for k in merged if k in _NOT_PORTED_KEYS})
-        if not_ported:
-            raise OptionNotPortedError(
-                f"option(s) {not_ported} of tpu_tfrecord are not ported to "
-                "tpu_tfrecord_torch yet"
-            )
         record_type = RecordType.parse(
             merged.pop("recordType", merged.pop("record_type", None))
         )
@@ -423,6 +422,27 @@ class TFRecordOptions:
             service_fallback_ms = float(service_fallback_ms)
             if service_fallback_ms < 0:
                 raise ValueError("service_fallback_ms must be >= 0 (or None)")
+        elastic_min_workers = int(
+            merged.pop("elastic_min_workers", merged.pop("elasticMinWorkers", 1))
+        )
+        if elastic_min_workers < 1:
+            raise ValueError("elastic_min_workers must be >= 1")
+        elastic_max_workers = merged.pop(
+            "elastic_max_workers", merged.pop("elasticMaxWorkers", None)
+        )
+        if elastic_max_workers is not None:
+            elastic_max_workers = int(elastic_max_workers)
+            if elastic_max_workers < elastic_min_workers:
+                raise ValueError(
+                    "elastic_max_workers must be >= elastic_min_workers (or None)"
+                )
+        elastic_interval_s = merged.pop(
+            "elastic_interval_s", merged.pop("elasticIntervalS", None)
+        )
+        if elastic_interval_s is not None:
+            elastic_interval_s = float(elastic_interval_s)
+            if elastic_interval_s <= 0:
+                raise ValueError("elastic_interval_s must be > 0 (or None)")
         if merged:
             hints = []
             for key in merged:
@@ -465,6 +485,9 @@ class TFRecordOptions:
             service_lease_ttl_s=service_lease_ttl_s,
             service_deadline_ms=service_deadline_ms,
             service_fallback_ms=service_fallback_ms,
+            elastic_min_workers=elastic_min_workers,
+            elastic_max_workers=elastic_max_workers,
+            elastic_interval_s=elastic_interval_s,
         )
 
     def with_schema(self, schema: StructType) -> "TFRecordOptions":

@@ -39,12 +39,19 @@ local read. The workers are host processes and never touch CUDA.
   tenants over K dispatchers; clients and workers parse the ``service``
   address through it.
 
-Not ported yet: the warm standby (``standby_of``, ``promote``, the
-standby loop and address adoption; ROADMAP 7c) and draining
-(``ServiceDispatcher.drain``; ROADMAP 7d) raise ``OptionNotPortedError``,
-and the CLI refuses their flags. A worker still honours the ``drain``
-reply of a heartbeat (a JAX dispatcher may send one): it finishes its
-streams, says ``goodbye`` and stops.
+- **Warm standby**: a dispatcher built with ``standby_of=<primary>``
+  tails the primary's journal, answers lease ops with ``not_primary``,
+  pings the primary, and after ``takeover_misses`` failed pings (or a
+  primary that admits it stopped accepting) promotes itself: the
+  generation bumps and the journal is compacted into a new inode, which
+  fences a resurrected primary (``service.fenced_writes``,
+  ``service.demotions``); then it binds the dead primary's address when it
+  can (``service.failovers``).
+- **Draining**: ``ServiceDispatcher.drain`` hands a worker's leases back
+  for re-routing (``elastic.drained_leases``, planned drift and never a
+  reassignment), routes around it, and tells it through its heartbeat to
+  finish its streams, say ``goodbye`` (``elastic.drains``) and exit. The
+  fleet scaler of ``elastic.py`` drives it.
 """
 
 from __future__ import annotations
@@ -64,7 +71,6 @@ from tpu_tfrecord_torch import service_protocol as sp
 from tpu_tfrecord_torch.columnar import slice_batch
 from tpu_tfrecord_torch.io.paths import interleave_owner
 from tpu_tfrecord_torch.metrics import METRICS, log_salvage_event, logger
-from tpu_tfrecord_torch.options import OptionNotPortedError
 
 PROTO_VERSION = sp.PROTO_VERSION
 
@@ -96,8 +102,7 @@ JOURNAL_COMPACT_EVERY = 256
 #: one: a standby would take over from a stale journal.
 JOURNAL_DEMOTE_AFTER = 3
 
-#: consecutive failed primary pings before a warm standby takes over (the
-#: JAX default of the dispatcher's standby knob; the standby is not ported).
+#: consecutive failed primary pings before a warm standby takes over.
 STANDBY_TAKEOVER_MISSES = 3
 
 #: set by faults.install_chaos: every dispatcher-journal write consults
@@ -212,20 +217,6 @@ class ServiceSpecError(RuntimeError):
     data must never be papered over by a fallback."""
 
 
-def _refuse_ha(name: str) -> None:
-    raise OptionNotPortedError(
-        f"{name}: the warm standby (journal tailing, promotion, address "
-        "takeover) is not ported yet (ROADMAP.md, Queue A item 7c)"
-    )
-
-
-def _refuse_elastic(name: str) -> None:
-    raise OptionNotPortedError(
-        f"{name}: draining and elastic scaling are not ported yet "
-        "(ROADMAP.md, Queue A item 7d)"
-    )
-
-
 def shards_digest(shards) -> str:
     """Identity of the GLOBAL shard list ((path, size) pairs, discovery
     order) — consumer and worker must agree before any bytes flow."""
@@ -313,7 +304,11 @@ class ServiceDispatcher:
     set, reassignment count, trace identity) is journaled on every
     mutation — one fsynced delta line via ``checkpoint.durable_append``
     over a durable snapshot line — so a crash loses at most the
-    heartbeat freshness (which workers re-supply within one TTL).
+    heartbeat freshness (which workers re-supply within one TTL). The
+    same instance is also the partition's warm STANDBY when built with
+    ``standby_of=<primary addr>``: it tails the shared journal, rejects
+    lease-path ops with ``not_primary``, and promotes itself (generation
+    bump = zombie fence) when the primary stops answering pings.
 
     Lease model: ``route`` picks the owner among the ALIVE workers with the
     interleaved assignment (``interleave_owner`` over the sorted alive
@@ -321,11 +316,6 @@ class ServiceDispatcher:
     of a leased shard counts as a reassignment only when the previous
     lessee is dead or explicitly excluded by the consumer that watched it
     die; assignment drift from fleet growth is rebalancing, not failure.
-
-    ``standby_of`` (the warm standby) raises ``OptionNotPortedError``
-    until ROADMAP 7c; ``takeover_misses``, ``ping_interval_s`` and
-    ``takeover_addr`` shape only a standby, so a primary ignores them, as
-    in the JAX package.
     """
 
     def __init__(
@@ -343,10 +333,12 @@ class ServiceDispatcher:
         ping_interval_s: Optional[float] = None,
         takeover_addr: bool = True,
     ):
-        if standby_of is not None:
-            _refuse_ha("ServiceDispatcher(standby_of=...)")
         if lease_ttl_s <= 0:
             raise ValueError("lease_ttl_s must be > 0")
+        if standby_of is not None and journal is None:
+            raise ValueError(
+                "a standby needs the primary's journal path to tail"
+            )
         self.lease_ttl_s = float(lease_ttl_s)
         self.journal = journal
         self._clock = clock
@@ -355,24 +347,28 @@ class ServiceDispatcher:
         self._leases: Dict[str, str] = {}  # "tenant/shard_path" -> worker_id
         self._done: Dict[str, str] = {}
         self._reassignments = 0
-        # workers a JAX dispatcher's journal marked draining (wid ->
-        # replayed-at): excluded from new routes until they goodbye
+        # workers marked for graceful scale-down (wid -> drain-marked-at):
+        # excluded from new routes, expected to goodbye once idle
         self._draining: Dict[str, float] = {}
         # tenant (decode fingerprint) -> sharing bookkeeping: which
         # consumers/jobs ride this lease table, and how many shard
         # completions the warm cache absorbed
         self._tenants: Dict[str, Dict[str, Any]] = {}
-        #: published by a fleet scaler over the ``scaler_status`` op;
-        #: surfaced in status()
+        #: written by an attached elastic.FleetScaler (or published by a
+        #: remote one over the ``scaler_status`` op); surfaced in status()
         self.scaler_status: Optional[Dict[str, Any]] = None
-        # -- partitioning + fencing ----------------------------------------
+        # -- HA state (partitioning + failover + fencing) ------------------
         self.partition_index = int(partition_index)
         self.generation = int(generation)
-        self._role = "dispatcher"
+        #: None = acting primary; an address = warm standby tailing that
+        #: primary's journal, promoting itself on heartbeat loss
+        self._standby_of = str(standby_of) if standby_of is not None else None
+        self._role = "standby" if standby_of is not None else "dispatcher"
+        self.failed_over = False
         #: True once journal writes failed ``demote_after`` times in a row
         #: (or were fenced): a demoted primary grants NO leases — a
-        #: successor recovering from the journal must never race live
-        #: state that was silently running unjournaled
+        #: standby promoted off the journal must never race live state
+        #: that was silently running unjournaled
         self._demoted = False
         self._demote_after = max(1, int(demote_after))
         self._journal_fail_streak = 0
@@ -381,16 +377,25 @@ class ServiceDispatcher:
         self._journal_dirty = False
         self._journal_ino: Optional[int] = None
         self._appends_since_compact = 0
+        self._takeover_misses = max(1, int(takeover_misses))
+        self.ping_interval_s = (
+            float(ping_interval_s)
+            if ping_interval_s is not None
+            else min(1.0, self.lease_ttl_s / 4.0)
+        )
+        self._takeover_addr = bool(takeover_addr)
+        self._extra_srvs: List[socket.socket] = []
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._conns = _ConnTracker()
         self._ctx = telemetry.current_context().with_role(self._role)
         if journal is not None and os.path.exists(journal):
             self._replay_journal(journal)
-        if journal is not None:
-            # compact at birth: one fresh fsynced snapshot carrying the
-            # generation, so the journal is a well-formed v2 file from the
-            # first byte (and a replayed v1 journal is upgraded in place)
+        if journal is not None and self._standby_of is None:
+            # a PRIMARY compacts at birth: one fresh fsynced snapshot
+            # carrying its generation, so standbys tail a well-formed v2
+            # journal from the first byte (and a replayed v1 journal is
+            # upgraded in place)
             with self._lock:
                 self._compact_locked()
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -417,9 +422,11 @@ class ServiceDispatcher:
         get a fresh heartbeat grace of one TTL — they must re-heartbeat
         (their loop re-registers on ``known: false``) or they expire
         exactly like a SIGKILLed worker. The journaled trace identity is
-        re-adopted so the restarted dispatcher stays part of the same
-        logical run. Either package's journal replays here: the records
-        are the same."""
+        re-adopted so the restarted (or promoted) dispatcher stays part
+        of the same logical run. Also the standby's continuous catch-up
+        path: each tail tick re-reads and re-folds (journals are snapshot
+        + a bounded delta tail, so a full re-fold is cheap). Either
+        package's journal replays here: the records are the same."""
         try:
             with open(path, "rb") as fh:
                 data = fh.read()
@@ -610,14 +617,15 @@ class ServiceDispatcher:
         self._journal_fail_streak = 0
 
     def _journal_event_locked(self, event: Dict[str, Any]) -> None:
-        """Land one mutation record. Failure policy: count every failure;
+        """Land one mutation record. Primaries only — a standby reads the
+        journal, never writes it. Failure policy: count every failure;
         after ``demote_after`` CONSECUTIVE failures, or a single fenced
-        write (the file was replaced by a successor, e.g. a promoted JAX
-        standby), demote — stop granting leases rather than keep running
-        unjournaled under a successor that would recover stale state."""
+        write (the file was replaced by a promoted standby), demote — stop
+        granting leases rather than keep running unjournaled under a
+        standby that would recover stale state."""
         from tpu_tfrecord_torch import durable
 
-        if self.journal is None or self._demoted:
+        if self.journal is None or self._standby_of is not None or self._demoted:
             return
         try:
             if self._journal_dirty:
@@ -638,7 +646,7 @@ class ServiceDispatcher:
             if self._appends_since_compact >= JOURNAL_COMPACT_EVERY:
                 self._compact_locked()
         except durable.FencedWriteError as e:
-            # a successor owns this journal now: one stale write
+            # a promoted standby owns this journal now: one stale write
             # attempt is all a zombie gets before it stops serving
             METRICS.count("service.fenced_writes")
             self._demote_locked("fenced", e)
@@ -667,6 +675,10 @@ class ServiceDispatcher:
         t = threading.Thread(target=self._accept_loop, daemon=True)
         t.start()
         self._threads.append(t)
+        if self._standby_of is not None:
+            s = threading.Thread(target=self._standby_loop, daemon=True)
+            s.start()
+            self._threads.append(s)
         return self
 
     def stop(self) -> None:
@@ -675,6 +687,11 @@ class ServiceDispatcher:
             self._srv.close()
         except OSError:
             pass
+        for srv in self._extra_srvs:
+            try:
+                srv.close()
+            except OSError:
+                pass
         self._conns.close_all()
         # Wait out the accept thread: while it is blocked in accept(2) the
         # kernel keeps the listening socket's file description — and the
@@ -691,14 +708,15 @@ class ServiceDispatcher:
     def __exit__(self, *exc) -> None:
         self.stop()
 
-    def _accept_loop(self) -> None:
+    def _accept_loop(self, srv: Optional[socket.socket] = None) -> None:
+        srv = srv if srv is not None else self._srv
         try:
-            self._srv.settimeout(0.2)
+            srv.settimeout(0.2)
         except OSError:
             return  # stop() closed the listener before we first polled
         while not self._stop.is_set():
             try:
-                conn, _peer = self._srv.accept()
+                conn, _peer = srv.accept()
             except socket.timeout:
                 continue
             except OSError:
@@ -729,9 +747,122 @@ class ServiceDispatcher:
 
     # -- warm standby / failover --------------------------------------------
 
+    def _standby_loop(self) -> None:
+        """The warm-standby tick: tail the primary's journal (the
+        journal replay path reused for continuous catch-up — full re-fold of
+        snapshot + bounded delta tail), then ping the primary. After
+        ``takeover_misses`` consecutive failed pings — or a primary that
+        answers but admits it stopped accepting (demoted) — promote.
+        All waits ride the stop event (the injectable-wait seam);
+        cadence is ``ping_interval_s``."""
+        misses = 0
+        while not self._stop.wait(self.ping_interval_s):
+            if self._standby_of is None:
+                return  # promoted by an external call
+            try:
+                if os.path.exists(self.journal):
+                    self._replay_journal(self.journal)
+            except RuntimeError:
+                pass  # transiently unreadable: keep last good fold
+            if self._ping_primary():
+                misses = 0
+                continue
+            misses += 1
+            if misses >= self._takeover_misses:
+                self.promote()
+                return
+
+    def _ping_primary(self) -> bool:
+        addr = self._standby_of
+        if addr is None:
+            return True
+        try:
+            conn = sp.connect(addr, timeout=max(0.2, self.ping_interval_s))
+            try:
+                conn.settimeout(max(0.2, self.ping_interval_s))
+                reply = sp.request(
+                    conn, addr, {"op": "ping", "proto": PROTO_VERSION}
+                )
+            finally:
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+        except (OSError, sp.ProtocolError):
+            return False
+        # a primary that answers but no longer accepts (demoted after
+        # journal failures, or fenced) is DOWN for takeover purposes
+        return bool(reply.get("ok")) and bool(reply.get("accepting", True))
+
     def promote(self) -> None:
-        """Not ported: standby -> acting primary (ROADMAP 7c)."""
-        _refuse_ha("ServiceDispatcher.promote")
+        """Standby -> acting primary. Bumps the generation and compacts
+        the journal (``durable_write`` -> new inode), which IS the fence:
+        the dead primary resurrected as a zombie fails its next append on
+        the inode change, counts ``service.fenced_writes``, and demotes.
+        Then best-effort takes over the dead primary's advertised address
+        (clients that never learned the standby's address reconnect to
+        the same host:port); clients that DO know it ride their partition
+        map's address rotation either way."""
+        with self._lock:
+            if self._standby_of is None:
+                return
+            primary_addr = self._standby_of
+            self._standby_of = None
+            self._role = "dispatcher"
+            self.failed_over = True
+            self._demoted = False
+            self.generation += 1
+            try:
+                self._compact_locked()
+            except OSError as e:
+                # promotion must not die on a journal hiccup — the next
+                # mutation retries the compaction via the dirty flag
+                METRICS.count("service.journal_errors")
+                self._journal_dirty = True
+                logger.warning("promotion compaction failed: %s", e)
+        self._ctx = telemetry.adopt(self._ctx.with_role("dispatcher"))
+        METRICS.count("service.failovers")
+        METRICS.gauge("service.partition", float(self.partition_index))
+        telemetry.instant(
+            "service.failover",
+            partition=self.partition_index,
+            generation=self.generation,
+            old_primary=primary_addr,
+            addr=self.addr,
+        )
+        logger.warning(
+            "standby took over partition %d (generation %d, old primary %s)",
+            self.partition_index, self.generation, primary_addr,
+        )
+        if self._takeover_addr:
+            self._adopt_address(primary_addr)
+
+    def _adopt_address(self, addr: str) -> None:
+        """Best-effort bind of the dead primary's advertised host:port as
+        an ADDITIONAL accept socket. On the same host this succeeds the
+        moment the primary's listener dies (SO_REUSEADDR); across hosts
+        (or while a zombie still holds the port) it fails quietly —
+        partition-map address rotation covers those clients."""
+        try:
+            host, port = sp.parse_addr(addr)
+            srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            srv.bind((host, port))
+            srv.listen(64)
+        except OSError as e:
+            logger.warning(
+                "could not take over advertised address %s: %s", addr, e
+            )
+            return
+        self._extra_srvs.append(srv)
+        t = threading.Thread(
+            target=self._accept_loop, args=(srv,), daemon=True
+        )
+        t.start()
+        self._threads.append(t)
+        telemetry.instant("service.failover", adopted_addr=addr,
+                          partition=self.partition_index,
+                          generation=self.generation)
 
     # -- request handling ---------------------------------------------------
 
@@ -741,16 +872,17 @@ class ServiceDispatcher:
             return {"error": "proto_mismatch", "proto": PROTO_VERSION}
         try:
             if op in ("route", "shard_done", "drain") and not self.accepting:
-                # a demoted primary grants NOTHING: route and completion
-                # records belong to a journaled primary. Workers'
-                # register/heartbeat still land and status/ping answer
-                # honestly.
+                # a standby (or a demoted zombie) grants NOTHING: route
+                # and completion records belong to the acting primary's
+                # journal. Workers' register/heartbeat still land (the
+                # standby keeps fleet freshness warm for takeover) and
+                # status/ping answer honestly.
                 METRICS.count("service.not_primary_rejects")
                 return {
                     "error": "not_primary",
                     "role": self._role,
                     "demoted": self._demoted,
-                    "primary": None,
+                    "primary": self._standby_of,
                 }
             if op == "register_worker":
                 return self._op_register(msg)
@@ -763,7 +895,8 @@ class ServiceDispatcher:
             if op == "goodbye":
                 return self._op_goodbye(msg)
             if op == "drain":
-                return {"error": "not_ported: drain (ROADMAP.md, Queue A item 7d)"}
+                return {"ok": True,
+                        "drained": self.drain(str(msg["worker_id"]))}
             if op == "scaler_status":
                 # a federated FleetScaler running elsewhere publishes its
                 # verdict here so serve-status shows it on every partition
@@ -784,7 +917,7 @@ class ServiceDispatcher:
     def accepting(self) -> bool:
         """Is this process the acting, non-demoted primary for its
         partition — the only state in which leases may be granted?"""
-        return not self._demoted
+        return self._standby_of is None and not self._demoted
 
     def _alive_locked(self, now: float) -> List[str]:
         return sorted(
@@ -827,8 +960,27 @@ class ServiceDispatcher:
         return {"ok": True, "known": info is not None, "drain": drain}
 
     def drain(self, worker_id: str) -> bool:
-        """Not ported: mark one worker draining (ROADMAP 7d)."""
-        _refuse_elastic("ServiceDispatcher.drain")
+        """Mark one worker draining (the elastic scale-down path): its
+        current leases are handed back for re-routing (planned drift —
+        never counted as a lease_reassignment), new routes exclude it,
+        and its heartbeat replies carry ``drain: true`` until it says
+        goodbye. Returns False for an unknown or already-draining
+        worker."""
+        wid = str(worker_id)
+        with self._lock:
+            if wid not in self._workers or wid in self._draining:
+                return False
+            self._draining[wid] = self._clock()
+            released = [k for k, v in self._leases.items() if v == wid]
+            for k in released:
+                del self._leases[k]
+            self._journal_event_locked({"kind": "drain", "worker_id": wid})
+        if released:
+            METRICS.count("elastic.drained_leases", len(released))
+        telemetry.instant(
+            "elastic.drain", worker=wid, released_leases=len(released)
+        )
+        return True
 
     def _op_goodbye(self, msg: Dict[str, Any]) -> Dict[str, Any]:
         """A draining worker finished its streams and is exiting cleanly:
@@ -1003,11 +1155,10 @@ class ServiceDispatcher:
                 "addr": self.addr,
                 "partition": self.partition_index,
                 "generation": self.generation,
-                "accepting": not self._demoted,
+                "accepting": self._standby_of is None and not self._demoted,
                 "demoted": self._demoted,
-                # the JAX status keys of the standby, which is not ported
-                "failed_over": False,
-                "standby_of": None,
+                "failed_over": self.failed_over,
+                "standby_of": self._standby_of,
                 "lease_ttl_s": self.lease_ttl_s,
                 "workers": workers,
                 "alive": len(alive),
@@ -1634,15 +1785,33 @@ class ServiceClient:
     def _shard_done(
         self, worker_id: str, shard_path: str, cached: bool = False
     ) -> None:
-        try:
-            self._dispatcher_rpc(
-                {"op": "shard_done", "proto": PROTO_VERSION, "job": self._job,
-                 "tenant": self._tenant, "consumer": self._consumer_id,
-                 "path": shard_path, "worker_id": worker_id,
-                 "cached": cached}
-            )
-        except (OSError, sp.ProtocolError):
-            pass  # accounting only — the consumer's own position is truth
+        """Report one shard's completion to the partition. Accounting only
+        (the consumer's own position is truth), but it rides a dispatcher
+        outage as a route does: a dead primary, or a standby that has not
+        promoted yet (``not_primary``), is retried through the partition's
+        members with the policy's backoff for up to one lease TTL, so a
+        shard completed during a failover is still in the promoted
+        standby's books. A degraded client (already reading locally) tries
+        once."""
+        msg = {"op": "shard_done", "proto": PROTO_VERSION, "job": self._job,
+               "tenant": self._tenant, "consumer": self._consumer_id,
+               "path": shard_path, "worker_id": worker_id, "cached": cached}
+        deadline = self._clock() + (0.0 if self._degraded else self._suspect_ttl_s)
+        attempt = 0
+        while True:
+            try:
+                if self._dispatcher_rpc(msg).get("error") != "not_primary":
+                    return
+            except (OSError, sp.ProtocolError):
+                pass
+            attempt += 1
+            now = self._clock()
+            if now >= deadline:
+                logger.warning("shard_done of %s not reported: no accepting "
+                               "member of %s", shard_path, self._addrs)
+                return
+            self._sleep(min(self._ds.retry_policy.backoff(min(attempt, 16)),
+                            deadline - now))
 
     def shard_chunks(self, epoch: int, pos: int, shard_idx: int, skip: int, stop):
         """Yield one shard's chunk tuples from the resume point, exactly
@@ -1870,13 +2039,6 @@ def _release_spool(spool) -> None:
         fleet.release_spool(spool)
 
 
-#: dispatcher flags of the JAX CLI that belong to later slices: each exits
-#: through ``ap.error`` naming the item that ports it
-_HA_FLAGS = ("standby_of", "takeover_misses", "ping_interval", "no_addr_takeover")
-_ELASTIC_FLAGS = ("elastic", "scaler_spool", "min_workers", "max_workers", "scale_interval",
-                  "hysteresis", "cooldown", "scaler_roles", "worker_arg", "partition_map")
-
-
 def dispatcher_main(argv: List[str]) -> int:
     from tpu_tfrecord_torch.options import TFRecordOptions
 
@@ -1886,57 +2048,133 @@ def dispatcher_main(argv: List[str]) -> int:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--journal", default=None,
                     help="assignment journal path (fsynced snapshot+delta "
-                    "lines; a restarted dispatcher replays it)")
+                    "lines; a restarted dispatcher replays it, a warm "
+                    "standby tails it)")
     ap.add_argument("--lease-ttl-s", type=float,
                     default=defaults.service_lease_ttl_s)
+    ap.add_argument("--standby-of", default=None, metavar="HOST:PORT",
+                    help="run as the warm standby of the primary at this "
+                    "address: tail its journal (--journal must point at "
+                    "the SAME file), detect death by ping loss, promote "
+                    "with a bumped generation (fencing the zombie) and "
+                    "take over the advertised address")
     ap.add_argument("--partition", type=int, default=0,
                     help="this dispatcher's index in the static partition "
                     "map (consumers hash tenants over it)")
     ap.add_argument("--generation", type=int, default=0,
                     help="starting fencing generation (normally 0; the "
                     "journal's replayed generation wins if higher)")
-    # the JAX CLI's warm-standby (7c) and elastic (7d) flags: parsed so
-    # that each is refused by name
-    ap.add_argument("--standby-of", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--takeover-misses", type=int, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--ping-interval", type=float, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--no-addr-takeover", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--elastic", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--scaler-spool", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--min-workers", type=int, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--max-workers", type=int, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--scale-interval", type=float, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--hysteresis", type=int, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--cooldown", type=float, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--scaler-roles", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--worker-arg", action="append", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--partition-map", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--takeover-misses", type=int,
+                    default=STANDBY_TAKEOVER_MISSES,
+                    help="consecutive failed primary pings before a "
+                    "standby promotes itself")
+    ap.add_argument("--ping-interval", type=float, default=None,
+                    help="standby ping/tail cadence in seconds (default "
+                    "min(1, lease_ttl/4))")
+    ap.add_argument("--no-addr-takeover", action="store_true",
+                    help="do not try to bind the dead primary's advertised "
+                    "address on promotion (clients rotate to the standby "
+                    "address via the partition map instead)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="run a FleetScaler (tpu_tfrecord_torch.elastic): spawn "
+                    "decode-worker subprocesses on producer_bound, drain "
+                    "them on consumer_bound/idle")
+    ap.add_argument("--scaler-spool", default=None, metavar="DIR",
+                    help="telemetry spool dir the scaler reads the cluster "
+                    "verdict from (default: --spool-dir)")
+    ap.add_argument("--min-workers", type=int,
+                    default=defaults.elastic_min_workers)
+    ap.add_argument("--max-workers", type=int, default=None,
+                    help="fleet ceiling (default: the options-vocabulary "
+                    "default, currently 8)")
+    ap.add_argument("--scale-interval", type=float,
+                    default=defaults.elastic_interval_s or 1.0)
+    ap.add_argument("--hysteresis", type=int, default=2)
+    ap.add_argument("--cooldown", type=float, default=5.0)
+    ap.add_argument("--scaler-roles", default=None, metavar="ROLE[,ROLE]",
+                    help="scope the scaler's cluster verdict to spools "
+                    "stamped with these telemetry roles (e.g. 'trainer'); "
+                    "default: every spooling process with an occupancy "
+                    "gauge votes")
+    ap.add_argument("--worker-arg", action="append", default=[],
+                    metavar="ARG", help="extra CLI arg for every spawned "
+                    "worker (repeatable; e.g. --worker-arg=--cache "
+                    "--worker-arg=auto)")
+    ap.add_argument("--partition-map", default=None, metavar="SPEC",
+                    help="full PartitionMap spec spawned workers register "
+                    "with (so every partition can route to them); default: "
+                    "just this dispatcher's address")
     _spool_args(ap)
     args = ap.parse_args(argv)
-    for names, item in ((_HA_FLAGS, "7c, the warm standby"),
-                        (_ELASTIC_FLAGS, "7d, elastic scaling")):
-        given = ["--" + n.replace("_", "-") for n in names
-                 if getattr(args, n) not in (None, False)]
-        if given:
-            ap.error(f"{', '.join(given)}: not ported yet (ROADMAP.md, Queue A item {item})")
-    telemetry.adopt_from_env(role="dispatcher")
+    role = "standby" if args.standby_of else "dispatcher"
+    telemetry.adopt_from_env(role=role)
     d = ServiceDispatcher(
         port=args.port, host=args.host, journal=args.journal,
         lease_ttl_s=args.lease_ttl_s,
+        standby_of=args.standby_of,
         partition_index=args.partition,
         generation=args.generation,
+        takeover_misses=args.takeover_misses,
+        ping_interval_s=args.ping_interval,
+        takeover_addr=not args.no_addr_takeover,
     ).start()
-    spool = _maybe_spool(args, "dispatcher")
-    print(json.dumps({"event": "ready", "role": "dispatcher",
+    spool = _maybe_spool(args, role)
+    scaler = None
+    spawner = None
+    if args.elastic:
+        from tpu_tfrecord_torch import elastic
+
+        scaler_spool = args.scaler_spool or args.spool_dir
+        if scaler_spool is None:
+            ap.error("--elastic needs --scaler-spool (or --spool-dir): the "
+                     "scaler reads the cluster verdict from a spool dir")
+        if args.standby_of:
+            ap.error("--elastic belongs on a PRIMARY: a standby must not "
+                     "run a second scaler over the same fleet")
+        spawner = elastic.subprocess_spawner(
+            args.partition_map or d.addr, tuple(args.worker_arg)
+        )
+        max_workers = (
+            args.max_workers
+            if args.max_workers is not None
+            else (defaults.elastic_max_workers or 8)
+        )
+        # under a partition map the one scaler federates: this partition
+        # in-process, every other partition through a remote handle
+        targets: Any = d
+        if args.partition_map:
+            pmap = PartitionMap.parse(args.partition_map)
+            targets = [
+                d if i == args.partition
+                else elastic.DispatcherHandle(pmap.addrs(i))
+                for i in range(pmap.k)
+            ]
+        scaler = elastic.FleetScaler(
+            targets, spawner, spool_dir=scaler_spool,
+            policy=elastic.ScalerPolicy(
+                hysteresis=args.hysteresis, cooldown_s=args.cooldown,
+                min_workers=args.min_workers, max_workers=max_workers,
+            ),
+            interval_s=args.scale_interval,
+            roles=(
+                [r.strip() for r in args.scaler_roles.split(",") if r.strip()]
+                if args.scaler_roles else None
+            ),
+        ).start()
+    print(json.dumps({"event": "ready", "role": role,
                       "addr": d.addr, "pid": os.getpid(),
                       "partition": d.partition_index,
                       "generation": d.generation,
-                      "standby_of": None,
-                      "elastic": False}), flush=True)
+                      "standby_of": args.standby_of,
+                      "elastic": bool(scaler)}), flush=True)
     try:
         _run_forever(d._stop)
     finally:
+        if scaler is not None:
+            scaler.stop()
         d.stop()
+        if spawner is not None:
+            spawner.reap()
         _release_spool(spool)
     return 0
 

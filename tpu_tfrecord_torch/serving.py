@@ -41,8 +41,8 @@ every admitted request and exits 0.
 telemetry (``fleet.acquire_spool`` under ``role``, every 0.2 s); a drain,
 SIGTERM included, lands the spool's ``final: true`` snapshot.
 
-Not ported: the autoscaler (the JAX package's ``elastic.ServingScaler``),
-which raises ``OptionNotPortedError``.
+The autoscaler of the replicas is ``elastic.ServingScaler``, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -69,7 +69,6 @@ from tpu_tfrecord_torch import service_protocol as sp
 from tpu_tfrecord_torch import telemetry as _telemetry
 from tpu_tfrecord_torch.metrics import METRICS, logger
 from tpu_tfrecord_torch.models import lm as _lm
-from tpu_tfrecord_torch.options import OptionNotPortedError
 
 __all__ = [
     "ServePolicy",
@@ -78,7 +77,6 @@ __all__ = [
     "ServingEngine",
     "ServeServer",
     "ServeClient",
-    "ServingScaler",
     "sequential_reference",
     "run_server",
     "main",
@@ -1075,18 +1073,6 @@ class ServeClient:
 # ---------------------------------------------------------------------------
 # Process harness: signals, CLI
 # ---------------------------------------------------------------------------
-
-
-class ServingScaler:
-    """Not ported: the JAX package's ``elastic.ServingScaler`` (replicas
-    grown on queue pressure and drained when idle) reads the fleet spool,
-    which the port does not have yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise OptionNotPortedError(
-            "elastic.ServingScaler: the autoscaler reads the fleet telemetry spool, "
-            "which the port does not have yet"
-        )
 
 
 def run_server(

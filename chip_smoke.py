@@ -78,7 +78,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 7. The data-source API at full width, in phase 4's temp dir, host CPU facts
    first. (a) ``DatasetWriter.write_batches`` at bench_write.py's shape
    (6 x 16,384 Criteo columnar rows): sequential (1 worker) and pipelined
-   (4 workers, 4 shards), uncompressed and deflate, 3 interleaved pairs,
+   (4 workers, 4 shards), uncompressed and deflate, 2 interleaved pairs,
    best of each, beside bench_write.py's two-thread zlib probe; the
    pipelined files' bytes must be identical at 2 and 4 workers. (b) Phase
    4's rows with ``day`` = the shard's index through ``io.write(...,
@@ -130,8 +130,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    steps 17-64 and its losses (bit-equal, or within a relative 1e-4: the
    line says which), and its tokens/s whole and steady. (4) ``python -m
    tpu_tfrecord_torch.train_longdoc`` whole (32 steps, bf16 frames):
-   finite losses, the phase shares and verdict. (5) Rates beside the
-   card's name and power limit: LM and long_doc train steps/s eager on a
+   finite losses, the phase shares and verdict. The uninterrupted run, the
+   killed run and train_longdoc run at once (three processes on the card,
+   as in phase 11): their tokens/s are contended rates, read beside one
+   another, and not comparable with those of a run alone. (5) Rates
+   beside the card's name and power limit: LM and long_doc train steps/s eager on a
    resident batch, with device ms a step (torch.profiler) and the idle
    share; ``TokenPacker`` docs/s and density at the bench's pack shape.
 
@@ -155,8 +158,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    counted; tokens/s, requests/s, latencies, ticks, ``serve.*`` counters
    and the verdict. (d) One engine tick at (1, 2) under torch.profiler:
    host ms, device ms, kernels, idle share. (e) ``python -m
-   tpu_tfrecord_torch.serving --device cuda`` as a subprocess: its ready
-   line, 4 requests equal to the reference, SIGTERM, exit 0 within 60 s.
+   tpu_tfrecord_torch.serving --device cuda`` as a subprocess, started
+   with (a) and checked right after it (before the measured (b)-(d)): its
+   ready line, 4 requests equal to the reference, SIGTERM, exit 0 within
+   60 s.
 
 11. Mixture-of-Experts on one card (no DLRM kernel runs here: every
    instance's launch count over the phase must be 0), under deterministic
@@ -197,7 +202,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    share of pages ``mincore`` finds resident after the drop (a pass is
    cold only where it is 0); the pool at 1, 2 and 4 workers at the JAX
    per-shard queue depth and at 16. (c) The warm host loop with 60 s
-   deadlines and watchdog against none, A/B/B/A twice, best of each.
+   deadlines and watchdog against none, A/B/B/A, best of each.
    (d) Drills under a ``FaultPlan`` on the real files (3 s stalls,
    released at the end): a stalled read beaten by a 50 ms hedge (batches
    bit-equal, ``read.hedge_wins`` >= 1), a stalled open retried past a
@@ -256,6 +261,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    batch gathers a CPU copy: ``DTensor.full_tensor()`` over gloo on CUDA
    tensors ends both ranks (a finding of earlier runs, no longer
    re-measured).
+   (c) The DLRM over a mesh of the same two ranks (``mesh_rank``): after
+   scoring, each rank frees its model, builds the full-width bf16 DLRM from
+   TRAIN_SEED and keeps its pieces (``dlrm.shard_model``), then takes 4
+   ``sharded_sparse_train_step``s on mesh {'model': 2} (a [26, 2^19, 32]
+   table shard each, both ranks on the same 16,384-row batches: the first
+   4 of the shards' one slot), 4 on {'data': 2} (each rank its own slot's
+   16,384 rows of a 32,768-row global batch, through
+   ``make_global_batch``) and 1 ``sharded_train_step`` on {'model': 2}.
+   The sharded forward collects over gloo with ``all_reduce`` and the list
+   ``all_gather`` only. Each rank writes its losses, a digest of its table
+   piece and of its MLP pieces after every step, and its table rows that
+   moved. This process then runs the same steps in one process on the
+   same (for {'data': 2} the concatenated) batches: losses within
+   TRAIN_LOSS_TOL and every moved row within TRAIN_TABLE_ATOL (phase 5's
+   gates), the sparse steps' AdaGrad accumulators of the moved rows within
+   MESH_ACCUM_RTOL of their largest (the one state that carries the
+   gradients' scale: a gradient counted twice leaves the Adam and AdaGrad
+   moves as they were), the same rows moved, the data replicas' digests equal at every
+   step, the model ranks' losses equal, one ``bf16_mma`` launch per sharded
+   forward in each rank's window (``mesh_launches``). Two ranks of
+   ``python -m tpu_tfrecord_torch.train_dlrm --max-steps 8`` under
+   torchrun's environment start with the scoring ranks (they run while
+   those import; the scoring waits for their exit) and must both exit 0
+   after 8 steps. Printed with the
+   card's name and power limit: each rank's step ms, the ms of its
+   collectives (CUDA events around them) and the card's idle share for its
+   kernels over its last step of each mesh (torch.profiler).
 
 15. Remote filesystems on phase 12's shards (``remote_path``): the port's
    ``httpfs.serve_directory`` serves them from a spawned process on
@@ -315,9 +347,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    V = 1 and V = 2) and the same step without it: losses and every
    gradient within 1e-4, the bubble exactly 1/9 and 1/17. Each step's host
    ms, device ms, kernels and idle share beside the step without the
-   schedule and phase 9's LM step. Then ``python -m
+   schedule and phase 9's LM step, taken after ``python -m
    tpu_tfrecord_torch.train_lm --mesh dp_pp --virtual 2 --diagnostics``
-   for 16 steps in a subprocess: its batches are this process's stream,
+   ran for 16 steps in a subprocess beside the checks (which time
+   nothing): its batches are this process's stream,
    its losses those of the same steps here without the schedule (within
    1e-4), its gauges 1/17; ``dot_interaction`` launches 0 times
    (``pipe_launches``). (b) ``service_path`` on phase 12's shards: a
@@ -359,8 +392,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    finding. (c) ``serving_scale``: a ``ServingScaler`` here over
    ``ServingReplicaSpawner`` replicas on the card (phase 10 (e)'s LM,
    ``--mb 2 --max-queue 4 --slo-p99-ms 50``), policy 1..2, hysteresis 2: its
-   first tick, on a thread while (a) and (b) run, spawns the floor; 8
-   clients make it queue_bound until it spawns the second, then idle
+   first tick, on a thread while (a) and (b) run, spawns the floor, and
+   the second replica starts beside it on another thread; 8 clients make
+   the scaler queue_bound until it takes that second replica, then idle
    ticks drain one, which exits 0. Gates:
    every request's tokens equal to ``sequential_reference`` of the seeded
    model on this card, 1 drain and no replica lost. Printed: each
@@ -908,6 +942,7 @@ def profile_forward(label, model, batch, res) -> None:
 # absolutely (a row moves by about embed_lr = 0.01 a step)
 TRAIN_LOSS_TOL = 2e-2
 TRAIN_TABLE_ATOL = 5e-3
+MESH_ACCUM_RTOL = 1e-2   # phase 14 (c): |accumulator - one process| over its largest
 TRAIN_SPARSE_EPOCHS = 8  # both shards: 16 steps
 TRAIN_DENSE_EPOCHS = 2   # one shard: 2 steps
 TRAIN_SEED = 0
@@ -1484,7 +1519,7 @@ def feed_path(data_dir: str) -> dict:
 # -- phase 7: the data-source API ----------------------------------------------------
 
 WRITE_BATCHES = 6      # bench_write.py's shape: 6 batches of BATCH Criteo rows
-WRITE_REPS = 3         # interleaved sequential/pipelined pairs, best of each
+WRITE_REPS = 2         # interleaved sequential/pipelined pairs, best of each
 WRITE_WORKERS = 4
 WRITE_SHARDS = 4
 CAT_LEN = 8
@@ -2238,7 +2273,9 @@ def run_twin(module: str, args: list, work: str, log: str, kill_after_step=None,
     (``SEQ_DEVICE`` unless ``device``; ``env`` added to this process's):
     (return code, [(host seconds since start, line)], stderr). With
     ``kill_after_step`` it is killed with SIGKILL after that step's
-    ``lm_step`` line."""
+    ``lm_step`` line, once the save before it is committed: the save is
+    asynchronous, and on a busy host its commit can land after later
+    steps' lines (waited for up to SEQ_TIMEOUT_S)."""
     import signal
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -2256,6 +2293,13 @@ def run_twin(module: str, args: list, work: str, log: str, kill_after_step=None,
                 lines.append((time.perf_counter() - t0, line.rstrip()))
                 if (kill_after_step is not None and line.startswith("lm_step ")
                         and json.loads(line.split(" ", 1)[1])["step"] == kill_after_step):
+                    every = int(args[args.index("--save-every") + 1])
+                    manifest = os.path.join(args[args.index("--ckpt-dir") + 1],
+                                            f"gen-{kill_after_step // every * every:08d}",
+                                            "MANIFEST.json")
+                    deadline = time.monotonic() + SEQ_TIMEOUT_S
+                    while not os.path.exists(manifest) and time.monotonic() < deadline:
+                        time.sleep(0.002)
                     proc.send_signal(signal.SIGKILL)
                     break
         finally:
@@ -2291,22 +2335,30 @@ def done_rate(lines) -> float:
 
 def lm_drill(work: str, data_dir: str) -> dict:
     """Phase 9 (3): the train_lm twin, uninterrupted for 64 steps saving
-    every 8, then killed with SIGKILL after step 20 and run again: it must
-    resume at step 16 and give the uninterrupted run's digests for steps
-    17-64 and its losses, bit-equal or within ``SEQ_LOSS_RTOL``."""
+    every 8 and, at the same time, a run killed with SIGKILL after step 20,
+    then run again: it must resume at step 16 and give the uninterrupted
+    run's digests for steps 17-64 and its losses, bit-equal or within
+    ``SEQ_LOSS_RTOL``."""
     import signal
 
     from tpu_tfrecord_torch import train_lm as tw
 
     common = ["--data-dir", data_dir, "--steps", str(LM_DRILL_STEPS),
               "--save-every", str(LM_DRILL_SAVE_EVERY)]
-    runs = {}
-    for name, ckpt, kill in (("uninterrupted", "lm_ckpt_ref", None), ("killed", "lm_ckpt", LM_DRILL_KILL_AT),
-                             ("resumed", "lm_ckpt", None)):
-        rc, lines, err = run_twin("tpu_tfrecord_torch.train_lm", common + [
+
+    def lm_run(name, ckpt, kill=None):
+        return run_twin("tpu_tfrecord_torch.train_lm", common + [
             "--ckpt-dir", os.path.join(work, ckpt),
             "--digest-out", os.path.join(work, f"lm_{name}.jsonl")], work, f"lm_{name}.err", kill)
-        want_rc = -signal.SIGKILL if kill else 0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        ref_f = pool.submit(lm_run, "uninterrupted", "lm_ckpt_ref")
+        kill_f = pool.submit(lm_run, "killed", "lm_ckpt", LM_DRILL_KILL_AT)
+        done = {"uninterrupted": ref_f.result(), "killed": kill_f.result()}
+    done["resumed"] = lm_run("resumed", "lm_ckpt")
+    runs = {}
+    for name, (rc, lines, err) in done.items():
+        want_rc = -signal.SIGKILL if name == "killed" else 0
         if rc != want_rc:
             raise SystemExit(f"seq: train_lm {name} run ended with {rc}: {err[-3000:]}")
         runs[name] = lines
@@ -2334,21 +2386,23 @@ def lm_drill(work: str, data_dir: str) -> dict:
     steady = (LM_DRILL_STEPS - 2) * tw.BATCH * tw.SEQ_LEN / (tn - t2)
     print(f"seq: train_lm uninterrupted: losses {losses[0]:.4f} -> {losses[-1]:.4f}; {whole:.1f} "
           f"tokens/s whole (its done line), {steady:.1f} steady (steps 3-{LM_DRILL_STEPS}, lm_step "
-          "lines' arrival, host clock)")
+          "lines' arrival, host clock), contended: beside the killed run and train_longdoc "
+          "on the same card and host, so not comparable with the rate of a run alone")
     return dict(determinism=determinism, loss_rel=rel, tokens_per_s_whole=whole,
                 tokens_per_s_steady=steady, first_loss=losses[0], last_loss=losses[-1])
 
 
 def longdoc_twin(work: str, data_dir: str) -> dict:
     """Phase 9 (4): the train_longdoc twin whole (2 epochs, 32 steps, bf16
-    frames): finite losses, the harness's phase shares and verdict."""
+    frames): finite losses, the harness's phase shares and verdict. It
+    runs beside phase 9 (3)'s train_lm runs: its rate is contended."""
     from tpu_tfrecord_torch import train_longdoc as tw
 
     rc, lines, err = run_twin("tpu_tfrecord_torch.train_longdoc",
                               ["--data-dir", data_dir, "--ckpt-dir", os.path.join(work, "ld_ckpt")],
                               work, "longdoc.err")
     text = [ln for _, ln in lines]
-    print("seq: train_longdoc: " + " | ".join(text))
+    print("seq: train_longdoc (contended: beside the train_lm drill): " + " | ".join(text))
     losses = [float(ln.split("~")[1]) for ln in text if ln.startswith("step ")]
     phases = [ln for ln in text if ln.startswith("train phases:")]
     if rc != 0 or not losses or not np.isfinite(losses).all() or not phases \
@@ -2449,8 +2503,10 @@ def seq_path(work: str, card: str) -> dict:
           f"documents) in {time.perf_counter() - t0:.1f} s")
     out = {"lm_parity": {p: lm_parity(lm_data, p) for p in ("slice", "best_fit")},
            "long_doc_parity": longdoc_parity(ld_data)}
-    out["train_lm"] = lm_drill(work, lm_data)
-    out["train_longdoc"] = longdoc_twin(work, ld_data)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ld_f = pool.submit(longdoc_twin, work, ld_data)
+        out["train_lm"] = lm_drill(work, lm_data)
+        out["train_longdoc"] = ld_f.result()
     out["rates"] = seq_rates(card)
     out["card"] = card
     print("seq: " + json.dumps(out, default=float))
@@ -2802,26 +2858,35 @@ def tick_profile(params, card: str) -> dict:
     return dict(host_ms=host_ms, device_ms=dev_ms, kernels=per_tick, idle_share=idle)
 
 
-def replica_subprocess(card: str) -> dict:
+def replica_start() -> tuple:
+    """Phase 10 (e)'s replica process, started (it imports and builds
+    while (a) runs); ``replica_subprocess`` goes on with it."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    t0 = time.perf_counter()
+    err = tempfile.TemporaryFile(mode="w+")  # a file, not a pipe: nothing reads it until the end
+    proc = subprocess.Popen([sys.executable, "-m", "tpu_tfrecord_torch.serving", "--device",
+                             SERVE_DEVICE], cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=err, text=True)
+    proc.err_file = err
+    ready: dict = {}
+    reader = threading.Thread(target=lambda: ready.update(json.loads(proc.stdout.readline() or "{}")))
+    reader.start()
+    return proc, reader, ready, t0
+
+
+def replica_subprocess(started: tuple, card: str) -> dict:
     """Phase 10 (e): ``python -m tpu_tfrecord_torch.serving --device
-    <SERVE_DEVICE>`` (its synthetic seeded LM): the ready line, 4 requests
-    answered with the tokens of the same seed's weights computed here,
-    SIGTERM, exit 0 within 60 s."""
+    <SERVE_DEVICE>`` (its synthetic seeded LM, started by
+    ``replica_start``): the ready line, 4 requests answered with the tokens
+    of the same seed's weights computed here, SIGTERM, exit 0 within 60 s."""
     import argparse
     import signal
 
     from tpu_tfrecord_torch import serving
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=repo)
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "tpu_tfrecord_torch.serving", "--device",
-                             SERVE_DEVICE], cwd=repo, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    proc, reader, ready, t0 = started
     try:
-        ready = {}
-        reader = threading.Thread(target=lambda: ready.update(json.loads(proc.stdout.readline() or "{}")))
-        reader.start()
         reader.join(timeout=SERVE_TIMEOUT_S)
         if "addr" not in ready:
             raise SystemExit(f"serve: the replica printed no ready line: {proc.poll()}")
@@ -2846,13 +2911,14 @@ def replica_subprocess(card: str) -> dict:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
-        err = proc.stderr.read()
+        proc.err_file.seek(0)
+        err = proc.err_file.read()
+        proc.err_file.close()
         proc.stdout.close()
-        proc.stderr.close()
     ok = rc == 0 and got == want
     print(f"serve: python -m tpu_tfrecord_torch.serving --device {SERVE_DEVICE}: ready in "
-          f"{ready_s:.1f} s; 4 requests equal to the reference: {got == want}; SIGTERM -> exit "
-          f"{rc} in {exit_s:.2f} s (limit 60 s)")
+          f"{ready_s:.1f} s (started beside (a)); 4 requests equal to the reference: "
+          f"{got == want}; SIGTERM -> exit {rc} in {exit_s:.2f} s (limit 60 s)")
     if not ok:
         raise SystemExit(f"serve: the replica subprocess failed: {err[-3000:]}")
     return dict(ready_s=ready_s, exit_s=exit_s, rc=rc)
@@ -2863,12 +2929,18 @@ def serve_path(work: str, card: str) -> dict:
     under deterministic algorithms (cuBLAS workspace ``:4096:8``)."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
+    started = replica_start()  # (e)'s process imports and builds beside (a)
     try:
-        step, params = serve_checkpoint(work)
-        out = {"one_shot": serve_one_shot(params, step, card)}
+        try:
+            step, params = serve_checkpoint(work)
+            out = {"subprocess": replica_subprocess(started, card)}
+        finally:
+            if started[0].poll() is None:  # (a) failed: (e) never ran
+                started[0].kill()
+                started[0].wait(timeout=30)
+        out["one_shot"] = serve_one_shot(params, step, card)
         out["replica"] = replica_path(params, card)
         out["tick"] = tick_profile(params, card)
-        out["subprocess"] = replica_subprocess(card)
     finally:
         torch.use_deterministic_algorithms(False)
     out["card"] = card
@@ -3472,16 +3544,16 @@ def host_loop_rate(dirs, **kw) -> float:
 def guard_overhead(dirs) -> dict:
     """Phase 12 (c): the warm host loop with read and open deadlines and
     the watchdog at READPOOL_GUARD_MS (they never fire) against the same
-    loop without them, A/B/B/A twice, best of each (bench.py's probe),
-    with each A/B pair's ratio."""
+    loop without them, A/B/B/A, best of each (bench.py's probe), with each
+    A/B pair's ratio."""
     guarded = dict(read_deadline_ms=READPOOL_GUARD_MS, open_deadline_ms=READPOOL_GUARD_MS,
                    watchdog_timeout_ms=READPOOL_GUARD_MS)
     base, guard = [], []
-    for kw in ({}, guarded, guarded, {}) * 2:
+    for kw in ({}, guarded, guarded, {}):
         (guard if kw else base).append(host_loop_rate(dirs, **kw))
     pct = (1.0 - max(guard) / max(base)) * 100.0
     pairs = [round((1.0 - g / b) * 100.0, 2) for b, g in zip(base, guard)]
-    print(f"readpool: stall guard's cost with no fault (warm host loop, 2 workers, A/B/B/A x 2): "
+    print(f"readpool: stall guard's cost with no fault (warm host loop, 2 workers, A/B/B/A): "
           f"without {[round(r, 1) for r in base]} rows/s, with {[round(r, 1) for r in guard]}; "
           f"best {max(base):.1f} vs {max(guard):.1f}: overhead {pct:.2f} % (pairs {pairs} %)")
     return dict(base=base, guarded=guard, overhead_pct=pct, pair_pct=pairs)
@@ -3677,8 +3749,9 @@ def readpool_path(work: str, card: str, pipe_s: float = 0.0) -> tuple:
     18's standby and scalers (``elastic_path``). Returns the kernel launches
     of phase 12's autotuned serving run, of phase 13's warm cached epoch,
     of phase 14's ranks (summed), of phase 15's scoring over HTTP, of phase
-    16's spooling scorer, of phase 17's scoring through the service and of
-    phase 18's scoring through the failover and through the resize.
+    16's spooling scorer, of phase 17's scoring through the service, of
+    phase 18's scoring through the failover and through the resize, and of
+    phase 14 (c)'s sharded steps (summed over the ranks).
     ``pipe_s`` is phase 17 (a)'s time, for the phase's total."""
     from tpu_tfrecord_torch.cache import release_registry
 
@@ -3712,7 +3785,7 @@ def readpool_path(work: str, card: str, pipe_s: float = 0.0) -> tuple:
         shutil.rmtree(root, ignore_errors=True)
     return (serving["launches"], cached["launches"], multi["launches"], remote["launches"],
             fleet_out["launches"], served["launches"], scaled["launches"],
-            scaled["resize_launches"])
+            scaled["resize_launches"], multi["mesh_launches"])
 
 
 # -- phase 13: the columnar epoch cache ----------------------------------------------
@@ -4000,6 +4073,11 @@ def _multiproc_rank(rank: int, port: int, dirs: list, work: str) -> dict:
         return model({k: v.to_local() for k, v in batch.items()})
 
     times = ([], [], [], [])
+    # train_dlrm's two ranks (phase 14 (c)) start beside this process; the
+    # card is left to the scoring only after they exited
+    t_twin = time.perf_counter()
+    wait_for_file(os.path.join(work, TWIN_DONE), MESH_TWIN_TIMEOUT_S)
+    t_twin = time.perf_counter() - t_twin
     distributed.barrier("score")  # both ranks start scoring together
     reset_launch_counts()
     t_start = time.perf_counter()  # the host's monotonic clock, one for both ranks
@@ -4058,7 +4136,10 @@ def _multiproc_rank(rank: int, port: int, dirs: list, work: str) -> dict:
     distributed.finalize_distributed_write(out_dir)
     success_seen = os.path.exists(os.path.join(out_dir, "_SUCCESS"))
     t_write = time.perf_counter() - t_write
-    return dict(rank=rank, trace=ctx.to_json(), schema=schema.json(), shards=mine,
+    del model, warm
+    free_cuda()
+    mesh_out = mesh_rank(rank, dirs, work)
+    return dict(rank=rank, mesh=mesh_out, trace=ctx.to_json(), schema=schema.json(), shards=mine,
                 launches=launches, batches=len(times[2]), rows=int(logits.numel()),
                 wall_s=wall, forward_s=forward_s, idle_share=1.0 - forward_s / wall,
                 duty_cycle=duty, rows_per_s=len(times[2]) * BATCH / wall,
@@ -4069,7 +4150,351 @@ def _multiproc_rank(rank: int, port: int, dirs: list, work: str) -> dict:
                 resume=dict(state=state.to_json(), batches=len(whole),
                             exact=head + tail == whole and len(head) == MULTI_CUT,
                             other_refused=other_refused),
-                success_seen=success_seen, seconds=time.perf_counter() - t0)
+                success_seen=success_seen, twin_wait_s=t_twin, seconds=time.perf_counter() - t0)
+
+
+MESH_RUNS = (  # (label, mesh axes, sparse step?, steps) of phase 14 (c)
+    ("model_sparse", {"model": 2}, True, 4),
+    ("data_sparse", {"data": 2}, True, 4),
+    ("model_dense", {"model": 2}, False, 1),
+)
+MESH_TWIN_STEPS = 8
+MESH_TWIN_TIMEOUT_S = 180  # for the two train_dlrm ranks, from their start
+TWIN_DONE = "twin.done"    # marks, in phase 14's work dir, that the twin's ranks exited
+
+
+def wait_for_file(path: str, timeout_s: float) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear within {timeout_s} s")
+        time.sleep(0.05)
+
+
+def mesh_batches(dirs, slot: int, slots: int, n: int) -> list:
+    """The first ``n`` host batches of slot ``slot`` of ``slots`` over
+    phase 12's shards, as the training feed makes them (dense log1p'd,
+    float labels)."""
+    from tpu_tfrecord_torch.entry import _host_batch, _read_plan
+    from tpu_tfrecord_torch.io.dataset import TFRecordDataset
+
+    read = criteo_read_kw()
+    paths, hash_buckets, pack, pad_to = _read_plan(dirs, criteo_cfg(), read["pack"]["dense"],
+                                                   read["pack"]["cat"])
+    ds = TFRecordDataset(paths, BATCH, schema=read["schema"], recordType="Example",
+                         hash_buckets=hash_buckets, pack=pack, num_workers=MULTI_WORKERS,
+                         process_index=slot, process_count=slots)
+    with ds.batches() as it:
+        return [_host_batch(cb, ds, pad_to, True, float_label=True) for _, cb in zip(range(n), it)]
+
+
+def table_digest(table: torch.Tensor) -> int:
+    """An order-sensitive checksum of a float32 tensor's bits, computed on
+    its device one slice of dim 0 at a time: sum over i of bits[i] * (i+1),
+    mod 2^64 (int64 arithmetic wraps)."""
+    total = 0
+    weights = None
+    for f in range(table.shape[0]):
+        bits = table[f].detach().reshape(-1).view(torch.int32).long()
+        if weights is None:
+            weights = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64)
+        total = (total * 1_000_003 + int((bits * weights).sum().item())) % (1 << 64)
+    return total
+
+
+def pieces_digest(model) -> str:
+    """sha256 over the bytes of every parameter but the table, by name."""
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        if name != "embeddings":
+            h.update(name.encode())
+            h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """CUDA events around every ``all_reduce`` and ``all_gather`` on a CUDA
+    tensor issued inside the block (``torch.distributed``'s two functions
+    wrapped for its length, so the port carries no timing code); yields
+    the list of (start, end) event pairs."""
+    import torch.distributed as dist
+
+    events: list = []
+    originals = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            tensor = args[1] if name == "all_gather" else args[0]
+            if not tensor.is_cuda:
+                return fn(*args, **kw)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+        return timed
+
+    for name, fn in originals.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield events
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+
+def profiled_kernel_ms(prof) -> float:
+    """Device ms of every kernel in a torch.profiler trace."""
+    from torch.autograd import DeviceType
+
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+
+
+def mesh_rank(rank: int, dirs: list, work: str) -> dict:
+    """Phase 14 (c) on one rank, the group up and the scoring model freed:
+    each of MESH_RUNS from a full-width bf16 DLRM built from TRAIN_SEED and
+    sharded on its mesh, with the counts set to 0 just before its steps
+    and read just after. Each step is synchronized and timed (host clock,
+    and CUDA events around the step and around each collective); the last
+    step of each run is profiled. The table rows the run moved, and on a
+    sparse run their accumulators, go to ``work/mesh_<label>_rank<r>.pt``
+    (on {'data': 2} rank 0's only: the replicas' digests must be equal)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_tfrecord_torch.device import distributed, mesh as meshes
+    from tpu_tfrecord_torch.device.ingest import make_device_batch, make_global_batch
+    from tpu_tfrecord_torch.entry import _adam
+    from tpu_tfrecord_torch.models import dlrm
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    cfg = criteo_cfg()
+    out = {}
+    for label, axes, sparse, steps in MESH_RUNS:
+        t0 = time.perf_counter()
+        mesh = meshes.create_mesh(axes)
+        device = meshes.mesh_device(mesh)
+        on_data = "data" in axes
+        hosts = mesh_batches(dirs, rank if on_data else 0, MULTI_RANKS if on_data else 1, steps)
+        full = dlrm.init_params(cfg, torch.Generator(device=device).manual_seed(TRAIN_SEED), device)
+        model = dlrm.shard_model(full, mesh)
+        del full
+        free_cuda()
+        table0 = model.embeddings.detach().clone()
+        if sparse:
+            opt = dlrm.sparse_opt_init(model, cfg, _adam)
+            step = lambda b: dlrm.sharded_sparse_train_step(model, opt, b, cfg)  # noqa: E731
+        else:
+            opt = _adam(list(model.parameters()))
+            step = lambda b: dlrm.sharded_train_step(model, opt, b)  # noqa: E731
+        batches = [make_global_batch(h, mesh) if on_data else make_device_batch(h, device)
+                   for h in hosts]
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t_steps = time.perf_counter()
+        distributed.barrier(f"mesh {label}")
+        run = dict(local_table=list(model.embeddings.shape), v_range=[model.v_lo, model.v_hi],
+                   losses=[], digests=[], host_ms=[], step_ms=[], collective_ms=[],
+                   collectives=[], setup_s=setup_s)
+        reset_launch_counts()
+        for i, batch in enumerate(batches):
+            last = i == len(batches) - 1
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if last
+                  else contextlib.nullcontext()) as prof, timed_collectives() as events:
+                t = time.perf_counter()
+                start.record()
+                loss = step(batch)
+                end.record()
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t) * 1e3
+            run["host_ms"].append(host_ms)
+            run["step_ms"].append(start.elapsed_time(end))
+            run["collective_ms"].append(sum(a.elapsed_time(b) for a, b in events))
+            run["collectives"].append(len(events))
+            run["losses"].append(loss.item())
+            if last:
+                kernel_ms = profiled_kernel_ms(prof)
+                run["kernel_ms"] = kernel_ms
+                run["idle_share"] = 1.0 - kernel_ms / host_ms if kernel_ms > 0 else None
+            run["digests"].append(dict(table=table_digest(model.embeddings),
+                                       pieces=pieces_digest(model)))
+        run["launches"] = dict(dot_interaction.instance_launches)
+        run["steps_s"] = time.perf_counter() - t_steps
+        with torch.no_grad():
+            moved = (model.embeddings != table0).any(-1)                      # [F, V/m]
+            f_ix, v_ix = moved.nonzero(as_tuple=True)
+            run["moved"] = int(f_ix.numel())
+            if not (on_data and rank != 0):
+                path = os.path.join(work, f"mesh_{label}_rank{rank}.pt")
+                t = time.perf_counter()
+                torch.save(dict(f=f_ix.int().cpu(), v=(v_ix + model.v_lo).int().cpu(),
+                                rows=model.embeddings[f_ix, v_ix].float().cpu(),
+                                accum=opt.accum[f_ix, v_ix].cpu() if sparse else None), path)
+                run["ship_s"] = time.perf_counter() - t
+        run["seconds"] = time.perf_counter() - t0
+        out[label] = run
+        del model, opt, table0, batches, moved, f_ix, v_ix, step
+        free_cuda()
+    return out
+
+
+def mesh_twin_start(data_dir: str, ckpt_dir: str, work: str) -> list:
+    """Start two ranks of ``python -m tpu_tfrecord_torch.train_dlrm
+    --max-steps MESH_TWIN_STEPS`` under torchrun's environment on a free
+    port, their output to ``work/twin<r>.log``. Returns [(process, log)]."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs = []
+    for r in range(MULTI_RANKS):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(MULTI_RANKS), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), PYTHONPATH=repo)
+        log = open(os.path.join(work, f"twin{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "tpu_tfrecord_torch.train_dlrm", "--max-steps",
+             str(MESH_TWIN_STEPS), "--data-dir", data_dir, "--ckpt-dir", ckpt_dir],
+            cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def mesh_twin_finish(procs, t0: float, work: str) -> tuple:
+    """Wait for the twin's ranks (killed after MESH_TWIN_TIMEOUT_S from
+    ``t0``, the host's monotonic clock); (gates, each rank's done line)."""
+    codes = []
+    for p, log in procs:
+        try:
+            codes.append(p.wait(timeout=max(1.0, t0 + MESH_TWIN_TIMEOUT_S - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            codes.append(None)
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+    done = []
+    for r in range(MULTI_RANKS):
+        with open(os.path.join(work, f"twin{r}.log")) as fh:
+            text = fh.read()
+        lines = [line for line in text.splitlines() if line.startswith("done:")]
+        done.append(lines[0] if lines else text[-2000:])
+        print(f"mesh: train_dlrm rank {r}: " + " | ".join(
+            line for line in text.splitlines()[-8:] if not line.startswith("[W")))
+    want = f"done: {MESH_TWIN_STEPS} steps,"
+    gates = {"twin_exit": codes == [0] * MULTI_RANKS,
+             "twin_steps": all(d.startswith(want) for d in done)}
+    return gates, done
+
+
+def mesh_check(dirs, work: str, results: list, card: str) -> tuple:
+    """Phase 14 (c) in this process: each of MESH_RUNS again in one process
+    from the same weights on the same (concatenated) batches, held against
+    the ranks' results. Returns (gates, numbers)."""
+    from tpu_tfrecord_torch.device.ingest import make_device_batch
+    from tpu_tfrecord_torch.entry import _adam
+    from tpu_tfrecord_torch.models import dlrm
+
+    gates, out = {}, {}
+    for label, axes, sparse, steps in MESH_RUNS:
+        t0 = time.perf_counter()
+        runs = [res["mesh"][label] for res in results]
+        on_data = "data" in axes
+        if on_data:
+            per = [mesh_batches(dirs, r, MULTI_RANKS, steps) for r in range(MULTI_RANKS)]
+            hosts = [{k: np.concatenate([p[i][k] for p in per]) for k in per[0][i]}
+                     for i in range(steps)]
+        else:
+            hosts = mesh_batches(dirs, 0, 1, steps)
+        model = new_criteo_model()
+        cfg = model.cfg
+        table0 = model.embeddings.detach().clone()
+        opt = dlrm.sparse_opt_init(model, cfg, _adam) if sparse else _adam(list(model.parameters()))
+        ref = []
+        for h in hosts:
+            b = make_device_batch(h, "cuda")
+            ref.append((dlrm.sparse_train_step(model, opt, b, cfg) if sparse
+                        else dlrm.train_step(model, opt, b)).item())
+        shippers = range(1) if on_data else range(MULTI_RANKS)
+        with torch.no_grad():
+            ref_moved = (model.embeddings != table0).any(-1)                   # [F, V]
+            del table0
+            shipped = torch.zeros_like(ref_moved)
+            row_err, accum_diff, accum_max, accum_rel = 0.0, 0.0, 0.0, []
+            for r in shippers:
+                d = torch.load(os.path.join(work, f"mesh_{label}_rank{r}.pt"))
+                f, v, rows = d["f"].cuda().long(), d["v"].cuda().long(), d["rows"].cuda()
+                shipped[f, v] = True
+                if f.numel():
+                    row_err = max(row_err, (model.embeddings[f, v] - rows).abs().max().item())
+                if sparse and f.numel():
+                    want = opt.accum[f, v]
+                    diff = (d["accum"].cuda() - want).abs()
+                    accum_diff = max(accum_diff, diff.max().item())
+                    accum_max = max(accum_max, want.abs().max().item())
+                    accum_rel.append((diff / want.abs().clamp_min(1e-30)).cpu())
+            same_rows = bool(torch.equal(shipped, ref_moved))
+            n_ref, n_shipped = int(ref_moved.sum()), int(shipped.sum())
+            # each entry's own relative difference, printed only: a
+            # near-zero gradient's one-ulp change moves it far
+            accum_rel = torch.cat(accum_rel) if accum_rel else torch.zeros(1)
+            accum = dict(rel_of_largest=accum_diff / accum_max if accum_max else None,
+                         largest=accum_max, median=opt.accum[ref_moved].median().item(),
+                         entry_rel_median=accum_rel.median().item(),
+                         entry_rel_max=accum_rel.max().item()) if sparse else None
+        loss_err = max(abs(a - b) for run in runs for a, b in zip(run["losses"], ref))
+        half = VOCAB // MULTI_RANKS
+        gates[f"{label}_losses"] = all(
+            len(run["losses"]) == steps
+            and np.allclose(run["losses"], ref, rtol=TRAIN_LOSS_TOL, atol=TRAIN_LOSS_TOL)
+            for run in runs)
+        gates[f"{label}_rows"] = row_err <= TRAIN_TABLE_ATOL and same_rows and n_ref > 0
+        if sparse:
+            gates[f"{label}_accum"] = (accum["rel_of_largest"] is not None
+                                       and accum["rel_of_largest"] <= MESH_ACCUM_RTOL)
+        gates[f"{label}_launches"] = all(run["launches"] == {"bf16_mma": steps, "f32_tiled": 0}
+                                         for run in runs)
+        if on_data:
+            gates[f"{label}_replicas"] = (runs[0]["digests"] == runs[1]["digests"]
+                                          and runs[0]["losses"] == runs[1]["losses"])
+            gates[f"{label}_layout"] = all(run["local_table"] == [26, VOCAB, 32] for run in runs)
+        else:
+            gates[f"{label}_ranks_agree"] = runs[0]["losses"] == runs[1]["losses"]
+            gates[f"{label}_layout"] = (
+                [run["v_range"] for run in runs] == [[r * half, (r + 1) * half]
+                                                    for r in range(MULTI_RANKS)]
+                and all(run["local_table"] == [26, half, 32] for run in runs))
+        out[label] = dict(ref_losses=ref, loss_err=loss_err, row_err=row_err, moved_rows=n_ref,
+                          shipped_rows=n_shipped, same_rows=same_rows, accum=accum,
+                          seconds=time.perf_counter() - t0)
+        for r, run in enumerate(runs):
+            for i in range(steps):
+                print(f"mesh: {label} {axes} rank {r} step {i + 1}: loss {run['losses'][i]:.6f} "
+                      f"(one process {ref[i]:.6f}); host {run['host_ms'][i]:.3f} ms, step "
+                      f"{run['step_ms'][i]:.3f} ms (CUDA events), collectives "
+                      f"{run['collectives'][i]} in {run['collective_ms'][i]:.3f} ms (CUDA events); "
+                      f"table digest {run['digests'][i]['table']} ({card})")
+            idle = run["idle_share"]
+            print(f"mesh: {label} rank {r}: {run['seconds']:.2f} s in the rank (set-up "
+                  f"{run['setup_s']:.2f} s, steps with digests and profile {run['steps_s']:.2f} s); "
+                  f"last step profiled: "
+                  f"kernels {run['kernel_ms']:.4f} ms of {run['host_ms'][-1]:.3f} ms, the card idle "
+                  f"for this rank's kernels "
+                  f"{'not measured' if idle is None else f'{idle:.4f}'} (torch.profiler; the "
+                  f"other rank shares the card); launches {run['launches']}; {run['moved']} rows "
+                  f"moved, shipped in {run.get('ship_s', 0.0):.2f} s ({card})")
+        print(f"mesh: {label}: max |loss - one process| {loss_err} (tol {TRAIN_LOSS_TOL}); "
+              f"{n_ref} rows moved by the one process, {n_shipped} by the ranks, the same rows: "
+              f"{same_rows}; max |row - one process row| {row_err} (atol {TRAIN_TABLE_ATOL}); "
+              + (f"the moved rows' accumulators: max |accum - one process| over the largest "
+                 f"{accum['rel_of_largest']} (tol {MESH_ACCUM_RTOL}), largest {accum['largest']}, "
+                 f"median {accum['median']}, each entry's relative difference median "
+                 f"{accum['entry_rel_median']} max {accum['entry_rel_max']}; " if sparse else "")
+              + f"the one-process run and check {out[label]['seconds']:.1f} s")
+        del model, opt, ref_moved, shipped
+        free_cuda()
+    return gates, out
 
 
 def multiproc_path(dirs, work: str, card: str) -> dict:
@@ -4117,6 +4542,25 @@ def multiproc_path(dirs, work: str, card: str) -> dict:
     t_ranks = time.perf_counter()
     for p in procs:
         p.start()
+
+    # (c)'s train_dlrm ranks start right after them and run while they
+    # import (its rank 0 writes its data); a thread here runs the twin and
+    # marks its end, which the ranks wait for before they score
+    twin_result: dict = {"gates": {"twin_exit": False, "twin_steps": False}, "done": [],
+                         "seconds": 0.0}
+
+    def drive_twin():
+        t = time.monotonic()
+        try:
+            twin = mesh_twin_start(os.path.join(work, "twin_data"),
+                                   os.path.join(work, "twin_ckpt"), work)
+            twin_result["gates"], twin_result["done"] = mesh_twin_finish(twin, t, work)
+        finally:
+            twin_result["seconds"] = time.monotonic() - t
+            open(os.path.join(work, TWIN_DONE), "w").close()
+
+    twin_waiter = threading.Thread(target=drive_twin, name="twin")
+    twin_waiter.start()
     deadline = time.monotonic() + MULTI_TIMEOUT_S
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
@@ -4132,6 +4576,7 @@ def multiproc_path(dirs, work: str, card: str) -> dict:
         path = os.path.join(work, f"rank{r}.json")
         results.append(json.load(open(path)) if os.path.exists(path) else {"rank": r})
     if hung or any(codes) or any("error" in res or "trace" not in res for res in results):
+        twin_waiter.join()  # the twin's processes end (or are killed) first
         detail = []
         for r, res in enumerate(results):
             with open(os.path.join(work, f"rank{r}.fault")) as fh:
@@ -4222,13 +4667,32 @@ def multiproc_path(dirs, work: str, card: str) -> dict:
           f"from spawn to exit")
     walls = ", ".join(f"rank {res['rank']} {res['wall_s']:.3f} s at "
                       f"{res['rows_per_s'] / 1e6:.3f} M rows/s" for res in results)
-    print(f"multiproc: phase 14 took {out['seconds']:.1f} s; scoring {walls}; both ranks "
+    print(f"multiproc: phase 14 (a) and (b) took {out['seconds']:.1f} s; scoring {walls}; both ranks "
           f"{out['together_rows_per_s'] / 1e6:.3f} M rows/s over {hi - lo:.3f} s, the card idle "
           f"{out['card_idle_share']:.4f} of it (one process: "
           f"{ref_rate / 1e6:.3f} M rows/s, idle {ref_idle:.4f}) ({card})")
     print("multiproc: " + json.dumps(out, default=str))
     if not all(gates.values()):
         raise SystemExit(f"multiproc: gates failed: {gates}")
+
+    # (c) the mesh: the one-process reference here, after the ranks
+    t_mesh = time.perf_counter()
+    mesh_gates, mesh = mesh_check(dirs, work, results, card)
+    twin_waiter.join()
+    mesh_gates.update(twin_result["gates"])
+    out["mesh"] = mesh
+    out["mesh_launches"] = {k: sum(res["mesh"][label]["launches"][k] for res in results
+                                   for label, *_ in MESH_RUNS) for k in INSTANCE_DTYPE}
+    print(f"mesh: train_dlrm --max-steps {MESH_TWIN_STEPS} on {MULTI_RANKS} ranks: "
+          f"{twin_result['done']}; {twin_result['seconds']:.1f} s from start to exit, beside the "
+          f"ranks' start; the ranks waited {[round(r['twin_wait_s'], 2) for r in results]} s "
+          f"for it before scoring ({card})")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"mesh: gates {mesh_gates}; launches {out['mesh_launches']}; (c) took "
+          f"{time.perf_counter() - t_mesh:.1f} s after the ranks; phase 14 took "
+          f"{out['seconds']:.1f} s ({card})")
+    if not all(mesh_gates.values()):
+        raise SystemExit(f"mesh: gates failed: {mesh_gates}")
     return out
 
 
@@ -4880,7 +5344,7 @@ def fleet_path(dirs, work: str, root: str, local_logits, fixed4_whole: float, ca
 PIPE_VIRTUAL = (1, 2)      # chunks a stage of the 2-stage schedule, 8 microbatches
 PIPE_TOL = 1e-4            # phase 9's LM tolerance: losses and every gradient
 PIPE_TWIN_STEPS = 16
-PIPE_RATE_STEPS = 10       # a pipelined step is ≈ 0.1 s of host time
+PIPE_RATE_STEPS = 5        # a pipelined step is ≈ 0.1 s of host time
 PIPE_PROFILE_STEPS = 1     # ≈ 4,000 kernels a step
 SERVICE_WORKERS = 2
 SERVICE_DEADLINE_MS = 5_000
@@ -4918,28 +5382,46 @@ def pipe_path(work: str, card: str, lm9: dict) -> dict:
     shape, axes, n_layers = train_lm.pick_mesh("dp_pp")
     pipe_kw = dict(axes, mesh=shape)
     n_stages = shape["pipe"]
-    # (1) one step through the schedule against the same step without it
+    # (2)'s twin runs in a subprocess beside (1)'s checks, which time
+    # nothing; (1)'s rates are taken after the twin exited
+    lm_data = os.path.join(work, "lm_data")
+    train_lm.generate(lm_data)  # phase 9's documents, when absent
+    ck = os.path.join(work, "pipe_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        twin_f = pool.submit(run_twin, "tpu_tfrecord_torch.train_lm", [
+            "--mesh", "dp_pp", "--virtual", "2", "--diagnostics", "--steps",
+            str(PIPE_TWIN_STEPS), "--save-every", "8", "--data-dir", lm_data, "--ckpt-dir", ck,
+            "--digest-out", os.path.join(work, "pipe_digests.jsonl")], work, "pipe_twin.log")
+        # (1) one step through the schedule against the same step without it
+        for v in PIPE_VIRTUAL:
+            cfg = train_lm.make_config(n_layers, 0, axes, v)
+            params = lm.init_params(cfg, torch.Generator(device=SEQ_DEVICE).manual_seed(0),
+                                    SEQ_DEVICE)
+            toks = torch.from_numpy(lm.make_synthetic_tokens(cfg, train_lm.BATCH, seed=0)).to(
+                SEQ_DEVICE)
+            lp, gp, diag = pipe_step_grads(params, cfg, toks, **pipe_kw)
+            ld, gd, _ = pipe_step_grads(params, cfg, toks)
+            grad_err = max(float((a - b).abs().max()) for a, b in zip(gp, gd))
+            want = (n_stages - 1) / (v * cfg.n_micro + n_stages - 1)
+            gates[f"v{v}_loss"] = abs(lp - ld) <= PIPE_TOL * max(1.0, abs(ld))
+            gates[f"v{v}_grads"] = all(torch.allclose(a, b, rtol=PIPE_TOL, atol=PIPE_TOL)
+                                       for a, b in zip(gp, gd))
+            gates[f"v{v}_bubble"] = diag["bubble_fraction"] == want
+            out[f"v{v}"] = dict(loss=lp, dense_loss=ld, loss_err=abs(lp - ld), grad_err=grad_err,
+                                diag=diag)
+            print(f"pipe: one train step, {n_layers} layers in {n_stages} stages, V={v}, "
+                  f"M={cfg.n_micro}, B={train_lm.BATCH} L={train_lm.SEQ_LEN} d=64 f32: loss "
+                  f"{lp!r} against {ld!r} without the schedule (|diff| {abs(lp - ld):.3e}), "
+                  f"every gradient within {grad_err:.3e}; bubble {diag['bubble_fraction']!r} "
+                  f"(analytic (S-1)/(V*M+S-1) = {want!r}), ticks {diag['useful_ticks']:.0f} "
+                  f"useful of {diag['total_ticks']:.0f}")
+        rc, lines, err = twin_f.result()
     rates = {}
     for v in PIPE_VIRTUAL:
         cfg = train_lm.make_config(n_layers, 0, axes, v)
         params = lm.init_params(cfg, torch.Generator(device=SEQ_DEVICE).manual_seed(0), SEQ_DEVICE)
         toks = torch.from_numpy(lm.make_synthetic_tokens(cfg, train_lm.BATCH, seed=0)).to(SEQ_DEVICE)
-        lp, gp, diag = pipe_step_grads(params, cfg, toks, **pipe_kw)
-        ld, gd, _ = pipe_step_grads(params, cfg, toks)
-        grad_err = max(float((a - b).abs().max()) for a, b in zip(gp, gd))
-        want = (n_stages - 1) / (v * cfg.n_micro + n_stages - 1)
-        gates[f"v{v}_loss"] = abs(lp - ld) <= PIPE_TOL * max(1.0, abs(ld))
-        gates[f"v{v}_grads"] = all(torch.allclose(a, b, rtol=PIPE_TOL, atol=PIPE_TOL)
-                                   for a, b in zip(gp, gd))
-        gates[f"v{v}_bubble"] = diag["bubble_fraction"] == want
-        out[f"v{v}"] = dict(loss=lp, dense_loss=ld, loss_err=abs(lp - ld), grad_err=grad_err,
-                            diag=diag)
-        print(f"pipe: one train step, {n_layers} layers in {n_stages} stages, V={v}, "
-              f"M={cfg.n_micro}, B={train_lm.BATCH} L={train_lm.SEQ_LEN} d=64 f32: loss {lp!r} "
-              f"against {ld!r} without the schedule (|diff| {abs(lp - ld):.3e}), every gradient "
-              f"within {grad_err:.3e}; bubble {diag['bubble_fraction']!r} "
-              f"(analytic (S-1)/(V*M+S-1) = {want!r}), ticks {diag['useful_ticks']:.0f} useful "
-              f"of {diag['total_ticks']:.0f}")
         opt = optim.adam(params, train_lm.LR)
         rates[f"pipe_v{v}"] = step_rate(
             f"pipelined LM train step, {n_layers} layers in {n_stages} stages, V={v}, "
@@ -4957,14 +5439,6 @@ def pipe_path(work: str, card: str, lm9: dict) -> dict:
 
     # (2) the train_lm twin through the schedule, against this process
     # without it over the same batches
-    lm_data = os.path.join(work, "lm_data")
-    train_lm.generate(lm_data)  # phase 9's documents, when absent
-    ck = os.path.join(work, "pipe_ckpt")
-    shutil.rmtree(ck, ignore_errors=True)
-    rc, lines, err = run_twin("tpu_tfrecord_torch.train_lm", [
-        "--mesh", "dp_pp", "--virtual", "2", "--diagnostics", "--steps", str(PIPE_TWIN_STEPS),
-        "--save-every", "8", "--data-dir", lm_data, "--ckpt-dir", ck,
-        "--digest-out", os.path.join(work, "pipe_digests.jsonl")], work, "pipe_twin.log")
     if rc != 0:
         raise SystemExit(f"pipe: the dp_pp twin exited {rc}: {err[-2000:]}")
     twin = lm_steps(lines)
@@ -5480,18 +5954,44 @@ def serving_scale_floor() -> dict:
     ``elastic.ServingReplicaSpawner`` replicas on the card (phase 10's
     synthetic LM, ``SCALE_REPLICA_ARGS``), policy 1..2, hysteresis 2,
     ticked once on a thread, which spawns the floor while (a) and (b) run.
-    Returns what ``serving_scale`` goes on with."""
+    The replica the scaler grows to later is started beside it, on a
+    second thread, and handed over when the scaler asks for it, so no
+    replica start lies inside (c). Returns what ``serving_scale`` goes on
+    with."""
     from tpu_tfrecord_torch import elastic
 
     repo = os.path.dirname(os.path.abspath(__file__))
     spawner = elastic.ServingReplicaSpawner(("--device", SERVE_DEVICE, *SCALE_REPLICA_ARGS),
                                             env=dict(os.environ, PYTHONPATH=repo))
     run = dict(spawner=spawner, spawned=[], ready_s=[], t0=time.perf_counter())
+    started = threading.Event()
+
+    def start():
+        t = time.perf_counter()
+        started.set()
+        addr = spawner()
+        return addr, time.perf_counter() - t
+
+    warm: dict = {}
+
+    def start_second():
+        started.wait(SCALE_TIMEOUT_S)
+        while len(spawner.procs) < 1 and time.perf_counter() - run["t0"] < SCALE_TIMEOUT_S:
+            time.sleep(0.01)  # the floor's process first: procs keep the spawn order
+        try:
+            warm["started"] = start()
+        except Exception as e:  # noqa: BLE001 - the scale-up below raises it
+            warm["error"] = e
 
     def spawn():
-        t = time.perf_counter()
-        addr = spawner()
-        run["ready_s"].append(time.perf_counter() - t)
+        if not run["spawned"]:
+            addr, ready = start()
+        else:
+            run["warm_thread"].join(timeout=SCALE_TIMEOUT_S)
+            if "started" not in warm:
+                raise OSError(f"the second replica did not start: {warm.get('error')}")
+            addr, ready = warm.pop("started")
+        run["ready_s"].append(ready)
         run["spawned"].append(addr)
         return addr
 
@@ -5499,7 +5999,9 @@ def serving_scale_floor() -> dict:
         min_workers=1, max_workers=2, hysteresis=2, cooldown_s=0.0))
     run["floor_thread"] = threading.Thread(
         target=lambda: run.setdefault("floor", run["scaler"].step()), name="scale-floor")
+    run["warm_thread"] = threading.Thread(target=start_second, name="scale-second")
     run["floor_thread"].start()
+    run["warm_thread"].start()
     return run
 
 
@@ -5581,15 +6083,16 @@ def serving_scale(run: dict, card: str) -> tuple:
                    seconds=time.perf_counter() - t0,
                    floor_s=t0 - run["t0"])
         print(f"elastic: (c) replicas: ready in {', '.join(f'{s:.1f}' for s in ready_s)} s "
-              f"(the first beside (a) and (b)); "
+              f"(both started beside (a) and (b)); "
               f"{len(answers)} requests of {SCALE_NEW} tokens from {SCALE_CLIENTS} clients in "
-              f"{load_s:.1f} s ({out['requests_per_s']:.1f} requests/s, the second replica's "
-              f"start inside it), every one equal to the reference: {gates['sc_answers']}; "
+              f"{load_s:.1f} s ({out['requests_per_s']:.1f} requests/s, until the scaler took "
+              f"the second replica), every one equal to the reference: {gates['sc_answers']}; "
               f"verdicts under load {load_ticks}, then {idle_ticks}; the drained replica exited "
               f"{rc}; drains {out['drains']}, replicas lost {out['replicas_lost']} ({card})")
     finally:
         stop.set()
         run["floor_thread"].join(timeout=SCALE_TIMEOUT_S)
+        run["warm_thread"].join(timeout=SCALE_TIMEOUT_S)
         spawner.reap()
     return gates, out
 
@@ -5615,7 +6118,7 @@ def elastic_path(dirs, root: str, local_logits, service_whole: float, card: str)
     model = init_params(cfg, torch.Generator(device=READPOOL_DEVICE).manual_seed(TRAIN_SEED),
                         READPOOL_DEVICE)
     model(make_device_batch(make_synthetic_batch(cfg, BATCH, seed=1), READPOOL_DEVICE))
-    replicas = serving_scale_floor()  # a replica's 14-24 s start overlaps (a) and (b)
+    replicas = serving_scale_floor()  # both replicas start (14-24 s each) beside (a) and (b)
     try:
         gates_a, ha = ha_failover(dirs, root, model, local_logits, nbytes, env, card)
         gates_b, resize = elastic_resize(dirs, root, model, local_logits, nbytes, env, card)
@@ -5662,41 +6165,61 @@ def main() -> int:
         check_build_log(_cuda.BUILD_LOGS["interaction"])
     else:
         print("interaction kernels were built before this run: no ptxas report to check")
+    phase_s = {}
+    mark = [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    lap("1 facts, build")
     errs = check_interaction()
     check_small_forward()
     timing = {k: time_interaction(dtype) for k, dtype in INSTANCE_DTYPE.items()}
+    lap("2-3 kernels")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_dir:
         launches = main_path(data_dir)
         free_cuda()
+        lap("4 main path")
         train = train_path(data_dir)
         free_cuda()
+        lap("5 training")
         feed = feed_path(data_dir)
         free_cuda()
+        lap("6 feed")
         datasource = datasource_path(data_dir)
         free_cuda()
+        lap("7 writes")
         resume = resume_path(data_dir)
         free_cuda()
+        lap("8 resume")
         from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
 
         reset_launch_counts()
         seq = seq_path(data_dir, smi)
         seq_launches = dict(dot_interaction.instance_launches)
         free_cuda()
+        lap("9 sequence models")
         reset_launch_counts()
         serve_path(data_dir, smi)
         serve_launches = dict(dot_interaction.instance_launches)
         free_cuda()
+        lap("10 serving")
         reset_launch_counts()
         moe_path(data_dir, smi)
         moe_launches = dict(dot_interaction.instance_launches)
         free_cuda()
+        lap("11 moe")
         reset_launch_counts()
         pipe = pipe_path(data_dir, smi, seq["rates"]["lm"])
         pipe_launches = dict(dot_interaction.instance_launches)
         free_cuda()
+        lap("17 (a) pipe")
         (readpool_launches, cache_launches, multiproc_launches, remote_launches,
          fleet_launches, service_launches, ha_launches,
-         elastic_launches) = readpool_path(data_dir, smi, pipe["seconds"])
+         elastic_launches, mesh_launches) = readpool_path(data_dir, smi, pipe["seconds"])
+        lap("12-18 on phase 12's shards")
     phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches,
                       "pipe": pipe_launches}
     for phase, counts in phase_launches.items():
@@ -5734,7 +6257,9 @@ def main() -> int:
         pipe_launches=pipe_launches[k],
         ha_launches=ha_launches[k],
         elastic_launches=elastic_launches[k],
+        mesh_launches=mesh_launches[k],
     ) for k in INSTANCE_DTYPE]
+    print(f"phase seconds: {phase_s} (phases 12-18 print their own)")
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,8 @@ def test_every_module_is_found():
                  "tpu_tfrecord_torch.device.distributed", "tpu_tfrecord_torch.device.mesh",
                  "tpu_tfrecord_torch.httpfs", "tpu_tfrecord_torch.fs",
                  "tpu_tfrecord_torch.fleet", "tpu_tfrecord_torch.slo",
-                 "tpu_tfrecord_torch.service", "tpu_tfrecord_torch.elastic"):
+                 "tpu_tfrecord_torch.service", "tpu_tfrecord_torch.elastic",
+                 "tpu_tfrecord_torch.models.sharded"):
         assert want in mods
 
 

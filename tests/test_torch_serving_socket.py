@@ -195,6 +195,41 @@ def test_status_version_skew_and_drain(params):
         srv.stop()
 
 
+def test_run_server_returns_after_the_drain_reply_left(params, monkeypatch):
+    """``run_server`` returns (and the replica's process exits) only after
+    the drain request's reply has left: the connection writers, daemon
+    threads, are joined. A writer scheduled late used to lose the reply,
+    and the JAX ``ServingScaler`` then counted its drained replica as lost."""
+    from tpu_tfrecord_torch import serving
+
+    real_send = sp.send_msg
+    sent = []
+
+    def late_send(sock, msg):
+        if msg.get("draining"):
+            time.sleep(0.5)  # the writer thread scheduled late
+            real_send(sock, msg)
+            sent.append(time.monotonic())
+            return
+        real_send(sock, msg)
+
+    monkeypatch.setattr(serving.sp, "send_msg", late_send)
+    srv, _ = new_server(params)
+    done = {}
+    runner = threading.Thread(target=lambda: done.update(
+        rc=serving.run_server(srv, install_signals=False), at=time.monotonic()))
+    c = ServeClient([srv.addr], timeout_s=30.0)
+    try:
+        runner.start()
+        assert c.drain()["draining"]
+        runner.join(timeout=JOIN_S)
+        assert done.get("rc") == 0 and sent and sent[0] <= done["at"]
+    finally:
+        c.close()
+        srv.stop()
+        runner.join(timeout=JOIN_S)
+
+
 def test_jax_client_talks_to_the_port_replica(params):
     """The frames are the JAX package's: its ``ServeClient`` is served by
     the port's replica."""

@@ -13,12 +13,19 @@ from tpu_tfrecord_torch.device.ingest import (
     make_device_batch,
     make_global_batch,
 )
-from tpu_tfrecord_torch.device.mesh import (
-    assign_shards,
-    create_mesh,
-    data_sharding,
-    local_batch_size,
-)
+
+# ``device.mesh`` imports torch's DeviceMesh and DTensor (about a second of
+# imports, sympy included): loaded on first use, so that a process that
+# never places tensors on a mesh does not pay for it at start
+_MESH_NAMES = ("assign_shards", "create_mesh", "data_sharding", "local_batch_size")
+
+
+def __getattr__(name):
+    if name in _MESH_NAMES:
+        from tpu_tfrecord_torch.device import mesh
+
+        return getattr(mesh, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
     "create_mesh",

@@ -21,8 +21,9 @@ side stream out of a reused pinned ``StagingRing``, a batch ahead of the
 consumer (or on a transfer thread), and hands the tensors over ordered
 behind their copy on the consumer's stream.
 
-Not ported: ``batch_spec`` (the abstract shapes of a global batch for a
-sharded step); it raises ``OptionNotPortedError``.
+``batch_spec`` gives a global batch's shapes and dtypes ahead of any data,
+as ``torch.empty(..., device="meta")`` tensors (the counterpart of
+``jax.ShapeDtypeStruct``).
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ import torch
 from tpu_tfrecord_torch import _native, wire
 from tpu_tfrecord_torch.columnar import Column, ColumnarBatch, pad_ragged, pad_ragged2
 from tpu_tfrecord_torch.metrics import METRICS
-from tpu_tfrecord_torch.options import refuse_mesh
-from tpu_tfrecord_torch.schema import ArrayType, BinaryType, DataType, StringType, StructType
+from tpu_tfrecord_torch.schema import (ArrayType, BinaryType, DataType, StringType, StructType,
+                                       numpy_dtype)
 
 # a host batch's array: numpy, or a CPU tensor for a dtype numpy lacks (bf16)
 HostArray = Union[np.ndarray, torch.Tensor]
@@ -274,10 +275,65 @@ def host_batch_from_columnar(
     return out
 
 
-def batch_spec(schema: Optional[StructType] = None, batch_size: Optional[int] = None,
-               pad_to=None, hash_buckets=None, include_lengths: bool = True, cast=None):
-    """Not ported: the global batch's abstract shapes for a sharded step."""
-    refuse_mesh("ingest.batch_spec")
+def batch_spec(
+    schema: StructType,
+    batch_size: int,
+    pad_to: Optional[Dict[str, Union[int, tuple]]] = None,
+    hash_buckets: Optional[Dict[str, int]] = None,
+    include_lengths: bool = True,
+    cast: Optional[Dict[str, CastDtype]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Schema -> {name: meta tensor} of one global batch's shapes and
+    dtypes, the keys and shapes ``host_batch_from_columnar`` gives:
+
+    - numeric scalar column  -> (B,) of its dtype
+    - numeric array column   -> (B, L) + '<name>_len' (B,) int32
+    - array-of-array column  -> (B, Lo, Li) + '<name>_len' (B,)
+                                + '<name>_inner_len' (B, Lo) int32
+    - string/binary column   -> (B,) int32 iff hashed via
+                                ``hash_buckets[name]`` (multi-hot: (B, K) +
+                                '<name>_len'), else omitted
+
+    ``pad_to`` gives L (or (Lo, Li), or K) for every ragged column.
+    ``cast`` overrides a numeric column's dtype as in
+    ``host_batch_from_columnar`` (``torch.bfloat16`` for bf16); a name
+    that is no numeric column raises at once."""
+    pad_to = pad_to or {}
+    hash_buckets = hash_buckets or {}
+    cast = _validate_cast(schema, cast or {})
+    spec: Dict[str, torch.Tensor] = {}
+
+    def meta(shape, dtype) -> torch.Tensor:
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    for f in schema:
+        dt = f.data_type
+        if _is_bytes_like(dt):
+            if f.name in hash_buckets:
+                if isinstance(dt, ArrayType):  # multi-hot: [B, K] + lengths
+                    spec[f.name] = meta((batch_size, pad_to[f.name]), np.int32)
+                    if include_lengths:
+                        spec[f.name + "_len"] = meta((batch_size,), np.int32)
+                else:
+                    spec[f.name] = meta((batch_size,), np.int32)
+            continue
+        dtype = cast.get(f.name, numpy_dtype(dt))
+        if isinstance(dt, ArrayType):
+            if isinstance(dt.element_type, ArrayType):
+                lo, li = pad_to[f.name]
+                spec[f.name] = meta((batch_size, lo, li), dtype)
+                if include_lengths:
+                    spec[f.name + "_len"] = meta((batch_size,), np.int32)
+                    spec[f.name + "_inner_len"] = meta((batch_size, lo), np.int32)
+            else:
+                spec[f.name] = meta((batch_size, pad_to[f.name]), dtype)
+                if include_lengths:
+                    spec[f.name + "_len"] = meta((batch_size,), np.int32)
+        else:
+            spec[f.name] = meta((batch_size,), dtype)
+    return spec
 
 
 def data_shardings(host_batch: Dict[str, HostArray], mesh, axis: str = "data") -> Dict[str, tuple]:

@@ -11,8 +11,8 @@ dtype. ``F.scaled_dot_product_attention`` is not used: its ``-inf`` masks
 and fused kernels change both the masked rows and the summation.
 
 Not ported: ``ring_attention``, ``ulysses_attention`` and their per-device
-bodies, which shard the sequence over several devices (they need
-``torch.distributed`` first); they raise ``OptionNotPortedError``.
+bodies, which shard the sequence over the ranks of a mesh; they raise
+``OptionNotPortedError``.
 """
 
 from __future__ import annotations
@@ -77,14 +77,14 @@ def attention_reference(
 def ring_attention(*args, **kwargs):
     """Not ported: the ring shards the sequence over devices."""
     raise OptionNotPortedError(
-        "ring_attention: sequence-parallel attention needs torch.distributed "
-        "across cards, which the port does not have yet; use attention_reference"
+        "ring_attention: sequence-parallel attention over torch.distributed ranks "
+        "is not ported yet; use attention_reference"
     )
 
 
 def ulysses_attention(*args, **kwargs):
     """Not ported: the all-to-all exchange shards the sequence over devices."""
     raise OptionNotPortedError(
-        "ulysses_attention: sequence-parallel attention needs torch.distributed "
-        "across cards, which the port does not have yet; use attention_reference"
+        "ulysses_attention: sequence-parallel attention over torch.distributed ranks "
+        "is not ported yet; use attention_reference"
     )

@@ -28,8 +28,21 @@ Batch layout is that of ``device.ingest.host_batch_from_columnar`` for a
 Criteo-like schema: 'dense' [B, num_dense], 'cat' [B, F] hashed ids (int32
 or int64), 'label' [B], optionally 'frames' [B, L, D_in] + 'frames_len' [B].
 
-Not ported: ``param_shardings`` and ``batch_shardings`` (placement over a
-device mesh); they raise ``OptionNotPortedError``.
+Over a ``DeviceMesh`` of ranks (``device.mesh.create_mesh``), the JAX
+layout: ``param_shardings`` puts the table's V rows and each weight's
+output columns on the 'model' axis where the axis size divides them
+(``nn.Linear.weight`` is [out, in], so JAX's [in, out@model] is
+``Shard(0)`` here) and replicates the rest; ``batch_shardings`` puts the
+batch on 'data' and ``frames``' L on 'seq'. ``shard_model`` keeps this
+rank's pieces as a ``ShardedDLRM`` (``unshard_model`` gathers them back),
+whose forward writes out the collectives GSPMD would insert
+(``models.sharded``): column-parallel layers gather their outputs over
+'model', the lookup sums each rank's rows of its V range over 'model',
+and the sequence tower sums its masked partial sums and counts over
+'seq'. ``sharded_train_step`` sums every gradient over 'data' before the
+optimizer steps; ``sharded_sparse_train_step`` gathers the row gradients
+and their ids over 'data', so every data replica deduplicates the global
+batch, and each model rank updates the rows of its own V range.
 """
 
 from __future__ import annotations
@@ -41,9 +54,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpu_tfrecord_torch.models import sharded
 from tpu_tfrecord_torch.models.interaction import dot_interaction
 from tpu_tfrecord_torch.models.optim import init_adam_state
-from tpu_tfrecord_torch.options import refuse_mesh
 
 
 @dataclass(frozen=True)
@@ -122,15 +135,9 @@ class DLRM(nn.Module):
         cfg = self.cfg
         dt = cfg.dtype
         dense = batch["dense"].to(dt)
-        bottom_out = _mlp(self.bottom, dense, dt)                # [B, H]
+        bottom_out = self._mlp(self.bottom, dense, dt)           # [B, H]
         if emb is None:
-            # Gather the rows first, then cast: the JAX model casts the
-            # whole [F, V, D] table to dt before its gather (3.5 GB at
-            # Criteo width per call); the cast is elementwise, so the
-            # result is identical.
-            idx = batch["cat"].long()                            # [B, F]
-            f_ix = torch.arange(cfg.num_categorical, device=idx.device)[None, :]
-            emb = self.embeddings[f_ix, idx]
+            emb = self.lookup(batch["cat"])
         emb = emb.to(dt)                                         # [B, F, D]
         if cfg.interaction == "dot":
             stack = torch.cat([bottom_out[:, None, :], emb], dim=1)
@@ -139,17 +146,34 @@ class DLRM(nn.Module):
         else:
             feats = [bottom_out, emb.reshape(emb.shape[0], -1)]
         if cfg.seq_len:
-            frames = batch["frames"].to(dt)                      # [B, L, D_in]
-            proj = _mlp([self.seq_proj], frames, dt)             # [B, L, D]
-            steps = torch.arange(frames.shape[1], device=frames.device)
-            mask = (steps[None, :] < batch["frames_len"][:, None]).to(dt)
-            pooled = (proj * mask[:, :, None]).sum(dim=1) / torch.clamp(
-                mask.sum(dim=1, keepdim=True), min=1.0
-            )
-            feats.append(pooled)
+            feats.append(self._pooled(batch["frames"].to(dt), batch["frames_len"], dt))
         x = torch.cat(feats, dim=-1)
-        logits = _mlp(self.top, x, dt)
+        logits = self._mlp(self.top, x, dt)
         return logits[:, 0].float()
+
+    def _mlp(self, layers, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return _mlp(layers, x, dtype)
+
+    def lookup(self, cat: torch.Tensor) -> torch.Tensor:
+        """The table's rows [B, F, D] (float32) of the ids ``cat`` [B, F].
+        The JAX model casts the whole [F, V, D] table to the activation
+        dtype before its gather (3.5 GB at Criteo width per call); the
+        forward gathers first and casts the rows, which gives the same
+        values."""
+        idx = cat.long()
+        f_ix = torch.arange(self.cfg.num_categorical, device=idx.device)[None, :]
+        return self.embeddings[f_ix, idx]
+
+    def _pooled(self, frames: torch.Tensor, frames_len: torch.Tensor, dt: torch.dtype
+                ) -> torch.Tensor:
+        """The sequence tower: the projected frames' mean over the steps
+        below each row's length."""
+        proj = self._mlp([self.seq_proj], frames, dt)            # [B, L, D]
+        steps = torch.arange(frames.shape[1], device=frames.device)
+        mask = (steps[None, :] < frames_len[:, None]).to(dt)
+        return (proj * mask[:, :, None]).sum(dim=1) / torch.clamp(
+            mask.sum(dim=1, keepdim=True), min=1.0
+        )
 
 
 @torch.no_grad()
@@ -218,11 +242,12 @@ def sparse_opt_init(
 ) -> SparseEmbOptState:
     """``make_opt`` over the non-table parameters (for example
     ``lambda ps: torch.optim.Adam(ps, lr=1e-3)``) and zero accumulators on
-    the table's device."""
+    the table's device, one per row the model holds ([F, V], or this
+    rank's [F, V/m] of a ``ShardedDLRM``)."""
     return SparseEmbOptState(
         dense=make_opt(list(dense_parameters(model))),
         accum=torch.zeros(
-            (cfg.num_categorical, cfg.vocab_size), dtype=torch.float32,
+            tuple(model.embeddings.shape[:2]), dtype=torch.float32,
             device=model.embeddings.device,
         ),
     )
@@ -288,7 +313,7 @@ def sparse_train_step(
     table = model.embeddings                                  # [F, V, D]
     table.requires_grad_(False)
     idx = batch["cat"].long()                                 # [B, F]
-    fdim, vocab = cfg.num_categorical, cfg.vocab_size
+    fdim = cfg.num_categorical
     f_ix = torch.arange(fdim, device=idx.device)[None, :]     # [1, F]
     with torch.no_grad(), _span("gather"):
         rows = table[f_ix, idx]                               # [B, F, D]
@@ -304,29 +329,49 @@ def sparse_train_step(
         state.dense.step()
     with torch.no_grad():
         g_rows = rows.grad.float()
-        d = g_rows.shape[-1]
         n = idx.shape[0] * fdim
-        f_flat = f_ix.expand(idx.shape).reshape(n)            # [N] feature id
-        v_flat = idx.reshape(n)                               # [N] vocab row
-        with _span("dedup_sort"):
-            order, sf, sv, run_start = _dedup_sort(
-                f_flat, v_flat, vocab, force_pairs=fdim * vocab > _FLAT_KEY_MAX
-            )
-        with _span("segment_sums"):
-            sg = g_rows.reshape(n, d)[order]
-            rid = torch.cumsum(run_start, 0) - 1              # run id per element
-            # each element's view of its duplicate group's summed gradient and size
-            g_sum = torch.zeros_like(sg).index_add_(0, rid, sg)[rid]        # [N, D]
-            m = torch.zeros(n, dtype=torch.float32, device=sg.device).index_add_(
-                0, rid, torch.ones(n, dtype=torch.float32, device=sg.device))[rid]
-            inv_m = 1.0 / m
-            ms_share = torch.mean(g_sum * g_sum, dim=-1) * inv_m  # sums to mean(G^2)
-        with _span("scatters"):
-            state.accum.index_put_((sf, sv), ms_share, accumulate=True)
-            # post-accumulation scale, shared by a row's duplicates by construction
-            scale = embed_lr * torch.rsqrt(state.accum[sf, sv] + embed_eps)  # [N]
-            table.index_put_((sf, sv), -(scale * inv_m)[:, None] * g_sum, accumulate=True)
+        _row_update(table, state.accum, f_ix.expand(idx.shape).reshape(n), idx.reshape(n),
+                    g_rows.reshape(n, -1), embed_lr, embed_eps)
     return loss.detach()
+
+
+def _segment_sum(values: torch.Tensor, rid: torch.Tensor, n: int, deterministic: bool):
+    out = torch.zeros((n,) + values.shape[1:], dtype=values.dtype, device=values.device)
+    if deterministic:
+        # sorted accumulation: the same bits on every rank and every run
+        return out.index_put_((rid,), values, accumulate=True)
+    return out.index_add_(0, rid, values)
+
+
+def _row_update(table, accum, f_flat, v_flat, g, embed_lr, embed_eps, deterministic=False):
+    """The dedup-first row-wise AdaGrad of the touched rows, in place:
+    element i of the flat lists adds its row gradient ``g[i]`` [D] to row
+    (``f_flat[i]``, ``v_flat[i]``) of ``table`` [F, V, D] with accumulator
+    ``accum`` [F, V]. ``deterministic`` sums the duplicate groups in sorted
+    order (on the card ``index_add_`` sums them with atomics, in any
+    order)."""
+    n = g.shape[0]
+    if n == 0:
+        return
+    fdim, vocab = table.shape[:2]
+    with _span("dedup_sort"):
+        order, sf, sv, run_start = _dedup_sort(
+            f_flat, v_flat, vocab, force_pairs=fdim * vocab > _FLAT_KEY_MAX
+        )
+    with _span("segment_sums"):
+        sg = g[order]
+        rid = torch.cumsum(run_start, 0) - 1                  # run id per element
+        # each element's view of its duplicate group's summed gradient and size
+        g_sum = _segment_sum(sg, rid, n, deterministic)[rid]                   # [N, D]
+        m = _segment_sum(torch.ones(n, dtype=torch.float32, device=sg.device), rid, n,
+                         deterministic)[rid]                                   # [N]
+        inv_m = 1.0 / m
+        ms_share = torch.mean(g_sum * g_sum, dim=-1) * inv_m  # sums to mean(G^2)
+    with _span("scatters"):
+        accum.index_put_((sf, sv), ms_share, accumulate=True)
+        # post-accumulation scale, shared by a row's duplicates by construction
+        scale = embed_lr * torch.rsqrt(accum[sf, sv] + embed_eps)  # [N]
+        table.index_put_((sf, sv), -(scale * inv_m)[:, None] * g_sum, accumulate=True)
 
 
 def train_state(model: DLRM, opt) -> Dict[str, object]:
@@ -399,11 +444,329 @@ def make_synthetic_batch(
     return batch
 
 
-def param_shardings(mesh=None, params=None, model_axis: str = "model"):
-    """Not ported: the tables' and the MLPs' placement on a 'model' axis."""
-    refuse_mesh("dlrm.param_shardings")
+# -- over a mesh of ranks ---------------------------------------------------------
+
+# The mesh axes a ShardedDLRM runs on ('data', 'model', 'seq').
+_DATA, _MODEL, _SEQ = "data", "model", "seq"
 
 
-def batch_shardings(mesh=None, batch=None, data_axis: str = "data", seq_axis: Optional[str] = None):
-    """Not ported: the batch's placement on the 'data' (and 'seq') axes."""
-    refuse_mesh("dlrm.batch_shardings")
+def _model_dim(name: str, shape, m: int) -> Optional[int]:
+    """The dim of parameter ``name`` that goes on a 'model' axis of size
+    ``m``, or None (replicated): the table's V when m divides it, a
+    weight's output columns ([out, in]: dim 0) when m divides them."""
+    if m == 1:
+        return None
+    if name == "embeddings":
+        return 1 if shape[1] % m == 0 else None
+    if len(shape) == 2 and shape[0] % m == 0:
+        return 0
+    return None
+
+
+def param_shardings(mesh, model: DLRM, model_axis: str = "model") -> Dict[str, tuple]:
+    """The DTensor placements of each of ``model``'s parameters (by its
+    name in ``named_parameters``) on ``mesh``, one per mesh dim, as
+    ``device.mesh.data_sharding`` gives them: on ``model_axis`` the table
+    is ``Shard(1)`` (its V rows) and a weight ``Shard(0)`` (its output
+    columns) where the axis size divides them; biases, the rest and every
+    other axis ``Replicate()``. The JAX layout, with ``nn.Linear``'s
+    [out, in] weights."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names or ())
+    m = sharded.axis_size(mesh, model_axis)
+    out = {}
+    for name, p in model.named_parameters():
+        dim = _model_dim(name, tuple(p.shape), m)
+        out[name] = tuple(Shard(dim) if axis == model_axis and dim is not None else Replicate()
+                          for axis in names)
+    return out
+
+
+def batch_shardings(mesh, batch: Dict[str, torch.Tensor], data_axis: Optional[str] = "data",
+                    seq_axis: Optional[str] = None) -> Dict[str, tuple]:
+    """The DTensor placements of each array of a global batch on ``mesh``:
+    dim 0 ``Shard(0)`` on ``data_axis`` (None: not sharded) and, with
+    ``seq_axis`` on the mesh, ``frames``' dim 1 ``Shard(1)`` on it; the
+    other axes ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names or ())
+    if data_axis is not None and data_axis not in names:
+        raise ValueError(f"mesh has no axis {data_axis!r} (axes {names})")
+    out = {}
+    for name, arr in batch.items():
+        on_seq = bool(seq_axis) and seq_axis in names and name == "frames" and arr.ndim >= 2
+        out[name] = tuple(Shard(0) if axis == data_axis
+                          else Shard(1) if on_seq and axis == seq_axis
+                          else Replicate() for axis in names)
+    return out
+
+
+class _MatMul(torch.autograd.Function):
+    """``x.to(dt) @ w.to(dt).t()`` for a float32 ``x`` holding ``dt``
+    values: the forward is the one-process layer's GEMM in ``dt``; the
+    backward hands back dx and dw as float32 sums, unrounded, where the
+    one-process GEMMs round theirs to ``dt``. A sum of them over ranks is
+    then rounded once, as one GEMM over all the rows rounds its own."""
+
+    @staticmethod
+    def forward(ctx, x, w, dt):
+        ctx.save_for_backward(x, w)
+        ctx.dt = dt
+        return x.to(dt) @ w.to(dt).t()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.float()
+        dx = g @ w.to(ctx.dt).float()
+        dw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return dx, dw, None
+
+
+class _AddBias(torch.autograd.Function):
+    """``y + b.to(y.dtype)``, the bias' gradient summed in float32 and left
+    unrounded (see ``_MatMul``)."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        return y + b.to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g.float().reshape(-1, g.shape[-1]).sum(0)
+
+
+class _ShardedLinear(nn.Module):
+    """One MLP layer of a ``ShardedDLRM``: ``weight`` holds this rank's
+    output columns [out/m, in] when ``sharded``, else all of them; ``bias``
+    [out] is whole (replicated, as in the JAX layout)."""
+
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor, sharded: bool):
+        super().__init__()
+        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.bias = nn.Parameter(bias, requires_grad=False)
+        self.sharded = sharded
+
+
+class ShardedDLRM(DLRM):
+    """This rank's pieces of a ``DLRM`` laid out by ``param_shardings`` on
+    ``mesh``, as plain local tensors under the one-process names: the
+    table's rows ``v_lo:v_hi`` [F, V/m, D] and the column slices of the
+    sharded weights. Its forward takes this rank's part of the global
+    batch (its rows on 'data', its steps of ``frames`` on 'seq'; DTensors
+    give their local part) and returns the logits of its rows, the same on
+    every rank of the 'model' and 'seq' axes. An axis the mesh lacks counts
+    as size 1."""
+
+    def __init__(self, model: DLRM, mesh):
+        nn.Module.__init__(self)
+        self.cfg = model.cfg
+        self.mesh = mesh
+        m = sharded.axis_size(mesh, _MODEL)
+        k = sharded.axis_index(mesh, _MODEL)
+
+        def piece(name: str, t: torch.Tensor) -> torch.Tensor:
+            dim = _model_dim(name, tuple(t.shape), m)
+            t = t.detach()
+            if dim is not None:
+                t = t.narrow(dim, k * (t.shape[dim] // m), t.shape[dim] // m)
+            return t.clone()
+
+        vocab = model.cfg.vocab_size
+        self.table_sharded = _model_dim("embeddings", tuple(model.embeddings.shape), m) is not None
+        rows = vocab // m if self.table_sharded else vocab
+        self.v_lo = k * rows if self.table_sharded else 0
+        self.v_hi = self.v_lo + rows
+        self.embeddings = nn.Parameter(piece("embeddings", model.embeddings), requires_grad=False)
+
+        def layers(prefix: str, source) -> nn.ModuleList:
+            return nn.ModuleList(
+                _ShardedLinear(piece(f"{prefix}.{i}.weight", l.weight), l.bias.detach().clone(),
+                               _model_dim(f"{prefix}.{i}.weight", tuple(l.weight.shape), m)
+                               is not None)
+                for i, l in enumerate(source))
+
+        self.bottom = layers("bottom", model.bottom)
+        self.top = layers("top", model.top)
+        self.seq_proj = (layers("seq_proj", [model.seq_proj])[0]
+                         if model.seq_proj is not None else None)
+        self.data_size = sharded.axis_size(mesh, _DATA)
+
+    def _linear(self, layer: _ShardedLinear, x, dt, param_axis=None) -> torch.Tensor:
+        """One layer, ``x @ w.to(dt) + b.to(dt)`` as the one-process
+        layer computes it. A sharded layer takes its input through
+        ``copy_to`` and gathers its output columns; the input travels as
+        float32, so its gradient's partial sums over 'model' are added
+        before the one rounding to ``dt``."""
+        w, b = layer.weight, layer.bias
+        if param_axis is not None:
+            # each rank of param_axis sees part of the input: the
+            # parameters' gradients sum over it
+            w, b = sharded.copy_to(w, self.mesh, param_axis), sharded.copy_to(b, self.mesh, param_axis)
+        x = x.float()
+        if layer.sharded:
+            x = sharded.copy_to(x, self.mesh, _MODEL)
+            y = sharded.gather_from(_MatMul.apply(x, w, dt), self.mesh, _MODEL, -1)
+        else:
+            y = _MatMul.apply(x, w, dt)
+        return _AddBias.apply(y, b)
+
+    def _mlp(self, layers, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        for i, layer in enumerate(layers):
+            x = self._linear(layer, x, dtype)
+            if i + 1 < len(layers):
+                x = torch.relu(x)
+        return x
+
+    def lookup(self, cat: torch.Tensor) -> torch.Tensor:
+        """The rows [B, F, D] (float32) of the ids ``cat``: each rank reads
+        the ids in its V range (others read as zero rows), and the sum over
+        'model' holds each row exactly once."""
+        if not self.table_sharded:
+            return super().lookup(cat)
+        local = cat.long() - self.v_lo
+        inside = (local >= 0) & (local < self.v_hi - self.v_lo)
+        f_ix = torch.arange(self.cfg.num_categorical, device=local.device)[None, :]
+        rows = self.embeddings[f_ix, torch.where(inside, local, 0)]
+        rows = torch.where(inside[:, :, None], rows, rows.new_zeros(()))
+        return sharded.sum_over(rows, self.mesh, _MODEL)
+
+    def _pooled(self, frames: torch.Tensor, frames_len: torch.Tensor, dt: torch.dtype
+                ) -> torch.Tensor:
+        """The sequence tower over this rank's steps of ``frames``: the
+        masked sums (in float32, rounded to ``dt`` once, as the one-process
+        sum rounds) and the counts are summed over 'seq' before the
+        division."""
+        axis = _SEQ if sharded.axis_size(self.mesh, _SEQ) > 1 else None
+        proj = self._linear(self.seq_proj, frames, dt, param_axis=axis)   # [B, L/s, D]
+        first = sharded.axis_index(self.mesh, axis) * frames.shape[1]
+        steps = torch.arange(frames.shape[1], device=frames.device) + first
+        mask = (steps[None, :] < frames_len[:, None]).to(dt)
+        total = sharded.sum_over((proj * mask[:, :, None]).float().sum(dim=1), self.mesh, axis)
+        count = sharded.sum_over(mask.float().sum(dim=1, keepdim=True), self.mesh, axis)
+        return total.to(dt) / torch.clamp(count.to(dt), min=1.0)
+
+
+def shard_model(model: DLRM, mesh) -> ShardedDLRM:
+    """This rank's ``ShardedDLRM`` of the one-process ``model`` (every rank
+    passes the same weights)."""
+    return ShardedDLRM(model, mesh)
+
+
+@torch.no_grad()
+def unshard_model(model: ShardedDLRM) -> DLRM:
+    """The one-process ``DLRM`` of a ``ShardedDLRM``, on every rank: the
+    sharded pieces are gathered over 'model'."""
+    full = DLRM(model.cfg, device=model.embeddings.device)
+    m = sharded.axis_size(model.mesh, _MODEL)
+    parts = dict(model.named_parameters())
+    for name, p in full.named_parameters():
+        dim = _model_dim(name, tuple(p.shape), m)
+        piece = parts[name].detach()
+        p.copy_(piece if dim is None else sharded.all_gather(piece, model.mesh, _MODEL, dim))
+    return full.requires_grad_(False)
+
+
+def _local(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's part of a batch of DTensors (tensors as they are)."""
+    return {k: v.to_local() if hasattr(v, "to_local") else v for k, v in batch.items()}
+
+
+def sharded_loss_fn(model: ShardedDLRM, batch: Dict[str, torch.Tensor], emb=None) -> torch.Tensor:
+    """This rank's share of the global batch's mean loss: its rows' mean
+    over the 'data' axis' size, so that the shares sum over 'data' to the
+    mean over every row (every data rank holds as many rows)."""
+    logits = model(_local(batch), emb=emb)
+    labels = _local(batch)["label"].float()
+    per_row = torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    return torch.mean(per_row) / model.data_size
+
+
+def _sum_grads(model: ShardedDLRM, params) -> None:
+    """Sum the gradients over 'data' in one collective, then round the
+    layers' (float32 partial sums, see ``_MatMul``) to the activation
+    dtype, as the one-process step's GEMMs round theirs. The table's
+    gradient is a float32 scatter of rows in both and stays as it is."""
+    stepped = {id(p) for p in params}
+    named = [(n, p.grad) for n, p in model.named_parameters()
+             if p.grad is not None and id(p) in stepped]
+    if model.data_size > 1 and named:
+        flat = sharded.all_reduce(torch.cat([g.reshape(-1) for _, g in named]), model.mesh,
+                                  _DATA)
+        at = 0
+        for _, g in named:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+    dt = model.cfg.dtype
+    if dt != torch.float32:
+        for name, g in named:
+            if name != "embeddings":
+                g.copy_(g.to(dt))
+
+
+def sharded_train_step(model: ShardedDLRM, opt: torch.optim.Optimizer,
+                       batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``train_step`` over the mesh: every rank differentiates its share of
+    the global mean loss, the gradients are summed over 'data', and ``opt``
+    steps this rank's pieces (identical on every data replica). Returns the
+    global batch's loss before the update (0-dim, the same on every rank)."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for p in params:
+        p.requires_grad_(True)
+    opt.zero_grad(set_to_none=True)
+    share = sharded_loss_fn(model, batch)
+    share.backward()
+    _sum_grads(model, params)
+    opt.step()
+    return sharded.all_reduce(share.detach(), model.mesh, _DATA)
+
+
+def sharded_sparse_train_step(
+    model: ShardedDLRM,
+    state: SparseEmbOptState,
+    batch: Dict[str, torch.Tensor],
+    cfg: DLRMConfig,
+    embed_lr: float = 0.01,
+    embed_eps: float = 1e-8,
+) -> torch.Tensor:
+    """``sparse_train_step`` over the mesh. The rows of this rank's ids are
+    looked up across 'model' and differentiated with the MLPs; the MLPs'
+    gradients are summed over 'data' before ``state.dense`` steps. The row
+    gradients (already scaled to the global mean) and their ids are
+    gathered over 'data', so every data replica deduplicates the whole
+    global batch, and each rank applies the dedup-first row-wise AdaGrad
+    to the rows of its own V range in its table and accumulator pieces
+    (summed in sorted order: the replicas stay bit-equal). Returns the
+    global batch's loss before the update."""
+    table = model.embeddings                                  # [F, V/m, D]
+    table.requires_grad_(False)
+    batch = _local(batch)
+    idx = batch["cat"].long()                                 # [B, F]
+    with torch.no_grad(), _span("gather"):
+        rows = model.lookup(idx)                              # [B, F, D]
+    rows.requires_grad_(True)
+    params = list(dense_parameters(model))
+    for p in params:
+        p.requires_grad_(True)
+    state.dense.zero_grad(set_to_none=True)
+    with _span("forward"):
+        share = sharded_loss_fn(model, batch, emb=rows)
+    with _span("backward"):
+        share.backward()
+    with _span("dense_opt"):
+        _sum_grads(model, params)
+        state.dense.step()
+    with torch.no_grad():
+        g = sharded.all_gather(rows.grad.float(), model.mesh, _DATA)  # [B_g, F, D]
+        ids = sharded.all_gather(idx, model.mesh, _DATA)             # [B_g, F]
+        n = ids.numel()
+        f_ix = torch.arange(cfg.num_categorical, device=ids.device)[None, :]
+        f_flat, v_flat, g = f_ix.expand(ids.shape).reshape(n), ids.reshape(n), g.reshape(n, -1)
+        if model.table_sharded:
+            mine = (v_flat >= model.v_lo) & (v_flat < model.v_hi)
+            f_flat, v_flat, g = f_flat[mine], v_flat[mine] - model.v_lo, g[mine]
+        _row_update(table, state.accum, f_flat, v_flat, g, embed_lr, embed_eps,
+                    deterministic=True)
+    return sharded.all_reduce(share.detach(), model.mesh, _DATA)

@@ -133,8 +133,8 @@ def _pipe_stages(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axi
         raise OptionNotPortedError(
             f"lm: {', '.join(refused)} not ported: on one card the port runs the pipe "
             "mode only (pipe_axis with mesh={pipe_axis: S}, a data axis of size 1); "
-            "ring attention, FSDP, expert parallelism and stages on several cards need "
-            "torch.distributed across cards (ROADMAP.md, Queue A item 8)"
+            "ring attention, FSDP, expert parallelism and stages on several cards are "
+            "not ported yet (ROADMAP.md, Queue A item 8)"
         )
     return sizes[pipe_axis] if pipe_axis is not None else None
 

@@ -181,8 +181,8 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: LongDoc
     raises."""
     if mesh is not None:
         raise OptionNotPortedError(
-            "long_doc forward(mesh=...): sequence-parallel attention needs "
-            "torch.distributed across cards, which the port does not have yet"
+            "long_doc forward(mesh=...): sequence-parallel attention over a mesh "
+            "is not ported yet (ROADMAP.md, Queue A item 8)"
         )
     dt = cfg.dtype
     frames = batch["frames"].to(dt)                          # [B, L, Din]

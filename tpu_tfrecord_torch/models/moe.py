@@ -35,9 +35,8 @@ indexed accumulate.
 
 ``moe_reference`` is the JAX package's numpy float64 oracle, the plain
 version the tests hold ``moe_apply`` to. Not ported: the expert-parallel
-route over a mesh (``moe_apply_ep``, ``moe_ep_body``, ``param_shardings``),
-which needs ``torch.distributed`` across cards; each raises
-``OptionNotPortedError``.
+route over a mesh (``moe_apply_ep``, ``moe_ep_body``, ``param_shardings``);
+each raises ``OptionNotPortedError``.
 """
 
 from __future__ import annotations
@@ -246,8 +245,8 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, valid: Optional[torch.Ten
 
 def _refuse_ep(name: str):
     raise OptionNotPortedError(
-        f"moe.{name}: expert parallelism over a mesh needs torch.distributed across cards, "
-        "which the port does not have yet (ROADMAP.md, Queue A item 8)"
+        f"moe.{name}: expert parallelism over a mesh is not ported yet; of the models, the "
+        "port places only the DLRM over a device mesh (ROADMAP.md, Queue A item 8)"
     )
 
 

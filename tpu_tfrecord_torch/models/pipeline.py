@@ -19,8 +19,8 @@ path) and ``PipelineStream`` (the serving path) run the same tick function
 (``_tick``), which calls ``stage_fn`` once per lane on ``[mb, ...]``
 tensors, so a streamed output equals the batch output on the same slices
 bitwise, on the card as on the CPU. S = 1 is the one-card deployment;
-S > 1 runs the same schedule on one device (placing stages on several
-cards needs ``torch.distributed``, which the port does not have yet).
+S > 1 runs the same schedule on one device (the port has gloo process
+groups, but does not place stages on several cards yet).
 
 ``pipeline_reference`` is the sequential oracle. The schedule is plain
 torch ops, so autograd runs through it: the LM's pipe mode trains through

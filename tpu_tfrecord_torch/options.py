@@ -4,9 +4,9 @@ Copy of ``tpu_tfrecord/options.py`` for the options the port has:
 ``RecordType`` with the reference's exact spellings, and
 ``TFRecordOptions``, parsed and validated once by ``from_map``, the
 stall-defence, watchdog, pulse, autotune, epoch-cache, trace,
-telemetry-export, fleet-spool and data-service options included. The JAX
-package's elastic-fleet options are not ported yet: ``from_map`` raises on
-any of them, naming the option, rather than dropping it.
+telemetry-export, fleet-spool, data-service and elastic-fleet options
+included. An option the port does not have raises, naming itself, rather
+than being dropped.
 """
 
 from __future__ import annotations
@@ -48,11 +48,12 @@ class OptionNotPortedError(NotImplementedError):
 
 
 def refuse_mesh(name: str) -> None:
-    """Raise for a mesh-placement entry point of the JAX package: placing
-    tensors over several cards waits for the distributed model axes."""
+    """Raise for a mesh-placement entry point of the JAX package that the
+    port does not have yet: of the models, only the DLRM is placed over a
+    mesh of ranks (``models.dlrm.param_shardings``)."""
     raise OptionNotPortedError(
-        f"{name}: placement over a device mesh needs torch.distributed across "
-        "cards, which the port does not have yet (ROADMAP.md, Queue A item 8)"
+        f"{name}: not ported yet: of the models, the port places only the DLRM over "
+        "a device mesh (ROADMAP.md, Queue A item 8)"
     )
 
 

@@ -757,6 +757,7 @@ class ServeServer:
         self._sock.listen(64)
         self.addr = sp.format_addr(host, self._sock.getsockname()[1])
         self._conns: List[_Conn] = []
+        self._writers: List[threading.Thread] = []
         self._lock = threading.Lock()
         self._stopping = threading.Event()
         self.drained = threading.Event()
@@ -796,6 +797,17 @@ class ServeServer:
             conn.finish()
         self.engine.stop()
 
+    def flush(self, timeout: Optional[float] = None) -> None:
+        """Wait, after ``stop``, until every connection's writer has sent
+        what it queued (a drain request's own reply among them): the
+        writers are daemon threads, and a process that exits before they
+        run drops the reply."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._lock:
+            writers = list(self._writers)
+        for t in writers:
+            t.join(None if deadline is None else max(0.0, deadline - time.monotonic()))
+
     # -- accept / per-connection ---------------------------------------------
 
     def _accept_loop(self) -> None:
@@ -815,10 +827,13 @@ class ServeServer:
                 target=self._read_loop, args=(conn,),
                 name=f"tfr-serving-read-{conn.peer}", daemon=True,
             ).start()
-            threading.Thread(
+            writer = threading.Thread(
                 target=self._write_loop, args=(conn,),
                 name=f"tfr-serving-write-{conn.peer}", daemon=True,
-            ).start()
+            )
+            writer.start()
+            with self._lock:
+                self._writers = [t for t in self._writers if t.is_alive()] + [writer]
 
     def _drop(self, conn: _Conn) -> None:
         """Connection teardown: cancel the client's live requests (their
@@ -849,7 +864,11 @@ class ServeServer:
         except (OSError, ConnectionError):
             pass
         finally:
-            self._drop(conn)
+            if not conn.closed:
+                self._drop(conn)
+            # else the connection is finishing: its writer sends what is
+            # queued (a drain's reply) and then drops it; closing the
+            # socket here would lose that reply
 
     def _write_loop(self, conn: _Conn) -> None:
         try:
@@ -1121,9 +1140,10 @@ def run_server(
         while not server.drained.wait(0.1):
             if server._stopping.is_set():
                 break
-        # the drain already finished every admitted request; give the
-        # writer threads a beat to flush final replies before teardown
+        # the drain already finished every admitted request; the writer
+        # threads send the final replies before teardown
         server.stop()
+        server.flush(server._timeout_s)
     finally:
         if spool is not None:
             _fleet.release_spool(spool_dir)

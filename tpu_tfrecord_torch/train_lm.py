@@ -65,7 +65,6 @@ from tpu_tfrecord_torch import checkpoint, harness, telemetry
 from tpu_tfrecord_torch.device.ingest import DeviceIterator, TokenPacker
 from tpu_tfrecord_torch.io.dataset import IteratorState, TFRecordDataset
 from tpu_tfrecord_torch.io.writer import DatasetWriter
-from tpu_tfrecord_torch.metrics import METRICS
 from tpu_tfrecord_torch.models import lm, optim
 from tpu_tfrecord_torch.options import TFRecordOptions
 from tpu_tfrecord_torch.schema import ArrayType, LongType, StructField, StructType
@@ -280,6 +279,7 @@ def main(argv=None) -> None:
     snaps: dict = {}
     digest_fh = open(args.digest_out, "a") if args.digest_out else None
     last_diag: dict = {}
+    folded: dict = {}  # this run's folded diagnostics, last values
 
     def step_fn(state, gb):
         if not args.diagnostics:
@@ -299,7 +299,7 @@ def main(argv=None) -> None:
         # the loss has been waited on: the diag's one copy adds no wait
         diag = last_diag.pop("diag", None)
         if diag is not None:
-            harness.fold_model_diagnostics(diag)
+            folded.update(harness.fold_model_diagnostics(diag))
         if digest_fh is None:
             return
         line = {"step": start_step + rel_step,
@@ -337,9 +337,10 @@ def main(argv=None) -> None:
         harness.finish(None, start_step + steps, BATCH, t0, duty, clear_state=False,
                        stages=True, phases=phases)
         if args.diagnostics:
-            gauges = {k: METRICS.gauge_value(k) for k in DIAG_GAUGES}
-            print("model diagnostics:", json.dumps({k: v for k, v in gauges.items()
-                                                    if v is not None}))
+            # this run's last values: the process-wide gauges may also hold
+            # an earlier run's in the same process
+            print("model diagnostics:", json.dumps({k: folded[k] for k in DIAG_GAUGES
+                                                    if k in folded}))
     finally:
         if digest_fh is not None:
             digest_fh.close()

@@ -62,8 +62,8 @@ def make_schema() -> StructType:
 def make_config() -> long_doc.LongDocConfig:
     if os.environ.get("LONGDOC_SP_ATTENTION"):
         raise OptionNotPortedError(
-            "LONGDOC_SP_ATTENTION: sequence-parallel attention needs torch.distributed "
-            "across cards; the twin runs the dense attention"
+            "LONGDOC_SP_ATTENTION: sequence-parallel attention over a mesh is not "
+            "ported yet; the twin runs the dense attention"
         )
     return long_doc.LongDocConfig(
         seq_dim=SEQ_DIM, d_model=32, n_heads=4, n_layers=2, max_len=MAX_LEN,

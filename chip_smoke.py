@@ -109,9 +109,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    buffers), commit, commit wait, drain, StepPhases shares and verdict,
    rows/s beside phase 5's loop. 68 ``bf16_mma`` launches (16 + 12 + 8 +
    16 + 16). Last, the kill drill: ``python -m tpu_tfrecord_torch.train_dlrm``
-   (sparse, on the card) is killed with SIGKILL after its "step 16" line
-   and run again; it must resume from a nonzero position and finish, the
-   saved step plus its steps making the 32-step epoch budget.
+   (sparse, on the card, 2 of its shards) is killed with SIGKILL once its
+   step-8 position is saved (its commits delayed DRILL_COMMIT_DELAY_S, so
+   it cannot end first) and run again; it must resume from a nonzero
+   position and finish, the saved step plus its steps making the 16-step
+   epoch budget. The drill runs beside phase 9 (it is checked for
+   correctness only; phase 9's rates are contended already).
 
 9. The sequence models (no DLRM kernel runs here: every instance's launch
    count over the phase must be 0). The twins' SequenceExamples are
@@ -288,6 +291,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    card's name and power limit: each rank's step ms, the ms of its
    collectives (CUDA events around them) and the card's idle share for its
    kernels over its last step of each mesh (torch.profiler).
+   (d) The sequence axis over the same two ranks (``seq_mesh_rank``),
+   after (c), on mesh {'seq': 2}, the counts of ``dot_interaction`` set to
+   0 before and read after (``sp_launches``, which must be 0: the sequence
+   models bypass the DLRM). (a) ``ring_attention`` contiguous causal, zigzag
+   causal with packed-document segments and GQA (Hkv 2), and
+   ``ulysses_attention`` causal with lengths, at the LM twin's widths
+   (B 32, L 64, 4 heads of 16) in float32: each rank's chunk and the
+   gradients of its q, k, v held against the dense attention over the whole
+   sequence (atol 1e-4; gradients 1e-4 of the largest); then a long probe,
+   B 1, L 8192, 8 heads of 64, bf16, forward only, ring zigzag and Ulysses
+   (atol 2e-2). Each call's ms and its collectives' ms (CUDA events,
+   median of SP_REPS) and the dense attention's ms on the rank alone. (b)
+   4 bf16 ``long_doc`` train steps at the JAX trainer's widths with ring
+   and with Ulysses attention, each rank its half of every document's
+   frames, beside the one-process steps on the whole batch (losses within
+   2e-2). (c) 4 float32 LM train steps (the ``train_lm`` twin's model) with
+   the zigzag ring and best_fit packed segments beside the one-process
+   steps, under deterministic algorithms (losses within 1e-4). The ranks'
+   losses must be equal. Two ranks each of ``train_lm --mesh dp_sp`` and
+   of ``train_longdoc`` (phase 9's documents) start with (c)'s
+   ``train_dlrm`` ranks, while the scoring ranks import (which score only
+   after all of them exited), and run SP_TWIN_STEPS steps under torchrun's
+   environment: both ranks of each exit 0 after the steps on the (data 1,
+   seq 2) mesh with equal, finite losses. The hops pass through host memory (gloo on CUDA tensors):
+   the collectives' ms are not NVLink or NCCL figures.
 
 15. Remote filesystems on phase 12's shards (``remote_path``): the port's
    ``httpfs.serve_directory`` serves them from a spawned process on
@@ -1519,7 +1547,7 @@ def feed_path(data_dir: str) -> dict:
 # -- phase 7: the data-source API ----------------------------------------------------
 
 WRITE_BATCHES = 6      # bench_write.py's shape: 6 batches of BATCH Criteo rows
-WRITE_REPS = 2         # interleaved sequential/pipelined pairs, best of each
+WRITE_REPS = 1         # interleaved sequential/pipelined pairs, best of each
 WRITE_WORKERS = 4
 WRITE_SHARDS = 4
 CAT_LEN = 8
@@ -1809,8 +1837,9 @@ RESUME_EPOCHS = 8          # both shards: 16 steps
 RESUME_SAVE_EVERY = 8
 RESUME_STOP = 12           # the interrupted run's last step
 RESUME_SEED = 1            # the resumed model's own weights, before the restore
-DRILL_STEPS = 32           # train_dlrm: 2 epochs of 16 batches
-DRILL_KILL_AT = "step 16"
+DRILL_STEPS = 16           # train_dlrm on 2 shards: 2 epochs of 8 batches
+DRILL_KILL_AT = "step 8"
+DRILL_COMMIT_DELAY_S = 1.0  # run 1's commits: its step-8 save lands 1 s before it could end
 DRILL_TIMEOUT_S = 300
 
 
@@ -1957,22 +1986,26 @@ def checkpoint_twin(data_dir, ckpt_dir, sync: bool, ref) -> dict:
 
 def kill_drill(work: str) -> dict:
     """The twin trainer (``python -m tpu_tfrecord_torch.train_dlrm``, sparse,
-    on the card) killed with SIGKILL after its "step 16" line, then run
-    again: it must resume from a nonzero position, finish with "done:", and
-    the saved step plus the second run's steps must be the epoch budget."""
+    on the card, over 2 shards of its rows) killed with SIGKILL once its
+    step-8 position is saved (its commits delayed DRILL_COMMIT_DELAY_S, so
+    the run cannot end in the meantime), then run again: it must resume
+    from a nonzero position, finish with "done:", and the saved step plus
+    the second run's steps must be the epoch budget."""
     import signal
 
-    from tpu_tfrecord_torch import checkpoint
+    from tpu_tfrecord_torch import checkpoint, train_dlrm
 
     repo = os.path.dirname(os.path.abspath(__file__))
     data, ckpt = os.path.join(work, "drill_data"), os.path.join(work, "drill_ckpt")
+    train_dlrm.generate(data, shards=2)
     cmd = [sys.executable, "-m", "tpu_tfrecord_torch.train_dlrm", "--data-dir", data,
            "--ckpt-dir", ckpt]
     env = dict(os.environ, DLRM_SPARSE="1", PYTHONPATH=repo)
+    state = checkpoint.state_path(ckpt, 0)
     t0 = time.perf_counter()
     with open(os.path.join(work, "drill_1.err"), "w") as err:
-        proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE, stderr=err,
-                                text=True)
+        proc = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE, stderr=err, text=True,
+                                env=dict(env, TFR_CKPT_COMMIT_THROTTLE_S=str(DRILL_COMMIT_DELAY_S)))
         first = []
         timer = threading.Timer(DRILL_TIMEOUT_S, proc.kill)  # a hung run ends the read
         timer.start()
@@ -1980,6 +2013,8 @@ def kill_drill(work: str) -> dict:
             for line in proc.stdout:
                 first.append(line.rstrip())
                 if line.startswith(DRILL_KILL_AT + " "):
+                    while not os.path.exists(state) and proc.poll() is None:
+                        time.sleep(0.002)
                     proc.send_signal(signal.SIGKILL)
                     break
         finally:
@@ -2008,7 +2043,7 @@ def kill_drill(work: str) -> dict:
     pos = saved["state"]
     nonzero = any(pos.get(k, 0) for k in ("epoch", "shard_cursor", "record_offset"))
     steps2 = int(done[0].split()[1]) if done else -1
-    ok = (bool(resumed) and nonzero and saved.get("step") in (8, 16)
+    ok = (bool(resumed) and nonzero and saved.get("step") == 8
           and steps2 + saved["step"] == DRILL_STEPS
           and not os.path.exists(checkpoint.state_path(ckpt, 0)))
     print(f"resume: drill: saved position {pos} at step {saved.get('step')}; run 2 took "
@@ -2115,10 +2150,9 @@ def resume_path(data_dir: str) -> dict:
           f"resumed {16 - RESUME_SAVE_EVERY} + async twin 16 + sync twin 16): {launches}")
     if launches != want:
         raise SystemExit(f"resume: launches {launches}, want {want}")
-    drill = kill_drill(data_dir)
     print("resume: " + json.dumps({
         "free_bytes": free, "checkpoint_bytes": need, "interrupted": interrupted,
-        "restore": restore, "twins": twins, "drill": drill,
+        "restore": restore, "twins": twins,
         "rows_per_s": {"uninterrupted": [ref["whole"], ref["steady"]],
                        "phase5_train_files": [TRAIN_BF16.get("whole"), TRAIN_BF16.get("steady")]},
     }, default=float))
@@ -2137,7 +2171,7 @@ LM_DRILL_SAVE_EVERY = 8
 LM_DRILL_KILL_AT = 20
 LM_DRILL_RESUMED_AT = 16
 SEQ_TIMEOUT_S = 300
-RATE_STEPS = 50
+RATE_STEPS = 25
 PROFILE_STEPS = 5
 PACK_REPS = 40
 
@@ -3771,7 +3805,7 @@ def readpool_path(work: str, card: str, pipe_s: float = 0.0) -> tuple:
         print(f"readpool: phase 12 took {out['seconds']:.1f} s")
         print("readpool: " + json.dumps(out, default=str))
         cached = cache_path(dirs, files, warm, cache_dir, card)
-        multi = multiproc_path(dirs, root, card)
+        multi = multiproc_path(dirs, root, card, work)
         remote = remote_path(dirs, files, root, warm, local_logits, card)
         fleet_out = fleet_path(dirs, work, root, local_logits, serving["fixed 4"]["whole"], card)
         served = service_path(dirs, root, local_logits, serving["fixed 4"]["whole"], card)
@@ -3785,7 +3819,7 @@ def readpool_path(work: str, card: str, pipe_s: float = 0.0) -> tuple:
         shutil.rmtree(root, ignore_errors=True)
     return (serving["launches"], cached["launches"], multi["launches"], remote["launches"],
             fleet_out["launches"], served["launches"], scaled["launches"],
-            scaled["resize_launches"], multi["mesh_launches"])
+            scaled["resize_launches"], multi["mesh_launches"], multi["sp_launches"])
 
 
 # -- phase 13: the columnar epoch cache ----------------------------------------------
@@ -3998,6 +4032,8 @@ def multiproc_rank(rank: int, port: int, dirs: list, work: str, sizes: dict) -> 
 
     globals().update(sizes)
     torch.set_num_threads(1)
+    # phase 14 (d)'s LM steps run under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     path = os.path.join(work, f"rank{rank}.json")
     with open(os.path.join(work, f"rank{rank}.fault"), "w") as fault:
         faulthandler.enable(fault)  # a crash in native code leaves the stacks here
@@ -4139,7 +4175,8 @@ def _multiproc_rank(rank: int, port: int, dirs: list, work: str) -> dict:
     del model, warm
     free_cuda()
     mesh_out = mesh_rank(rank, dirs, work)
-    return dict(rank=rank, mesh=mesh_out, trace=ctx.to_json(), schema=schema.json(), shards=mine,
+    sp_out = seq_mesh_rank()
+    return dict(rank=rank, mesh=mesh_out, sp=sp_out, trace=ctx.to_json(), schema=schema.json(), shards=mine,
                 launches=launches, batches=len(times[2]), rows=int(logits.numel()),
                 wall_s=wall, forward_s=forward_s, idle_share=1.0 - forward_s / wall,
                 duty_cycle=duty, rows_per_s=len(times[2]) * BATCH / wall,
@@ -4497,11 +4534,317 @@ def mesh_check(dirs, work: str, results: list, card: str) -> tuple:
     return gates, out
 
 
-def multiproc_path(dirs, work: str, card: str) -> dict:
+# -- phase 14 (d): the sequence axis over the same two ranks --------------------------
+
+SP_ATTN_SHAPE = (32, 64, 4, 16)     # the LM twin's batch, length, heads and head dim
+SP_PROBE_SHAPE = (1, 8192, 8, 64)   # the long probe: bf16, forward only
+SP_ATTN_CASES = (  # (label, flavour, zigzag, Hkv, lengths?, segments?); every case causal
+    ("ring contiguous", "ring_attention", False, 4, False, False),
+    ("ring zigzag segments GQA", "ring_attention", True, 2, False, True),
+    ("ulysses lengths", "ulysses_attention", False, 4, True, False),
+)
+SP_PROBE_CASES = (("ring zigzag", "ring_attention", True), ("ulysses", "ulysses_attention", False))
+SP_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SP_GRAD_RTOL = 1e-4        # f32 gradients: of each tensor's largest |gradient|
+SP_STEPS = 4
+SP_LONGDOC_TOL = 2e-2      # bf16 losses against one process
+SP_LM_TOL = 1e-4           # f32 losses against one process, deterministic algorithms
+SP_REPS = 5                # timed calls of each attention case
+SP_TWIN_STEPS = 8
+SP_TWIN_TIMEOUT_S = 180    # for each trainer's two ranks, from their start
+
+
+def sp_inputs(shape, hkv: int, dtype, seed: int, lengths: bool, segments: bool) -> dict:
+    """Global q, k, v (and a cotangent) on the card from ``seed``, the same
+    on every rank, with ``lengths`` and packed-document ``segments``."""
+    b, l, h, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {"q": torch.randn(b, l, h, d, generator=g, device="cuda").to(dtype),
+           "k": torch.randn(b, l, hkv, d, generator=g, device="cuda").to(dtype),
+           "v": torch.randn(b, l, hkv, d, generator=g, device="cuda").to(dtype),
+           "cot": torch.randn(b, l, h, d, generator=g, device="cuda").to(dtype)}
+    if lengths:
+        out["lengths"] = torch.randint(1, l + 1, (b,), generator=g, device="cuda")
+    if segments:
+        out["segments"] = torch.sort(torch.randint(1, 5, (b, l), generator=g, device="cuda"),
+                                     dim=1).values
+    return out
+
+
+def sp_attention_case(mesh, flavour: str, zigzag: bool, inp: dict, grads: bool) -> dict:
+    """One attention case on this rank: its chunk against the dense
+    attention over the whole sequence (the output and, with ``grads``, the
+    gradients of q, k and v), then the ms of a call and of its collectives
+    (CUDA events), and of the dense attention over the whole sequence on
+    this rank alone."""
+    from tpu_tfrecord_torch.models import attention, sharded
+
+    p, idx = sharded.axis_size(mesh, "seq"), sharded.axis_index(mesh, "seq")
+    lc = inp["q"].shape[1] // p
+    local = lambda t: t[:, idx * lc:(idx + 1) * lc].contiguous()  # noqa: E731
+    kw = dict(causal=True)
+    if flavour == "ring_attention":
+        kw["zigzag"] = zigzag
+    ref_kw = dict(causal=True, lengths=inp.get("lengths"), segments=inp.get("segments"))
+    fn = getattr(attention, flavour)
+
+    def call(q, k, v):
+        return fn(q, k, v, mesh, seq_axis="seq", lengths=inp.get("lengths"),
+                  segments=local(inp["segments"]) if "segments" in inp else None, **kw)
+
+    full = [inp[n].detach().clone().requires_grad_(grads) for n in ("q", "k", "v")]
+    mine = [local(inp[n]).requires_grad_(grads) for n in ("q", "k", "v")]
+    with torch.set_grad_enabled(grads):
+        got = call(*mine)
+        want = attention.attention_reference(*full, **ref_kw)
+        out = dict(err=(got.float() - local(want).float()).abs().max().item())
+        if grads:
+            (got * local(inp["cot"])).sum().backward()
+            (want * inp["cot"]).sum().backward()
+            out["grad_rel"] = max(
+                ((m.grad - local(f.grad)).abs().max() / f.grad.abs().max()).item()
+                for m, f in zip(mine, full))
+    del got, want, full
+    with torch.no_grad():
+        q, k, v = (local(inp[n]) for n in ("q", "k", "v"))
+        call(q, k, v)  # warm
+        ms, coll = [], []
+        for _ in range(SP_REPS):
+            with timed_collectives() as events:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                call(q, k, v)
+                end.record()
+                torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            coll.append(sum(a.elapsed_time(b) for a, b in events))
+        n_coll = len(events)
+        dense = [inp[n] for n in ("q", "k", "v")]
+        attention.attention_reference(*dense, **ref_kw)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(SP_REPS):
+            attention.attention_reference(*dense, **ref_kw)
+        end.record()
+        torch.cuda.synchronize()
+    out.update(ms=float(np.median(ms)), collective_ms=float(np.median(coll)), collectives=n_coll,
+               dense_ms=start.elapsed_time(end) / SP_REPS)
+    return out
+
+
+def sp_step_pair(mesh, label: str, steps, card_step, ref_step) -> dict:
+    """``steps`` sharded steps (``card_step(i)``) beside the one-process
+    steps (``ref_step(i)``) on this rank: both losses, and the sharded
+    step's host ms (synchronized) and its collectives' ms (CUDA events)."""
+    out = dict(label=label, losses=[], ref_losses=[], host_ms=[], collective_ms=[],
+               collectives=[])
+    for i in range(steps):
+        with timed_collectives() as events:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = card_step(i)
+            torch.cuda.synchronize()
+            out["host_ms"].append((time.perf_counter() - t) * 1e3)
+        out["collective_ms"].append(sum(a.elapsed_time(b) for a, b in events))
+        out["collectives"].append(len(events))
+        out["losses"].append(loss.item())
+        out["ref_losses"].append(ref_step(i).item())
+    return out
+
+
+def seq_mesh_rank() -> dict:
+    """Phase 14 (d) on one rank of phase 14's group, after (c): (a) ring
+    and Ulysses attention on {'seq': 2} at the LM twin's widths (float32,
+    with gradients) and the long probe (bf16, forward only), each rank's
+    chunk held against the dense attention over the whole sequence; (b) 4
+    bf16 ``long_doc`` train steps at the JAX trainer's widths with ring and
+    with Ulysses attention beside the one-process steps; (c) 4 float32 LM
+    train steps with the zigzag ring and packed-document segments beside
+    the one-process steps, under deterministic algorithms. The counts of
+    ``dot_interaction`` are set to 0 before and read after."""
+    from tpu_tfrecord_torch import train_lm, train_longdoc
+    from tpu_tfrecord_torch.device import distributed, mesh as meshes
+    from tpu_tfrecord_torch.device.ingest import TokenPacker
+    from tpu_tfrecord_torch.models import long_doc, lm, optim, sharded
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    t0 = time.perf_counter()
+    mesh = meshes.create_mesh({"seq": 2})
+    distributed.barrier("sp")
+    reset_launch_counts()
+    out = {"attention": {}, "probe": {}}
+    for i, (label, flavour, zigzag, hkv, lengths, segments) in enumerate(SP_ATTN_CASES):
+        inp = sp_inputs(SP_ATTN_SHAPE, hkv, torch.float32, 100 + i, lengths, segments)
+        out["attention"][label] = sp_attention_case(mesh, flavour, zigzag, inp, grads=True)
+    for i, (label, flavour, zigzag) in enumerate(SP_PROBE_CASES):
+        inp = sp_inputs(SP_PROBE_SHAPE, SP_PROBE_SHAPE[2], torch.bfloat16, 200 + i, False, False)
+        out["probe"][label] = sp_attention_case(mesh, flavour, zigzag, inp, grads=False)
+        del inp
+        free_cuda()
+    lc = train_longdoc.MAX_LEN // 2
+    me = sharded.axis_index(mesh, "seq")
+    cols = slice(me * lc, (me + 1) * lc)
+    for flavour in ("ring", "ulysses"):
+        cfg = long_doc.LongDocConfig(seq_dim=train_longdoc.SEQ_DIM, d_model=32, n_heads=4,
+                                     n_layers=2, max_len=train_longdoc.MAX_LEN,
+                                     sp_attention=flavour)
+        pair = [long_doc.init_params(cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED),
+                                     "cuda") for _ in range(2)]
+        opts = [optim.adam(p, train_longdoc.LR) for p in pair]
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                    long_doc.make_synthetic_batch(cfg, train_longdoc.BATCH, seed=s).items()}
+                   for s in range(SP_STEPS)]
+        local = [dict(b, frames=b["frames"][:, cols].contiguous()) for b in batches]
+        out[f"long_doc {flavour}"] = sp_step_pair(
+            mesh, f"long_doc {flavour}", SP_STEPS,
+            lambda i: long_doc.train_step(pair[0], opts[0], local[i], cfg, mesh=mesh),
+            lambda i: long_doc.train_step(pair[1], opts[1], batches[i], cfg))
+    cfg = train_lm.make_config(2)
+    packer = TokenPacker(train_lm.BATCH, train_lm.SEQ_LEN, packing="best_fit")
+    rng, toks = np.random.default_rng(5), []
+    while len(toks) < SP_STEPS:
+        packer.feed_docs(rng.integers(1, train_lm.VOCAB, size=int(n))
+                         for n in rng.integers(8, 97, size=64))
+        b = packer.pop()
+        if b is not None:
+            toks.append((torch.from_numpy(b["tokens"]).cuda(),
+                         torch.from_numpy(b["segment_ids"]).cuda()))
+    pair = [lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED), "cuda")
+            for _ in range(2)]
+    opts = [optim.adam(p, train_lm.LR) for p in pair]
+    torch.use_deterministic_algorithms(True)
+    try:
+        out["lm zigzag segments"] = sp_step_pair(
+            mesh, "lm zigzag segments", SP_STEPS,
+            lambda i: lm.train_step(pair[0], opts[0], toks[i][0], cfg, mesh=mesh, seq_axis="seq",
+                                    segments=toks[i][1]),
+            lambda i: lm.train_step(pair[1], opts[1], toks[i][0], cfg, segments=toks[i][1]))
+        out["lm zigzag segments"]["param_err"] = max(
+            (a - b).abs().max().item() for a, b in zip(optim.param_leaves(pair[0]),
+                                                       optim.param_leaves(pair[1])))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["launches"] = dict(dot_interaction.instance_launches)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def sp_twins_start(data_dir: str, work: str) -> list:
+    """Start two ranks each of ``train_lm --mesh dp_sp --steps SP_TWIN_STEPS``
+    and ``train_longdoc --max-steps SP_TWIN_STEPS`` under torchrun's
+    environment on free ports (phase 9's documents under ``data_dir``),
+    their output to ``work/sp_<name><r>.log``. Returns [(name, rank,
+    process, log)]."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    runs = {"lm": ["tpu_tfrecord_torch.train_lm", "--mesh", "dp_sp", "--steps",
+                   str(SP_TWIN_STEPS), "--save-every", "4", "--digest-out",
+                   os.path.join(work, "sp_lm.jsonl"), "--data-dir",
+                   os.path.join(data_dir, "lm_data"), "--ckpt-dir", os.path.join(work, "sp_lm_ck")],
+            "longdoc": ["tpu_tfrecord_torch.train_longdoc", "--max-steps", str(SP_TWIN_STEPS),
+                        "--data-dir", os.path.join(data_dir, "ld_data"), "--ckpt-dir",
+                        os.path.join(work, "sp_ld_ck")]}
+    procs = []
+    for name, args in runs.items():
+        port = free_port()
+        for r in range(MULTI_RANKS):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(MULTI_RANKS),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), PYTHONPATH=repo)
+            env.pop("LM_MESH", None)
+            log = open(os.path.join(work, f"sp_{name}{r}.log"), "w")
+            procs.append((name, r, subprocess.Popen([sys.executable, "-m", *args], cwd=repo,
+                                                    env=env, stdout=log,
+                                                    stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def sp_twins_finish(procs, t0: float, work: str, card: str) -> dict:
+    """Wait for the trainers' ranks (killed after SP_TWIN_TIMEOUT_S from
+    ``t0``, the host's monotonic clock); their gates."""
+    codes = {}
+    for name, r, p, log in procs:
+        try:
+            codes[(name, r)] = p.wait(timeout=max(1.0, t0 + SP_TWIN_TIMEOUT_S - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            codes[(name, r)] = None
+        log.close()
+    gates, losses = {}, {}
+    for name, r, _, _ in procs:
+        with open(os.path.join(work, f"sp_{name}{r}.log")) as fh:
+            lines = fh.read().splitlines()
+        done = [ln for ln in lines if ln.startswith("done:")]
+        mesh = [ln for ln in lines if ln.startswith("mesh:")]
+        if name == "lm":
+            got = [float(json.loads(ln.split(" ", 1)[1])["loss"]) for ln in lines
+                   if ln.startswith("lm_step ")]
+            shape = "{'data': 1, 'seq': 2} mode=dp_sp (2 ranks"
+        else:
+            got = [float(ln.split("~")[1]) for ln in lines if ln.startswith("step ")]
+            shape = "{'data': 1, 'seq': 2} sp_attention=ring"
+        losses[(name, r)] = got
+        gates[f"{name}_rank{r}"] = (codes[(name, r)] == 0 and bool(done)
+                                    and done[0].startswith(f"done: {SP_TWIN_STEPS} steps")
+                                    and bool(mesh) and mesh[0].startswith("mesh: " + shape)
+                                    and bool(got) and bool(np.isfinite(got).all()))
+        print(f"sp: {name} rank {r} (exit {codes[(name, r)]}): "
+              + " | ".join(ln for ln in lines[-6:] if not ln.startswith("[W")) + f" ({card})")
+    for name in ("lm", "longdoc"):
+        gates[f"{name}_ranks_agree"] = losses[(name, 0)] == losses[(name, 1)]
+    return gates
+
+
+def seq_mesh_check(results: list, card: str) -> tuple:
+    """Phase 14 (d)'s gates on the ranks' results, and its printed numbers
+    beside ``card``. The hops pass through host memory (gloo on CUDA
+    tensors, two ranks sharing the card): not NVLink or NCCL figures."""
+    gates = {}
+    runs = [res["sp"] for res in results]
+    for label, *_ in SP_ATTN_CASES:
+        cases = [run["attention"][label] for run in runs]
+        gates[f"attention {label}"] = all(c["err"] <= SP_ATOL[torch.float32]
+                                          and c["grad_rel"] <= SP_GRAD_RTOL for c in cases)
+        for r, c in enumerate(cases):
+            print(f"sp: {label} {SP_ATTN_SHAPE} f32 rank {r}: max |out - dense| {c['err']:.3g} "
+                  f"(atol {SP_ATOL[torch.float32]}), gradients {c['grad_rel']:.3g} of the "
+                  f"largest (tol {SP_GRAD_RTOL}); {c['ms']:.3f} ms a call, {c['collectives']} "
+                  f"collectives in {c['collective_ms']:.3f} ms (CUDA events, median of "
+                  f"{SP_REPS}); the dense attention over the whole sequence alone "
+                  f"{c['dense_ms']:.3f} ms ({card}; gloo through host memory)")
+    for label, *_ in SP_PROBE_CASES:
+        cases = [run["probe"][label] for run in runs]
+        gates[f"probe {label}"] = all(c["err"] <= SP_ATOL[torch.bfloat16] for c in cases)
+        for r, c in enumerate(cases):
+            print(f"sp: probe {label} {SP_PROBE_SHAPE} bf16 causal rank {r}: max |out - dense| "
+                  f"{c['err']:.3g} (atol {SP_ATOL[torch.bfloat16]}); {c['ms']:.3f} ms a call, "
+                  f"{c['collectives']} collectives in {c['collective_ms']:.3f} ms (CUDA events, "
+                  f"median of {SP_REPS}); the dense attention over the whole sequence alone "
+                  f"{c['dense_ms']:.3f} ms ({card}; gloo through host memory)")
+    for label, tol in (("long_doc ring", SP_LONGDOC_TOL), ("long_doc ulysses", SP_LONGDOC_TOL),
+                       ("lm zigzag segments", SP_LM_TOL)):
+        steps = [run[label] for run in runs]
+        gates[label] = all(len(s["losses"]) == SP_STEPS and np.isfinite(s["losses"]).all()
+                           and np.allclose(s["losses"], s["ref_losses"], rtol=tol, atol=tol)
+                           for s in steps) and steps[0]["losses"] == steps[1]["losses"]
+        for r, s in enumerate(steps):
+            print(f"sp: {label} rank {r}: losses {[round(x, 6) for x in s['losses']]} (one "
+                  f"process {[round(x, 6) for x in s['ref_losses']]}, tol {tol}); host ms a step "
+                  f"{[round(x, 2) for x in s['host_ms']]}, collectives "
+                  f"{s['collectives']} in {[round(x, 2) for x in s['collective_ms']]} ms (CUDA "
+                  f"events)" + (f"; max |param - one process| {s['param_err']:.3g}"
+                                if "param_err" in s else "") + f" ({card})")
+    gates["no_dot_interaction"] = all(not any(run["launches"].values()) for run in runs)
+    launches = {k: sum(run["launches"][k] for run in runs) for k in INSTANCE_DTYPE}
+    return gates, launches
+
+
+def multiproc_path(dirs, work: str, card: str, seq_data: str) -> dict:
     """Phase 14: phase 12's shards scored by MULTI_RANKS spawned ranks over
     a gloo group on this one card, held against this process's own
-    single-process scoring of every shard, beside ``card``. Returns the
-    launches summed over the ranks."""
+    single-process scoring of every shard, beside ``card``; then (c) the
+    DLRM and (d) the sequence axis over the same ranks, (d)'s trainers on
+    phase 9's documents under ``seq_data``. Returns the launches summed
+    over the ranks."""
     import multiprocessing
 
     from tpu_tfrecord_torch import io as tio
@@ -4549,14 +4892,28 @@ def multiproc_path(dirs, work: str, card: str) -> dict:
     twin_result: dict = {"gates": {"twin_exit": False, "twin_steps": False}, "done": [],
                          "seconds": 0.0}
 
+    sp_result: dict = {"gates": {"sp_trainers": False}, "seconds": 0.0}
+
     def drive_twin():
+        # (d)'s trainers start with (c)'s: all of them run while the ranks
+        # import, and the ranks score after every one has exited
         t = time.monotonic()
+        sp_procs = []
         try:
+            sp_procs = sp_twins_start(seq_data, work)
             twin = mesh_twin_start(os.path.join(work, "twin_data"),
                                    os.path.join(work, "twin_ckpt"), work)
             twin_result["gates"], twin_result["done"] = mesh_twin_finish(twin, t, work)
-        finally:
             twin_result["seconds"] = time.monotonic() - t
+            sp_result["gates"] = sp_twins_finish(sp_procs, t, work, card)
+        finally:
+            twin_result["seconds"] = twin_result["seconds"] or time.monotonic() - t
+            sp_result["seconds"] = time.monotonic() - t
+            for _, _, p, log in sp_procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
             open(os.path.join(work, TWIN_DONE), "w").close()
 
     twin_waiter = threading.Thread(target=drive_twin, name="twin")
@@ -4575,6 +4932,7 @@ def multiproc_path(dirs, work: str, card: str) -> dict:
     for r in range(MULTI_RANKS):
         path = os.path.join(work, f"rank{r}.json")
         results.append(json.load(open(path)) if os.path.exists(path) else {"rank": r})
+
     if hung or any(codes) or any("error" in res or "trace" not in res for res in results):
         twin_waiter.join()  # the twin's processes end (or are killed) first
         detail = []
@@ -4684,15 +5042,24 @@ def multiproc_path(dirs, work: str, card: str) -> dict:
     out["mesh_launches"] = {k: sum(res["mesh"][label]["launches"][k] for res in results
                                    for label, *_ in MESH_RUNS) for k in INSTANCE_DTYPE}
     print(f"mesh: train_dlrm --max-steps {MESH_TWIN_STEPS} on {MULTI_RANKS} ranks: "
-          f"{twin_result['done']}; {twin_result['seconds']:.1f} s from start to exit, beside the "
-          f"ranks' start; the ranks waited {[round(r['twin_wait_s'], 2) for r in results]} s "
-          f"for it before scoring ({card})")
-    out["seconds"] = time.perf_counter() - t0
+          f"{twin_result['done']}; {twin_result['seconds']:.1f} s from start to exit, beside "
+          f"the ranks' start and (d)'s trainers; the ranks waited "
+          f"{[round(r['twin_wait_s'], 2) for r in results]} s for them before scoring ({card})")
     print(f"mesh: gates {mesh_gates}; launches {out['mesh_launches']}; (c) took "
-          f"{time.perf_counter() - t_mesh:.1f} s after the ranks; phase 14 took "
-          f"{out['seconds']:.1f} s ({card})")
+          f"{time.perf_counter() - t_mesh:.1f} s after the ranks ({card})")
     if not all(mesh_gates.values()):
         raise SystemExit(f"mesh: gates failed: {mesh_gates}")
+    # (d) the sequence axis
+    sp_gates, out["sp_launches"] = seq_mesh_check(results, card)
+    sp_gates.update(sp_result["gates"])
+    out["sp_seconds"] = [res["sp"]["seconds"] for res in results]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"sp: gates {sp_gates}; launches {out['sp_launches']}; (d) took "
+          f"{[round(x, 1) for x in out['sp_seconds']]} s in the ranks, its trainers "
+          f"{sp_result['seconds']:.1f} s from start to exit (beside the ranks' start); phase "
+          f"14 took {out['seconds']:.1f} s ({card})")
+    if not all(sp_gates.values()):
+        raise SystemExit(f"sp: gates failed: {sp_gates}")
     return out
 
 
@@ -6196,11 +6563,17 @@ def main() -> int:
         lap("8 resume")
         from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
 
-        reset_launch_counts()
-        seq = seq_path(data_dir, smi)
-        seq_launches = dict(dot_interaction.instance_launches)
+        # phase 8's kill drill (two train_dlrm processes, checked for
+        # correctness only) runs beside phase 9, whose rates are contended
+        # already
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            drill = pool.submit(kill_drill, data_dir)
+            reset_launch_counts()
+            seq = seq_path(data_dir, smi)
+            seq_launches = dict(dot_interaction.instance_launches)
+            print("resume: drill " + json.dumps(drill.result(), default=float))
         free_cuda()
-        lap("9 sequence models")
+        lap("9 sequence models, 8's kill drill beside it")
         reset_launch_counts()
         serve_path(data_dir, smi)
         serve_launches = dict(dot_interaction.instance_launches)
@@ -6218,10 +6591,11 @@ def main() -> int:
         lap("17 (a) pipe")
         (readpool_launches, cache_launches, multiproc_launches, remote_launches,
          fleet_launches, service_launches, ha_launches,
-         elastic_launches, mesh_launches) = readpool_path(data_dir, smi, pipe["seconds"])
+         elastic_launches, mesh_launches, sp_launches) = readpool_path(data_dir, smi,
+                                                                       pipe["seconds"])
         lap("12-18 on phase 12's shards")
     phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches,
-                      "pipe": pipe_launches}
+                      "pipe": pipe_launches, "sequence axis": sp_launches}
     for phase, counts in phase_launches.items():
         if any(counts.values()):
             raise SystemExit(f"dot_interaction launched in the {phase} phase: {counts}")
@@ -6258,6 +6632,7 @@ def main() -> int:
         ha_launches=ha_launches[k],
         elastic_launches=elastic_launches[k],
         mesh_launches=mesh_launches[k],
+        sp_launches=sp_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"phase seconds: {phase_s} (phases 12-18 print their own)")
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -2,7 +2,8 @@
 against the JAX ``attention_reference`` on the same numpy inputs: causal
 and not, ``lengths`` (zero included), ``segments``, MHA, GQA and MQA, in
 float32 (``atol=1e-6, rtol=1e-5``) and bf16 (``atol=1e-2, rtol=8e-3``),
-with no NaN anywhere."""
+with no NaN anywhere; the sequence-parallel flavours' argument checks
+against JAX's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +13,6 @@ import torch
 from tpu_tfrecord.models import attention as jatt
 
 from tpu_tfrecord_torch.models import attention as tatt
-from tpu_tfrecord_torch.options import OptionNotPortedError
 
 B, L, H, D = 3, 12, 4, 8
 TOL = {torch.float32: dict(atol=1e-6, rtol=1e-5), torch.bfloat16: dict(atol=1e-2, rtol=8e-3)}
@@ -82,7 +82,40 @@ def test_explicit_scale():
     np.testing.assert_allclose(got, want, **TOL[torch.float32])
 
 
+class _SeqMesh:
+    """A stand-in for a ``DeviceMesh`` with a 'seq' axis of 2: enough for
+    the argument checks, which raise before any collective."""
+
+    mesh_dim_names = ("seq",)
+
+    def size(self, dim: int) -> int:
+        return 2
+
+
+BAD_CALLS = {  # flavour -> (q, k, v shapes, kwargs) that JAX refuses on a seq axis of 2
+    "ring_attention": [((1, 8, 4, 2), (1, 8, 4, 2), dict(zigzag=True)),
+                       ((1, 6, 4, 2), (1, 6, 4, 2), dict(zigzag=True, causal=True))],
+    "ulysses_attention": [((1, 8, 3, 2), (1, 8, 3, 2), {}),
+                          ((1, 8, 4, 2), (1, 8, 1, 2), {})],
+}
+
+
 @pytest.mark.parametrize("fn", ["ring_attention", "ulysses_attention"])
 def test_sequence_parallel_flavours_raise(fn):
-    with pytest.raises(OptionNotPortedError, match="torch.distributed"):
-        getattr(tatt, fn)()
+    """Both flavours are ported (held to JAX over gloo ranks in
+    ``test_torch_sp_attention.py``); a call JAX refuses on a seq axis of 2
+    raises the same ``ValueError`` here, before any exchange: zigzag
+    without causal and a length not divisible by 2p for the ring, a head
+    count the axis does not divide for Ulysses."""
+    import jax
+    from jax.sharding import Mesh
+
+    jmesh = Mesh(np.array(jax.devices()[:2]), ("seq",))
+    for qs, kvs, kw in BAD_CALLS[fn]:
+        with pytest.raises(ValueError) as jerr:
+            getattr(jatt, fn)(jnp.zeros(qs), jnp.zeros(kvs), jnp.zeros(kvs), jmesh, **kw)
+        # the port takes this rank's chunk: half the sequence
+        local = lambda shape: torch.zeros(shape[0], shape[1] // 2, *shape[2:])  # noqa: E731
+        with pytest.raises(ValueError) as terr:
+            getattr(tatt, fn)(local(qs), local(kvs), local(kvs), _SeqMesh(), **kw)
+        assert str(terr.value) == str(jerr.value)

@@ -5,7 +5,7 @@ tokens: the forward with and without packed-document ``segments`` (f32,
 ``optax.adam(3e-3)`` (losses and parameters at 1e-5, entries whose
 gradient came within 1e-6 of zero held to Adam's step bound, as in
 ``test_torch_long_doc.py``), the synthetic language's bytes, and the
-refusal of the mesh axes (the MoE FFN is held to JAX in
+mesh axes alone (the MoE FFN is held to JAX in
 ``test_torch_moe_models.py``)."""
 
 import functools
@@ -117,16 +117,33 @@ def test_synthetic_language_bytes_equal_jax():
         tlm.pack_slots(windows, 2, 12)
 
 
+# alone, without a mesh to place them on, these select nothing: the JAX
+# forward runs its dense loop, and so does the port's
+RUN_LIKE_JAX = ("mesh", "data_axis", "seq_axis")
+
+
 @pytest.mark.parametrize("axis", ["mesh", "data_axis", "seq_axis", "pipe_axis", "fsdp_axis",
                                   "expert_axis"])
 def test_mesh_axes_raise(axis):
-    _, tcfg = configs()
-    _, tp = both_params()
-    tokens = torch.from_numpy(tlm.make_synthetic_tokens(tcfg, 2))
+    """A mesh argument alone: ``mesh``, ``data_axis`` or ``seq_axis`` with
+    nothing to shard over run the dense loop as JAX does (logits 1e-5);
+    ``pipe_axis`` without a mesh of sizes, ``fsdp_axis`` and
+    ``expert_axis`` still raise ``OptionNotPortedError`` naming the axis."""
+    jcfg, tcfg = configs()
+    jp, tp = both_params()
+    tokens = tlm.make_synthetic_tokens(tcfg, 2)
+    if axis in RUN_LIKE_JAX:
+        got = tlm.forward(tp, torch.from_numpy(tokens), tcfg, **{axis: "x"})[0]
+        want = jlm.forward(jp, jnp.asarray(tokens), jcfg, **{axis: "x"})[0]
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **F32_TOL)
+        loss = tlm.loss_fn(tp, torch.from_numpy(tokens), tcfg, **{axis: "x"})
+        np.testing.assert_allclose(float(loss), float(jlm.loss_fn(jp, jnp.asarray(tokens), jcfg,
+                                                                  **{axis: "x"})), **F32_TOL)
+        return
     with pytest.raises(OptionNotPortedError, match=axis):
-        tlm.forward(tp, tokens, tcfg, **{axis: "x"})
+        tlm.forward(tp, torch.from_numpy(tokens), tcfg, **{axis: "x"})
     with pytest.raises(OptionNotPortedError, match=axis):
-        tlm.loss_fn(tp, tokens, tcfg, **{axis: "x"})
+        tlm.loss_fn(tp, torch.from_numpy(tokens), tcfg, **{axis: "x"})
 
 
 def test_moe_stream_and_shardings_raise():

@@ -2,8 +2,8 @@
 against the JAX ``long_doc`` on the same weights (moved through ``interop``)
 and the same numpy batches: logits and loss in float32 (1e-5) and bf16
 (2e-2), MHA and GQA; four Adam steps against ``optax.adam(1e-3)`` in
-float32 (losses and parameters at 1e-5); ``remat`` on equals off; a mesh
-raises.
+float32 (losses and parameters at 1e-5); ``remat`` on equals off; what a
+mesh still refuses.
 
 Adam divides each gradient by its size plus eps (1e-8). Where an entry's
 gradient comes within 1e-6 of zero (but is not zero) on some step, the
@@ -14,6 +14,7 @@ added to every score of a row, so its exact gradient is zero). Those
 entries are held to the most Adam can move a parameter, ``lr`` a step, and
 every other entry to 1e-5; they are counted, and few."""
 
+import dataclasses
 import functools
 
 import jax
@@ -148,15 +149,34 @@ def test_synthetic_batch_equals_jax():
         np.testing.assert_array_equal(got[k], want[k])
 
 
+class _SeqMesh:
+    """A stand-in for a ``DeviceMesh`` with a 'seq' axis of 2: the
+    refusals below raise before any collective."""
+
+    mesh_dim_names = ("seq",)
+
+    def size(self, dim: int) -> int:
+        return 2
+
+
 def test_moe_and_mesh_raise():
+    """The MoE FFN is ported (held to JAX in test_torch_moe_models.py) and a
+    ``DeviceMesh`` shards the sequence (held to JAX over gloo ranks in
+    test_torch_seq_mesh.py); still refused: the MoE FFN under a seq axis
+    wider than 1, and a mesh that is not a ``DeviceMesh``. A flavour that is
+    neither 'ring' nor 'ulysses' raises JAX's ``ValueError``."""
     _, tcfg = configs(torch.float32, 0)
-    # the MoE FFN is ported (held to JAX in test_torch_moe_models.py): it
-    # initialises; a mesh still raises
-    moe = tld.init_params(tld.LongDocConfig(moe_experts=4), device="cpu")
+    moe_cfg = tld.LongDocConfig(moe_experts=4)
+    moe = tld.init_params(moe_cfg, device="cpu")
     assert all(sorted(layer) == ["moe", "proj", "qkv"] for layer in moe["layers"])
+    with pytest.raises(OptionNotPortedError, match="moe_experts"):
+        tld.forward(moe, torch_batch(batch_of(moe_cfg)), moe_cfg, mesh=_SeqMesh())
     params = tld.init_params(tcfg, device="cpu")
     with pytest.raises(OptionNotPortedError, match="mesh"):
         tld.forward(params, torch_batch(batch_of(tcfg)), tcfg, mesh=object())
+    bad = dataclasses.replace(tcfg, sp_attention="zigzag")
+    with pytest.raises(ValueError, match="sp_attention"):
+        tld.forward(params, torch_batch(batch_of(tcfg)), bad, mesh=_SeqMesh())
 
 
 def test_params_from_jax_checks_shapes():

@@ -228,7 +228,7 @@ def test_refusals_have_the_jax_types():
     (dict(mesh={"pipe": 2}, pipe_axis="pipe", fsdp_axis="fsdp"), "fsdp_axis"),
     (dict(mesh={"pipe": 2}, pipe_axis="pipe", expert_axis="expert"), "expert_axis"),
     (dict(mesh={"data": 2}, pipe_axis="pipe"), "pipe_axis"),
-    (dict(mesh={"data": 1}, data_axis="data"), "data_axis"),
+    (dict(mesh={"data": 2}, data_axis="data"), "data_axis"),
     (dict(mesh=object(), pipe_axis="pipe"), "pipe_axis"),
 ])
 def test_other_mesh_modes_still_refused(axes, name):
@@ -237,6 +237,20 @@ def test_other_mesh_modes_still_refused(axes, name):
     toks = torch.from_numpy(tlm.make_synthetic_tokens(tcfg, 8))
     with pytest.raises(OptionNotPortedError, match=name):
         tlm.loss_fn(tp, toks, tcfg, **axes)
+
+
+def test_a_mesh_of_sizes_one_runs_the_dense_loop():
+    """A mapping mesh whose data axis has size 1 shards nothing: the loss
+    is the plain one (a data or seq axis wider than 1 needs a torch
+    DeviceMesh of ranks, and is refused on a mapping)."""
+    _, tcfg = configs()
+    tp = tlm.init_params(tcfg, device="cpu")
+    toks = torch.from_numpy(tlm.make_synthetic_tokens(tcfg, 8))
+    got = tlm.loss_fn(tp, toks, tcfg, mesh={"data": 1, "seq": 1}, data_axis="data",
+                      seq_axis="seq")
+    assert torch.equal(got, tlm.loss_fn(tp, toks, tcfg))
+    with pytest.raises(OptionNotPortedError, match="seq_axis"):
+        tlm.loss_fn(tp, toks, tcfg, mesh={"seq": 2}, seq_axis="seq")
 
 
 def test_config_fields_take_the_jax_defaults():
@@ -354,7 +368,8 @@ def _mesh_names():
 
 
 # ported since: called with no arguments they ask for them instead of refusing
-PORTED_MESH_NAMES = ("dlrm.param_shardings", "dlrm.batch_shardings", "ingest.batch_spec")
+PORTED_MESH_NAMES = ("dlrm.param_shardings", "dlrm.batch_shardings", "ingest.batch_spec",
+                     "long_doc.param_shardings", "long_doc.batch_shardings")
 
 
 @pytest.mark.parametrize("name", sorted(_mesh_names()))

@@ -271,12 +271,16 @@ def test_longdoc_host_batches_equal_jax(tmp_path):
 
 
 def test_longdoc_twin_refuses_unported_env(monkeypatch):
-    from tpu_tfrecord_torch.options import OptionNotPortedError
-
+    """``LONGDOC_SP_ATTENTION`` is ported (the twin over ranks: in
+    test_torch_seq_mesh.py): the config takes it, and a flavour that is
+    neither 'ring' nor 'ulysses' is refused at init, as in JAX."""
     monkeypatch.setenv("LONGDOC_SP_ATTENTION", "ulysses")
-    with pytest.raises(OptionNotPortedError, match="LONGDOC_SP_ATTENTION"):
-        tw_ld.make_config()
+    assert tw_ld.make_config().sp_attention == "ulysses"
+    monkeypatch.setenv("LONGDOC_SP_ATTENTION", "zigzag")
+    with pytest.raises(ValueError, match="sp_attention"):
+        tw_ld.long_doc.init_params(tw_ld.make_config(), device="cpu")
     monkeypatch.delenv("LONGDOC_SP_ATTENTION")
+    assert tw_ld.make_config().sp_attention == "ring"
     # LONGDOC_MOE_EXPERTS is ported: the twin's config takes it and its
     # MoE model initialises
     monkeypatch.setenv("LONGDOC_MOE_EXPERTS", "4")

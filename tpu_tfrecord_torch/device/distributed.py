@@ -100,6 +100,27 @@ def _decode_type_map(data: bytes) -> TypeMap:
     return {name: (None if t is None else data_type_from_json(t)) for name, t in obj.items()}
 
 
+class Lockstep:
+    """The batches of ``it`` while every rank of the group has one: before
+    each, the ranks take the minimum of a has-a-batch flag, so all stop at
+    the first batch one of them lacks (a rank with more rows would
+    otherwise wait alone in a collective)."""
+
+    def __init__(self, it):
+        self.it = it
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        cb = next(self.it, None)
+        have = torch.tensor([0 if cb is None else 1], dtype=torch.int32)
+        dist.all_reduce(have, op=dist.ReduceOp.MIN)
+        if not int(have.item()):
+            raise StopIteration
+        return cb
+
+
 def allgather_bytes(payload: bytes) -> List[bytes]:
     """Every rank's ``payload``, in rank order: the lengths are gathered
     first, then the payloads padded to the longest, as ``uint8`` CPU

@@ -690,20 +690,14 @@ def _sum_grads(model: ShardedDLRM, params) -> None:
     dtype, as the one-process step's GEMMs round theirs. The table's
     gradient is a float32 scatter of rows in both and stays as it is."""
     stepped = {id(p) for p in params}
-    named = [(n, p.grad) for n, p in model.named_parameters()
+    named = [(n, p) for n, p in model.named_parameters()
              if p.grad is not None and id(p) in stepped]
-    if model.data_size > 1 and named:
-        flat = sharded.all_reduce(torch.cat([g.reshape(-1) for _, g in named]), model.mesh,
-                                  _DATA)
-        at = 0
-        for _, g in named:
-            g.copy_(flat[at:at + g.numel()].view_as(g))
-            at += g.numel()
+    sharded.sum_grads([p for _, p in named], model.mesh, _DATA)
     dt = model.cfg.dtype
     if dt != torch.float32:
-        for name, g in named:
+        for name, p in named:
             if name != "embeddings":
-                g.copy_(g.to(dt))
+                p.grad.copy_(p.grad.to(dt))
 
 
 def sharded_train_step(model: ShardedDLRM, opt: torch.optim.Optimizer,

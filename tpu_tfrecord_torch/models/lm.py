@@ -1,5 +1,6 @@
-"""Causal language model: port of ``tpu_tfrecord/models/lm.py``'s one-device
-paths (dense FFN and MoE FFN), on one card.
+"""Causal language model: port of ``tpu_tfrecord/models/lm.py``'s dense loop
+(dense FFN and MoE FFN) on one card or over a (data, seq) mesh of ranks,
+and its pipe mode on one card.
 
 Packed token batches from ``device.ingest.TokenPacker`` -> next-token
 cross-entropy. The parameters are the JAX pytree as float32 tensors, the
@@ -47,17 +48,31 @@ schedule. ``diagnostics=True`` returns the schedule's measured bubble
 types: pipe with seq, with the MoE FFN or with ``segments``, a batch
 that ``n_micro`` does not divide, a layer count that S·V does not divide.
 
-Not ported: every other mesh mode of ``forward`` (``seq_axis``,
-``fsdp_axis``, ``expert_axis``, a ``data`` axis wider than 1, a torch
-``DeviceMesh``: ring attention, FSDP, expert parallelism, stages on
-several cards), ``SpecLayout``, ``param_specs``,
-``param_shardings`` and ``batch_shardings``. Each raises
-``OptionNotPortedError``. ``cfg.zigzag`` (the ring schedule a seq axis
-would select) exists with the JAX default.
+Over a torch ``DeviceMesh`` of ranks the dense loop shards the batch on
+``data_axis`` and the sequence on ``seq_axis``, as JAX's dense loop does
+under GSPMD with ``ring_attention``: each rank passes its rows on 'data'
+with all L+1 columns of ``tokens`` (and ``segments``), so the per-document
+positions come from the whole row; it embeds and runs only its chunk of
+the L positions on 'seq', every block's attention the causal ring
+(``models.attention.ring_attention``, ``cfg.zigzag`` picking the
+schedule), and its logits are that chunk's [B/data, L/p, V]. ``loss_fn``
+sums the numerator and the count over 'seq' and 'data' before the
+division, so every rank returns the global batch's loss. The parameters
+are replicated: they enter through ``models.sharded.copy_to`` (their
+gradients sum over 'seq'), and ``train_step`` sums the gradients over
+'data'. Without a mesh to shard over, ``data_axis`` and ``seq_axis``
+select nothing, as in JAX.
+
+Not ported: ``fsdp_axis``, ``expert_axis``, the MoE FFN under a data or
+seq axis wider than 1 (JAX routes and caps over the global token set),
+stages on several cards, a data or seq axis wider than 1 on a mapping
+mesh (one card), ``SpecLayout``, ``param_specs``, ``param_shardings``
+and ``batch_shardings``. Each raises ``OptionNotPortedError``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -67,7 +82,8 @@ import torch.nn.functional as F
 
 from tpu_tfrecord_torch.models import moe as _moe
 from tpu_tfrecord_torch.models import pipeline as _pipeline
-from tpu_tfrecord_torch.models.attention import attention_reference
+from tpu_tfrecord_torch.models import sharded
+from tpu_tfrecord_torch.models.attention import attention_reference, ring_attention
 from tpu_tfrecord_torch.models.long_doc import _dense, _gelu, _rms_norm
 from tpu_tfrecord_torch.options import OptionNotPortedError, refuse_mesh
 
@@ -81,8 +97,8 @@ class LMConfig:
     mlp_mult: int = 4
     max_len: int = 64        # L: the model reads L tokens, predicts L
     dtype: torch.dtype = torch.float32
-    # the ring schedule a 'seq' axis selects (zigzag or contiguous); the seq
-    # axis is not ported, so it only rides along
+    # the causal ring's schedule on a 'seq' axis: zigzag (balanced) or
+    # contiguous
     zigzag: bool = True
     # > 0 swaps every block's dense FFN for the top-k MoE (models.moe)
     moe_experts: int = 0
@@ -97,11 +113,18 @@ class LMConfig:
     n_virtual: int = 1
 
 
-def _pipe_stages(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis,
-                 fsdp_axis, segments) -> Optional[int]:
-    """S, the stage count of the one-card pipe mode, or None for the dense
-    loop. The JAX package's refusals of the pipe mode first (its exception
-    types), then every mesh mode the port lacks."""
+def _on_ranks(mesh) -> bool:
+    """Whether ``mesh`` is a torch ``DeviceMesh`` of ranks (the one-card
+    pipe mode takes a mapping of axis sizes instead)."""
+    return hasattr(mesh, "mesh_dim_names")
+
+
+def _mode(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp_axis,
+          segments) -> Tuple[str, Optional[int]]:
+    """("pipe", S) for the one-card pipe mode, ("ranks", None) for the
+    dense loop over a (data, seq) ``DeviceMesh``, ("dense", None) for the
+    dense loop on this device's whole batch. The JAX package's refusals
+    first (its exception types), then every mesh mode the port lacks."""
     if pipe_axis is not None and seq_axis is not None:
         raise ValueError(
             "pipe_axis and seq_axis are mutually exclusive: inside a "
@@ -115,28 +138,43 @@ def _pipe_stages(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axi
             "stream carries activations only (pack with the default "
             "slice mode, or drop pipe_axis)"
         )
-    given = {"seq_axis": seq_axis, "expert_axis": expert_axis, "fsdp_axis": fsdp_axis}
+    given = {"expert_axis": expert_axis, "fsdp_axis": fsdp_axis}
     # one card: the mesh is a mapping of axis sizes; a torch DeviceMesh
-    # places stages on several cards
+    # places ranks (the data and seq axes), never stages
     sizes = dict(mesh) if isinstance(mesh, Mapping) else None
-    if pipe_axis is None:
-        given.update(mesh=mesh, data_axis=data_axis)
-    elif sizes is None or pipe_axis not in sizes:
-        given["pipe_axis"] = pipe_axis
-    else:
-        if data_axis is not None and sizes.get(data_axis, 1) != 1:
-            given["data_axis"] = data_axis
-        if any(n > 1 for a, n in sizes.items() if a not in (pipe_axis, data_axis)):
+    mode = "dense"
+    if pipe_axis is not None:
+        if sizes is None or pipe_axis not in sizes:
+            given["pipe_axis"] = pipe_axis
+        else:
+            mode = "pipe"
+            if data_axis is not None and sizes.get(data_axis, 1) != 1:
+                given["data_axis"] = data_axis
+            if any(n > 1 for a, n in sizes.items() if a not in (pipe_axis, data_axis)):
+                given["mesh"] = mesh
+    elif sizes is not None:
+        for name, axis in (("data_axis", data_axis), ("seq_axis", seq_axis)):
+            if axis is not None and sizes.get(axis, 1) > 1:
+                given[name] = axis
+        if any(n > 1 for a, n in sizes.items() if a not in (data_axis, seq_axis)):
             given["mesh"] = mesh
+    elif _on_ranks(mesh):
+        mode = "ranks"
+        if cfg.moe_experts > 0 and (sharded.axis_size(mesh, data_axis) > 1
+                                    or sharded.axis_size(mesh, seq_axis) > 1):
+            given["moe_experts"] = cfg.moe_experts
+    elif mesh is not None and seq_axis is not None:
+        given["mesh"] = mesh
     refused = sorted(k for k, v in given.items() if v is not None)
     if refused:
         raise OptionNotPortedError(
-            f"lm: {', '.join(refused)} not ported: on one card the port runs the pipe "
-            "mode only (pipe_axis with mesh={pipe_axis: S}, a data axis of size 1); "
-            "ring attention, FSDP, expert parallelism and stages on several cards are "
-            "not ported yet (ROADMAP.md, Queue A item 8)"
+            f"lm: {', '.join(refused)} not ported: the port runs the pipe mode on one card "
+            "(pipe_axis with mesh={pipe_axis: S}, a data axis of size 1) and the dense loop "
+            "over the data and seq axes of a torch DeviceMesh of ranks; FSDP, expert "
+            "parallelism, the MoE FFN under a data or seq mesh and stages on several "
+            "cards are not ported yet (ROADMAP.md, Queue A item 8)"
         )
-    return sizes[pipe_axis] if pipe_axis is not None else None
+    return mode, (sizes[pipe_axis] if mode == "pipe" else None)
 
 
 def _block_dims(cfg: LMConfig) -> Dict[str, Tuple[int, int]]:
@@ -200,18 +238,20 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
-def _block(layer, x: torch.Tensor, cfg: LMConfig, segments=None, diagnostics: bool = False):
+def _block(layer, x: torch.Tensor, cfg: LMConfig, segments=None, diagnostics: bool = False,
+           attend=attention_reference):
     """One pre-norm decoder block on x [B, L, D] (one layer's slice of the
-    stacked blocks): dense causal attention, masked across packed
-    documents by ``segments`` [B, L], then the dense or the MoE FFN.
-    Returns (x, aux, diag): the MoE aux loss and, with ``diagnostics``,
-    its diagnostics; both None on the dense FFN."""
+    stacked blocks): causal attention (``attend``: the dense one, or the
+    ring over a seq axis), masked across packed documents by ``segments``
+    [B, L], then the dense or the MoE FFN. Returns (x, aux, diag): the MoE
+    aux loss and, with ``diagnostics``, its diagnostics; both None on the
+    dense FFN."""
     dt = cfg.dtype
     b, l, _ = x.shape
     h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
     qkv = _dense(layer["qkv"], _rms_norm(x), dt)
     q, k, v = (a.reshape(b, l, h, dh) for a in torch.split(qkv, cfg.d_model, dim=-1))
-    att = attention_reference(q, k, v, causal=True, segments=segments)
+    att = attend(q, k, v, causal=True, segments=segments)
     x = x + _dense(layer["proj"], att.reshape(b, l, cfg.d_model), dt)
     if cfg.moe_experts > 0:
         out = _moe.moe_apply(layer["moe"], _rms_norm(x), _moe_cfg(cfg), diagnostics=diagnostics)
@@ -220,11 +260,13 @@ def _block(layer, x: torch.Tensor, cfg: LMConfig, segments=None, diagnostics: bo
     return x + _dense(layer["mlp_out"], _gelu(y), dt), None, None
 
 
-def _embed_tokens(params, tokens: torch.Tensor, cfg: LMConfig, segments=None) -> torch.Tensor:
+def _embed_tokens(params, tokens: torch.Tensor, cfg: LMConfig, segments=None,
+                  cols: Optional[slice] = None) -> torch.Tensor:
     """tokens [B, L+1] -> x [B, L, D] from tokens[:, :-1]. With
     ``segments`` [B, L+1] each document's positions restart at 0: a
     position's document start is the running maximum of the start indices
-    before it."""
+    before it. ``cols`` keeps only those of the L positions (a rank's chunk
+    of the sequence), their positions taken from the whole row."""
     dt = cfg.dtype
     x_tok = tokens[:, :-1].long()
     l = x_tok.shape[1]
@@ -233,8 +275,9 @@ def _embed_tokens(params, tokens: torch.Tensor, cfg: LMConfig, segments=None) ->
             f"packed batch carries {l} input tokens but cfg.max_len is "
             f"{cfg.max_len} (the packer's seq_len must match)"
         )
+    cols = cols if cols is not None else slice(0, l)
     if segments is None:
-        pos = params["pos"][:l].to(dt)[None]
+        pos = params["pos"][cols].to(dt)[None]
     else:
         segs = segments[:, :-1]
         idx = torch.arange(l, device=tokens.device)
@@ -244,14 +287,26 @@ def _embed_tokens(params, tokens: torch.Tensor, cfg: LMConfig, segments=None) ->
             dim=1,
         )
         start = torch.cummax(torch.where(boundary, idx[None, :], 0), dim=1).values
-        pos = params["pos"][idx[None, :] - start].to(dt)         # [B, L, D]
+        pos = params["pos"][(idx[None, :] - start)[:, cols]].to(dt)   # [B, L, D]
     # gather, then cast: the JAX model casts the table first, the same values
-    return params["embed"][x_tok].to(dt) + pos
+    return params["embed"][x_tok[:, cols]].to(dt) + pos
 
 
 def _head_logits(params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     """Final norm and LM head: [.., L, D] -> float32 logits [.., L, V]."""
     return _dense(params["head"], _rms_norm(x), cfg.dtype).float()
+
+
+def _chunk(cfg: LMConfig, mesh, seq_axis) -> slice:
+    """This rank's columns of the L positions on ``seq_axis``."""
+    p = sharded.axis_size(mesh, seq_axis)
+    if cfg.max_len % p:
+        raise ValueError(
+            f"sequence length {cfg.max_len} not divisible by mesh['{seq_axis}'] = {p}"
+        )
+    lc = cfg.max_len // p
+    first = sharded.axis_index(mesh, seq_axis) * lc
+    return slice(first, first + lc)
 
 
 def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=None,
@@ -265,14 +320,28 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=No
     bubble (``{}`` on the dense FFN). ``segments`` [B, L+1] (the packer's
     bin modes) masks attention across documents and restarts positions
     per document. ``pipe_axis`` with ``mesh={pipe_axis: S}`` runs the
-    blocks through the pipeline schedule (module docstring); the other
-    mesh modes raise."""
-    n_stages = _pipe_stages(cfg, mesh, data_axis, seq_axis, pipe_axis, expert_axis,
-                            fsdp_axis, segments)
-    x = _embed_tokens(params, tokens, cfg, segments=segments)
+    blocks through the pipeline schedule; a ``DeviceMesh`` runs the dense
+    loop over its data and seq axes, ``tokens`` and ``segments`` being this
+    rank's rows whole and the logits its chunk [B, L/p, V] (module
+    docstring). The other mesh modes raise."""
+    mode, n_stages = _mode(cfg, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp_axis,
+                           segments)
+    attend, cols, segs_in = attention_reference, None, None
+    if segments is not None:
+        segs_in = segments[:, :-1]
+    if mode == "ranks":
+        cols = _chunk(cfg, mesh, seq_axis)
+        if sharded.axis_size(mesh, seq_axis) > 1:
+            # every parameter sees one chunk of the sequence: gradients sum over 'seq'
+            params = _pipeline._tree_map(lambda t: sharded.copy_to(t, mesh, seq_axis), params)
+            attend = functools.partial(ring_attention, mesh=mesh, seq_axis=seq_axis,
+                                       data_axis=data_axis, zigzag=cfg.zigzag)
+        if segs_in is not None:
+            segs_in = segs_in[:, cols]
+    x = _embed_tokens(params, tokens, cfg, segments=segments, cols=cols)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     out: Dict[str, Any] = {}
-    if n_stages is not None:
+    if mode == "pipe":
         b = tokens.shape[0]
         stage_params = _stage_stack(params["blocks"], cfg, n_stages)
         m = cfg.n_micro or 2 * n_stages
@@ -284,11 +353,10 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=No
         xs, out = res if diagnostics else (res, {})
         x = xs.reshape((b,) + tuple(xs.shape[2:]))
     else:
-        segs_in = segments[:, :-1] if segments is not None else None
         diags = []
         for i in range(cfg.n_layers):
             x, aux, diag = _block(_layer(params["blocks"], i), x, cfg, segments=segs_in,
-                                  diagnostics=diagnostics)
+                                  diagnostics=diagnostics, attend=attend)
             if aux is not None:
                 aux_total = aux_total + aux
             if diag is not None:
@@ -315,18 +383,36 @@ def loss_fn(params, tokens, cfg: LMConfig, mesh=None, data_axis=None, seq_axis=N
     aux loss. Without ``segments`` every position scores; with them a
     position scores only when its input token and its target share a
     nonzero segment. With ``diagnostics`` returns (loss, diag). The mesh
-    arguments are ``forward``'s."""
+    arguments are ``forward``'s; over a ``DeviceMesh`` the numerator and
+    the count are summed over 'seq' and 'data' before the division, so
+    every rank returns the global batch's loss, and its backward leaves
+    each rank the gradient of its rows' share, which ``train_step`` sums
+    over 'data'."""
     out = forward(params, tokens, cfg, mesh, data_axis, seq_axis, pipe_axis, expert_axis,
                   fsdp_axis, segments=segments, diagnostics=diagnostics)
     logits, aux = out[0], out[1]
-    targets = tokens[:, 1:].long()
+    ranks = _on_ranks(mesh) and pipe_axis is None
+    cols = _chunk(cfg, mesh, seq_axis) if ranks else slice(None)
+    targets = tokens[:, 1:][:, cols].long()
     logp = F.log_softmax(logits, dim=-1)
     tok_ce = -torch.gather(logp, -1, targets[..., None])[..., 0]
     if segments is None:
-        loss = torch.mean(tok_ce)
+        valid = None
     else:
-        valid = (segments[:, :-1] == segments[:, 1:]) & (segments[:, 1:] != 0)
-        loss = torch.sum(tok_ce * valid) / torch.clamp(valid.sum(), min=1)
+        valid = ((segments[:, :-1] == segments[:, 1:]) & (segments[:, 1:] != 0))[:, cols]
+    if not ranks:
+        if valid is None:
+            loss = torch.mean(tok_ce)
+        else:
+            loss = torch.sum(tok_ce * valid) / torch.clamp(valid.sum(), min=1)
+    else:
+        num = tok_ce.sum() if valid is None else torch.sum(tok_ce * valid)
+        count = (valid.sum() if valid is not None
+                 else torch.tensor(tok_ce.numel(), device=tok_ce.device)).float()
+        for axis in (seq_axis, data_axis):
+            count = sharded.all_reduce(count, mesh, axis)
+        share = num / torch.clamp(count, min=1)
+        loss = sharded.sum_over(sharded.sum_over(share, mesh, seq_axis), mesh, data_axis)
     if cfg.moe_experts > 0:  # the dense FFN's aux is 0
         loss = loss + cfg.moe_aux_weight * aux
     return (loss, out[2]) if diagnostics else loss
@@ -338,12 +424,15 @@ def train_step(params, opt: torch.optim.Optimizer, tokens, cfg: LMConfig, mesh=N
     """One optimizer step over ``params`` in place (``opt`` from
     ``models.optim.adam(params, lr)``). Returns the loss (0-dim, on the
     parameters' device) before the update; with ``diagnostics``
-    (loss, diag), the diag of ``forward``."""
+    (loss, diag), the diag of ``forward``. Over a ``DeviceMesh`` the
+    gradients are summed over 'data' before the step."""
     opt.zero_grad(set_to_none=True)
     out = loss_fn(params, tokens, cfg, mesh, data_axis, seq_axis, pipe_axis, expert_axis,
                   fsdp_axis, segments=segments, diagnostics=diagnostics)
     loss = out[0] if diagnostics else out
     loss.backward()
+    if _on_ranks(mesh):
+        sharded.sum_grads([p for g in opt.param_groups for p in g["params"]], mesh, data_axis)
     opt.step()
     return (loss.detach(), out[1]) if diagnostics else loss.detach()
 

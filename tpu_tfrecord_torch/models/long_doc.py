@@ -1,5 +1,6 @@
 """Long-document classifier: port of ``tpu_tfrecord/models/long_doc.py``,
-the second model family next to the DLRM, on one card.
+the second model family next to the DLRM, on one card or over a (data,
+seq) mesh of ranks.
 
 A pre-norm transformer encoder over the padded SequenceExample frames
 (``frames`` [B, L, D_in] and ``frames_len`` [B], as
@@ -26,11 +27,22 @@ adds times ``moe_aux_weight``. ``cfg.remat`` recomputes each block in the
 backward (``torch.utils.checkpoint``). ``train_step`` is one Adam step
 (``models.optim.adam``, ``optax.adam(1e-3)``'s update).
 
-Not ported: a mesh (sequence-parallel ring or Ulysses attention), and
-``param_shardings`` / ``batch_shardings``; each raises
-``OptionNotPortedError``. ``cfg.sp_attention`` (the flavour a mesh would
-select) exists with the JAX default and validation, so a JAX config
-constructs.
+With ``mesh`` (a torch ``DeviceMesh`` of ranks) the sequence runs sharded
+over ``seq_axis``, the batch over ``data_axis``: each rank passes its part
+of the global batch (``batch_shardings``: ``frames`` [B/data, L/seq, D_in],
+``frames_len`` and ``label`` [B/data]) and gets the logits of its rows,
+the same on every rank of the 'seq' axis. Attention is
+``models.attention``'s ``ring_attention`` or ``ulysses_attention``, as
+``cfg.sp_attention`` picks; the position embeddings and the valid mask use
+the rank's global positions; the masked mean pool sums over 'seq' before
+dividing by the global count. The parameters are replicated
+(``param_shardings``): those that see one chunk of the sequence enter
+through ``models.sharded.copy_to`` (their gradients sum over 'seq'), and
+``train_step`` sums the gradients over 'data' in one float32 collective,
+each rank having differentiated its rows' share of the global mean loss.
+Not ported: the MoE FFN under a data or seq axis wider than 1 (JAX routes
+and caps over the global token set, so a per-rank ``moe_apply`` would
+drop other tokens), which raises ``OptionNotPortedError``.
 """
 
 from __future__ import annotations
@@ -43,9 +55,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from tpu_tfrecord_torch.models import dlrm as _dlrm
 from tpu_tfrecord_torch.models import moe as _moe
-from tpu_tfrecord_torch.models.attention import attention_reference
-from tpu_tfrecord_torch.options import OptionNotPortedError, refuse_mesh
+from tpu_tfrecord_torch.models import pipeline as _pipeline
+from tpu_tfrecord_torch.models import sharded
+from tpu_tfrecord_torch.models.attention import (
+    attention_reference,
+    ring_attention,
+    ulysses_attention,
+)
+from tpu_tfrecord_torch.options import OptionNotPortedError
 
 
 @dataclass(frozen=True)
@@ -59,8 +78,9 @@ class LongDocConfig:
     n_classes: int = 2
     max_len: int = 128       # padded sequence length
     dtype: torch.dtype = torch.bfloat16
-    # the sequence-parallel attention a mesh selects ('ring' or 'ulysses');
-    # a mesh is not ported, so it only validates
+    # the sequence-parallel attention a mesh selects: 'ring' (K/V blocks
+    # rotate, any head count) or 'ulysses' (two all-to-alls, n_heads and
+    # n_kv_heads divisible by the seq axis' size)
     sp_attention: str = "ring"
     remat: bool = False      # recompute each block in the backward
     # > 0 swaps every block's dense FFN for the Switch MoE (models.moe,
@@ -148,9 +168,10 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _block(layer, x: torch.Tensor, lengths: torch.Tensor, valid: torch.Tensor,
-           cfg: LongDocConfig):
+           cfg: LongDocConfig, attend=attention_reference):
     """One pre-norm encoder block on x [B, L, D]; ``valid`` [B, L] is the
-    prefix mask of ``lengths``. Returns (x, the MoE aux loss or None)."""
+    prefix mask of ``lengths``; ``attend(q, k, v, lengths=)`` is the
+    attention. Returns (x, the MoE aux loss or None)."""
     dt = cfg.dtype
     b, l, _ = x.shape
     h = cfg.n_heads
@@ -158,7 +179,7 @@ def _block(layer, x: torch.Tensor, lengths: torch.Tensor, valid: torch.Tensor,
     dh = cfg.d_model // h
     qkv = _dense(layer["qkv"], _rms_norm(x), dt)             # [B, L, (H+2*Hkv)*dh]
     q, k, v = torch.split(qkv, [h * dh, hkv * dh, hkv * dh], dim=-1)
-    att = attention_reference(
+    att = attend(
         q.reshape(b, l, h, dh), k.reshape(b, l, hkv, dh), v.reshape(b, l, hkv, dh),
         lengths=lengths,
     )
@@ -172,59 +193,104 @@ def _block(layer, x: torch.Tensor, lengths: torch.Tensor, valid: torch.Tensor,
     return x + _dense(layer["mlp_out"], _gelu(y), dt), None
 
 
+def _sharded_axes(cfg: LongDocConfig, mesh, seq_axis, data_axis):
+    """The attention of ``mesh``'s 'seq' axis and whether the mesh shards
+    anything; the JAX refusal of an unknown flavour, the port's of what it
+    lacks."""
+    if mesh is None:
+        return attention_reference, False
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise OptionNotPortedError(
+            f"long_doc forward(mesh={type(mesh).__name__}): the port shards the sequence "
+            "over the ranks of a torch DeviceMesh only"
+        )
+    if cfg.sp_attention == "ulysses":
+        sp = ulysses_attention
+    elif cfg.sp_attention == "ring":
+        sp = ring_attention
+    else:  # a config changed after init_params must not run another exchange
+        raise ValueError(
+            f"sp_attention must be 'ring' or 'ulysses', got {cfg.sp_attention!r}"
+        )
+    split = sharded.axis_size(mesh, seq_axis) > 1 or sharded.axis_size(mesh, data_axis) > 1
+    if split and cfg.moe_experts > 0:
+        raise OptionNotPortedError(
+            "long_doc with moe_experts > 0 under a data or seq axis wider than 1: the MoE "
+            "FFN over a mesh is not ported yet (JAX routes and caps over the global "
+            "token set; ROADMAP.md, Queue A item 8g)"
+        )
+
+    def attend(q, k, v, lengths):
+        return sp(q, k, v, mesh, seq_axis=seq_axis, data_axis=data_axis, lengths=lengths)
+
+    return attend, split
+
+
 def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: LongDocConfig,
-            mesh=None, with_aux: bool = False):
+            mesh=None, seq_axis: str = "seq", data_axis: Optional[str] = None,
+            with_aux: bool = False):
     """Logits [B, n_classes] float32 of ``batch`` (``frames``,
     ``frames_len``); with ``with_aux`` (logits, aux), aux the MoE
     load-balance loss summed over the layers (0.0 on the dense FFN).
-    ``mesh`` is the JAX signature's sequence-parallel mesh: not ported, it
-    raises."""
-    if mesh is not None:
-        raise OptionNotPortedError(
-            "long_doc forward(mesh=...): sequence-parallel attention over a mesh "
-            "is not ported yet (ROADMAP.md, Queue A item 8)"
-        )
+    With ``mesh`` (a ``DeviceMesh``) the batch is this rank's part and the
+    logits are its rows' (module docstring)."""
+    attend, split = _sharded_axes(cfg, mesh, seq_axis, data_axis)
     dt = cfg.dtype
     frames = batch["frames"].to(dt)                          # [B, L, Din]
     lengths = batch["frames_len"]
     l = frames.shape[1]
-    x = _dense(params["embed"], frames, dt) + params["pos"][:l].to(dt)[None]
+    first = sharded.axis_index(mesh, seq_axis) * l           # this rank's first position
+    if split:
+        # parameters that see one chunk of the sequence: gradients sum over 'seq'
+        tied = lambda t: sharded.copy_to(t, mesh, seq_axis)  # noqa: E731
+        params = dict(params, embed=_pipeline._tree_map(tied, params["embed"]),
+                      pos=tied(params["pos"]), layers=_pipeline._tree_map(tied, params["layers"]))
+    x = _dense(params["embed"], frames, dt) + params["pos"][first:first + l].to(dt)[None]
     # one mask for the experts' routing and the pooling
-    valid = torch.arange(l, device=x.device)[None, :] < lengths[:, None]     # [B, L]
+    steps = torch.arange(first, first + l, device=x.device)
+    valid = steps[None, :] < lengths[:, None]                # [B, L]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device) if with_aux else None
     for layer in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(_block, layer, x, lengths, valid, cfg, use_reentrant=False)
+            x, aux = checkpoint(_block, layer, x, lengths, valid, cfg, attend,
+                                use_reentrant=False)
         else:
-            x, aux = _block(layer, x, lengths, valid, cfg)
+            x, aux = _block(layer, x, lengths, valid, cfg, attend)
         if with_aux and aux is not None:
             aux_total = aux_total + aux
-    # masked mean pool over the valid prefix
+    # masked mean pool over the valid prefix, summed over the sequence's ranks
     mask = valid.float()
-    pooled = (x.float() * mask[:, :, None]).sum(dim=1) / torch.clamp(
-        mask.sum(dim=1, keepdim=True), min=1.0
-    )
+    total = sharded.sum_over((x.float() * mask[:, :, None]).sum(dim=1), mesh, seq_axis)
+    count = sharded.sum_over(mask.sum(dim=1, keepdim=True), mesh, seq_axis)
+    pooled = total / torch.clamp(count, min=1.0)
     logits = _dense(params["head"], pooled.to(dt), dt).float()
     return (logits, aux_total) if with_aux else logits
 
 
-def loss_fn(params, batch, cfg: LongDocConfig, mesh=None) -> torch.Tensor:
+def loss_fn(params, batch, cfg: LongDocConfig, mesh=None, seq_axis: str = "seq",
+            data_axis: Optional[str] = None) -> torch.Tensor:
     """Mean cross-entropy of the logits against ``batch["label"]``, plus
-    ``moe_aux_weight`` times the MoE aux loss."""
-    logits, aux = forward(params, batch, cfg, mesh, with_aux=True)
+    ``moe_aux_weight`` times the MoE aux loss. With ``mesh``, the mean over
+    the global batch on every rank; its backward leaves each rank the
+    gradient of its rows' share, which ``train_step`` sums over 'data'."""
+    logits, aux = forward(params, batch, cfg, mesh, seq_axis, data_axis, with_aux=True)
     logp = F.log_softmax(logits, dim=-1)
-    ce = -torch.mean(torch.gather(logp, 1, batch["label"].long()[:, None]))
+    nll = -torch.gather(logp, 1, batch["label"].long()[:, None])
+    rows = nll.shape[0] * sharded.axis_size(mesh, data_axis)
+    ce = sharded.sum_over(nll.sum() / rows, mesh, data_axis)
     return ce + cfg.moe_aux_weight * aux if cfg.moe_experts > 0 else ce
 
 
-def train_step(params, opt: torch.optim.Optimizer, batch, cfg: LongDocConfig,
-               mesh=None) -> torch.Tensor:
+def train_step(params, opt: torch.optim.Optimizer, batch, cfg: LongDocConfig, mesh=None,
+               seq_axis: str = "seq", data_axis: Optional[str] = None) -> torch.Tensor:
     """One optimizer step over ``params`` in place (``opt`` from
     ``models.optim.adam(params, lr)``). Returns the loss (0-dim, on the
-    parameters' device) before the update."""
+    parameters' device) before the update; with ``mesh``, the global
+    batch's, the gradients summed over 'data' before the step."""
     opt.zero_grad(set_to_none=True)
-    loss = loss_fn(params, batch, cfg, mesh)
+    loss = loss_fn(params, batch, cfg, mesh, seq_axis, data_axis)
     loss.backward()
+    sharded.sum_grads([p for g in opt.param_groups for p in g["params"]], mesh, data_axis)
     opt.step()
     return loss.detach()
 
@@ -241,11 +307,19 @@ def make_synthetic_batch(cfg: LongDocConfig, batch_size: int, seed: int = 0):
     return {"frames": frames, "frames_len": lengths, "label": label}
 
 
-def batch_shardings(mesh=None, batch=None, data_axis: str = "data", seq_axis: Optional[str] = "seq"):
-    """Not ported: 'frames' on the (data, seq) axes of a mesh."""
-    refuse_mesh("long_doc.batch_shardings")
+def batch_shardings(mesh, batch, data_axis: str = "data", seq_axis: Optional[str] = "seq"):
+    """The placements of each array of a host batch on ``mesh`` (a
+    ``DeviceMesh``; one per mesh dim, by key): ``frames`` on (data, seq),
+    every other array's batch dim on ``data_axis``; the policy of the JAX
+    function (``dlrm.batch_shardings``' with the seq axis on)."""
+    return _dlrm.batch_shardings(mesh, batch, data_axis=data_axis, seq_axis=seq_axis)
 
 
-def param_shardings(mesh=None, params=None):
-    """Not ported: the parameters replicated over a mesh."""
-    refuse_mesh("long_doc.param_shardings")
+def param_shardings(mesh, params):
+    """Every parameter replicated on ``mesh``: the tree of ``params`` with
+    each tensor's placements (``Replicate()`` on every mesh dim); the
+    sequence axis shards activations only."""
+    from torch.distributed.tensor import Replicate
+
+    names = tuple(mesh.mesh_dim_names or ())
+    return _pipeline._tree_map(lambda _: tuple(Replicate() for _ in names), params)

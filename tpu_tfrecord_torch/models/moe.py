@@ -246,7 +246,7 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, valid: Optional[torch.Ten
 def _refuse_ep(name: str):
     raise OptionNotPortedError(
         f"moe.{name}: expert parallelism over a mesh is not ported yet; of the models, the "
-        "port places only the DLRM over a device mesh (ROADMAP.md, Queue A item 8)"
+        "port places the DLRM and long_doc over a device mesh (ROADMAP.md, Queue A item 8g)"
     )
 
 

@@ -49,11 +49,12 @@ class OptionNotPortedError(NotImplementedError):
 
 def refuse_mesh(name: str) -> None:
     """Raise for a mesh-placement entry point of the JAX package that the
-    port does not have yet: of the models, only the DLRM is placed over a
-    mesh of ranks (``models.dlrm.param_shardings``)."""
+    port does not have yet: of the models, the DLRM and ``long_doc`` are
+    placed over a mesh of ranks (their ``param_shardings``), the LM's
+    placements are not."""
     raise OptionNotPortedError(
-        f"{name}: not ported yet: of the models, the port places only the DLRM over "
-        "a device mesh (ROADMAP.md, Queue A item 8)"
+        f"{name}: not ported yet: of the models, the port places the DLRM and long_doc "
+        "over a device mesh, not the LM (ROADMAP.md, Queue A item 8)"
     )
 
 

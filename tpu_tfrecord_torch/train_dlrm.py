@@ -39,7 +39,6 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from tpu_tfrecord_torch import _native, harness
 from tpu_tfrecord_torch.columnar import Column, ColumnarBatch, slice_batch
@@ -110,25 +109,6 @@ def generate(data_dir: str, shards: int = 4, rows: int = 4096) -> None:
     open(os.path.join(data_dir, "_SUCCESS"), "wb").close()  # zero-byte marker
 
 
-class _Lockstep:
-    """The batches of ``it`` while every rank of the group has one: before
-    each, the ranks take the minimum of a has-a-batch flag."""
-
-    def __init__(self, it):
-        self.it = it
-
-    def __iter__(self):
-        return self
-
-    def __next__(self):
-        cb = next(self.it, None)
-        have = torch.tensor([0 if cb is None else 1], dtype=torch.int32)
-        dist.all_reduce(have, op=dist.ReduceOp.MIN)
-        if not int(have.item()):
-            raise StopIteration
-        return cb
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -189,7 +169,7 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     it, _resume = harness.resume_or_fresh(ds, args.ckpt_dir)
     save_cb, saver = harness.state_saver(args.ckpt_dir)
-    batches = it if mesh is None else _Lockstep(it)
+    batches = it if mesh is None else distributed.Lockstep(it)
     try:
         with it:
             _, steps, duty = harness.run_train_loop(

@@ -1,5 +1,5 @@
 """End-to-end example: train the causal LM on packed token SequenceExamples,
-resumably; the twin of ``examples/train_lm.py`` on one card.
+resumably; the twin of ``examples/train_lm.py``.
 
     python -m tpu_tfrecord_torch.train_lm [--device cpu] [--steps 64]
         [--save-every 8] [--ckpt-mode async|sync] [--epochs 4]
@@ -32,18 +32,29 @@ On the card the step runs with ``torch.use_deterministic_algorithms``
 an uninterrupted run's. ``--trace-out FILE`` turns the flight recorder on
 and saves its Chrome trace (``train.step`` spans) there at the end.
 ``--mesh`` takes the JAX example's five kinds, its default ``LM_MESH`` or
-``dp_sp``. ``dp_pp`` trains what the JAX example trains on two devices:
-4 layers in 2 pipeline stages (``{"pipe": 2, "data": 1}``), 8
-microbatches a step, ``--virtual 2`` interleaving 2 chunks a stage; on the
-one card the pipe axis is a tensor dimension (``models.pipeline``), and
-``--diagnostics`` folds the measured bubble into the
-``pipeline.bubble_fraction`` gauge (``pipeline.bubble_fraction_v`` too
-with ``--virtual 2``). The other kinds train as ``dp`` with 2 layers, as
-the JAX example's ``pick_mesh`` does on one device (their sp and fsdp
-axes are not ported). ``--virtual 2`` needs ``--mesh dp_pp`` and
-``--moe`` is refused with ``--mesh dp_pp``, as in JAX. The checkpoint is
-layout-free (the [n_layers, ...] stack), so a dp_pp run resumes from its
-own generations. ``--spool DIR`` (``--spool-interval
+``dp_sp``, and picks the mesh as the JAX example's ``pick_mesh`` does
+over the ranks of the process group (``torchrun``'s environment, read by
+``device.distributed.initialize``) where the JAX example counts devices.
+``dp_sp`` on an even number W of ranks trains 2 layers on
+``{"data": W/2, "seq": 2}``: every rank reads and packs the whole stream,
+keeps the rows of its 'data' coordinate, and its step shards the
+sequence over 'seq' with the zigzag causal ring (``models.lm``'s dense
+loop over a ``DeviceMesh``). ``dp`` on W ranks trains on
+``{"data": W}``. On one process every kind but ``dp_pp`` trains as
+``dp`` with 2 layers, as the JAX example does on one device.
+``dp_pp`` trains what the JAX example trains on two devices: 4 layers
+in 2 pipeline stages (``{"pipe": 2, "data": 1}``), 8 microbatches a step,
+``--virtual 2`` interleaving 2 chunks a stage; on the one card the pipe
+axis is a tensor dimension (``models.pipeline``), and ``--diagnostics``
+folds the measured bubble into the ``pipeline.bubble_fraction`` gauge
+(``pipeline.bubble_fraction_v`` too with ``--virtual 2``). Not ported,
+refused over several ranks: ``dp_pp`` (stages across processes) and
+the fsdp kinds. ``--virtual 2`` needs ``--mesh dp_pp`` and ``--moe`` is
+refused with ``--mesh dp_pp`` and over several ranks, as the MoE FFN
+under a data or seq mesh is not ported. The checkpoint is layout-free
+(the [n_layers, ...] stack) and written by rank 0 only (the parameters
+are replicated), so a dp_sp or dp_pp run resumes from its own
+generations. ``--spool DIR`` (``--spool-interval
 S``) spools the trainer's telemetry under the ``trainer`` role into DIR
 for ``fleet.TelemetryAggregator``; a clean exit lands the ``final``
 snapshot. Runs on ``cuda`` unless ``--device cpu``.
@@ -62,11 +73,12 @@ import numpy as np
 import torch
 
 from tpu_tfrecord_torch import checkpoint, harness, telemetry
+from tpu_tfrecord_torch.device import distributed
 from tpu_tfrecord_torch.device.ingest import DeviceIterator, TokenPacker
 from tpu_tfrecord_torch.io.dataset import IteratorState, TFRecordDataset
 from tpu_tfrecord_torch.io.writer import DatasetWriter
 from tpu_tfrecord_torch.models import lm, optim
-from tpu_tfrecord_torch.options import TFRecordOptions
+from tpu_tfrecord_torch.options import OptionNotPortedError, TFRecordOptions
 from tpu_tfrecord_torch.schema import ArrayType, LongType, StructField, StructType
 
 VOCAB = 256
@@ -98,18 +110,26 @@ def make_config(n_layers: int = 2, moe_experts: int = 0, axes=None,
                        n_virtual=virtual if pipe else 1)
 
 
-def pick_mesh(kind: str, virtual: int = 1):
-    """(mesh shape, cfg axes, n_layers) of ``--mesh kind`` on one card:
-    ``dp_pp`` is the JAX example's ``pick_mesh`` on two devices (2 stages of
-    4 layers, a data axis of 1, for either ``virtual``), the pipe axis
-    running as a tensor dimension of the one card; every other kind
-    degrades to ``dp`` with 2 layers, as the JAX example does on one
-    device (its sp and fsdp axes are not ported)."""
+def pick_mesh(kind: str, virtual: int = 1, world: int = 1):
+    """(mesh shape, cfg axes, n_layers) of ``--mesh kind`` over ``world``
+    ranks, as the JAX example's ``pick_mesh`` over as many devices:
+    ``dp_sp`` on an even world is ``{"data": world/2, "seq": 2}`` with 2
+    layers; ``dp_pp`` on one process is 2 stages of 4 layers with a data
+    axis of 1 (for either ``virtual``), the pipe axis a tensor dimension of
+    the one card; every other case is ``dp`` over the world with 2 layers
+    (the fsdp kinds on one process, as the JAX example on one device).
+    The modes not ported over several ranks raise."""
     if kind not in MESH_KINDS:
         raise ValueError(f"--mesh {kind!r}: one of {MESH_KINDS}")
-    if kind == "dp_pp":
+    if kind == "dp_sp" and world % 2 == 0:
+        return {"data": world // 2, "seq": 2}, {"data_axis": "data", "seq_axis": "seq"}, 2
+    if kind == "dp_pp" and world == 1:
         return {"pipe": 2, "data": 1}, {"data_axis": "data", "pipe_axis": "pipe"}, 4
-    return {"data": 1}, {"data_axis": "data"}, 2
+    if world > 1 and kind not in ("dp", "dp_sp"):
+        raise OptionNotPortedError(
+            f"--mesh {kind} over {world} ranks: pipeline stages across processes and FSDP "
+            "are not ported yet (ROADMAP.md, Queue A item 8)")
+    return {"data": world}, {"data_axis": "data"}, 2
 
 
 def generate(data_dir: str, shards: int = 4, docs: int = 256) -> None:
@@ -213,8 +233,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default=os.environ.get("LM_MESH", "dp_sp"), choices=MESH_KINDS,
-                    help="the JAX example's mesh kinds; on one card each trains as dp "
-                         "with 2 layers")
+                    help="the JAX example's mesh kinds, picked over the process group's "
+                         "ranks as the JAX example picks over devices")
     ap.add_argument("--steps", type=int, default=64,
                     help="total train steps (absolute, resumed ones included)")
     ap.add_argument("--save-every", type=int, default=8)
@@ -245,16 +265,40 @@ def main(argv=None) -> None:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
         print("deterministic algorithms: on")
-    generate(args.data_dir)
-    mesh, axes, n_layers = pick_mesh(args.mesh, args.virtual)
+    distributed.initialize()
+    rank, world = distributed.process_slot()
+    if world > 1 and args.moe:
+        ap.error("--moe over several ranks: the MoE FFN under a data or seq mesh is not "
+                 "ported yet")
+    shape, axes, n_layers = pick_mesh(args.mesh, args.virtual, world)
     cfg = make_config(n_layers, args.moe, axes, args.virtual)
-    # the pipe mode runs the schedule on the one card; every other kind is dp
-    pipe_kw = dict(axes, mesh=mesh) if "pipe_axis" in axes else {}
-    if pipe_kw:
-        print(f"mesh: {mesh} mode={args.mesh} (one device: {n_layers} layers in "
-              f"{mesh['pipe']} stages, n_micro {cfg.n_micro}, virtual {cfg.n_virtual})")
-    elif args.mesh != "dp":
-        print(f"mesh: {mesh} mode={args.mesh} (one device: trains as dp with {n_layers} layers)")
+    rows = slice(None)
+    if world > 1:
+        # every rank reads and packs the whole stream and keeps its rows on 'data'
+        from tpu_tfrecord_torch.device import mesh as meshes
+        from tpu_tfrecord_torch.models import sharded
+
+        mesh = meshes.create_mesh(shape, device_type=device.type)
+        device = meshes.mesh_device(mesh)
+        per = BATCH // shape["data"]
+        rows = slice(sharded.axis_index(mesh, "data") * per,
+                     (sharded.axis_index(mesh, "data") + 1) * per)
+        model_kw = dict(axes, mesh=mesh)
+        print(f"mesh: {shape} mode={args.mesh} ({world} ranks: {n_layers} layers, rank {rank} "
+              f"holds rows [{rows.start}, {rows.stop}) of each batch)")
+        if rank == 0:
+            generate(args.data_dir)
+        distributed.barrier("train_lm data")
+    else:
+        generate(args.data_dir)
+        # the pipe mode runs the schedule on the one card; every other kind is dp
+        model_kw = dict(axes, mesh=shape) if "pipe_axis" in axes else {}
+        if model_kw:
+            print(f"mesh: {shape} mode={args.mesh} (one device: {n_layers} layers in "
+                  f"{shape['pipe']} stages, n_micro {cfg.n_micro}, virtual {cfg.n_virtual})")
+        elif args.mesh != "dp":
+            print(f"mesh: {shape} mode={args.mesh} (one device: trains as dp with "
+                  f"{n_layers} layers)")
     params = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     opt = optim.adam(params, LR)
     os.makedirs(args.ckpt_dir, exist_ok=True)
@@ -270,27 +314,28 @@ def main(argv=None) -> None:
 
     ds = TFRecordDataset(
         args.data_dir, batch_size=READ_BATCH, schema=make_schema(), num_epochs=args.epochs,
-        recordType="SequenceExample", shuffle=True, seed=0,
+        recordType="SequenceExample", shuffle=True, seed=0, process_index=0, process_count=1,
     )
     resume = IteratorState.from_json(payload["input"]) if payload else None
     packer = TokenPacker(BATCH, SEQ_LEN)
     if payload:
         packer.restore(payload["packer"])
     snaps: dict = {}
-    digest_fh = open(args.digest_out, "a") if args.digest_out else None
+    # the parameters are replicated: rank 0 alone saves, clears and writes digests
+    digest_fh = open(args.digest_out, "a") if args.digest_out and rank == 0 else None
     last_diag: dict = {}
     folded: dict = {}  # this run's folded diagnostics, last values
 
     def step_fn(state, gb):
         if not args.diagnostics:
-            return state, lm.train_step(params, opt, gb["tokens"], cfg, **pipe_kw)
+            return state, lm.train_step(params, opt, gb["tokens"], cfg, **model_kw)
         loss, last_diag["diag"] = lm.train_step(params, opt, gb["tokens"], cfg,
-                                                diagnostics=True, **pipe_kw)
+                                                diagnostics=True, **model_kw)
         return state, loss
 
     def save(rel_step, _it, _state):
         snap = snaps.get(rel_step - 1)  # the stream position after that batch
-        if snap is None:
+        if snap is None or rank != 0:
             return
         ck.save(start_step + rel_step, optim.train_state(params, opt),
                 {"input": snap["input"], "packer": snap["packer"]})
@@ -300,14 +345,15 @@ def main(argv=None) -> None:
         diag = last_diag.pop("diag", None)
         if diag is not None:
             folded.update(harness.fold_model_diagnostics(diag))
-        if digest_fh is None:
+        if not args.digest_out:
             return
         line = {"step": start_step + rel_step,
                 "digest": snaps.get(rel_step - 1, {}).get("digest"),
                 "loss": repr(float(loss))}
         print("lm_step", json.dumps(line), flush=True)
-        digest_fh.write(json.dumps(line) + "\n")
-        digest_fh.flush()
+        if digest_fh is not None:
+            digest_fh.write(json.dumps(line) + "\n")
+            digest_fh.flush()
 
     if args.trace_out:
         telemetry.enable()
@@ -316,7 +362,8 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     try:
         with ds.batches(resume) as it:
-            with DeviceIterator(packed_stream(it, packer, snaps), device) as dev_it:
+            stream = ({"tokens": b["tokens"][rows]} for b in packed_stream(it, packer, snaps))
+            with DeviceIterator(stream, device) as dev_it:
                 _, steps, duty = harness.run_train_loop(
                     dev_it,
                     produce=lambda gb: gb,  # DeviceIterator placed it
@@ -324,12 +371,12 @@ def main(argv=None) -> None:
                     state=(params, opt),
                     save=save,
                     save_every=args.save_every,
-                    on_step=on_step if args.diagnostics or digest_fh is not None else None,
+                    on_step=on_step if args.diagnostics or args.digest_out else None,
                     max_steps=args.steps - start_step if args.steps else None,
                     phases=phases,
                 )
         ck.wait()  # the in-flight commit lands before completion is judged
-        if not (args.steps and start_step + steps >= args.steps):
+        if rank == 0 and not (args.steps and start_step + steps >= args.steps):
             ck.clear()  # the epoch budget is spent: the next run starts afresh
         if args.trace_out:
             telemetry.RECORDER.save_chrome_trace(args.trace_out)

@@ -1,5 +1,5 @@
 """End-to-end example: train the long-document classifier on SequenceExamples,
-resumably; the twin of ``examples/train_longdoc.py`` on one card.
+resumably; the twin of ``examples/train_longdoc.py``.
 
     python -m tpu_tfrecord_torch.train_longdoc [--device cpu] [--data-dir D]
         [--ckpt-dir C] [--max-steps N]
@@ -20,11 +20,21 @@ resumably; the twin of ``examples/train_longdoc.py`` on one card.
 
 ``LONGDOC_KV_HEADS=2`` runs GQA; ``LONGDOC_MOE_EXPERTS=4`` swaps every
 block's FFN for a 4-expert Switch MoE (top 1, capacity factor 1.25, the
-aux loss at weight 0.01), routed over each document's valid prefix. Not
-ported: ``LONGDOC_SP_ATTENTION`` (sequence-parallel ring or Ulysses
-attention: the twin's attention is the dense one), refused, naming what is
-missing. Runs on ``cuda`` unless ``--device cpu``; ``--max-steps`` stops
-early and keeps the position.
+aux loss at weight 0.01), routed over each document's valid prefix. Runs
+on ``cuda`` unless ``--device cpu``; ``--max-steps`` stops early and keeps
+the position.
+
+Under a process group (``torchrun``'s environment, read by
+``device.distributed.initialize``) the ranks form the JAX example's
+(data, seq) mesh (``pick_mesh``: a seq axis of 4, 2 or 1 that the world
+size, the batch and the padded length allow): each rank reads the slot of
+its 'data' coordinate (``BATCH / data`` documents a batch), keeps its
+chunk of the padded frames on 'seq', and takes the sharded step
+(``long_doc.train_step(mesh=, data_axis="data")``), its attention the
+ring or, with ``LONGDOC_SP_ATTENTION=ulysses``, the all-to-all exchange.
+Each rank saves its own input position; the ranks agree before every
+step that each has a batch (``distributed.Lockstep``). One process runs
+the dense attention on its whole batch, as before.
 """
 
 from __future__ import annotations
@@ -38,11 +48,12 @@ import numpy as np
 import torch
 
 from tpu_tfrecord_torch import harness
+from tpu_tfrecord_torch.device import distributed
 from tpu_tfrecord_torch.device.ingest import host_batch_from_columnar, make_device_batch
 from tpu_tfrecord_torch.io.dataset import TFRecordDataset
 from tpu_tfrecord_torch.io.writer import DatasetWriter
 from tpu_tfrecord_torch.models import long_doc, optim
-from tpu_tfrecord_torch.options import OptionNotPortedError, TFRecordOptions
+from tpu_tfrecord_torch.options import TFRecordOptions
 from tpu_tfrecord_torch.schema import ArrayType, FloatType, LongType, StructField, StructType
 
 SEQ_DIM = 16
@@ -60,16 +71,25 @@ def make_schema() -> StructType:
 
 
 def make_config() -> long_doc.LongDocConfig:
-    if os.environ.get("LONGDOC_SP_ATTENTION"):
-        raise OptionNotPortedError(
-            "LONGDOC_SP_ATTENTION: sequence-parallel attention over a mesh is not "
-            "ported yet; the twin runs the dense attention"
-        )
     return long_doc.LongDocConfig(
         seq_dim=SEQ_DIM, d_model=32, n_heads=4, n_layers=2, max_len=MAX_LEN,
+        # 'ring' (the default) or 'ulysses': 4 heads cover every seq axis
+        # that pick_mesh chooses
+        sp_attention=os.environ.get("LONGDOC_SP_ATTENTION", "ring"),
         moe_experts=int(os.environ.get("LONGDOC_MOE_EXPERTS", "0")),
         n_kv_heads=int(os.environ.get("LONGDOC_KV_HEADS", "0")),
     )
+
+
+def pick_mesh(world: int) -> dict:
+    """The JAX example's (data, seq) picker over ``world`` ranks: the
+    largest seq axis of 4, 2, 1 that divides the world with ``BATCH``
+    divisible by the data axis and ``MAX_LEN`` by the seq axis."""
+    for seq in (4, 2, 1):
+        if world % seq == 0 and BATCH % (world // seq) == 0 and MAX_LEN % seq == 0:
+            return {"data": world // seq, "seq": seq}
+    raise ValueError(f"no (data, seq) mesh of {world} ranks divides batch {BATCH} "
+                     f"and length {MAX_LEN}")
 
 
 def generate(data_dir: str, shards: int = 4, rows: int = 256) -> None:
@@ -114,19 +134,41 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     cfg = make_config()
-    generate(args.data_dir)
+    distributed.initialize()
+    rank, count = distributed.process_slot()
+    mesh, slot, slots, cols = None, 0, 1, slice(None)
+    if count > 1:
+        from tpu_tfrecord_torch.device import mesh as meshes
+        from tpu_tfrecord_torch.models import sharded
+
+        axes = pick_mesh(count)
+        mesh = meshes.create_mesh(axes, device_type=device.type)
+        device = meshes.mesh_device(mesh)
+        slot, slots = sharded.axis_index(mesh, "data"), axes["data"]
+        lc = MAX_LEN // axes["seq"]
+        cols = slice(sharded.axis_index(mesh, "seq") * lc, (sharded.axis_index(mesh, "seq") + 1) * lc)
+        print(f"mesh: {axes} sp_attention={cfg.sp_attention} (rank {rank}: data {slot}, "
+              f"frames [{cols.start}, {cols.stop}))")
+        if rank == 0:
+            generate(args.data_dir)
+        distributed.barrier("train_longdoc data")
+    else:
+        generate(args.data_dir)
     params = long_doc.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     opt = optim.adam(params, LR)
     ds = TFRecordDataset(
-        args.data_dir, batch_size=BATCH, schema=make_schema(), num_epochs=2,
-        recordType="SequenceExample", shuffle=True, seed=0,
+        args.data_dir, batch_size=BATCH // slots, schema=make_schema(), num_epochs=2,
+        recordType="SequenceExample", shuffle=True, seed=0, process_index=slot,
+        process_count=slots,
     )
 
     def produce(cb):
-        return make_device_batch(host_batch(cb, ds.schema), device)
+        hb = host_batch(cb, ds.schema)
+        hb["frames"] = hb["frames"][:, cols].contiguous()  # this rank's steps on 'seq'
+        return make_device_batch(hb, device)
 
     def step(state, gb):
-        return state, long_doc.train_step(params, opt, gb, cfg)
+        return state, long_doc.train_step(params, opt, gb, cfg, mesh=mesh, data_axis="data")
 
     spool = harness.trainer_spool()
     phases = harness.StepPhases()
@@ -136,7 +178,8 @@ def main(argv=None) -> None:
     try:
         with it:
             _, steps, duty = harness.run_train_loop(
-                it, produce, step, (params, opt), save=save_cb, phases=phases,
+                it if mesh is None else distributed.Lockstep(it), produce, step, (params, opt),
+                save=lambda n, _live, state: save_cb(n, it, state), phases=phases,
                 max_steps=args.max_steps,
             )
         saver.wait()  # drain the background commit before the summary

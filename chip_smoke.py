@@ -316,6 +316,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    environment: both ranks of each exit 0 after the steps on the (data 1,
    seq 2) mesh with equal, finite losses. The hops pass through host memory (gloo on CUDA tensors):
    the collectives' ms are not NVLink or NCCL figures.
+   (e) FSDP for the LM over the same two ranks (``fsdp_mesh_rank``), after
+   (d), on mesh {'fsdp': 2}, the counts of ``dot_interaction`` set to 0
+   before and read after (``fsdp_launches``, which must be 0). 4 float32
+   LM train steps at the ``train_lm`` twin's widths on each rank's
+   ``lm.shard_params`` slices, gathered on use, under deterministic
+   algorithms, beside the one-process steps on the same batches: losses
+   within 1e-4, ``unshard_params`` within 1e-4 of the one-process
+   parameters, the two ranks' losses equal, and each rank's at-rest bytes
+   (parameters + Adam state) below 0.65 of one process's. Printed with the
+   card's name and power limit: each step's host ms, its gathers' ms (CUDA
+   events, through host memory: not NVLink or NCCL figures) and the
+   one-process step's ms. Four ranks of ``train_lm --mesh dp_fsdp`` ({'data':
+   2, 'fsdp': 2}) start with (d)'s trainers and run SP_TWIN_STEPS steps:
+   all four exit 0 with equal, finite losses, each printing its mesh line
+   and its ``fsdp param bytes/device``.
 
 15. Remote filesystems on phase 12's shards (``remote_path``): the port's
    ``httpfs.serve_directory`` serves them from a spawned process on
@@ -3785,8 +3800,8 @@ def readpool_path(work: str, card: str, pipe_s: float = 0.0) -> tuple:
     of phase 14's ranks (summed), of phase 15's scoring over HTTP, of phase
     16's spooling scorer, of phase 17's scoring through the service, of
     phase 18's scoring through the failover and through the resize, and of
-    phase 14 (c)'s sharded steps (summed over the ranks).
-    ``pipe_s`` is phase 17 (a)'s time, for the phase's total."""
+    phase 14 (c)'s sharded steps, (d)'s sequence axis and (e)'s FSDP steps
+    (each summed over the ranks). ``pipe_s`` is phase 17 (a)'s time, for the phase's total."""
     from tpu_tfrecord_torch.cache import release_registry
 
     t0 = time.perf_counter()
@@ -3819,7 +3834,8 @@ def readpool_path(work: str, card: str, pipe_s: float = 0.0) -> tuple:
         shutil.rmtree(root, ignore_errors=True)
     return (serving["launches"], cached["launches"], multi["launches"], remote["launches"],
             fleet_out["launches"], served["launches"], scaled["launches"],
-            scaled["resize_launches"], multi["mesh_launches"], multi["sp_launches"])
+            scaled["resize_launches"], multi["mesh_launches"], multi["sp_launches"],
+            multi["fsdp_launches"])
 
 
 # -- phase 13: the columnar epoch cache ----------------------------------------------
@@ -4176,7 +4192,9 @@ def _multiproc_rank(rank: int, port: int, dirs: list, work: str) -> dict:
     free_cuda()
     mesh_out = mesh_rank(rank, dirs, work)
     sp_out = seq_mesh_rank()
-    return dict(rank=rank, mesh=mesh_out, sp=sp_out, trace=ctx.to_json(), schema=schema.json(), shards=mine,
+    fsdp_out = fsdp_mesh_rank()
+    return dict(rank=rank, mesh=mesh_out, sp=sp_out, fsdp=fsdp_out, trace=ctx.to_json(),
+                schema=schema.json(), shards=mine,
                 launches=launches, batches=len(times[2]), rows=int(logits.numel()),
                 wall_s=wall, forward_s=forward_s, idle_share=1.0 - forward_s / wall,
                 duty_cycle=duty, rows_per_s=len(times[2]) * BATCH / wall,
@@ -4731,23 +4749,29 @@ def seq_mesh_rank() -> dict:
 
 def sp_twins_start(data_dir: str, work: str) -> list:
     """Start two ranks each of ``train_lm --mesh dp_sp --steps SP_TWIN_STEPS``
-    and ``train_longdoc --max-steps SP_TWIN_STEPS`` under torchrun's
-    environment on free ports (phase 9's documents under ``data_dir``),
-    their output to ``work/sp_<name><r>.log``. Returns [(name, rank,
-    process, log)]."""
+    and ``train_longdoc --max-steps SP_TWIN_STEPS``, and FSDP_TWIN_RANKS
+    ranks of ``train_lm --mesh dp_fsdp --steps SP_TWIN_STEPS`` (phase 14
+    (e)), under torchrun's environment on free ports (phase 9's documents
+    under ``data_dir``), their output to ``work/sp_<name><r>.log``.
+    Returns [(name, rank, process, log)]."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    runs = {"lm": ["tpu_tfrecord_torch.train_lm", "--mesh", "dp_sp", "--steps",
-                   str(SP_TWIN_STEPS), "--save-every", "4", "--digest-out",
-                   os.path.join(work, "sp_lm.jsonl"), "--data-dir",
-                   os.path.join(data_dir, "lm_data"), "--ckpt-dir", os.path.join(work, "sp_lm_ck")],
-            "longdoc": ["tpu_tfrecord_torch.train_longdoc", "--max-steps", str(SP_TWIN_STEPS),
-                        "--data-dir", os.path.join(data_dir, "ld_data"), "--ckpt-dir",
-                        os.path.join(work, "sp_ld_ck")]}
+
+    def lm_twin(name: str, mesh: str) -> list:
+        return ["tpu_tfrecord_torch.train_lm", "--mesh", mesh, "--steps", str(SP_TWIN_STEPS),
+                "--save-every", "4", "--digest-out", os.path.join(work, f"sp_{name}.jsonl"),
+                "--data-dir", os.path.join(data_dir, "lm_data"), "--ckpt-dir",
+                os.path.join(work, f"sp_{name}_ck")]
+
+    runs = {"lm": (lm_twin("lm", "dp_sp"), MULTI_RANKS),
+            "longdoc": (["tpu_tfrecord_torch.train_longdoc", "--max-steps", str(SP_TWIN_STEPS),
+                         "--data-dir", os.path.join(data_dir, "ld_data"), "--ckpt-dir",
+                         os.path.join(work, "sp_ld_ck")], MULTI_RANKS),
+            "fsdp": (lm_twin("fsdp", "dp_fsdp"), FSDP_TWIN_RANKS)}
     procs = []
-    for name, args in runs.items():
+    for name, (args, ranks) in runs.items():
         port = free_port()
-        for r in range(MULTI_RANKS):
-            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(MULTI_RANKS),
+        for r in range(ranks):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(ranks),
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), PYTHONPATH=repo)
             env.pop("LM_MESH", None)
             log = open(os.path.join(work, f"sp_{name}{r}.log"), "w")
@@ -4775,22 +4799,28 @@ def sp_twins_finish(procs, t0: float, work: str, card: str) -> dict:
             lines = fh.read().splitlines()
         done = [ln for ln in lines if ln.startswith("done:")]
         mesh = [ln for ln in lines if ln.startswith("mesh:")]
-        if name == "lm":
+        if name == "longdoc":
+            got = [float(ln.split("~")[1]) for ln in lines if ln.startswith("step ")]
+        else:
             got = [float(json.loads(ln.split(" ", 1)[1])["loss"]) for ln in lines
                    if ln.startswith("lm_step ")]
-            shape = "{'data': 1, 'seq': 2} mode=dp_sp (2 ranks"
-        else:
-            got = [float(ln.split("~")[1]) for ln in lines if ln.startswith("step ")]
-            shape = "{'data': 1, 'seq': 2} sp_attention=ring"
+        shape = {"lm": "{'data': 1, 'seq': 2} mode=dp_sp (2 ranks",
+                 "longdoc": "{'data': 1, 'seq': 2} sp_attention=ring",
+                 "fsdp": "{'data': 2, 'fsdp': 2} mode=dp_fsdp (4 ranks"}[name]
         losses[(name, r)] = got
         gates[f"{name}_rank{r}"] = (codes[(name, r)] == 0 and bool(done)
                                     and done[0].startswith(f"done: {SP_TWIN_STEPS} steps")
                                     and bool(mesh) and mesh[0].startswith("mesh: " + shape)
                                     and bool(got) and bool(np.isfinite(got).all()))
-        print(f"sp: {name} rank {r} (exit {codes[(name, r)]}): "
-              + " | ".join(ln for ln in lines[-6:] if not ln.startswith("[W")) + f" ({card})")
-    for name in ("lm", "longdoc"):
-        gates[f"{name}_ranks_agree"] = losses[(name, 0)] == losses[(name, 1)]
+        if name == "fsdp":
+            gates[f"{name}_rank{r}"] &= any(ln.startswith("fsdp param bytes/device: ")
+                                            for ln in lines)
+        print(f"{'fsdp' if name == 'fsdp' else 'sp'}: {name} rank {r} (exit "
+              f"{codes[(name, r)]}): " + " | ".join(
+                  ln for ln in lines[:2] + lines[-6:] if not ln.startswith("[W")) + f" ({card})")
+    for name in ("lm", "longdoc", "fsdp"):
+        ranks = [v for (n, _), v in losses.items() if n == name]
+        gates[f"{name}_ranks_agree"] = all(v == ranks[0] for v in ranks)
     return gates
 
 
@@ -4838,13 +4868,109 @@ def seq_mesh_check(results: list, card: str) -> tuple:
     return gates, launches
 
 
+# -- phase 14 (e): FSDP for the LM over the same two ranks -----------------------------
+
+FSDP_STEPS = 4
+FSDP_TOL = 1e-4            # f32 losses and parameters against one process, deterministic algorithms
+FSDP_BYTES_RATIO = 0.65    # JAX's bar for a doubling of the fsdp axis (tests/test_lm_fsdp.py)
+FSDP_TWIN_RANKS = 4        # train_lm --mesh dp_fsdp: {'data': 2, 'fsdp': 2}
+
+
+def fsdp_mesh_rank() -> dict:
+    """Phase 14 (e) on one rank of phase 14's group, after (d): on
+    {'fsdp': 2}, FSDP_STEPS float32 LM train steps at the ``train_lm``
+    twin's widths on this rank's ``lm.shard_params`` slices, beside the
+    one-process steps on the same batches, under deterministic algorithms:
+    both losses, both steps' host ms (synchronized) and the ms of the
+    step's gathers (CUDA events); then ``lm.unshard_params`` against the
+    one-process parameters, and the at-rest bytes of the slices and their
+    Adam state against one process's (``harness.report_fsdp_param_bytes``).
+    The counts of ``dot_interaction`` are set to 0 before and read after."""
+    from tpu_tfrecord_torch import harness, train_lm
+    from tpu_tfrecord_torch.device import distributed, mesh as meshes
+    from tpu_tfrecord_torch.models import lm, optim
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    t0 = time.perf_counter()
+    mesh = meshes.create_mesh({"fsdp": 2})
+    distributed.barrier("fsdp")
+    reset_launch_counts()
+    cfg = train_lm.make_config(2)
+    ref, full = (lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED),
+                                "cuda") for _ in range(2))
+    shard = lm.shard_params(full, mesh)
+    del full
+    opt, ref_opt = optim.adam(shard, train_lm.LR), optim.adam(ref, train_lm.LR)
+    out = dict(bytes=harness.report_fsdp_param_bytes(optim.train_state(shard, opt)),
+               one_bytes=harness.report_fsdp_param_bytes(optim.train_state(ref, ref_opt)),
+               losses=[], ref_losses=[], host_ms=[], ref_ms=[], gather_ms=[], gathers=[])
+    toks = [torch.from_numpy(lm.make_synthetic_tokens(cfg, train_lm.BATCH, seed=60 + i)).cuda()
+            for i in range(FSDP_STEPS)]
+
+    def timed(step) -> tuple:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        return loss.item(), (time.perf_counter() - t) * 1e3
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i in range(FSDP_STEPS):
+            with timed_collectives() as events:
+                loss, ms = timed(lambda: lm.train_step(shard, opt, toks[i], cfg, mesh=mesh,
+                                                       fsdp_axis="fsdp"))
+            out["gather_ms"].append(sum(a.elapsed_time(b) for a, b in events))
+            out["gathers"].append(len(events))
+            ref_loss, ref_ms = timed(lambda: lm.train_step(ref, ref_opt, toks[i], cfg))
+            for k, v in (("losses", loss), ("host_ms", ms), ("ref_losses", ref_loss),
+                         ("ref_ms", ref_ms)):
+                out[k].append(v)
+        whole = lm.unshard_params(shard, mesh)
+        out["param_err"] = max((a - b).abs().max().item() for a, b in
+                               zip(optim.param_leaves(whole), optim.param_leaves(ref)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["launches"] = dict(dot_interaction.instance_launches)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def fsdp_mesh_check(results: list, twin_gates: dict, card: str) -> tuple:
+    """Phase 14 (e)'s gates on the ranks' results and on its trainers'
+    (``twin_gates``), and its printed numbers beside ``card``. The gathers
+    pass through host memory (gloo on CUDA tensors, two ranks sharing the
+    card): not NVLink or NCCL figures."""
+    runs = [res["fsdp"] for res in results]
+    gates = dict(twin_gates)
+    gates["steps"] = all(len(r["losses"]) == FSDP_STEPS and np.isfinite(r["losses"]).all()
+                         and np.allclose(r["losses"], r["ref_losses"], rtol=FSDP_TOL,
+                                         atol=FSDP_TOL) and r["param_err"] <= FSDP_TOL
+                         for r in runs)
+    gates["ranks_agree"] = runs[0]["losses"] == runs[1]["losses"]
+    gates["bytes"] = all(r["bytes"] < FSDP_BYTES_RATIO * r["one_bytes"] for r in runs)
+    gates["no_dot_interaction"] = all(not any(r["launches"].values()) for r in runs)
+    for k, r in enumerate(runs):
+        print(f"fsdp: rank {k} on {{'fsdp': 2}}: losses {[round(x, 6) for x in r['losses']]} "
+              f"(one process {[round(x, 6) for x in r['ref_losses']]}, tol {FSDP_TOL}); max "
+              f"|unshard_params - one process| {r['param_err']:.3g}; at-rest bytes (parameters "
+              f"+ Adam) {r['bytes']} against one process's {r['one_bytes']} (ratio "
+              f"{r['bytes'] / r['one_bytes']:.4f}, bar {FSDP_BYTES_RATIO}); host ms a step "
+              f"{[round(x, 2) for x in r['host_ms']]} ({r['gathers']} gathers in "
+              f"{[round(x, 2) for x in r['gather_ms']]} ms, CUDA events), one process "
+              f"{[round(x, 2) for x in r['ref_ms']]} ms; {r['seconds']:.1f} s ({card}; gloo "
+              f"through host memory, not NVLink or NCCL)")
+    launches = {k: sum(r["launches"][k] for r in runs) for k in INSTANCE_DTYPE}
+    return gates, launches
+
+
 def multiproc_path(dirs, work: str, card: str, seq_data: str) -> dict:
     """Phase 14: phase 12's shards scored by MULTI_RANKS spawned ranks over
     a gloo group on this one card, held against this process's own
     single-process scoring of every shard, beside ``card``; then (c) the
-    DLRM and (d) the sequence axis over the same ranks, (d)'s trainers on
-    phase 9's documents under ``seq_data``. Returns the launches summed
-    over the ranks."""
+    DLRM, (d) the sequence axis and (e) FSDP for the LM over the same
+    ranks, (d)'s and (e)'s trainers on phase 9's documents under
+    ``seq_data``. Returns the launches summed over the ranks."""
     import multiprocessing
 
     from tpu_tfrecord_torch import io as tio
@@ -5051,15 +5177,23 @@ def multiproc_path(dirs, work: str, card: str, seq_data: str) -> dict:
         raise SystemExit(f"mesh: gates failed: {mesh_gates}")
     # (d) the sequence axis
     sp_gates, out["sp_launches"] = seq_mesh_check(results, card)
-    sp_gates.update(sp_result["gates"])
+    sp_gates.update({k: v for k, v in sp_result["gates"].items() if not k.startswith("fsdp")})
     out["sp_seconds"] = [res["sp"]["seconds"] for res in results]
-    out["seconds"] = time.perf_counter() - t0
     print(f"sp: gates {sp_gates}; launches {out['sp_launches']}; (d) took "
-          f"{[round(x, 1) for x in out['sp_seconds']]} s in the ranks, its trainers "
-          f"{sp_result['seconds']:.1f} s from start to exit (beside the ranks' start); phase "
-          f"14 took {out['seconds']:.1f} s ({card})")
+          f"{[round(x, 1) for x in out['sp_seconds']]} s in the ranks, its and (e)'s trainers "
+          f"{sp_result['seconds']:.1f} s from start to exit (beside the ranks' start) ({card})")
     if not all(sp_gates.values()):
         raise SystemExit(f"sp: gates failed: {sp_gates}")
+    # (e) FSDP for the LM
+    fsdp_gates, out["fsdp_launches"] = fsdp_mesh_check(
+        results, {k: v for k, v in sp_result["gates"].items() if k.startswith("fsdp")}, card)
+    out["fsdp_seconds"] = [res["fsdp"]["seconds"] for res in results]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"fsdp: gates {fsdp_gates}; launches {out['fsdp_launches']}; (e) took "
+          f"{[round(x, 1) for x in out['fsdp_seconds']]} s in the ranks; phase 14 took "
+          f"{out['seconds']:.1f} s ({card})")
+    if not all(fsdp_gates.values()):
+        raise SystemExit(f"fsdp: gates failed: {fsdp_gates}")
     return out
 
 
@@ -6591,11 +6725,12 @@ def main() -> int:
         lap("17 (a) pipe")
         (readpool_launches, cache_launches, multiproc_launches, remote_launches,
          fleet_launches, service_launches, ha_launches,
-         elastic_launches, mesh_launches, sp_launches) = readpool_path(data_dir, smi,
-                                                                       pipe["seconds"])
+         elastic_launches, mesh_launches, sp_launches,
+         fsdp_launches) = readpool_path(data_dir, smi, pipe["seconds"])
         lap("12-18 on phase 12's shards")
     phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches,
-                      "pipe": pipe_launches, "sequence axis": sp_launches}
+                      "pipe": pipe_launches, "sequence axis": sp_launches,
+                      "fsdp": fsdp_launches}
     for phase, counts in phase_launches.items():
         if any(counts.values()):
             raise SystemExit(f"dot_interaction launched in the {phase} phase: {counts}")
@@ -6633,6 +6768,7 @@ def main() -> int:
         elastic_launches=elastic_launches[k],
         mesh_launches=mesh_launches[k],
         sp_launches=sp_launches[k],
+        fsdp_launches=fsdp_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"phase seconds: {phase_s} (phases 12-18 print their own)")
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -119,16 +119,18 @@ def test_synthetic_language_bytes_equal_jax():
 
 # alone, without a mesh to place them on, these select nothing: the JAX
 # forward runs its dense loop, and so does the port's
-RUN_LIKE_JAX = ("mesh", "data_axis", "seq_axis")
+RUN_LIKE_JAX = ("mesh", "data_axis", "seq_axis", "fsdp_axis")
 
 
 @pytest.mark.parametrize("axis", ["mesh", "data_axis", "seq_axis", "pipe_axis", "fsdp_axis",
                                   "expert_axis"])
 def test_mesh_axes_raise(axis):
-    """A mesh argument alone: ``mesh``, ``data_axis`` or ``seq_axis`` with
-    nothing to shard over run the dense loop as JAX does (logits 1e-5);
-    ``pipe_axis`` without a mesh of sizes, ``fsdp_axis`` and
-    ``expert_axis`` still raise ``OptionNotPortedError`` naming the axis."""
+    """A mesh argument alone: ``mesh``, ``data_axis``, ``seq_axis`` or
+    ``fsdp_axis`` with nothing to shard over run the dense loop as JAX does
+    (logits 1e-5); ``fsdp_axis`` on one card's mapping mesh, ``pipe_axis``
+    without a mesh of sizes and ``expert_axis`` still raise
+    ``OptionNotPortedError`` naming the axis (FSDP runs over a
+    ``DeviceMesh`` of ranks: ``tests/test_torch_lm_fsdp.py``)."""
     jcfg, tcfg = configs()
     jp, tp = both_params()
     tokens = tlm.make_synthetic_tokens(tcfg, 2)
@@ -139,6 +141,9 @@ def test_mesh_axes_raise(axis):
         loss = tlm.loss_fn(tp, torch.from_numpy(tokens), tcfg, **{axis: "x"})
         np.testing.assert_allclose(float(loss), float(jlm.loss_fn(jp, jnp.asarray(tokens), jcfg,
                                                                   **{axis: "x"})), **F32_TOL)
+        if axis == "fsdp_axis":
+            with pytest.raises(OptionNotPortedError, match=axis):
+                tlm.forward(tp, torch.from_numpy(tokens), tcfg, mesh={"x": 2}, fsdp_axis="x")
         return
     with pytest.raises(OptionNotPortedError, match=axis):
         tlm.forward(tp, torch.from_numpy(tokens), tcfg, **{axis: "x"})
@@ -156,8 +161,9 @@ def test_moe_stream_and_shardings_raise():
     _, tp = both_params()
     with pytest.raises(ValueError, match="moe_experts > 0 is not supported"):
         tlm.LMStream(tp, tlm.LMConfig(moe_experts=4, **KW), device="cpu")
-    with pytest.raises(OptionNotPortedError, match="param_shardings"):
-        tlm.param_shardings()
+    # the LM's placements are ported but for the expert axis (8g)
+    with pytest.raises(OptionNotPortedError, match="param_shardings: expert_axis.*8g"):
+        tlm.param_shardings({"expert": 2}, params, expert_axis="expert")
 
 
 def test_wrong_length_raises():

@@ -352,9 +352,10 @@ def test_dp_pp_kill_and_resume_gives_the_uninterrupted_losses(lm_data, tmp_path,
 
 def _mesh_names():
     from tpu_tfrecord_torch.device import ingest
-    from tpu_tfrecord_torch.models import dlrm, long_doc
+    from tpu_tfrecord_torch.models import dlrm, long_doc, moe
 
     return {
+        "moe.param_shardings": moe.param_shardings,
         "dlrm.param_shardings": dlrm.param_shardings,
         "dlrm.batch_shardings": dlrm.batch_shardings,
         "long_doc.param_shardings": long_doc.param_shardings,
@@ -368,8 +369,10 @@ def _mesh_names():
 
 
 # ported since: called with no arguments they ask for them instead of refusing
+# (``lm.SpecLayout`` constructs with none, as JAX's does)
 PORTED_MESH_NAMES = ("dlrm.param_shardings", "dlrm.batch_shardings", "ingest.batch_spec",
-                     "long_doc.param_shardings", "long_doc.batch_shardings")
+                     "long_doc.param_shardings", "long_doc.batch_shardings", "lm.SpecLayout",
+                     "lm.param_specs", "lm.param_shardings", "lm.batch_shardings")
 
 
 @pytest.mark.parametrize("name", sorted(_mesh_names()))
@@ -379,7 +382,10 @@ def test_mesh_names_exist_and_refuse_naming_item_8(name):
     ``AttributeError`` on the parent); the ported ones (``PORTED_MESH_NAMES``)
     no longer refuse. The JAX config fields that select mesh modes exist
     with the JAX defaults, so a JAX config constructs."""
-    if name in PORTED_MESH_NAMES:
+    if name == "lm.SpecLayout":
+        assert tlm.SpecLayout() == tlm.SpecLayout(None, None, None)
+        assert jlm.SpecLayout() == jlm.SpecLayout(None, None, None)
+    elif name in PORTED_MESH_NAMES:
         with pytest.raises(TypeError, match="required positional argument"):
             _mesh_names()[name]()
     else:

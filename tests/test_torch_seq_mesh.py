@@ -587,7 +587,8 @@ def test_train_longdoc_over_two_ranks_matches_one_process(tmp_path, flavour):
 
 def test_pick_mesh_over_ranks_matches_the_jax_example(monkeypatch):
     """``train_lm.pick_mesh`` over W ranks is the JAX example's over W
-    devices for dp_sp and dp; the kinds not ported over ranks raise."""
+    devices for dp_sp, dp_fsdp and dp; the pipe kinds, not ported over
+    ranks (8h), raise."""
     import jax
 
     from tpu_tfrecord_torch import train_lm as tw
@@ -599,12 +600,12 @@ def test_pick_mesh_over_ranks_matches_the_jax_example(monkeypatch):
     every = jax.devices()
     for world in (2, 4, 8):
         monkeypatch.setattr(jax, "devices", lambda *a, **k: every[:world])
-        for kind in ("dp_sp", "dp"):
+        for kind in ("dp_sp", "dp_fsdp", "dp"):
             jmesh, jaxes, jlayers = jx.pick_mesh(kind)
             shape, axes, layers = tw.pick_mesh(kind, world=world)
             assert (shape, axes, layers) == (dict(jmesh.shape), jaxes, jlayers)
-        for kind in ("dp_pp", "dp_fsdp", "dp_fsdp_pp"):
-            with pytest.raises(OptionNotPortedError, match=kind):
+        for kind in ("dp_pp", "dp_fsdp_pp"):
+            with pytest.raises(OptionNotPortedError, match=f"{kind}.*8h"):
                 tw.pick_mesh(kind, world=world)
 
 

@@ -21,9 +21,10 @@ returns.
 ``trainer_spool`` / ``release_trainer_spool`` hold the process's fleet
 spool (``fleet.py``) under the ``trainer`` role, from a directory or
 ``TFR_TRAIN_SPOOL_DIR``, so the fleet aggregator sees the step phases.
-
-Not ported: the mesh helpers ``report_mesh`` and
-``report_fsdp_param_bytes``.
+``report_mesh`` publishes the trainer's mesh shape (``train.mesh.<axis>``
+gauges, which ``tools/tfrecord_doctor.py train`` prints) and
+``report_fsdp_param_bytes`` a rank's at-rest bytes under FSDP
+(``lm.fsdp_param_bytes``).
 """
 
 from __future__ import annotations
@@ -190,6 +191,30 @@ class StepPhases:
 
     def verdict(self) -> str:
         return telemetry.training_verdict(self.shares())
+
+
+def report_mesh(mesh, metrics=None) -> Dict[str, int]:
+    """Publish the trainer's mesh shape as ``train.mesh.<axis>`` gauges
+    (axis name -> size), so the spool ships the layout a trainer runs
+    on; ``mesh`` is a ``DeviceMesh`` or a mapping of axis sizes. Returns
+    the shape dict."""
+    from tpu_tfrecord_torch.models.sharded import mesh_shape
+
+    metrics = metrics or METRICS
+    shape = mesh_shape(mesh)
+    for name, size in shape.items():
+        metrics.gauge(f"train.mesh.{name}", size)
+    return shape
+
+
+def report_fsdp_param_bytes(params, metrics=None) -> int:
+    """This rank's at-rest bytes of a tree of tensors (under FSDP, the
+    ``lm.shard_params`` slices: the sum of each leaf's local bytes),
+    published as the ``lm.fsdp_param_bytes`` gauge."""
+    metrics = metrics or METRICS
+    per_rank = sum(t.numel() * t.element_size() for t in checkpoint.tree_flatten(params)[0])
+    metrics.gauge("lm.fsdp_param_bytes", per_rank)
+    return per_rank
 
 
 def fold_model_diagnostics(diag, metrics=None) -> Dict[str, float]:

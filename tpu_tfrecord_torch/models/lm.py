@@ -1,6 +1,6 @@
 """Causal language model: port of ``tpu_tfrecord/models/lm.py``'s dense loop
-(dense FFN and MoE FFN) on one card or over a (data, seq) mesh of ranks,
-and its pipe mode on one card.
+(dense FFN and MoE FFN) on one card or over a (data, seq, fsdp) mesh of
+ranks, and its pipe mode on one card.
 
 Packed token batches from ``device.ingest.TokenPacker`` -> next-token
 cross-entropy. The parameters are the JAX pytree as float32 tensors, the
@@ -58,16 +58,32 @@ the L positions on 'seq', every block's attention the causal ring
 schedule), and its logits are that chunk's [B/data, L/p, V]. ``loss_fn``
 sums the numerator and the count over 'seq' and 'data' before the
 division, so every rank returns the global batch's loss. The parameters
-are replicated: they enter through ``models.sharded.copy_to`` (their
-gradients sum over 'seq'), and ``train_step`` sums the gradients over
-'data'. Without a mesh to shard over, ``data_axis`` and ``seq_axis``
-select nothing, as in JAX.
+enter through ``models.sharded.copy_to`` (their gradients sum over
+'seq'), and ``train_step`` sums the gradients over 'data'. Without a
+mesh to shard over, ``data_axis``, ``seq_axis`` and ``fsdp_axis`` select
+nothing, as in JAX.
 
-Not ported: ``fsdp_axis``, ``expert_axis``, the MoE FFN under a data or
-seq axis wider than 1 (JAX routes and caps over the global token set),
-stages on several cards, a data or seq axis wider than 1 on a mapping
-mesh (one card), ``SpecLayout``, ``param_specs``, ``param_shardings``
-and ``batch_shardings``. Each raises ``OptionNotPortedError``.
+``fsdp_axis`` (FSDP) shards the weights at rest, by the JAX spec table
+(``SpecLayout``, ``param_specs``, ``param_shardings``): each rank holds
+``shard_params``' slice of every 2D+ weight (embed, pos and head by their
+rows, a block weight [n_layers, fan_in, fan_out] by fan_in) and the whole
+of every bias, and ``models.optim.adam`` over those leaves keeps Adam's
+state sliced the same way. The batch is sharded on 'data' only
+(``batch_shardings``), so the ranks of an fsdp group hold the same rows.
+The forward gathers on use (``models.sharded.gather_from``, the list
+``all_gather``): embed, pos and head before the embedding, each block's
+weights of layer i in the layer loop; the backward keeps each rank the
+slice of the gradient, and the step updates the slices. Autograd keeps
+the gathered weights for the backward, so between a forward and its
+backward a rank holds every layer whole once; at rest, between steps, only
+the slices. ``unshard_params`` gathers a tree of slices (the parameters,
+or Adam's moments) back to the one-process tree on every rank.
+
+Not ported: ``expert_axis`` (8g), the MoE FFN under a data, seq or fsdp
+axis wider than 1 (JAX routes and caps over the global token set; 8g),
+stages on several cards and fsdp with stages (8h), ``fsdp_axis``, and a
+data or seq axis wider than 1, on a mapping mesh (one card). Each raises
+``OptionNotPortedError``.
 """
 
 from __future__ import annotations
@@ -85,7 +101,10 @@ from tpu_tfrecord_torch.models import pipeline as _pipeline
 from tpu_tfrecord_torch.models import sharded
 from tpu_tfrecord_torch.models.attention import attention_reference, ring_attention
 from tpu_tfrecord_torch.models.long_doc import _dense, _gelu, _rms_norm
-from tpu_tfrecord_torch.options import OptionNotPortedError, refuse_mesh
+from tpu_tfrecord_torch.options import OptionNotPortedError
+
+# a parameter's spec: a mesh-axis name, or None, for each tensor dim
+Spec = Tuple[Optional[str], ...]
 
 
 @dataclass(frozen=True)
@@ -119,12 +138,25 @@ def _on_ranks(mesh) -> bool:
     return hasattr(mesh, "mesh_dim_names")
 
 
+# what each refused argument waits for
+_NOT_PORTED = {
+    "expert_axis": "expert parallelism (ROADMAP.md, Queue A item 8g)",
+    "moe_experts": "the MoE FFN under a data, seq or fsdp axis wider than 1 (item 8g)",
+    "pipe_axis": "stages on several cards (item 8h)",
+    "fsdp_axis": "FSDP on one card's mapping mesh (with stages: item 8h)",
+    "data_axis": "a data axis wider than 1 on one card's mapping mesh",
+    "seq_axis": "a seq axis wider than 1 on one card's mapping mesh",
+    "mesh": "a mesh axis the mode does not place",
+}
+
+
 def _mode(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp_axis,
           segments) -> Tuple[str, Optional[int]]:
     """("pipe", S) for the one-card pipe mode, ("ranks", None) for the
-    dense loop over a (data, seq) ``DeviceMesh``, ("dense", None) for the
-    dense loop on this device's whole batch. The JAX package's refusals
-    first (its exception types), then every mesh mode the port lacks."""
+    dense loop over a (data, seq, fsdp) ``DeviceMesh``, ("dense", None) for
+    the dense loop on this device's whole batch. The JAX package's
+    refusals first (its exception types), then every mesh mode the port
+    lacks."""
     if pipe_axis is not None and seq_axis is not None:
         raise ValueError(
             "pipe_axis and seq_axis are mutually exclusive: inside a "
@@ -138,9 +170,9 @@ def _mode(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp
             "stream carries activations only (pack with the default "
             "slice mode, or drop pipe_axis)"
         )
-    given = {"expert_axis": expert_axis, "fsdp_axis": fsdp_axis}
+    given = {"expert_axis": expert_axis}
     # one card: the mesh is a mapping of axis sizes; a torch DeviceMesh
-    # places ranks (the data and seq axes), never stages
+    # places ranks (the data, seq and fsdp axes), never stages
     sizes = dict(mesh) if isinstance(mesh, Mapping) else None
     mode = "dense"
     if pipe_axis is not None:
@@ -148,11 +180,13 @@ def _mode(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp
             given["pipe_axis"] = pipe_axis
         else:
             mode = "pipe"
+            given["fsdp_axis"] = fsdp_axis
             if data_axis is not None and sizes.get(data_axis, 1) != 1:
                 given["data_axis"] = data_axis
             if any(n > 1 for a, n in sizes.items() if a not in (pipe_axis, data_axis)):
                 given["mesh"] = mesh
     elif sizes is not None:
+        given["fsdp_axis"] = fsdp_axis
         for name, axis in (("data_axis", data_axis), ("seq_axis", seq_axis)):
             if axis is not None and sizes.get(axis, 1) > 1:
                 given[name] = axis
@@ -160,19 +194,18 @@ def _mode(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp
             given["mesh"] = mesh
     elif _on_ranks(mesh):
         mode = "ranks"
-        if cfg.moe_experts > 0 and (sharded.axis_size(mesh, data_axis) > 1
-                                    or sharded.axis_size(mesh, seq_axis) > 1):
+        if cfg.moe_experts > 0 and any(sharded.axis_size(mesh, a) > 1
+                                       for a in (data_axis, seq_axis, fsdp_axis)):
             given["moe_experts"] = cfg.moe_experts
-    elif mesh is not None and seq_axis is not None:
+    elif mesh is not None and (seq_axis is not None or fsdp_axis is not None):
         given["mesh"] = mesh
     refused = sorted(k for k, v in given.items() if v is not None)
     if refused:
         raise OptionNotPortedError(
-            f"lm: {', '.join(refused)} not ported: the port runs the pipe mode on one card "
-            "(pipe_axis with mesh={pipe_axis: S}, a data axis of size 1) and the dense loop "
-            "over the data and seq axes of a torch DeviceMesh of ranks; FSDP, expert "
-            "parallelism, the MoE FFN under a data or seq mesh and stages on several "
-            "cards are not ported yet (ROADMAP.md, Queue A item 8)"
+            "lm: " + "; ".join(f"{k} not ported: {_NOT_PORTED[k]}" for k in refused) + ". The "
+            "port runs the pipe mode on one card (pipe_axis with mesh={pipe_axis: S}, a data "
+            "axis of size 1) and the dense loop over the data, seq and fsdp axes of a torch "
+            "DeviceMesh of ranks (ROADMAP.md, Queue A item 8)"
         )
     return mode, (sizes[pipe_axis] if mode == "pipe" else None)
 
@@ -309,6 +342,34 @@ def _chunk(cfg: LMConfig, mesh, seq_axis) -> slice:
     return slice(first, first + lc)
 
 
+def _gather_on_use(params, mesh, fsdp_axis: str, seq_axis: Optional[str]):
+    """FSDP's gather on use over a ``DeviceMesh``: ``params`` with embed,
+    pos and head whole (gathered over ``fsdp_axis``), and a function of i
+    that gives layer i of the blocks, each weight gathered from this
+    rank's slice of that layer only. With ``seq_axis`` every whole tensor
+    then enters the chunk's work through ``copy_to``."""
+    dims = _fsdp_dims(params, fsdp_axis)
+
+    def use(t, dim):
+        if dim is not None:
+            # the backward keeps this rank's slice of the gradient, unsummed:
+            # every rank of an fsdp group holds the same rows, so each has
+            # the whole gradient already, and a sum over fsdp would count it
+            # twice. copy_to's sum over 'seq' comes first, on the whole one.
+            t = sharded.gather_from(t, mesh, fsdp_axis, dim)
+        return sharded.copy_to(t, mesh, seq_axis)
+
+    def layer(i):
+        # layer i's slice drops the stacked dim: its fsdp dim moves down one
+        return {name: {k: use(a[i], None if dims["blocks"][name][k] is None
+                              else dims["blocks"][name][k] - 1)
+                       for k, a in p.items()}
+                for name, p in params["blocks"].items()}
+
+    whole = {k: _tree_map2(use, params[k], dims[k]) for k in ("embed", "pos", "head")}
+    return dict(params, **whole), layer
+
+
 def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=None,
             seq_axis=None, pipe_axis=None, expert_axis=None, fsdp_axis=None,
             segments: Optional[torch.Tensor] = None, diagnostics: bool = False):
@@ -321,23 +382,29 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=No
     bin modes) masks attention across documents and restarts positions
     per document. ``pipe_axis`` with ``mesh={pipe_axis: S}`` runs the
     blocks through the pipeline schedule; a ``DeviceMesh`` runs the dense
-    loop over its data and seq axes, ``tokens`` and ``segments`` being this
-    rank's rows whole and the logits its chunk [B, L/p, V] (module
+    loop over its data, seq and fsdp axes, ``tokens`` and ``segments`` being
+    this rank's rows whole, the logits its chunk [B, L/p, V] and, on
+    ``fsdp_axis``, ``params`` this rank's ``shard_params`` slices (module
     docstring). The other mesh modes raise."""
     mode, n_stages = _mode(cfg, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp_axis,
                            segments)
-    attend, cols, segs_in = attention_reference, None, None
+    attend, cols, segs_in, layer = attention_reference, None, None, None
     if segments is not None:
         segs_in = segments[:, :-1]
     if mode == "ranks":
         cols = _chunk(cfg, mesh, seq_axis)
-        if sharded.axis_size(mesh, seq_axis) > 1:
-            # every parameter sees one chunk of the sequence: gradients sum over 'seq'
-            params = _pipeline._tree_map(lambda t: sharded.copy_to(t, mesh, seq_axis), params)
+        seq = seq_axis if sharded.axis_size(mesh, seq_axis) > 1 else None
+        if seq is not None:
             attend = functools.partial(ring_attention, mesh=mesh, seq_axis=seq_axis,
                                        data_axis=data_axis, zigzag=cfg.zigzag)
+        if sharded.axis_size(mesh, fsdp_axis) > 1:
+            params, layer = _gather_on_use(params, mesh, fsdp_axis, seq)
+        elif seq is not None:
+            # every parameter sees one chunk of the sequence: gradients sum over 'seq'
+            params = _pipeline._tree_map(lambda t: sharded.copy_to(t, mesh, seq), params)
         if segs_in is not None:
             segs_in = segs_in[:, cols]
+    layer = layer or functools.partial(_layer, params["blocks"])
     x = _embed_tokens(params, tokens, cfg, segments=segments, cols=cols)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     out: Dict[str, Any] = {}
@@ -355,8 +422,8 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=No
     else:
         diags = []
         for i in range(cfg.n_layers):
-            x, aux, diag = _block(_layer(params["blocks"], i), x, cfg, segments=segs_in,
-                                  diagnostics=diagnostics, attend=attend)
+            x, aux, diag = _block(layer(i), x, cfg, segments=segs_in, diagnostics=diagnostics,
+                                  attend=attend)
             if aux is not None:
                 aux_total = aux_total + aux
             if diag is not None:
@@ -425,7 +492,8 @@ def train_step(params, opt: torch.optim.Optimizer, tokens, cfg: LMConfig, mesh=N
     ``models.optim.adam(params, lr)``). Returns the loss (0-dim, on the
     parameters' device) before the update; with ``diagnostics``
     (loss, diag), the diag of ``forward``. Over a ``DeviceMesh`` the
-    gradients are summed over 'data' before the step."""
+    gradients are summed over 'data' before the step; on ``fsdp_axis`` they
+    are the slices' and ``opt`` steps the slices."""
     opt.zero_grad(set_to_none=True)
     out = loss_fn(params, tokens, cfg, mesh, data_axis, seq_axis, pipe_axis, expert_axis,
                   fsdp_axis, segments=segments, diagnostics=diagnostics)
@@ -591,28 +659,131 @@ class LMStream:
 
 @dataclass(frozen=True)
 class SpecLayout:
-    """Not ported: the JAX spec table of the mesh placements (FSDP, stage
-    slicing, expert sharding). Constructing it raises."""
+    """The LM's mesh-axis spec table: which axis each parameter dimension
+    shards over, each spec a tuple of axis names or None (JAX's
+    ``PartitionSpec`` as a tuple; trailing dims it leaves out replicate).
+    The stacked block dim ([n_layers, ...]) belongs to ``pipe_axis``, the
+    first weight dim after it (fan-in of a dense kernel, d_model of the
+    router, the rows of embed / pos / head) to ``fsdp_axis``, the expert
+    dim of the MoE kernels to ``expert_axis``; biases replicate over fsdp.
+    An axis left None replicates its dims."""
 
     fsdp_axis: Optional[str] = None
     pipe_axis: Optional[str] = None
     expert_axis: Optional[str] = None
 
-    def __post_init__(self):
-        refuse_mesh("lm.SpecLayout")
+    def embed(self) -> Spec:                    # [vocab, d_model]
+        return (self.fsdp_axis, None)
+
+    def pos(self) -> Spec:                      # [max_len, d_model]
+        return (self.fsdp_axis, None)
+
+    def head(self) -> Dict[str, Spec]:          # w [d_model, vocab]
+        return {"w": (self.fsdp_axis, None), "b": ()}
+
+    def block_dense(self) -> Dict[str, Spec]:   # w [n_layers, fan_in, fan_out]
+        return {"w": (self.pipe_axis, self.fsdp_axis, None), "b": (self.pipe_axis, None)}
+
+    def moe(self) -> Dict[str, Spec]:           # w_in [n_layers, E, d_model, d_ff]
+        return {
+            "router": (self.pipe_axis, self.fsdp_axis, None),
+            "w_in": (self.pipe_axis, self.expert_axis, self.fsdp_axis, None),
+            "w_out": (self.pipe_axis, self.expert_axis, self.fsdp_axis, None),
+        }
 
 
-def param_specs(params=None, layout: Optional[SpecLayout] = None) -> Dict[str, Any]:
-    """Not ported: the parameter tree's partition specs."""
-    refuse_mesh("lm.param_specs")
+def param_specs(params, layout: SpecLayout) -> Dict[str, Any]:
+    """The spec tree of ``params`` from the table, leaf for leaf."""
+    blocks = {name: layout.moe() if name == "moe" else layout.block_dense()
+              for name in params["blocks"]}
+    return {"embed": layout.embed(), "pos": layout.pos(), "head": layout.head(),
+            "blocks": blocks}
 
 
-def param_shardings(mesh=None, params=None, pipe_axis: Optional[str] = None,
+def _tree_map2(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over ``tree``'s dicts (``other`` has its
+    structure at least)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map2(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
+def _fsdp_dims(tree, fsdp_axis: str, size: int = 1):
+    """The tree of each leaf's dim on ``fsdp_axis`` (None: replicated); a
+    dim that ``size`` does not divide raises ``ValueError``, as JAX's
+    placement does."""
+    def dim(p, spec):
+        d = spec.index(fsdp_axis) if fsdp_axis is not None and fsdp_axis in spec else None
+        if d is not None and p.shape[d] % size:
+            raise ValueError(
+                f"a parameter sharded on '{fsdp_axis}' over {size} ranks implies that the "
+                f"global size of its dimension {d} should be divisible by {size}, but it is "
+                f"equal to {p.shape[d]} (full shape: {tuple(p.shape)})")
+        return d
+
+    return _tree_map2(dim, tree, param_specs(tree, SpecLayout(fsdp_axis=fsdp_axis)))
+
+
+def param_shardings(mesh, params, pipe_axis: Optional[str] = None,
                     expert_axis: Optional[str] = None, fsdp_axis: Optional[str] = None):
-    """Not ported: parameter placement over a mesh."""
-    refuse_mesh("lm.param_shardings")
+    """The DTensor placements of each parameter on ``mesh`` (a
+    ``DeviceMesh`` or a mapping of axis sizes), one per mesh dim, from the
+    table: ``Shard(d)`` on ``fsdp_axis`` for a 2D+ weight's first weight
+    dim d, ``Replicate()`` elsewhere. A dim that the fsdp axis's size does
+    not divide raises ``ValueError``, as JAX's placement does. Stage
+    slicing (``pipe_axis``, 8h) and expert sharding (``expert_axis``, 8g)
+    raise ``OptionNotPortedError``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    refused = [f"{k} not ported yet (ROADMAP.md, Queue A item {item})"
+               for k, v, item in (("pipe_axis", pipe_axis, "8h"), ("expert_axis", expert_axis, "8g"))
+               if v is not None]
+    if refused:
+        raise OptionNotPortedError("lm.param_shardings: " + ", ".join(refused))
+    sizes = sharded.mesh_shape(mesh)
+    return _tree_map2(
+        lambda _, dim: tuple(Shard(dim) if name == fsdp_axis and dim is not None
+                             else Replicate() for name in sizes),
+        params, _fsdp_dims(params, fsdp_axis, sizes.get(fsdp_axis, 1)))
 
 
-def batch_shardings(mesh=None, data_axis: str = "data"):
-    """Not ported: the token batch's placement on the data axis."""
-    refuse_mesh("lm.batch_shardings")
+def batch_shardings(mesh, data_axis: str = "data"):
+    """The placements of the packed token batch on ``mesh``: its rows
+    ``Shard(0)`` on ``data_axis``, replicated on every other axis (an fsdp
+    group's ranks hold the same rows)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(sharded.mesh_shape(mesh))
+    if data_axis not in names:
+        raise ValueError(f"Resource axis: {data_axis} of the token batch's spec is not found "
+                         f"in mesh: {names}.")
+    return {"tokens": tuple(Shard(0) if name == data_axis else Replicate() for name in names)}
+
+
+@torch.no_grad()
+def shard_params(tree, mesh, fsdp_axis: str = "fsdp"):
+    """This rank's slices of a one-process tree of ``params``' structure
+    (the parameters, or Adam's ``exp_avg`` / ``exp_avg_sq`` trees; tensors
+    or numpy arrays, the same on every rank), as new contiguous leaf
+    tensors: each 2D+ weight cut on ``fsdp_axis`` by ``param_shardings``,
+    the rest copied whole."""
+    n, k = sharded.axis_size(mesh, fsdp_axis), sharded.axis_index(mesh, fsdp_axis)
+
+    def piece(t, dim):
+        t = torch.as_tensor(t).detach()
+        if dim is not None:
+            t = t.narrow(dim, k * (t.shape[dim] // n), t.shape[dim] // n)
+        return t.clone().contiguous()
+
+    return _tree_map2(piece, tree, _fsdp_dims(tree, fsdp_axis, n))
+
+
+@torch.no_grad()
+def unshard_params(tree, mesh, fsdp_axis: str = "fsdp"):
+    """The one-process tree of a tree of ``shard_params``' slices, on every
+    rank: each sharded leaf gathered over ``fsdp_axis`` (a collective:
+    every rank of the mesh calls it, in the same order)."""
+    return _tree_map2(
+        lambda t, dim: t.detach().clone() if dim is None
+        else sharded.all_gather(t.detach(), mesh, fsdp_axis, dim).clone(),
+        tree, _fsdp_dims(tree, fsdp_axis))

@@ -246,7 +246,8 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, valid: Optional[torch.Ten
 def _refuse_ep(name: str):
     raise OptionNotPortedError(
         f"moe.{name}: expert parallelism over a mesh is not ported yet; of the models, the "
-        "port places the DLRM and long_doc over a device mesh (ROADMAP.md, Queue A item 8g)"
+        "port places the DLRM, long_doc and the LM over a device mesh (ROADMAP.md, Queue A "
+        "item 8g)"
     )
 
 

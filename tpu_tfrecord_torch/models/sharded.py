@@ -44,10 +44,18 @@ operand travels as float32 and comes back in its own dtype.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Dict, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """Axis name -> size of a ``DeviceMesh``, or of a mapping of axis sizes
+    (one card's mesh)."""
+    if isinstance(mesh, Mapping):
+        return {str(name): int(size) for name, size in mesh.items()}
+    return {name: int(mesh.size(i)) for i, name in enumerate(mesh.mesh_dim_names or ())}
 
 
 def axis_size(mesh, axis: Optional[str]) -> int:

@@ -47,17 +47,6 @@ class OptionNotPortedError(NotImplementedError):
     """An option of the JAX package that the port does not have yet."""
 
 
-def refuse_mesh(name: str) -> None:
-    """Raise for a mesh-placement entry point of the JAX package that the
-    port does not have yet: of the models, the DLRM and ``long_doc`` are
-    placed over a mesh of ranks (their ``param_shardings``), the LM's
-    placements are not."""
-    raise OptionNotPortedError(
-        f"{name}: not ported yet: of the models, the port places the DLRM and long_doc "
-        "over a device mesh, not the LM (ROADMAP.md, Queue A item 8)"
-    )
-
-
 @dataclass(frozen=True)
 class TFRecordOptions:
     """All knobs of a read or write, validated at construction.

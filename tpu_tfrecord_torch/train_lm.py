@@ -39,22 +39,33 @@ over the ranks of the process group (``torchrun``'s environment, read by
 ``{"data": W/2, "seq": 2}``: every rank reads and packs the whole stream,
 keeps the rows of its 'data' coordinate, and its step shards the
 sequence over 'seq' with the zigzag causal ring (``models.lm``'s dense
-loop over a ``DeviceMesh``). ``dp`` on W ranks trains on
-``{"data": W}``. On one process every kind but ``dp_pp`` trains as
-``dp`` with 2 layers, as the JAX example does on one device.
-``dp_pp`` trains what the JAX example trains on two devices: 4 layers
-in 2 pipeline stages (``{"pipe": 2, "data": 1}``), 8 microbatches a step,
-``--virtual 2`` interleaving 2 chunks a stage; on the one card the pipe
-axis is a tensor dimension (``models.pipeline``), and ``--diagnostics``
-folds the measured bubble into the ``pipeline.bubble_fraction`` gauge
-(``pipeline.bubble_fraction_v`` too with ``--virtual 2``). Not ported,
-refused over several ranks: ``dp_pp`` (stages across processes) and
-the fsdp kinds. ``--virtual 2`` needs ``--mesh dp_pp`` and ``--moe`` is
-refused with ``--mesh dp_pp`` and over several ranks, as the MoE FFN
-under a data or seq mesh is not ported. The checkpoint is layout-free
-(the [n_layers, ...] stack) and written by rank 0 only (the parameters
-are replicated), so a dp_sp or dp_pp run resumes from its own
-generations. ``--spool DIR`` (``--spool-interval
+loop over a ``DeviceMesh``). ``dp_fsdp`` on an even W trains 2 layers on
+``{"data": 2, "fsdp": W/2}``: the rows are cut on 'data' only, each rank
+keeps its ``lm.shard_params`` slices of the weights and of Adam's state
+and gathers each weight on use, and it prints ``fsdp param bytes/device:
+N`` (its slices' bytes). ``dp`` on W ranks trains on ``{"data": W}``;
+an odd W under ``dp_sp`` or ``dp_fsdp`` trains as ``dp``. On one process
+every kind but ``dp_pp`` trains as ``dp`` with 2 layers, as the JAX
+example does on one device. ``dp_pp`` trains what the JAX example trains
+on two devices: 4 layers in 2 pipeline stages (``{"pipe": 2, "data":
+1}``), 8 microbatches a step, ``--virtual 2`` interleaving 2 chunks a
+stage; on the one card the pipe axis is a tensor dimension
+(``models.pipeline``), and ``--diagnostics`` folds the measured bubble
+into the ``pipeline.bubble_fraction`` gauge (``pipeline.bubble_fraction_v``
+too with ``--virtual 2``). Not ported, refused over several ranks:
+``dp_pp`` and ``dp_fsdp_pp`` (stages across processes, ROADMAP item 8h).
+``--virtual 2`` needs ``--mesh dp_pp`` and ``--moe`` is refused with
+``--mesh dp_pp`` and over several ranks, as the MoE FFN under a mesh is
+not ported (8g). Every run over ranks, and every one-process run of
+another kind than ``dp``, prints ``mesh: {shape} mode=KIND (...)`` first;
+the shape is published as ``train.mesh.<axis>`` gauges on every run
+(``harness.report_mesh``). The checkpoint is layout-free, as the JAX
+example's: the [n_layers, ...] stack of the whole parameters and Adam
+state, written by rank 0. Under ``dp_fsdp`` every rank gathers its
+slices at a save step, in step with the others, and rank 0 writes the
+whole tree; on a start every rank reads the whole tree and keeps its
+slices. So a ``dp_fsdp`` run resumes a ``dp`` run's generations and a
+``dp`` run a ``dp_fsdp`` run's. ``--spool DIR`` (``--spool-interval
 S``) spools the trainer's telemetry under the ``trainer`` role into DIR
 for ``fleet.TelemetryAggregator``; a clean exit lands the ``final``
 snapshot. Runs on ``cuda`` unless ``--device cpu``.
@@ -113,22 +124,25 @@ def make_config(n_layers: int = 2, moe_experts: int = 0, axes=None,
 def pick_mesh(kind: str, virtual: int = 1, world: int = 1):
     """(mesh shape, cfg axes, n_layers) of ``--mesh kind`` over ``world``
     ranks, as the JAX example's ``pick_mesh`` over as many devices:
-    ``dp_sp`` on an even world is ``{"data": world/2, "seq": 2}`` with 2
-    layers; ``dp_pp`` on one process is 2 stages of 4 layers with a data
-    axis of 1 (for either ``virtual``), the pipe axis a tensor dimension of
-    the one card; every other case is ``dp`` over the world with 2 layers
-    (the fsdp kinds on one process, as the JAX example on one device).
-    The modes not ported over several ranks raise."""
+    ``dp_sp`` on an even world is ``{"data": world/2, "seq": 2}`` and
+    ``dp_fsdp`` ``{"data": 2, "fsdp": world/2}``, with 2 layers; ``dp_pp``
+    on one process is 2 stages of 4 layers with a data axis of 1 (for
+    either ``virtual``), the pipe axis a tensor dimension of the one card;
+    every other case is ``dp`` over the world with 2 layers (``dp_fsdp_pp``
+    on one process, as the JAX example on one device). ``dp_pp`` and
+    ``dp_fsdp_pp`` over several ranks raise (8h)."""
     if kind not in MESH_KINDS:
         raise ValueError(f"--mesh {kind!r}: one of {MESH_KINDS}")
     if kind == "dp_sp" and world % 2 == 0:
         return {"data": world // 2, "seq": 2}, {"data_axis": "data", "seq_axis": "seq"}, 2
+    if kind == "dp_fsdp" and world % 2 == 0:
+        return {"data": 2, "fsdp": world // 2}, {"data_axis": "data", "fsdp_axis": "fsdp"}, 2
     if kind == "dp_pp" and world == 1:
         return {"pipe": 2, "data": 1}, {"data_axis": "data", "pipe_axis": "pipe"}, 4
-    if world > 1 and kind not in ("dp", "dp_sp"):
+    if world > 1 and kind in ("dp_pp", "dp_fsdp_pp"):
         raise OptionNotPortedError(
-            f"--mesh {kind} over {world} ranks: pipeline stages across processes and FSDP "
-            "are not ported yet (ROADMAP.md, Queue A item 8)")
+            f"--mesh {kind} over {world} ranks: pipeline stages across processes are not "
+            "ported yet (ROADMAP.md, Queue A item 8h)")
     return {"data": world}, {"data_axis": "data"}, 2
 
 
@@ -191,6 +205,25 @@ class LMCheckpoint:
 
     def close(self) -> None:
         self._ck.close()
+
+
+def shard_state(params, opt, mesh):
+    """(slices, Adam over them): this rank's FSDP slices of the one-process
+    parameters and of Adam's state (``lm.shard_params`` of each tree)."""
+    adam = optim.adam_state(params, opt)[0]
+    shard = lm.shard_params(params, mesh)
+    shard_opt = optim.adam(shard, LR)
+    optim.load_adam_state(shard, shard_opt, optim.ScaleByAdamState(
+        adam.count, lm.shard_params(adam.mu, mesh), lm.shard_params(adam.nu, mesh)))
+    return shard, shard_opt
+
+
+def full_state(params, opt, mesh):
+    """The one-process ``optim.train_state`` of FSDP slices, gathered on
+    every rank: a collective, so every rank calls it at the same step."""
+    adam, empty = optim.adam_state(params, opt)
+    return lm.unshard_params(params, mesh), (optim.ScaleByAdamState(
+        adam.count, lm.unshard_params(adam.mu, mesh), lm.unshard_params(adam.nu, mesh)), empty)
 
 
 def batch_digest(b: np.ndarray) -> str:
@@ -284,8 +317,8 @@ def main(argv=None) -> None:
         rows = slice(sharded.axis_index(mesh, "data") * per,
                      (sharded.axis_index(mesh, "data") + 1) * per)
         model_kw = dict(axes, mesh=mesh)
-        print(f"mesh: {shape} mode={args.mesh} ({world} ranks: {n_layers} layers, rank {rank} "
-              f"holds rows [{rows.start}, {rows.stop}) of each batch)")
+        print(f"mesh: {harness.report_mesh(mesh)} mode={args.mesh} ({world} ranks: {n_layers} "
+              f"layers, rank {rank} holds rows [{rows.start}, {rows.stop}) of each batch)")
         if rank == 0:
             generate(args.data_dir)
         distributed.barrier("train_lm data")
@@ -293,6 +326,7 @@ def main(argv=None) -> None:
         generate(args.data_dir)
         # the pipe mode runs the schedule on the one card; every other kind is dp
         model_kw = dict(axes, mesh=shape) if "pipe_axis" in axes else {}
+        harness.report_mesh(shape)
         if model_kw:
             print(f"mesh: {shape} mode={args.mesh} (one device: {n_layers} layers in "
                   f"{shape['pipe']} stages, n_micro {cfg.n_micro}, virtual {cfg.n_virtual})")
@@ -304,13 +338,19 @@ def main(argv=None) -> None:
     os.makedirs(args.ckpt_dir, exist_ok=True)
     ck = LMCheckpoint(args.ckpt_dir, sync=(args.ckpt_mode == "sync"))
     start_step, tree, payload = ck.load(optim.train_state(params, opt))
+    if start_step is not None:
+        optim.load_train_state(params, opt, tree)
+    del tree
+    fsdp = "fsdp_axis" in axes
+    if fsdp:
+        # every rank holds the whole tree, drawn or restored: it keeps its slices
+        params, opt = shard_state(params, opt, mesh)
+        print(f"fsdp param bytes/device: {harness.report_fsdp_param_bytes(params)}")
     if start_step is None:
         start_step = 0
         print("fresh start")
     else:
-        optim.load_train_state(params, opt, tree)
         print(f"resumed at step {start_step}")
-    del tree
 
     ds = TFRecordDataset(
         args.data_dir, batch_size=READ_BATCH, schema=make_schema(), num_epochs=args.epochs,
@@ -321,7 +361,7 @@ def main(argv=None) -> None:
     if payload:
         packer.restore(payload["packer"])
     snaps: dict = {}
-    # the parameters are replicated: rank 0 alone saves, clears and writes digests
+    # rank 0 alone saves the (whole) state, clears and writes digests
     digest_fh = open(args.digest_out, "a") if args.digest_out and rank == 0 else None
     last_diag: dict = {}
     folded: dict = {}  # this run's folded diagnostics, last values
@@ -335,10 +375,13 @@ def main(argv=None) -> None:
 
     def save(rel_step, _it, _state):
         snap = snaps.get(rel_step - 1)  # the stream position after that batch
-        if snap is None or rank != 0:
+        if snap is None or (rank != 0 and not fsdp):
             return
-        ck.save(start_step + rel_step, optim.train_state(params, opt),
-                {"input": snap["input"], "packer": snap["packer"]})
+        # under fsdp every rank gathers its slices here, at the same step
+        state = full_state(params, opt, mesh) if fsdp else optim.train_state(params, opt)
+        if rank == 0:
+            ck.save(start_step + rel_step, state,
+                    {"input": snap["input"], "packer": snap["packer"]})
 
     def on_step(rel_step, loss):
         # the loss has been waited on: the diag's one copy adds no wait

@@ -103,9 +103,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    steps stops at step 12; a model from another seed restores step 8 and
    its input position (every tensor bit-equal to the step-8 snapshot),
    then runs steps 9-16: digests equal to the uninterrupted run's, losses
-   within 2e-2, table rows within 5e-3 (phase 5's gates). Async and sync
-   twins of 16 steps saving at 8 and 16 split what the background commit
-   hides: snapshot (the first save of the process apart: it pins the host
+   within 2e-2, table rows within 5e-3 (phase 5's gates). An async twin of
+   16 steps saving at 8 and 16 (keep=1: one generation left) and a sync
+   twin saving at 16 only split what the background commit hides: snapshot (the first save of the process apart: it pins the host
    buffers), commit, commit wait, drain, StepPhases shares and verdict,
    rows/s beside phase 5's loop. 68 ``bf16_mma`` launches (16 + 12 + 8 +
    16 + 16). Last, the kill drill: ``python -m tpu_tfrecord_torch.train_dlrm``
@@ -331,6 +331,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    2, 'fsdp': 2}) start with (d)'s trainers and run SP_TWIN_STEPS steps:
    all four exit 0 with equal, finite losses, each printing its mesh line
    and its ``fsdp param bytes/device``.
+   (f) The MoE over the same two ranks (``moe_mesh_rank``), after (e), the
+   counts of ``dot_interaction`` set to 0 before and read after
+   (``ep_launches``, which must be 0). (a) ``moe.moe_apply_ep`` on
+   {'expert': 2} over the ``train_lm`` twin's 32 x 64 tokens as one stream
+   (4 experts of d_ff 256 over d_model 64, top-2, float32): y within 1e-4
+   of ``moe_reference(shards=2)`` at capacity factors 1.25 and 0.75, and
+   at 4.0 (no drops) y and the gradients of router, w_in, w_out and x
+   within 1e-4 (of each one's largest) of one process's ``moe_apply``, the
+   router's nonzero. (b) 4 float32 LM train steps of the twin's model with
+   ``--moe 4`` under deterministic algorithms: on {'data': 2} (the global
+   route: each rank its half of the rows, the routing and the capacity of
+   the whole batch) and on {'expert': 2} at factor 4.0 (each rank 2 of the
+   4 experts and their Adam moments), each beside the one-process steps:
+   losses within 1e-4, equal on both ranks, the gathered parameters within
+   1e-4. (c) Printed with the card's name and power limit: each step's
+   host ms, its all_to_alls' ms (CUDA events, through host memory: not
+   NVLink or NCCL figures) and the one-process step's ms. (d) Two ranks of
+   ``train_lm --mesh dp --moe 4 --diagnostics`` start with (d)'s trainers
+   and run SP_TWIN_STEPS steps: both exit 0 on {'data': 2} with equal,
+   finite losses and the same ``moe.*`` gauges.
 
 15. Remote filesystems on phase 12's shards (``remote_path``): the port's
    ``httpfs.serve_directory`` serves them from a spawned process on
@@ -365,7 +385,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    64 ``bf16_mma`` and 0 ``f32_tiled`` launches in its window
    (``fleet_launches``), rows/s whole beside phase 12's fixed-4 rate. (2)
    ``python -m tpu_tfrecord_torch.serving --device cuda --spool-dir D``
-   (phase 10 (e)'s model) answers 4 requests equal to the reference, then
+   (phase 10 (e)'s model), started while (1) scores, answers 4 requests
+   equal to the reference, then
    SIGTERM: exit 0 within 60 s, a ``final: true`` last line. (3) ``python
    -m tpu_tfrecord_torch.train_lm --device cuda --spool D --spool-interval
    0.2`` for 32 steps (a synchronous save a step), SIGKILLed after its
@@ -1877,7 +1898,8 @@ def sparse_state(seed: int = TRAIN_SEED):
     return model, opt
 
 
-def harness_run(model, opt, data_dir, state=None, *, save=None, max_steps=None, metrics=None):
+def harness_run(model, opt, data_dir, state=None, *, save=None, max_steps=None, metrics=None,
+                save_every=RESUME_SAVE_EVERY):
     """Sparse steps through ``harness.run_train_loop`` over phase 8's read
     from ``state``: produce = densify + log1p + label cast +
     ``make_device_batch``. Returns a dict of the batch digests and losses
@@ -1909,7 +1931,7 @@ def harness_run(model, opt, data_dir, state=None, *, save=None, max_steps=None, 
     t0 = time.perf_counter()
     with ds.batches(state) as it:
         _, steps, duty = harness.run_train_loop(it, produce, step, (), save=save,
-                                                save_every=RESUME_SAVE_EVERY, log_every=1 << 30,
+                                                save_every=save_every, log_every=1 << 30,
                                                 max_steps=max_steps, phases=phases)
     end = time.perf_counter()
     return dict(
@@ -1962,8 +1984,10 @@ def save_times(metrics, saves: list):
 
 
 def checkpoint_twin(data_dir, ckpt_dir, sync: bool, ref) -> dict:
-    """16 sparse steps with a TrainCheckpointer (keep=1) saving at 8 and 16,
-    async or sync: the commit's cost split by where it lands."""
+    """16 sparse steps with a TrainCheckpointer (keep=1), async saving at 8
+    and 16 (the retention check: one generation left), or sync saving at 16
+    only (one 3.6 GB commit on the step's thread): the commit's cost split
+    by where it lands."""
     from tpu_tfrecord_torch.checkpoint import TrainCheckpointer
     from tpu_tfrecord_torch.metrics import Metrics
     from tpu_tfrecord_torch.models.dlrm import train_state
@@ -1975,7 +1999,8 @@ def checkpoint_twin(data_dir, ckpt_dir, sync: bool, ref) -> dict:
     timed_save = save_times(m, saves)
     with TrainCheckpointer(ckpt_dir, max_to_keep=1, async_save=not sync, metrics=m) as ck:
         run = harness_run(model, opt, data_dir, metrics=m,
-                          save=lambda s, it, _: timed_save(ck, s, it, train_state(model, opt)))
+                          save=lambda s, it, _: timed_save(ck, s, it, train_state(model, opt)),
+                          save_every=16 if sync else RESUME_SAVE_EVERY)
         t0 = time.perf_counter()
         ck.wait()
         drain = time.perf_counter() - t0
@@ -3835,7 +3860,7 @@ def readpool_path(work: str, card: str, pipe_s: float = 0.0) -> tuple:
     return (serving["launches"], cached["launches"], multi["launches"], remote["launches"],
             fleet_out["launches"], served["launches"], scaled["launches"],
             scaled["resize_launches"], multi["mesh_launches"], multi["sp_launches"],
-            multi["fsdp_launches"])
+            multi["fsdp_launches"], multi["ep_launches"])
 
 
 # -- phase 13: the columnar epoch cache ----------------------------------------------
@@ -4193,7 +4218,9 @@ def _multiproc_rank(rank: int, port: int, dirs: list, work: str) -> dict:
     mesh_out = mesh_rank(rank, dirs, work)
     sp_out = seq_mesh_rank()
     fsdp_out = fsdp_mesh_rank()
-    return dict(rank=rank, mesh=mesh_out, sp=sp_out, fsdp=fsdp_out, trace=ctx.to_json(),
+    moe_out = moe_mesh_rank()
+    return dict(rank=rank, mesh=mesh_out, sp=sp_out, fsdp=fsdp_out, moe=moe_out,
+                trace=ctx.to_json(),
                 schema=schema.json(), shards=mine,
                 launches=launches, batches=len(times[2]), rows=int(logits.numel()),
                 wall_s=wall, forward_s=forward_s, idle_share=1.0 - forward_s / wall,
@@ -4766,7 +4793,8 @@ def sp_twins_start(data_dir: str, work: str) -> list:
             "longdoc": (["tpu_tfrecord_torch.train_longdoc", "--max-steps", str(SP_TWIN_STEPS),
                          "--data-dir", os.path.join(data_dir, "ld_data"), "--ckpt-dir",
                          os.path.join(work, "sp_ld_ck")], MULTI_RANKS),
-            "fsdp": (lm_twin("fsdp", "dp_fsdp"), FSDP_TWIN_RANKS)}
+            "fsdp": (lm_twin("fsdp", "dp_fsdp"), FSDP_TWIN_RANKS),
+            "moe": (lm_twin("moe", "dp") + ["--moe", "4", "--diagnostics"], EP_TWIN_RANKS)}
     procs = []
     for name, (args, ranks) in runs.items():
         port = free_port()
@@ -4793,7 +4821,7 @@ def sp_twins_finish(procs, t0: float, work: str, card: str) -> dict:
             p.wait()
             codes[(name, r)] = None
         log.close()
-    gates, losses = {}, {}
+    gates, losses, gauges = {}, {}, {}
     for name, r, _, _ in procs:
         with open(os.path.join(work, f"sp_{name}{r}.log")) as fh:
             lines = fh.read().splitlines()
@@ -4806,7 +4834,8 @@ def sp_twins_finish(procs, t0: float, work: str, card: str) -> dict:
                    if ln.startswith("lm_step ")]
         shape = {"lm": "{'data': 1, 'seq': 2} mode=dp_sp (2 ranks",
                  "longdoc": "{'data': 1, 'seq': 2} sp_attention=ring",
-                 "fsdp": "{'data': 2, 'fsdp': 2} mode=dp_fsdp (4 ranks"}[name]
+                 "fsdp": "{'data': 2, 'fsdp': 2} mode=dp_fsdp (4 ranks",
+                 "moe": "{'data': 2} mode=dp (2 ranks"}[name]
         losses[(name, r)] = got
         gates[f"{name}_rank{r}"] = (codes[(name, r)] == 0 and bool(done)
                                     and done[0].startswith(f"done: {SP_TWIN_STEPS} steps")
@@ -4815,12 +4844,22 @@ def sp_twins_finish(procs, t0: float, work: str, card: str) -> dict:
         if name == "fsdp":
             gates[f"{name}_rank{r}"] &= any(ln.startswith("fsdp param bytes/device: ")
                                             for ln in lines)
-        print(f"{'fsdp' if name == 'fsdp' else 'sp'}: {name} rank {r} (exit "
+        if name == "moe":
+            diag = [json.loads(ln.split(": ", 1)[1]) for ln in lines
+                    if ln.startswith("model diagnostics: ")]
+            gauges[r] = diag[0] if len(diag) == 1 else None
+            gates[f"{name}_rank{r}"] &= (gauges[r] is not None and sorted(gauges[r]) == [
+                "moe.dropped_fraction", "moe.expert_imbalance", "moe.gate_entropy"]
+                and bool(np.isfinite(list(gauges[r].values())).all()))
+        tag = {"fsdp": "fsdp", "moe": "ep"}.get(name, "sp")
+        print(f"{tag}: {name} rank {r} (exit "
               f"{codes[(name, r)]}): " + " | ".join(
                   ln for ln in lines[:2] + lines[-6:] if not ln.startswith("[W")) + f" ({card})")
-    for name in ("lm", "longdoc", "fsdp"):
+    for name in ("lm", "longdoc", "fsdp", "moe"):
         ranks = [v for (n, _), v in losses.items() if n == name]
         gates[f"{name}_ranks_agree"] = all(v == ranks[0] for v in ranks)
+    gates["moe_gauges_agree"] = len(gauges) == EP_TWIN_RANKS and all(
+        g == gauges[0] for g in gauges.values())
     return gates
 
 
@@ -4960,6 +4999,250 @@ def fsdp_mesh_check(results: list, twin_gates: dict, card: str) -> tuple:
               f"{[round(x, 2) for x in r['gather_ms']]} ms, CUDA events), one process "
               f"{[round(x, 2) for x in r['ref_ms']]} ms; {r['seconds']:.1f} s ({card}; gloo "
               f"through host memory, not NVLink or NCCL)")
+    launches = {k: sum(r["launches"][k] for r in runs) for k in INSTANCE_DTYPE}
+    return gates, launches
+
+
+# -- phase 14 (f): the MoE over the same two ranks ---------------------------------------
+
+EP_TOL = 1e-4              # f32: the EP layer against moe_reference(shards=2); steps and parameters
+EP_LAYER_CFS = (1.25, 0.75)
+EP_NO_DROP_CF = 4.0        # no assignment drops: EP equals one process's moe_apply
+EP_STEPS = 4
+EP_NEAR_ZERO = 1e-6        # |one-process gradient| under which Adam turns rounding into a step
+EP_TWIN_RANKS = 2          # train_lm --mesh dp --moe 4: {'data': 2}
+
+
+@contextlib.contextmanager
+def timed_all_to_all():
+    """CUDA events around every tiled all_to_all of ``models.sharded``
+    issued inside the block (forward and backward); yields the list of
+    (start, end) event pairs."""
+    from tpu_tfrecord_torch.models import sharded
+
+    events: list = []
+    original = sharded._tiled_all_to_all
+
+    def timed(t, *args, **kw):
+        if not t.is_cuda:
+            return original(t, *args, **kw)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = original(t, *args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    sharded._tiled_all_to_all = timed
+    try:
+        yield events
+    finally:
+        sharded._tiled_all_to_all = original
+
+
+def ep_layer_case(mesh, mcfg, seed: int, grads: bool) -> dict:
+    """``moe_apply_ep`` on {'expert': 2} over the ``train_lm`` twin's
+    32 x 64 tokens as one stream (each rank's shard one contiguous block, as
+    ``moe_reference(shards=2)`` cuts it), f32: the max |y - oracle| and the
+    second call's ms; with ``grads`` (no drops) y and the gradients of
+    ``(y**2).sum() + 0.01 * aux`` against one process's ``moe_apply``."""
+    from tpu_tfrecord_torch import train_lm
+    from tpu_tfrecord_torch.models import moe
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = moe.init_params(mcfg, g, "cuda")
+    x = torch.randn(train_lm.BATCH * train_lm.SEQ_LEN, mcfg.d_model, generator=g, device="cuda")
+    out = {}
+    if not grads:
+        with torch.no_grad():  # a warm-up call: the axis's first exchange sets gloo up
+            moe.moe_apply_ep(params, x, mcfg, mesh, expert_axis="expert")
+        with torch.no_grad(), timed_all_to_all() as events:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y, aux = moe.moe_apply_ep(params, x, mcfg, mesh, expert_axis="expert")
+            torch.cuda.synchronize()
+            out["ms"] = (time.perf_counter() - t) * 1e3
+        out["all_to_all_ms"] = sum(a.elapsed_time(b) for a, b in events)
+        out["all_to_alls"] = len(events)
+        want = moe.moe_reference(params, x, mcfg, shards=2)
+        out["err"] = float(np.abs(y.double().cpu().numpy() - want).max())
+        out["aux"] = float(aux)
+        return out
+    runs = []
+    for ep in (True, False):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        xi = x.clone().requires_grad_(True)
+        y, aux = (moe.moe_apply_ep(p, xi, mcfg, mesh, expert_axis="expert") if ep
+                  else moe.moe_apply(p, xi, mcfg))
+        ((y ** 2).sum() + 0.01 * aux).backward()
+        runs.append([y.detach()] + [p[k].grad for k in sorted(p)] + [xi.grad])
+    out["err"] = (runs[0][0] - runs[1][0]).abs().max().item()
+    out["grad_rel"] = max(((a - b).abs().max() / b.abs().max()).item()
+                          for a, b in zip(runs[0][1:], runs[1][1:]))
+    out["router_grad_max"] = runs[0][1 + sorted(params).index("router")].abs().max().item()
+    return out
+
+
+def ep_step_pair(label: str, card_step, ref_step) -> dict:
+    """EP_STEPS steps on the mesh (``card_step(i)``) beside one process's
+    (``ref_step(i)``) on this rank: both losses and host ms (synchronized),
+    and the mesh step's collectives' ms and count and, of those, its
+    all_to_alls' (CUDA events)."""
+    out = dict(label=label, losses=[], ref_losses=[], host_ms=[], ref_ms=[], all_to_all_ms=[],
+               all_to_alls=[], collective_ms=[], collectives=[])
+    for i in range(EP_STEPS):
+        with timed_collectives() as events, timed_all_to_all() as exchanges:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = card_step(i)
+            torch.cuda.synchronize()
+            out["host_ms"].append((time.perf_counter() - t) * 1e3)
+        out["collective_ms"].append(sum(a.elapsed_time(b) for a, b in events))
+        out["collectives"].append(len(events))
+        out["all_to_all_ms"].append(sum(a.elapsed_time(b) for a, b in exchanges))
+        out["all_to_alls"].append(len(exchanges))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ref = ref_step(i)
+        torch.cuda.synchronize()
+        out["ref_ms"].append((time.perf_counter() - t) * 1e3)
+        out["losses"].append(loss.item())
+        out["ref_losses"].append(ref.item())
+    return out
+
+
+def moe_mesh_rank() -> dict:
+    """Phase 14 (f) on one rank of phase 14's group, after (e). (a) The EP
+    layer on {'expert': 2} at the ``train_lm`` twin's MoE widths (4 experts
+    of d_ff 256 over d_model 64, top-2), f32, against ``moe_reference(
+    shards=2)`` at capacity factors 1.25 and 0.75, and at 4.0 (no drops) its
+    gradients against one process's ``moe_apply``. (b) EP_STEPS float32 LM
+    train steps of the twin's model with ``--moe 4`` under deterministic
+    algorithms: on {'data': 2} (the global route, each rank its half of the
+    rows) and on {'expert': 2} at factor 4.0 (each rank 2 of the 4 experts
+    and their Adam state), each beside the one-process steps on the same
+    batches; then the parameters gathered against one process's. (c) The
+    steps' host ms and their all_to_alls' ms. The counts of
+    ``dot_interaction`` are set to 0 before and read after. An entry whose
+    one-process gradient came within EP_NEAR_ZERO of zero at some step
+    (the key bias's, zero but for rounding) is held to Adam's bound of
+    EP_STEPS steps of lr instead: Adam turns that rounding into a step of
+    up to lr."""
+    from tpu_tfrecord_torch import train_lm
+    from tpu_tfrecord_torch.device import distributed, mesh as meshes
+    from tpu_tfrecord_torch.models import lm, optim, sharded
+    from tpu_tfrecord_torch.models.interaction import dot_interaction, reset_launch_counts
+
+    t0 = time.perf_counter()
+    emesh = meshes.create_mesh({"expert": 2})
+    dmesh = meshes.create_mesh({"data": 2})
+    distributed.barrier("ep")
+    reset_launch_counts()
+    cfg = train_lm.make_config(2, moe_experts=4)
+    out = {"layer": {}}
+    for i, cf in enumerate(EP_LAYER_CFS + (EP_NO_DROP_CF,)):
+        mcfg = dataclasses.replace(lm._moe_cfg(cfg), capacity_factor=cf)
+        out["layer"][str(cf)] = ep_layer_case(emesh, mcfg, 300 + i, grads=cf == EP_NO_DROP_CF)
+    toks = [torch.from_numpy(lm.make_synthetic_tokens(cfg, train_lm.BATCH, seed=80 + i)).cuda()
+            for i in range(EP_STEPS)]
+    per = train_lm.BATCH // 2
+    lo = sharded.axis_index(dmesh, "data") * per
+    torch.use_deterministic_algorithms(True)
+    try:
+        for label, mesh, step_cfg, kw in (
+                ("data", dmesh, cfg, dict(data_axis="data")),
+                ("expert", emesh, dataclasses.replace(cfg, moe_capacity_factor=EP_NO_DROP_CF),
+                 dict(expert_axis="expert"))):
+            full, ref = (lm.init_params(step_cfg, torch.Generator(device="cuda").manual_seed(
+                TRAIN_SEED), "cuda") for _ in range(2))
+            mine = lm.shard_params(full, mesh, fsdp_axis=None,
+                                   expert_axis=kw.get("expert_axis"))
+            del full
+            opt, ref_opt = optim.adam(mine, train_lm.LR), optim.adam(ref, train_lm.LR)
+            rows = (lambda t: t[lo:lo + per]) if label == "data" else (lambda t: t)
+            near = [torch.zeros_like(t, dtype=torch.bool) for t in optim.param_leaves(ref)]
+
+            def ref_step(i):
+                loss = lm.train_step(ref, ref_opt, toks[i], step_cfg)
+                for m, t in zip(near, optim.param_leaves(ref)):
+                    m |= t.grad.abs() < EP_NEAR_ZERO
+                return loss
+
+            res = ep_step_pair(
+                label,
+                lambda i: lm.train_step(mine, opt, rows(toks[i]), step_cfg, mesh=mesh, **kw),
+                ref_step)
+            whole = lm.unshard_params(mine, mesh, fsdp_axis=None,
+                                      expert_axis=kw.get("expert_axis"))
+            diffs = [(a - b).abs() for a, b in zip(optim.param_leaves(whole),
+                                                     optim.param_leaves(ref))]
+            res["param_err"] = max(d[~m].max().item() if (~m).any() else 0.0
+                                   for d, m in zip(diffs, near))
+            res["near_zero_err"] = max(d[m].max().item() if m.any() else 0.0
+                                       for d, m in zip(diffs, near))
+            res["near_zero_share"] = (sum(int(m.sum()) for m in near)
+                                      / sum(m.numel() for m in near))
+            adam = optim.adam_state(mine, opt)[0]
+            res["expert_shapes"] = [list(t["blocks"]["moe"]["w_in"].shape)
+                                    for t in (mine, adam.mu, adam.nu)]
+            out[label] = res
+            del mine, ref, opt, ref_opt, whole, adam
+            free_cuda()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["launches"] = dict(dot_interaction.instance_launches)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def moe_mesh_check(results: list, twin_gates: dict, card: str) -> tuple:
+    """Phase 14 (f)'s gates on the ranks' results and on its trainers'
+    (``twin_gates``), and its printed numbers beside ``card``. The
+    all_to_alls pass through host memory (gloo on CUDA tensors, two ranks
+    sharing the card): not NVLink or NCCL figures."""
+    from tpu_tfrecord_torch import train_lm
+
+    runs = [res["moe"] for res in results]
+    gates = dict(twin_gates)
+    for cf in EP_LAYER_CFS:
+        cases = [r["layer"][str(cf)] for r in runs]
+        gates[f"layer cf {cf}"] = all(c["err"] <= EP_TOL for c in cases)
+        for k, c in enumerate(cases):
+            print(f"ep: moe_apply_ep on {{'expert': 2}} rank {k}, 2048 tokens x d_model 64, 4 "
+                  f"experts of d_ff 256, top-2, capacity factor {cf}, f32: max |y - "
+                  f"moe_reference(shards=2)| {c['err']:.3g} (tol {EP_TOL}); {c['ms']:.3f} ms "
+                  f"a call (host, synchronized), {c['all_to_alls']} all_to_alls in "
+                  f"{c['all_to_all_ms']:.3f} ms (CUDA events) ({card}; gloo through host "
+                  f"memory, not NVLink or NCCL)")
+    cases = [r["layer"][str(EP_NO_DROP_CF)] for r in runs]
+    gates["layer gradients"] = all(c["err"] <= EP_TOL and c["grad_rel"] <= EP_TOL
+                                   and c["router_grad_max"] > 0 for c in cases)
+    for k, c in enumerate(cases):
+        print(f"ep: capacity factor {EP_NO_DROP_CF} rank {k}: max |y - one process's moe_apply| "
+              f"{c['err']:.3g}, gradients of router, w_in, w_out and x within {c['grad_rel']:.3g} "
+              f"of each one's largest (tol {EP_TOL}), router's largest {c['router_grad_max']:.3g}")
+    for label, mesh in (("data", "{'data': 2}"), ("expert", "{'expert': 2}")):
+        steps = [r[label] for r in runs]
+        gates[f"steps {label}"] = all(
+            len(s["losses"]) == EP_STEPS and np.isfinite(s["losses"]).all()
+            and np.allclose(s["losses"], s["ref_losses"], rtol=EP_TOL, atol=EP_TOL)
+            and s["param_err"] <= EP_TOL
+            and s["near_zero_err"] <= EP_STEPS * train_lm.LR * (1 + 1e-3) for s in steps) and steps[0]["losses"] == steps[1]["losses"]
+        if label == "expert":
+            gates["expert shards"] = all(s["expert_shapes"] == [[2, 2, 64, 256]] * 3 for s in steps)
+        for k, s in enumerate(steps):
+            print(f"ep: lm --moe 4 on {mesh} rank {k}: losses {[round(x, 6) for x in s['losses']]}"
+                  f" (one process {[round(x, 6) for x in s['ref_losses']]}, tol {EP_TOL}); max "
+                  f"|gathered parameters - one process| {s['param_err']:.3g} ({s['near_zero_err']:.3g}"
+                  f" over the {100 * s['near_zero_share']:.3f} % of entries with a gradient under "
+                  f"{EP_NEAR_ZERO}, bound {EP_STEPS} x lr); host ms a step "
+                  f"{[round(x, 2) for x in s['host_ms']]}, collectives "
+                  f"{[round(x, 2) for x in s['collective_ms']]} ms in {s['collectives']} (CUDA "
+                  f"events; the list all_gathers of the all_to_alls included), all_to_alls "
+                  f"{[round(x, 2) for x in s['all_to_all_ms']]} ms in {s['all_to_alls']}; one "
+                  f"process {[round(x, 2) for x in s['ref_ms']]} ms "
+                  f"({card}; gloo through host memory, not NVLink or NCCL)")
+    gates["no_dot_interaction"] = all(not any(r["launches"].values()) for r in runs)
     launches = {k: sum(r["launches"][k] for r in runs) for k in INSTANCE_DTYPE}
     return gates, launches
 
@@ -5177,7 +5460,8 @@ def multiproc_path(dirs, work: str, card: str, seq_data: str) -> dict:
         raise SystemExit(f"mesh: gates failed: {mesh_gates}")
     # (d) the sequence axis
     sp_gates, out["sp_launches"] = seq_mesh_check(results, card)
-    sp_gates.update({k: v for k, v in sp_result["gates"].items() if not k.startswith("fsdp")})
+    sp_gates.update({k: v for k, v in sp_result["gates"].items()
+                     if not k.startswith(("fsdp", "moe"))})
     out["sp_seconds"] = [res["sp"]["seconds"] for res in results]
     print(f"sp: gates {sp_gates}; launches {out['sp_launches']}; (d) took "
           f"{[round(x, 1) for x in out['sp_seconds']]} s in the ranks, its and (e)'s trainers "
@@ -5194,6 +5478,16 @@ def multiproc_path(dirs, work: str, card: str, seq_data: str) -> dict:
           f"{out['seconds']:.1f} s ({card})")
     if not all(fsdp_gates.values()):
         raise SystemExit(f"fsdp: gates failed: {fsdp_gates}")
+    # (f) the MoE over ranks
+    ep_gates, out["ep_launches"] = moe_mesh_check(
+        results, {k: v for k, v in sp_result["gates"].items() if k.startswith("moe")}, card)
+    out["ep_seconds"] = [res["moe"]["seconds"] for res in results]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"ep: gates {ep_gates}; launches {out['ep_launches']}; (f) took "
+          f"{[round(x, 1) for x in out['ep_seconds']]} s in the ranks; phase 14 took "
+          f"{out['seconds']:.1f} s ({card})")
+    if not all(ep_gates.values()):
+        raise SystemExit(f"ep: gates failed: {ep_gates}")
     return out
 
 
@@ -5617,19 +5911,25 @@ def fleet_trainer(spool_dir: str, work: str, killed: dict) -> None:
 
 def fleet_replica(spool_dir: str) -> tuple:
     """Phase 16 (2): ``python -m tpu_tfrecord_torch.serving --device
-    <SERVE_DEVICE> --spool-dir spool_dir`` (phase 10 (e)'s synthetic LM)
-    up to its ready line: (process, ready JSON, seconds to ready)."""
+    <SERVE_DEVICE> --spool-dir spool_dir`` (phase 10 (e)'s synthetic LM),
+    started: (process, the ready JSON that a reader thread fills, that
+    thread, [seconds to ready] once read). The caller scores meanwhile and
+    joins the thread when it needs the replica."""
     repo = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "tpu_tfrecord_torch.serving", "--device",
                              SERVE_DEVICE, "--spool-dir", spool_dir], cwd=repo,
                             env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
-    ready = {}
-    reader = threading.Thread(target=lambda: ready.update(json.loads(proc.stdout.readline() or "{}")))
+    ready, ready_s = {}, []
+
+    def read():
+        ready.update(json.loads(proc.stdout.readline() or "{}"))
+        ready_s.append(time.perf_counter() - t0)
+
+    reader = threading.Thread(target=read, name="fleet-replica-ready")
     reader.start()
-    reader.join(timeout=FLEET_TIMEOUT_S)
-    return proc, ready, time.perf_counter() - t0
+    return proc, ready, reader, ready_s
 
 
 def fleet_reference(windows_, n_new: int = 4, mb: int = 4) -> list:
@@ -5684,7 +5984,8 @@ def fleet_path(dirs, work: str, root: str, local_logits, fixed4_whole: float, ca
     trainer = threading.Thread(target=fleet_trainer, args=(spool_dir, work, killed),
                                name="fleet-trainer")
     trainer.start()
-    replica, ready, ready_s = fleet_replica(spool_dir)
+    # the replica starts while (1) scores: its start no longer adds to the phase
+    replica, ready, reader, ready_after = fleet_replica(spool_dir)
     rc = None
     try:
         # (1) this process scores the shards while the other two spool
@@ -5706,6 +6007,8 @@ def fleet_path(dirs, work: str, root: str, local_logits, fixed4_whole: float, ca
         del res
 
         # (2) the replica answers, then drains on SIGTERM
+        reader.join(timeout=FLEET_TIMEOUT_S)
+        ready_s = ready_after[0] if ready_after else float("nan")
         if "addr" not in ready:
             raise SystemExit(f"fleet: the replica printed no ready line: {replica.poll()}")
         rng = np.random.default_rng(3)
@@ -6726,11 +7029,11 @@ def main() -> int:
         (readpool_launches, cache_launches, multiproc_launches, remote_launches,
          fleet_launches, service_launches, ha_launches,
          elastic_launches, mesh_launches, sp_launches,
-         fsdp_launches) = readpool_path(data_dir, smi, pipe["seconds"])
+         fsdp_launches, ep_launches) = readpool_path(data_dir, smi, pipe["seconds"])
         lap("12-18 on phase 12's shards")
     phase_launches = {"seq": seq_launches, "serve": serve_launches, "moe": moe_launches,
                       "pipe": pipe_launches, "sequence axis": sp_launches,
-                      "fsdp": fsdp_launches}
+                      "fsdp": fsdp_launches, "moe over ranks": ep_launches}
     for phase, counts in phase_launches.items():
         if any(counts.values()):
             raise SystemExit(f"dot_interaction launched in the {phase} phase: {counts}")
@@ -6769,6 +7072,7 @@ def main() -> int:
         mesh_launches=mesh_launches[k],
         sp_launches=sp_launches[k],
         fsdp_launches=fsdp_launches[k],
+        ep_launches=ep_launches[k],
     ) for k in INSTANCE_DTYPE]
     print(f"phase seconds: {phase_s} (phases 12-18 print their own)")
     print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -119,18 +119,19 @@ def test_synthetic_language_bytes_equal_jax():
 
 # alone, without a mesh to place them on, these select nothing: the JAX
 # forward runs its dense loop, and so does the port's
-RUN_LIKE_JAX = ("mesh", "data_axis", "seq_axis", "fsdp_axis")
+RUN_LIKE_JAX = ("mesh", "data_axis", "seq_axis", "fsdp_axis", "expert_axis")
 
 
 @pytest.mark.parametrize("axis", ["mesh", "data_axis", "seq_axis", "pipe_axis", "fsdp_axis",
                                   "expert_axis"])
 def test_mesh_axes_raise(axis):
-    """A mesh argument alone: ``mesh``, ``data_axis``, ``seq_axis`` or
-    ``fsdp_axis`` with nothing to shard over run the dense loop as JAX does
-    (logits 1e-5); ``fsdp_axis`` on one card's mapping mesh, ``pipe_axis``
-    without a mesh of sizes and ``expert_axis`` still raise
-    ``OptionNotPortedError`` naming the axis (FSDP runs over a
-    ``DeviceMesh`` of ranks: ``tests/test_torch_lm_fsdp.py``)."""
+    """A mesh argument alone: ``mesh``, ``data_axis``, ``seq_axis``,
+    ``fsdp_axis`` or ``expert_axis`` with nothing to shard over run the
+    dense loop as JAX does (logits 1e-5); ``fsdp_axis`` on one card's
+    mapping mesh and ``pipe_axis`` without a mesh of sizes still raise
+    ``OptionNotPortedError`` naming the axis (FSDP and EP run over a
+    ``DeviceMesh`` of ranks: ``tests/test_torch_lm_fsdp.py``,
+    ``tests/test_torch_moe_mesh.py``)."""
     jcfg, tcfg = configs()
     jp, tp = both_params()
     tokens = tlm.make_synthetic_tokens(tcfg, 2)
@@ -161,9 +162,18 @@ def test_moe_stream_and_shardings_raise():
     _, tp = both_params()
     with pytest.raises(ValueError, match="moe_experts > 0 is not supported"):
         tlm.LMStream(tp, tlm.LMConfig(moe_experts=4, **KW), device="cpu")
-    # the LM's placements are ported but for the expert axis (8g)
-    with pytest.raises(OptionNotPortedError, match="param_shardings: expert_axis.*8g"):
-        tlm.param_shardings({"expert": 2}, params, expert_axis="expert")
+    # the LM's placements on the expert axis are JAX's: the expert dim of
+    # the MoE kernels Shard(1), everything else replicated
+    from jax.sharding import Mesh
+
+    jparams = jlm.init_params(jax.random.key(0), jlm.LMConfig(moe_experts=4, **KW))
+    mesh = Mesh(np.array(jax.devices()[:2]), ("expert",))
+    want = jax.tree.map(lambda sh: (f"Shard(dim={list(sh.spec).index('expert')})"
+                                    if "expert" in tuple(sh.spec) else "Replicate()",),
+                        jlm.param_shardings(mesh, jparams, expert_axis="expert"))
+    got = tlm.param_shardings({"expert": 2}, params, expert_axis="expert")
+    assert jax.tree.map(repr, got) == want
+    assert want["blocks"]["moe"]["w_in"] == ("Shard(dim=1)",)
 
 
 def test_wrong_length_raises():

@@ -4,8 +4,8 @@
 ``batch_shardings`` are held to the JAX functions as tables: every method
 and every combination of the three axes, the parameter trees with the
 dense and the MoE FFN, and the refusals (a dim the fsdp axis does not
-divide raises ``ValueError`` on both sides; stages and experts are 8h and
-8g here).
+divide raises ``ValueError`` on both sides; stages are 8h here; the
+expert axis with fsdp places as JAX's does).
 
 One gloo group of 4 CPU processes is spawned once for the module, every
 process running this file as its worker (``python test_torch_lm_fsdp.py
@@ -175,7 +175,9 @@ def _placements_in_order(tree, flat: dict) -> list:
 def test_shardings_refuse_as_jax_does():
     """A dim the fsdp axis does not divide: ``ValueError`` on both sides
     (JAX at placement); a data axis the mesh lacks: ``ValueError`` on both;
-    stages and experts: ``OptionNotPortedError`` naming 8h and 8g."""
+    stages: ``OptionNotPortedError`` naming 8h. The expert axis with fsdp
+    places as JAX's ``param_shardings`` does (``SpecLayout.moe``'s expert
+    x fsdp layout)."""
     import jax
 
     from tpu_tfrecord.models import lm as jlm
@@ -195,8 +197,17 @@ def test_shardings_refuse_as_jax_does():
         tlm.batch_shardings(three)
     with pytest.raises(OptionNotPortedError, match="pipe_axis.*8h"):
         tlm.param_shardings({"pipe": 2}, tp, pipe_axis="pipe")
-    with pytest.raises(OptionNotPortedError, match="expert_axis.*8g"):
-        tlm.param_shardings({"expert": 2}, tp, expert_axis="expert", fsdp_axis="fsdp")
+    axes = {"expert": 2, "fsdp": 2}
+    jmoe = jlm.init_params(jax.random.key(0), jlm.LMConfig(moe_experts=4, **LM))
+    tmoe = tlm.init_params(tlm.LMConfig(moe_experts=4, **LM), device="cpu")
+    flat = _flat(jax.tree.map(np.asarray, jmoe))
+    want = {k: _as_placements(sh.spec, flat[k].ndim, tuple(axes), False)
+            for k, sh in _flat_shardings(jlm.param_shardings(
+                _jax_mesh(axes), jmoe, expert_axis="expert", fsdp_axis="fsdp")).items()}
+    got = tlm.param_shardings(axes, tmoe, expert_axis="expert", fsdp_axis="fsdp")
+    got = {k: [repr(p) for p in v] for k, v in zip(flat, _placements_in_order(got, flat))}
+    assert got == want
+    assert want["blocks/moe/w_in"] == ["Shard(dim=1)", "Shard(dim=2)"]
 
 
 @pytest.mark.parametrize("axes,name", [

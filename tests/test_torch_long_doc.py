@@ -159,18 +159,37 @@ class _SeqMesh:
         return 2
 
 
+class _OneRankMesh(_SeqMesh):
+    """A ``DeviceMesh`` stand-in whose 'seq' and 'expert' axes have size 1:
+    no collective runs."""
+
+    mesh_dim_names = ("seq", "expert")
+
+    def size(self, dim: int) -> int:
+        return 1
+
+
 def test_moe_and_mesh_raise():
     """The MoE FFN is ported (held to JAX in test_torch_moe_models.py) and a
     ``DeviceMesh`` shards the sequence (held to JAX over gloo ranks in
-    test_torch_seq_mesh.py); still refused: the MoE FFN under a seq axis
-    wider than 1, and a mesh that is not a ``DeviceMesh``. A flavour that is
-    neither 'ring' nor 'ulysses' raises JAX's ``ValueError``."""
-    _, tcfg = configs(torch.float32, 0)
-    moe_cfg = tld.LongDocConfig(moe_experts=4)
-    moe = tld.init_params(moe_cfg, device="cpu")
+    test_torch_seq_mesh.py); the MoE FFN under a mesh runs too (over gloo
+    ranks in test_torch_moe_mesh.py): here on a mesh of size-1 axes, with
+    ``expert_axis`` named, it is JAX's forward (1e-5). Still refused: a
+    mesh that is not a ``DeviceMesh``. A flavour that is neither 'ring'
+    nor 'ulysses' raises JAX's ``ValueError``."""
+    jcfg, tcfg = configs(torch.float32, 0)
+    jmoe_cfg = dataclasses.replace(jcfg, moe_experts=4)
+    moe_cfg = dataclasses.replace(tcfg, moe_experts=4)
+    jp, moe = both_params(jmoe_cfg, moe_cfg)
     assert all(sorted(layer) == ["moe", "proj", "qkv"] for layer in moe["layers"])
-    with pytest.raises(OptionNotPortedError, match="moe_experts"):
-        tld.forward(moe, torch_batch(batch_of(moe_cfg)), moe_cfg, mesh=_SeqMesh())
+    hb = batch_of(moe_cfg)
+    with torch.no_grad():
+        got, aux = tld.forward(moe, torch_batch(hb), moe_cfg, mesh=_OneRankMesh(),
+                               with_aux=True, expert_axis="expert")
+    want, jaux = jld.forward(jp, {k: jnp.asarray(v) for k, v in hb.items()}, jmoe_cfg,
+                             with_aux=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), **F32_TOL)
     params = tld.init_params(tcfg, device="cpu")
     with pytest.raises(OptionNotPortedError, match="mesh"):
         tld.forward(params, torch_batch(batch_of(tcfg)), tcfg, mesh=object())

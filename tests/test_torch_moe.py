@@ -13,8 +13,13 @@
   argsort pick. ``_capacity`` is the JAX integer expression.
 - Tight capacity drops second choices first; padding takes no slot.
 - Repeated calls are bit-identical under deterministic algorithms.
-- A bad ``top_k`` raises ``ValueError``; the expert-parallel entry points
-  raise ``OptionNotPortedError``.
+- A bad ``top_k`` raises ``ValueError``. The expert-parallel entry
+  points raise what JAX raises: ``moe_apply_ep`` JAX's two ``ValueError``s
+  (its ``test_indivisible_shapes_rejected``), ``param_shardings`` JAX's
+  ``ValueError`` for an axis the mesh lacks; ``moe_ep_body`` on one rank
+  equals the JAX body under a one-device ``shard_map``, and
+  ``param_shardings`` gives JAX's specs (over gloo ranks:
+  ``test_torch_moe_mesh.py``).
 """
 
 import jax
@@ -252,7 +257,61 @@ def test_bad_top_k_raises(top_k):
         tmoe.moe_apply(torch_params(params), torch.from_numpy(x), tcfg)
 
 
+def _placements(spec, names, ndim) -> list:
+    """A JAX PartitionSpec as the port's placements, one per mesh axis."""
+    dims = list(spec) + [None] * (ndim - len(spec))
+    return [f"Shard(dim={dims.index(n)})" if n in dims else "Replicate()" for n in names]
+
+
 @pytest.mark.parametrize("fn", ["moe_apply_ep", "moe_ep_body", "param_shardings"])
 def test_expert_parallel_entry_points_raise(fn):
-    with pytest.raises(OptionNotPortedError, match=fn):
-        getattr(tmoe, fn)({}, None, None, None)
+    """Each expert-parallel entry point raises what the JAX one raises, and
+    runs where JAX runs (module docstring)."""
+    from jax.sharding import Mesh
+
+    if fn == "moe_apply_ep":
+        # JAX's test_indivisible_shapes_rejected, on a mapping of axis sizes:
+        # the shape checks come before any collective
+        _, tcfg = configs(1, 1.25)
+        params, _, _ = inputs(0, 0.0)
+        x = torch.zeros(2, 15, D)
+        with pytest.raises(ValueError, match="token dim"):
+            tmoe.moe_apply_ep(torch_params(params), x, tcfg, {"expert": 4})
+        six = tmoe.MoEConfig(d_model=D, d_ff=FF, n_experts=6)
+        p6 = tmoe.init_params(six, torch.Generator().manual_seed(0), device="cpu")
+        with pytest.raises(ValueError, match="n_experts"):
+            tmoe.moe_apply_ep(p6, torch.zeros(2, 16, D), six, {"expert": 4})
+        # a mapping (one card) with a real expert axis is not a mesh of ranks
+        with pytest.raises(OptionNotPortedError, match="DeviceMesh"):
+            tmoe.moe_apply_ep(torch_params(params), torch.zeros(2, 16, D), tcfg, {"expert": 2})
+    elif fn == "moe_ep_body":
+        # one rank: the body of JAX's moe_apply_ep on a one-device mesh
+        jcfg, tcfg = configs(2, 0.75)
+        params, x, valid = inputs(3, 0.25)
+        mesh = Mesh(np.array(jax.devices()[:1]), ("expert",))
+        jy, jaux, jdiag = jmoe.moe_apply_ep(params, jnp.asarray(x), jcfg, mesh,
+                                            valid=j_valid(valid), diagnostics=True)
+        y, aux, diag = tmoe.moe_ep_body(torch_params(params), torch.from_numpy(x), tcfg,
+                                        "expert", valid_local=t_valid(valid), diagnostics=True)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), **F32_TOL)
+        np.testing.assert_allclose(float(aux), float(jaux), **F32_TOL)
+        for k in jdiag:
+            np.testing.assert_allclose(diag[k].numpy(), np.asarray(jdiag[k]), **F32_TOL)
+        np.testing.assert_allclose(y.numpy(), tmoe.moe_reference(params, x, tcfg, valid=valid),
+                                   **F32_TOL)
+        with pytest.raises(ValueError, match="shard_experts"):
+            half = dict(torch_params(params), w_in=torch.zeros(2, D, FF))
+            tmoe.moe_ep_body(half, torch.from_numpy(x), tcfg, "expert")
+    else:
+        mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
+        want = {k: _placements(v.spec, mesh.axis_names, 3)
+                for k, v in jmoe.param_shardings(mesh).items()}
+        got = {k: [repr(p) for p in v]
+               for k, v in tmoe.param_shardings({"data": 2, "model": 4}).items()}
+        assert got == want and want["w_in"] == ["Replicate()", "Shard(dim=0)"]
+        with pytest.raises(ValueError, match="not found in mesh"):
+            jmoe.param_shardings(mesh, expert_axis="expert")
+        with pytest.raises(ValueError, match="not found in mesh"):
+            tmoe.param_shardings({"data": 2, "model": 4}, expert_axis="expert")
+        with pytest.raises(TypeError, match="required positional argument"):
+            tmoe.param_shardings()

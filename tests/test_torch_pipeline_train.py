@@ -14,7 +14,8 @@ pipe mode, ``train_lm --mesh dp_pp``) against the JAX package.
   a ragged M, as ``tests/test_lm.py`` and ``tests/test_pipeline_parallel.py``
   pin it for the JAX schedule.
 - Every refusal of the pipe mode has the JAX exception type; the other
-  mesh modes still raise ``OptionNotPortedError``.
+  mesh modes still raise ``OptionNotPortedError`` (``expert_axis`` on the
+  pipe mode of a dense model selects nothing, as in JAX).
 - ``pick_mesh("dp_pp")`` is the JAX example's on two devices; ``train_lm
   --mesh dp_pp`` trains 4 layers in 2 stages with 8 microbatches and folds
   the bubble into its gauges, and a run SIGKILLed after step 10 resumes
@@ -232,9 +233,22 @@ def test_refusals_have_the_jax_types():
     (dict(mesh=object(), pipe_axis="pipe"), "pipe_axis"),
 ])
 def test_other_mesh_modes_still_refused(axes, name):
-    _, tcfg = configs()
+    """The mesh modes the port lacks raise ``OptionNotPortedError`` naming
+    the argument. ``expert_axis`` on the pipe mode of a dense model selects
+    nothing, as in JAX (its pipe mode passes no expert axis to the blocks,
+    and fails alike with and without one on the installed jax: R1): the
+    loss is the pipe mode's without it, and JAX's dense loss."""
+    jcfg, tcfg = configs()
     tp = tlm.init_params(tcfg, device="cpu")
     toks = torch.from_numpy(tlm.make_synthetic_tokens(tcfg, 8))
+    if name == "expert_axis":
+        jp = jlm.init_params(jax.random.key(0), jcfg)
+        tp = interop.lm_params_from_jax(jp, tcfg, device="cpu")
+        got = float(tlm.loss_fn(tp, toks, tcfg, **axes))
+        assert got == float(tlm.loss_fn(tp, toks, tcfg, **PIPE))
+        np.testing.assert_allclose(got, float(jlm.loss_fn(jp, toks.numpy(), jcfg)), rtol=1e-5,
+                                   atol=1e-5)
+        return
     with pytest.raises(OptionNotPortedError, match=name):
         tlm.loss_fn(tp, toks, tcfg, **axes)
 
@@ -372,7 +386,8 @@ def _mesh_names():
 # (``lm.SpecLayout`` constructs with none, as JAX's does)
 PORTED_MESH_NAMES = ("dlrm.param_shardings", "dlrm.batch_shardings", "ingest.batch_spec",
                      "long_doc.param_shardings", "long_doc.batch_shardings", "lm.SpecLayout",
-                     "lm.param_specs", "lm.param_shardings", "lm.batch_shardings")
+                     "lm.param_specs", "lm.param_shardings", "lm.batch_shardings",
+                     "moe.param_shardings")
 
 
 @pytest.mark.parametrize("name", sorted(_mesh_names()))

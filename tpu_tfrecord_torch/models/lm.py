@@ -79,10 +79,29 @@ backward a rank holds every layer whole once; at rest, between steps, only
 the slices. ``unshard_params`` gathers a tree of slices (the parameters,
 or Adam's moments) back to the one-process tree on every rank.
 
-Not ported: ``expert_axis`` (8g), the MoE FFN under a data, seq or fsdp
-axis wider than 1 (JAX routes and caps over the global token set; 8g),
-stages on several cards and fsdp with stages (8h), ``fsdp_axis``, and a
-data or seq axis wider than 1, on a mapping mesh (one card). Each raises
+The MoE FFN runs on either mesh route of ``models.moe``. Without
+``expert_axis`` (a data, seq or fsdp mesh) it is the global route: the
+routing and the capacity of JAX's ``moe_apply`` on the global [B, L, D]
+view, over the whole token set in its natural (b, l) order, each token's
+flat index taken from its row on 'data' and its column on 'seq'
+(``_chunk``); each rank runs the experts on its own tokens, and the aux
+loss and the diagnostics are summed over 'data' and 'seq' (not over
+'fsdp', whose ranks hold the same rows). Under fsdp the ``moe`` subtree
+is gathered on use like the other weights. With ``expert_axis`` on a
+``DeviceMesh`` (with data and fsdp axes, or none) the block's MoE is the
+pinned EP route of JAX's ``moe_apply_ep``: each rank takes its L/P
+columns of its rows on the expert axis (``copy_to`` first, so the
+gradient of the block's input sums the chunks), runs ``moe_ep_body`` on
+its E/P experts (``shard_params(expert_axis=)`` cuts them; only their
+fsdp dim is gathered on use) and brings y back whole with
+``gather_from``. The router enters through ``copy_to`` over the expert
+axis: its gradient is each rank's part of it. ``train_step`` sums every
+gradient over 'data' only, so Adam holds the E/P expert shards.
+
+Not ported: ``expert_axis`` with a seq axis wider than 1 (JAX reshards
+the tokens from 'seq' to the expert axis at the MoE; item 8i), stages on
+several cards and fsdp with stages (8h), ``fsdp_axis``, and a data, seq
+or expert axis wider than 1, on a mapping mesh (one card). Each raises
 ``OptionNotPortedError``.
 """
 
@@ -140,8 +159,8 @@ def _on_ranks(mesh) -> bool:
 
 # what each refused argument waits for
 _NOT_PORTED = {
-    "expert_axis": "expert parallelism (ROADMAP.md, Queue A item 8g)",
-    "moe_experts": "the MoE FFN under a data, seq or fsdp axis wider than 1 (item 8g)",
+    "expert_axis": "the MoE's expert axis with a seq axis wider than 1: the tokens' reshard "
+                   "from 'seq' to the expert axis (ROADMAP.md, Queue A item 8i)",
     "pipe_axis": "stages on several cards (item 8h)",
     "fsdp_axis": "FSDP on one card's mapping mesh (with stages: item 8h)",
     "data_axis": "a data axis wider than 1 on one card's mapping mesh",
@@ -153,10 +172,11 @@ _NOT_PORTED = {
 def _mode(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp_axis,
           segments) -> Tuple[str, Optional[int]]:
     """("pipe", S) for the one-card pipe mode, ("ranks", None) for the
-    dense loop over a (data, seq, fsdp) ``DeviceMesh``, ("dense", None) for
-    the dense loop on this device's whole batch. The JAX package's
-    refusals first (its exception types), then every mesh mode the port
-    lacks."""
+    dense loop over a (data, seq, fsdp, expert) ``DeviceMesh``, ("dense",
+    None) for the dense loop on this device's whole batch. The JAX
+    package's refusals first (its exception types), then every mesh mode
+    the port lacks. ``expert_axis`` selects nothing without an MoE FFN on
+    a mesh, as in JAX."""
     if pipe_axis is not None and seq_axis is not None:
         raise ValueError(
             "pipe_axis and seq_axis are mutually exclusive: inside a "
@@ -170,9 +190,9 @@ def _mode(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp
             "stream carries activations only (pack with the default "
             "slice mode, or drop pipe_axis)"
         )
-    given = {"expert_axis": expert_axis}
+    given: Dict[str, Any] = {}
     # one card: the mesh is a mapping of axis sizes; a torch DeviceMesh
-    # places ranks (the data, seq and fsdp axes), never stages
+    # places ranks (the data, seq, fsdp and expert axes), never stages
     sizes = dict(mesh) if isinstance(mesh, Mapping) else None
     mode = "dense"
     if pipe_axis is not None:
@@ -194,9 +214,9 @@ def _mode(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp
             given["mesh"] = mesh
     elif _on_ranks(mesh):
         mode = "ranks"
-        if cfg.moe_experts > 0 and any(sharded.axis_size(mesh, a) > 1
-                                       for a in (data_axis, seq_axis, fsdp_axis)):
-            given["moe_experts"] = cfg.moe_experts
+        if (_expert_parallel(cfg, mesh, expert_axis)
+                and sharded.axis_size(mesh, seq_axis) > 1):
+            given["expert_axis"] = expert_axis
     elif mesh is not None and (seq_axis is not None or fsdp_axis is not None):
         given["mesh"] = mesh
     refused = sorted(k for k, v in given.items() if v is not None)
@@ -204,10 +224,16 @@ def _mode(cfg: LMConfig, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp
         raise OptionNotPortedError(
             "lm: " + "; ".join(f"{k} not ported: {_NOT_PORTED[k]}" for k in refused) + ". The "
             "port runs the pipe mode on one card (pipe_axis with mesh={pipe_axis: S}, a data "
-            "axis of size 1) and the dense loop over the data, seq and fsdp axes of a torch "
-            "DeviceMesh of ranks (ROADMAP.md, Queue A item 8)"
+            "axis of size 1) and the dense loop over the data, seq, fsdp and expert axes of a "
+            "torch DeviceMesh of ranks (ROADMAP.md, Queue A item 8)"
         )
     return mode, (sizes[pipe_axis] if mode == "pipe" else None)
+
+
+def _expert_parallel(cfg: LMConfig, mesh, expert_axis) -> bool:
+    """Whether the MoE FFN takes the pinned EP route: an MoE, an
+    ``expert_axis`` and a ``DeviceMesh`` of ranks."""
+    return cfg.moe_experts > 0 and expert_axis is not None and _on_ranks(mesh)
 
 
 def _block_dims(cfg: LMConfig) -> Dict[str, Tuple[int, int]]:
@@ -272,13 +298,14 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
 
 
 def _block(layer, x: torch.Tensor, cfg: LMConfig, segments=None, diagnostics: bool = False,
-           attend=attention_reference):
+           attend=attention_reference, moe=None):
     """One pre-norm decoder block on x [B, L, D] (one layer's slice of the
     stacked blocks): causal attention (``attend``: the dense one, or the
     ring over a seq axis), masked across packed documents by ``segments``
-    [B, L], then the dense or the MoE FFN. Returns (x, aux, diag): the MoE
-    aux loss and, with ``diagnostics``, its diagnostics; both None on the
-    dense FFN."""
+    [B, L], then the dense or the MoE FFN (``moe(params, x, diagnostics)``:
+    ``models.moe.moe_apply`` when None, a mesh route over ranks). Returns
+    (x, aux, diag): the MoE aux loss and, with ``diagnostics``, its
+    diagnostics; both None on the dense FFN."""
     dt = cfg.dtype
     b, l, _ = x.shape
     h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
@@ -287,7 +314,11 @@ def _block(layer, x: torch.Tensor, cfg: LMConfig, segments=None, diagnostics: bo
     att = attend(q, k, v, causal=True, segments=segments)
     x = x + _dense(layer["proj"], att.reshape(b, l, cfg.d_model), dt)
     if cfg.moe_experts > 0:
-        out = _moe.moe_apply(layer["moe"], _rms_norm(x), _moe_cfg(cfg), diagnostics=diagnostics)
+        if moe is None:
+            out = _moe.moe_apply(layer["moe"], _rms_norm(x), _moe_cfg(cfg),
+                                 diagnostics=diagnostics)
+        else:
+            out = moe(layer["moe"], _rms_norm(x), diagnostics)
         return x + out[0], out[1], (out[2] if diagnostics else None)
     y = _dense(layer["mlp_in"], _rms_norm(x), dt)
     return x + _dense(layer["mlp_out"], _gelu(y), dt), None, None
@@ -370,6 +401,48 @@ def _gather_on_use(params, mesh, fsdp_axis: str, seq_axis: Optional[str]):
     return dict(params, **whole), layer
 
 
+def _global_moe(cfg: LMConfig, mesh, data_axis, seq_axis, rows: int):
+    """The block's MoE on the global route over 'data' and 'seq': this
+    rank's ``rows`` rows of its 'data' coordinate and its chunk of the L
+    positions, each token's flat index (b, l) of the global [B, L] batch."""
+    l = cfg.max_len
+    cols = _chunk(cfg, mesh, seq_axis)
+    row0 = sharded.axis_index(mesh, data_axis) * rows
+    dev_rows = torch.arange(row0, row0 + rows)
+    flat = dev_rows[:, None] * l + torch.arange(cols.start, cols.stop)[None, :]
+    total = rows * sharded.axis_size(mesh, data_axis) * l
+    mcfg = _moe_cfg(cfg)
+
+    def moe(p, x, diagnostics):
+        return _moe._moe_apply_tokens(p, x, mcfg, mesh, (data_axis, seq_axis),
+                                      flat.to(x.device), total, diagnostics=diagnostics)
+
+    return moe
+
+
+def _ep_moe(cfg: LMConfig, mesh, data_axis, expert_axis):
+    """The block's MoE on the pinned EP route (JAX's ``moe_apply_ep`` with
+    x_spec (data, expert)): this rank's L/P columns of its rows through
+    ``moe_ep_body`` over its E/P experts, y gathered back over the expert
+    axis."""
+    mcfg = _moe_cfg(cfg)
+    p = sharded.axis_size(mesh, expert_axis)
+    _moe._ep_shapes(mcfg, p, cfg.max_len, expert_axis)
+    lc = cfg.max_len // p
+    lo = sharded.axis_index(mesh, expert_axis) * lc
+
+    def moe(params, x, diagnostics):
+        # copy_to: the gradient of x sums every rank's chunk; the router's
+        # gradient is each rank's part of it
+        x_in = sharded.copy_to(x, mesh, expert_axis)[:, lo:lo + lc]
+        local = dict(params, router=sharded.copy_to(params["router"], mesh, expert_axis))
+        out = _moe.moe_ep_body(local, x_in, mcfg, expert_axis, data_axis=data_axis,
+                               diagnostics=diagnostics, mesh=mesh)
+        return (sharded.gather_from(out[0], mesh, expert_axis, dim=1),) + tuple(out[1:])
+
+    return moe
+
+
 def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=None,
             seq_axis=None, pipe_axis=None, expert_axis=None, fsdp_axis=None,
             segments: Optional[torch.Tensor] = None, diagnostics: bool = False):
@@ -388,7 +461,7 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=No
     docstring). The other mesh modes raise."""
     mode, n_stages = _mode(cfg, mesh, data_axis, seq_axis, pipe_axis, expert_axis, fsdp_axis,
                            segments)
-    attend, cols, segs_in, layer = attention_reference, None, None, None
+    attend, cols, segs_in, layer, moe = attention_reference, None, None, None, None
     if segments is not None:
         segs_in = segments[:, :-1]
     if mode == "ranks":
@@ -404,6 +477,10 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=No
             params = _pipeline._tree_map(lambda t: sharded.copy_to(t, mesh, seq), params)
         if segs_in is not None:
             segs_in = segs_in[:, cols]
+        if _expert_parallel(cfg, mesh, expert_axis):
+            moe = _ep_moe(cfg, mesh, data_axis, expert_axis)
+        elif cfg.moe_experts > 0:
+            moe = _global_moe(cfg, mesh, data_axis, seq, tokens.shape[0])
     layer = layer or functools.partial(_layer, params["blocks"])
     x = _embed_tokens(params, tokens, cfg, segments=segments, cols=cols)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -423,7 +500,7 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig, mesh=None, data_axis=No
         diags = []
         for i in range(cfg.n_layers):
             x, aux, diag = _block(layer(i), x, cfg, segments=segs_in, diagnostics=diagnostics,
-                                  attend=attend)
+                                  attend=attend, moe=moe)
             if aux is not None:
                 aux_total = aux_total + aux
             if diag is not None:
@@ -700,28 +777,39 @@ def param_specs(params, layout: SpecLayout) -> Dict[str, Any]:
             "blocks": blocks}
 
 
-def _tree_map2(fn, tree, other):
-    """``fn(leaf, other's leaf)`` over ``tree``'s dicts (``other`` has its
-    structure at least)."""
+def _tree_map2(fn, tree, *others):
+    """``fn(leaf, each other tree's leaf...)`` over ``tree``'s dicts (the
+    others have its structure at least)."""
     if isinstance(tree, dict):
-        return {k: _tree_map2(fn, v, other[k]) for k, v in tree.items()}
-    return fn(tree, other)
+        return {k: _tree_map2(fn, v, *[o[k] for o in others]) for k, v in tree.items()}
+    return fn(tree, *others)
 
 
-def _fsdp_dims(tree, fsdp_axis: str, size: int = 1):
-    """The tree of each leaf's dim on ``fsdp_axis`` (None: replicated); a
-    dim that ``size`` does not divide raises ``ValueError``, as JAX's
-    placement does."""
+def _axis_dims(tree, layout: SpecLayout, axis: Optional[str], size: int = 1):
+    """The tree of each leaf's dim on ``axis`` by ``layout`` (None:
+    replicated); a dim that ``size`` does not divide raises ``ValueError``,
+    as JAX's placement does."""
     def dim(p, spec):
-        d = spec.index(fsdp_axis) if fsdp_axis is not None and fsdp_axis in spec else None
+        d = spec.index(axis) if axis is not None and axis in spec else None
         if d is not None and p.shape[d] % size:
             raise ValueError(
-                f"a parameter sharded on '{fsdp_axis}' over {size} ranks implies that the "
+                f"a parameter sharded on '{axis}' over {size} ranks implies that the "
                 f"global size of its dimension {d} should be divisible by {size}, but it is "
                 f"equal to {p.shape[d]} (full shape: {tuple(p.shape)})")
         return d
 
-    return _tree_map2(dim, tree, param_specs(tree, SpecLayout(fsdp_axis=fsdp_axis)))
+    return _tree_map2(dim, tree, param_specs(tree, layout))
+
+
+def _fsdp_dims(tree, fsdp_axis: str, size: int = 1):
+    """The tree of each leaf's dim on ``fsdp_axis`` (``_axis_dims``)."""
+    return _axis_dims(tree, SpecLayout(fsdp_axis=fsdp_axis), fsdp_axis, size)
+
+
+def _expert_dims(tree, expert_axis: Optional[str], size: int = 1):
+    """The tree of each leaf's dim on ``expert_axis``: the expert dim of
+    the MoE's ``w_in`` / ``w_out`` (``_axis_dims``)."""
+    return _axis_dims(tree, SpecLayout(expert_axis=expert_axis), expert_axis, size)
 
 
 def param_shardings(mesh, params, pipe_axis: Optional[str] = None,
@@ -729,22 +817,26 @@ def param_shardings(mesh, params, pipe_axis: Optional[str] = None,
     """The DTensor placements of each parameter on ``mesh`` (a
     ``DeviceMesh`` or a mapping of axis sizes), one per mesh dim, from the
     table: ``Shard(d)`` on ``fsdp_axis`` for a 2D+ weight's first weight
-    dim d, ``Replicate()`` elsewhere. A dim that the fsdp axis's size does
-    not divide raises ``ValueError``, as JAX's placement does. Stage
-    slicing (``pipe_axis``, 8h) and expert sharding (``expert_axis``, 8g)
-    raise ``OptionNotPortedError``."""
+    dim d, ``Shard(1)`` on ``expert_axis`` for the expert dim of the MoE
+    kernels, ``Replicate()`` elsewhere. A dim that its axis's size does not
+    divide raises ``ValueError``, as JAX's placement does. Stage slicing
+    (``pipe_axis``, 8h) raises ``OptionNotPortedError``."""
     from torch.distributed.tensor import Replicate, Shard
 
-    refused = [f"{k} not ported yet (ROADMAP.md, Queue A item {item})"
-               for k, v, item in (("pipe_axis", pipe_axis, "8h"), ("expert_axis", expert_axis, "8g"))
-               if v is not None]
-    if refused:
-        raise OptionNotPortedError("lm.param_shardings: " + ", ".join(refused))
+    if pipe_axis is not None:
+        raise OptionNotPortedError(
+            "lm.param_shardings: pipe_axis not ported yet (ROADMAP.md, Queue A item 8h)")
     sizes = sharded.mesh_shape(mesh)
-    return _tree_map2(
-        lambda _, dim: tuple(Shard(dim) if name == fsdp_axis and dim is not None
-                             else Replicate() for name in sizes),
-        params, _fsdp_dims(params, fsdp_axis, sizes.get(fsdp_axis, 1)))
+    dims = {axis: (_fsdp_dims(params, axis, sizes.get(axis, 1)) if axis == fsdp_axis
+                   else _expert_dims(params, axis, sizes.get(axis, 1)))
+            for axis in (fsdp_axis, expert_axis) if axis is not None}
+
+    def place(_, *leaf_dims):
+        at = dict(zip(dims, leaf_dims))
+        return tuple(Shard(at[name]) if at.get(name) is not None else Replicate()
+                     for name in sizes)
+
+    return _tree_map2(place, params, *dims.values())
 
 
 def batch_shardings(mesh, data_axis: str = "data"):
@@ -761,29 +853,40 @@ def batch_shardings(mesh, data_axis: str = "data"):
 
 
 @torch.no_grad()
-def shard_params(tree, mesh, fsdp_axis: str = "fsdp"):
+def shard_params(tree, mesh, fsdp_axis: str = "fsdp", expert_axis: Optional[str] = None):
     """This rank's slices of a one-process tree of ``params``' structure
     (the parameters, or Adam's ``exp_avg`` / ``exp_avg_sq`` trees; tensors
     or numpy arrays, the same on every rank), as new contiguous leaf
-    tensors: each 2D+ weight cut on ``fsdp_axis`` by ``param_shardings``,
-    the rest copied whole."""
-    n, k = sharded.axis_size(mesh, fsdp_axis), sharded.axis_index(mesh, fsdp_axis)
+    tensors: each 2D+ weight cut on ``fsdp_axis`` and, with
+    ``expert_axis``, the MoE kernels' expert dim cut on it, by
+    ``param_shardings``; the rest copied whole."""
+    cuts = [(d, sharded.axis_size(mesh, a), sharded.axis_index(mesh, a))
+            for d, a in ((_fsdp_dims(tree, fsdp_axis, sharded.axis_size(mesh, fsdp_axis)),
+                          fsdp_axis),
+                         (_expert_dims(tree, expert_axis, sharded.axis_size(mesh, expert_axis)),
+                          expert_axis))]
 
-    def piece(t, dim):
+    def piece(t, *dims):
         t = torch.as_tensor(t).detach()
-        if dim is not None:
-            t = t.narrow(dim, k * (t.shape[dim] // n), t.shape[dim] // n)
+        for dim, (_, n, k) in zip(dims, cuts):
+            if dim is not None:
+                t = t.narrow(dim, k * (t.shape[dim] // n), t.shape[dim] // n)
         return t.clone().contiguous()
 
-    return _tree_map2(piece, tree, _fsdp_dims(tree, fsdp_axis, n))
+    return _tree_map2(piece, tree, *[d for d, _, _ in cuts])
 
 
 @torch.no_grad()
-def unshard_params(tree, mesh, fsdp_axis: str = "fsdp"):
+def unshard_params(tree, mesh, fsdp_axis: str = "fsdp", expert_axis: Optional[str] = None):
     """The one-process tree of a tree of ``shard_params``' slices, on every
-    rank: each sharded leaf gathered over ``fsdp_axis`` (a collective:
-    every rank of the mesh calls it, in the same order)."""
-    return _tree_map2(
-        lambda t, dim: t.detach().clone() if dim is None
-        else sharded.all_gather(t.detach(), mesh, fsdp_axis, dim).clone(),
-        tree, _fsdp_dims(tree, fsdp_axis))
+    rank: each sharded leaf gathered over ``fsdp_axis`` and then
+    ``expert_axis`` (a collective: every rank of the mesh calls it, in the
+    same order)."""
+    def whole(t, fsdp_dim, expert_dim):
+        t = t.detach()
+        for dim, axis in ((fsdp_dim, fsdp_axis), (expert_dim, expert_axis)):
+            if dim is not None:
+                t = sharded.all_gather(t, mesh, axis, dim)
+        return t.clone()
+
+    return _tree_map2(whole, tree, _fsdp_dims(tree, fsdp_axis), _expert_dims(tree, expert_axis))

@@ -40,9 +40,16 @@ dividing by the global count. The parameters are replicated
 through ``models.sharded.copy_to`` (their gradients sum over 'seq'), and
 ``train_step`` sums the gradients over 'data' in one float32 collective,
 each rank having differentiated its rows' share of the global mean loss.
-Not ported: the MoE FFN under a data or seq axis wider than 1 (JAX routes
-and caps over the global token set, so a per-rank ``moe_apply`` would
-drop other tokens), which raises ``OptionNotPortedError``.
+The MoE FFN over such a mesh takes ``models.moe``'s global route, JAX's
+``moe_apply`` under GSPMD: the routing and the capacity over the whole
+flattened [B, L] token set (each token's flat index from its row on
+'data' and its position on 'seq'), padding taking no slot, each rank
+running the experts on its own tokens. The expert weights may be placed
+on an expert axis of the mesh (``moe.param_shardings``,
+``moe.shard_experts``): with ``expert_axis`` naming it, a layer whose
+``w_in`` / ``w_out`` hold fewer than ``moe_experts`` experts is gathered
+on use over that axis (its gradient stays the rank's slice), the
+semantics of JAX's forward on placed weights.
 """
 
 from __future__ import annotations
@@ -168,10 +175,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _block(layer, x: torch.Tensor, lengths: torch.Tensor, valid: torch.Tensor,
-           cfg: LongDocConfig, attend=attention_reference):
+           cfg: LongDocConfig, attend=attention_reference, moe=None):
     """One pre-norm encoder block on x [B, L, D]; ``valid`` [B, L] is the
     prefix mask of ``lengths``; ``attend(q, k, v, lengths=)`` is the
-    attention. Returns (x, the MoE aux loss or None)."""
+    attention; ``moe(params, x, valid)`` the MoE FFN (``moe_apply`` when
+    None). Returns (x, the MoE aux loss or None)."""
     dt = cfg.dtype
     b, l, _ = x.shape
     h = cfg.n_heads
@@ -187,7 +195,10 @@ def _block(layer, x: torch.Tensor, lengths: torch.Tensor, valid: torch.Tensor,
     if cfg.moe_experts > 0:
         # padding is masked out of the routing, the capacity and the aux
         # loss; a dropped token rides the residual
-        y, aux = _moe.moe_apply(layer["moe"], _rms_norm(x), _moe_cfg(cfg), valid=valid)
+        if moe is None:
+            y, aux = _moe.moe_apply(layer["moe"], _rms_norm(x), _moe_cfg(cfg), valid=valid)
+        else:
+            y, aux = moe(layer["moe"], _rms_norm(x), valid)
         return x + y, aux
     y = _dense(layer["mlp_in"], _rms_norm(x), dt)
     return x + _dense(layer["mlp_out"], _gelu(y), dt), None
@@ -213,12 +224,6 @@ def _sharded_axes(cfg: LongDocConfig, mesh, seq_axis, data_axis):
             f"sp_attention must be 'ring' or 'ulysses', got {cfg.sp_attention!r}"
         )
     split = sharded.axis_size(mesh, seq_axis) > 1 or sharded.axis_size(mesh, data_axis) > 1
-    if split and cfg.moe_experts > 0:
-        raise OptionNotPortedError(
-            "long_doc with moe_experts > 0 under a data or seq axis wider than 1: the MoE "
-            "FFN over a mesh is not ported yet (JAX routes and caps over the global "
-            "token set; ROADMAP.md, Queue A item 8g)"
-        )
 
     def attend(q, k, v, lengths):
         return sp(q, k, v, mesh, seq_axis=seq_axis, data_axis=data_axis, lengths=lengths)
@@ -226,14 +231,32 @@ def _sharded_axes(cfg: LongDocConfig, mesh, seq_axis, data_axis):
     return attend, split
 
 
+def _experts_whole(layers, cfg: LongDocConfig, mesh, expert_axis):
+    """The layers with each MoE's ``w_in`` / ``w_out`` gathered over
+    ``expert_axis`` where they hold this rank's experts only."""
+    if cfg.moe_experts == 0 or expert_axis is None:
+        return layers
+
+    def whole(layer):
+        moe = layer["moe"]
+        if moe["w_in"].shape[0] == cfg.moe_experts:
+            return layer
+        return dict(layer, moe=dict(moe, **{k: sharded.gather_from(moe[k], mesh, expert_axis, 0)
+                                           for k in ("w_in", "w_out")}))
+
+    return [whole(layer) for layer in layers]
+
+
 def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: LongDocConfig,
             mesh=None, seq_axis: str = "seq", data_axis: Optional[str] = None,
-            with_aux: bool = False):
+            with_aux: bool = False, *, expert_axis: Optional[str] = None):
     """Logits [B, n_classes] float32 of ``batch`` (``frames``,
     ``frames_len``); with ``with_aux`` (logits, aux), aux the MoE
     load-balance loss summed over the layers (0.0 on the dense FFN).
     With ``mesh`` (a ``DeviceMesh``) the batch is this rank's part and the
-    logits are its rows' (module docstring)."""
+    logits are its rows'; ``expert_axis`` names the mesh axis that MoE
+    weights placed by ``moe.shard_experts`` are sharded on (module
+    docstring)."""
     attend, split = _sharded_axes(cfg, mesh, seq_axis, data_axis)
     dt = cfg.dtype
     frames = batch["frames"].to(dt)                          # [B, L, Din]
@@ -245,17 +268,31 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: LongDoc
         tied = lambda t: sharded.copy_to(t, mesh, seq_axis)  # noqa: E731
         params = dict(params, embed=_pipeline._tree_map(tied, params["embed"]),
                       pos=tied(params["pos"]), layers=_pipeline._tree_map(tied, params["layers"]))
+    layers = _experts_whole(params["layers"], cfg, mesh, expert_axis)
     x = _dense(params["embed"], frames, dt) + params["pos"][first:first + l].to(dt)[None]
     # one mask for the experts' routing and the pooling
     steps = torch.arange(first, first + l, device=x.device)
     valid = steps[None, :] < lengths[:, None]                # [B, L]
+    moe = None
+    if split and cfg.moe_experts > 0:
+        # the global route: each token's flat index in the [B, L] batch
+        rows, seq_len = frames.shape[0], l * sharded.axis_size(mesh, seq_axis)
+        row0 = sharded.axis_index(mesh, data_axis) * rows
+        flat = (torch.arange(row0, row0 + rows, device=x.device)[:, None] * seq_len
+                + steps[None, :])
+        total = rows * sharded.axis_size(mesh, data_axis) * seq_len
+        mcfg = _moe_cfg(cfg)
+
+        def moe(p, xn, v):
+            return _moe._moe_apply_tokens(p, xn, mcfg, mesh, (data_axis, seq_axis), flat, total,
+                                          valid=v)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device) if with_aux else None
-    for layer in params["layers"]:
+    for layer in layers:
         if cfg.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(_block, layer, x, lengths, valid, cfg, attend,
+            x, aux = checkpoint(_block, layer, x, lengths, valid, cfg, attend, moe,
                                 use_reentrant=False)
         else:
-            x, aux = _block(layer, x, lengths, valid, cfg, attend)
+            x, aux = _block(layer, x, lengths, valid, cfg, attend, moe)
         if with_aux and aux is not None:
             aux_total = aux_total + aux
     # masked mean pool over the valid prefix, summed over the sequence's ranks
@@ -268,12 +305,14 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: LongDoc
 
 
 def loss_fn(params, batch, cfg: LongDocConfig, mesh=None, seq_axis: str = "seq",
-            data_axis: Optional[str] = None) -> torch.Tensor:
+            data_axis: Optional[str] = None, *, expert_axis: Optional[str] = None
+            ) -> torch.Tensor:
     """Mean cross-entropy of the logits against ``batch["label"]``, plus
     ``moe_aux_weight`` times the MoE aux loss. With ``mesh``, the mean over
     the global batch on every rank; its backward leaves each rank the
     gradient of its rows' share, which ``train_step`` sums over 'data'."""
-    logits, aux = forward(params, batch, cfg, mesh, seq_axis, data_axis, with_aux=True)
+    logits, aux = forward(params, batch, cfg, mesh, seq_axis, data_axis, with_aux=True,
+                          expert_axis=expert_axis)
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, 1, batch["label"].long()[:, None])
     rows = nll.shape[0] * sharded.axis_size(mesh, data_axis)
@@ -282,13 +321,15 @@ def loss_fn(params, batch, cfg: LongDocConfig, mesh=None, seq_axis: str = "seq",
 
 
 def train_step(params, opt: torch.optim.Optimizer, batch, cfg: LongDocConfig, mesh=None,
-               seq_axis: str = "seq", data_axis: Optional[str] = None) -> torch.Tensor:
+               seq_axis: str = "seq", data_axis: Optional[str] = None, *,
+               expert_axis: Optional[str] = None) -> torch.Tensor:
     """One optimizer step over ``params`` in place (``opt`` from
     ``models.optim.adam(params, lr)``). Returns the loss (0-dim, on the
     parameters' device) before the update; with ``mesh``, the global
-    batch's, the gradients summed over 'data' before the step."""
+    batch's, the gradients summed over 'data' before the step (expert
+    weights placed on ``expert_axis`` keep and step their slices)."""
     opt.zero_grad(set_to_none=True)
-    loss = loss_fn(params, batch, cfg, mesh, seq_axis, data_axis)
+    loss = loss_fn(params, batch, cfg, mesh, seq_axis, data_axis, expert_axis=expert_axis)
     loss.backward()
     sharded.sum_grads([p for g in opt.param_groups for p in g["params"]], mesh, data_axis)
     opt.step()

@@ -55,8 +55,12 @@ into the ``pipeline.bubble_fraction`` gauge (``pipeline.bubble_fraction_v``
 too with ``--virtual 2``). Not ported, refused over several ranks:
 ``dp_pp`` and ``dp_fsdp_pp`` (stages across processes, ROADMAP item 8h).
 ``--virtual 2`` needs ``--mesh dp_pp`` and ``--moe`` is refused with
-``--mesh dp_pp`` and over several ranks, as the MoE FFN under a mesh is
-not ported (8g). Every run over ranks, and every one-process run of
+``--mesh dp_pp``, as in the JAX example. ``--moe`` over several ranks
+(``dp``, ``dp_sp``, ``dp_fsdp``) routes every block's MoE over the global
+batch's tokens (``models.lm``'s global route: JAX's ``moe_apply`` under
+GSPMD), so its losses are one process's; with ``--diagnostics`` the
+``moe.*`` gauges fold the diagnostics summed over the ranks' tokens, the
+same on every rank. Every run over ranks, and every one-process run of
 another kind than ``dp``, prints ``mesh: {shape} mode=KIND (...)`` first;
 the shape is published as ``train.mesh.<axis>`` gauges on every run
 (``harness.report_mesh``). The checkpoint is layout-free, as the JAX
@@ -300,9 +304,6 @@ def main(argv=None) -> None:
         print("deterministic algorithms: on")
     distributed.initialize()
     rank, world = distributed.process_slot()
-    if world > 1 and args.moe:
-        ap.error("--moe over several ranks: the MoE FFN under a data or seq mesh is not "
-                 "ported yet")
     shape, axes, n_layers = pick_mesh(args.mesh, args.virtual, world)
     cfg = make_config(n_layers, args.moe, axes, args.virtual)
     rows = slice(None)

@@ -32,8 +32,11 @@ its 'data' coordinate (``BATCH / data`` documents a batch), keeps its
 chunk of the padded frames on 'seq', and takes the sharded step
 (``long_doc.train_step(mesh=, data_axis="data")``), its attention the
 ring or, with ``LONGDOC_SP_ATTENTION=ulysses``, the all-to-all exchange.
-Each rank saves its own input position; the ranks agree before every
-step that each has a batch (``distributed.Lockstep``). One process runs
+With ``LONGDOC_MOE_EXPERTS`` the MoE routes over the tokens of every
+rank's documents (``models.long_doc``'s global route), as the JAX
+example's does under GSPMD. Each rank saves its own input position; the
+ranks agree before every step that each has a batch
+(``distributed.Lockstep``). One process runs
 the dense attention on its whole batch, as before.
 """
 
